@@ -10,9 +10,14 @@ Phases, one printed line or block each:
 
 1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` gives it;
 2. the build of every CUDA source of the port, timed (nvcc, sm_90a);
-3. each kernel against its plain version on the card, on small layouts
-   (unit scale, uniform and per-view scales, a banded ``origin``, uint16
-   output, tile shapes that are and are not multiples of the kernel blocks);
+3. each kernel against its plain version on the card, on small cases: the
+   translation kernels on small layouts (unit scale, uniform and per-view
+   scales, a banded ``origin``, uint16 output, tile shapes that are and are
+   not multiples of the kernel blocks); the exact-affine kernels on the
+   reference's test maps, a map that downscales by 4, uint8/uint16/f32
+   sources, ``cval`` NaN and 0, a batch that samples a stack through
+   ``tile_idx``/``starts`` and an output shape that is no multiple of the
+   blocks (identical masks, values within 5e-3 on data in [0, 100));
 4. the 3D main path through ``fusion.fuse``: 32 x 32 tiles of 64^3 uint16,
    overlap 12, output (64, 1676, 1676) uint16; a cold and a warm call, the
    warm one split into plan, upload, kernel and download; the whole output
@@ -20,7 +25,18 @@ Phases, one printed line or block each:
    ``origin``;
 5. the same for a 2D slide-scan mosaic: 32 x 32 tiles of 512^2 uint16,
    overlap 64;
-6. a ``kernels`` JSON line: per kernel its launches in the main-path run,
+6. three affine main paths through ``fusion.fuse``, one per exact-affine
+   kernel: four (256, 512, 512) uint16 views rotated about y (y-decoupled
+   kernel); a 4 x 4 grid of 256^3 uint16 tiles under affine-resolved
+   transforms with every matrix entry coupled (general kernel); a 16 x 16
+   slide scan of 1024^2 uint16 tiles, each rotated and scaled a little (2D
+   kernel). Each runs cold and warm, the warm call split into plan, upload,
+   kernel, blend and download, and is held against the same ``fuse`` with
+   the wrappers swapped for their plain versions on the card. The fullest
+   batch's data resample is timed beside its plain version and beside one
+   ``grid_sample`` call (a yardstick for time only: its border rule is not
+   the ``cval`` mask);
+7. a ``kernels`` JSON line: per kernel its launches in the main-path run,
    its time, the plain version's time, its bound and its error.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -53,7 +69,16 @@ OPS_PER_VOXEL_VIEW_3D = 21 + 25 + 6 + 5
 # bilinear lerp 3 x 3, y weight contraction 25, taper and clip 6, accumulation 5
 OPS_PER_VOXEL_VIEW_2D = 9 + 25 + 6 + 5
 
+# exact-affine kernels, f32 operations per output voxel: ndim rows of ndim
+# multiplies and ndim adds for the coordinates, and for a voxel inside the
+# source 2^ndim - 1 lerps of 4 operations (1 - f, two multiplies, one add)
+def exact_ops(ndim, voxels, inside):
+    return voxels * 2 * ndim * ndim + inside * (2**ndim - 1) * 4
+
+
 F32_RTOL, F32_ATOL, UINT_COUNTS = 1e-4, 1e-3, 1
+# exact-affine kernel against its plain version, on data in [0, 100)
+EXACT_ATOL = 5e-3
 
 
 def log(msg):
@@ -209,16 +234,23 @@ def grid_sims(np, tsi, ndim, n, tile, overlap, seed):
     return sims
 
 
-class StageTimer:
-    """Splits one fuse() call into plan, upload, kernel and download by
-    wrapping the stages that fusion._core calls; the kernel wrappers stay
-    untouched, so their launch counts stay true."""
+EXACT_WRAPPERS = (
+    "exact_affine_batch_2d", "exact_affine_batch_3d_sepy", "exact_affine_batch_3d_general",
+)
 
-    def __init__(self, torch, tcore, tf):
-        self.torch, self.tcore, self.tf = torch, tcore, tf
+
+class StageTimer:
+    """Splits one fuse() call into plan, upload, kernel, blend and download
+    by wrapping the stages that fusion._core calls; the kernel wrappers stay
+    untouched, so their launch counts stay true. A stage that runs several
+    times in the call (the exact-affine tier's launches and blends) sums."""
+
+    def __init__(self, torch, tcore, tf, tea):
+        self.torch, self.tcore, self.tf, self.tea = torch, tcore, tf, tea
         self.events = {}
         self.t_upload_start = None
         self.kernel_call = None
+        self.fullest = -1
 
     def _timed(self, name, fn, before=None):
         torch = self.torch
@@ -231,14 +263,16 @@ class StageTimer:
             e0.record()
             out = fn(*a, **k)
             e1.record()
-            self.events[name] = (e0, e1)
+            self.events.setdefault(name, []).append((e0, e1))
             return out
 
         return wrapped
 
     def __enter__(self):
-        tcore, tf = self.tcore, self.tf
-        self._saved = (tcore._tiles_to_device, tcore._download, tcore.translation_fusion)
+        tcore, tf, tea = self.tcore, self.tf, self.tea
+        self._saved = (tcore._tiles_to_device, tcore._download, tcore.translation_fusion,
+                       tcore._blend_batch)
+        self._saved_exact = {n: getattr(tea, n) for n in EXACT_WRAPPERS}
 
         def mark(a, k):
             self.t_upload_start = time.perf_counter()
@@ -246,27 +280,43 @@ class StageTimer:
         def keep(a, k):
             self.kernel_call = (a, k)
 
+        def keep_fullest_data_launch(a, k):
+            # data resamples have cval NaN, weight resamples cval 0
+            n = int(k["valid"].sum())
+            if k["cval"] != k["cval"] and n > self.fullest:
+                self.fullest, self.kernel_call = n, (a, k)
+
         tcore._tiles_to_device = self._timed("upload", tcore._tiles_to_device, mark)
         tcore._download = self._timed("download", tcore._download)
+        tcore._blend_batch = self._timed("blend", tcore._blend_batch)
         tcore.translation_fusion = types.SimpleNamespace(
             TILE_SHAPE_2D=tf.TILE_SHAPE_2D,
             TILE_SHAPE_3D=tf.TILE_SHAPE_3D,
+            _cast=tf._cast,
             fuse_translation_2d=self._timed("kernel", tf.fuse_translation_2d, keep),
             fuse_translation_3d=self._timed("kernel", tf.fuse_translation_3d, keep),
         )
+        for n, fn in self._saved_exact.items():
+            setattr(tea, n, self._timed("kernel", fn, keep_fullest_data_launch))
         return self
 
     def __exit__(self, *exc):
         tcore = self.tcore
-        tcore._tiles_to_device, tcore._download, tcore.translation_fusion = self._saved
+        (tcore._tiles_to_device, tcore._download, tcore.translation_fusion,
+         tcore._blend_batch) = self._saved
+        for n, fn in self._saved_exact.items():
+            setattr(self.tea, n, fn)
         return False
 
-    def split_ms(self, t_start):
+    def split_ms(self, t_start, t_end):
+        """Stage times of the call in ms; ``other_ms`` is what the named
+        stages leave of the wall time (host work between launches)."""
         self.torch.cuda.synchronize()
         out = {"plan_ms": (self.t_upload_start - t_start) * 1e3}
-        for name in ("upload", "kernel", "download"):
-            e0, e1 = self.events[name]
-            out[f"{name}_ms"] = e0.elapsed_time(e1)
+        for name in ("upload", "kernel", "blend", "download"):
+            if name in self.events:
+                out[f"{name}_ms"] = sum(e0.elapsed_time(e1) for e0, e1 in self.events[name])
+        out["other_ms"] = (t_end - t_start) * 1e3 - sum(out.values())
         return out
 
 
@@ -296,7 +346,7 @@ def time_kernel_ms(torch, fn, args, kw, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def main_path(np, torch, tsi, tcore, tf, fuse, ndim, n, tile, overlap, band_tiles):
+def main_path(np, torch, tsi, tcore, tf, tea, fuse, ndim, n, tile, overlap, band_tiles):
     """Phases 4 and 5: one main path through fuse(), checked and timed."""
     label = f"{ndim}d main path"
     sims = grid_sims(np, tsi, ndim, n, tile, overlap, seed=ndim)
@@ -314,12 +364,13 @@ def main_path(np, torch, tsi, tcore, tf, fuse, ndim, n, tile, overlap, band_tile
     # the main path's run: counts set to 0 just before, read just after
     tf.fuse_translation_2d.launches = 0
     tf.fuse_translation_3d.launches = 0
-    with StageTimer(torch, tcore, tf) as st:
+    with StageTimer(torch, tcore, tf, tea) as st:
         t0 = time.perf_counter()
         fused = fuse(sims, transform_key=KEY)
         torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        split = st.split_ms(t0)
+        t1 = time.perf_counter()
+        warm_s = t1 - t0
+        split = st.split_ms(t0, t1)
     launches = wrapper.launches
     other = tf.fuse_translation_2d if ndim == 3 else tf.fuse_translation_3d
     if launches < 1 or other.launches != 0:
@@ -400,6 +451,323 @@ def main_path(np, torch, tsi, tcore, tf, fuse, ndim, n, tile, overlap, band_tile
     }
 
 
+def rot2(np, theta, scale=1.0):
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array([[c, -s], [s, c]]) * scale
+
+
+def roty(np, theta, yscale=1.0):
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array([[c, 0, -s], [0, yscale, 0], [s, 0, c]])
+
+
+def coupled3(np, seed):
+    """The reference tests' two coupled families: weak near-identity coupling
+    in every entry, and a strong two-axis rotation."""
+    if seed == 0:
+        return np.eye(3) + np.random.default_rng(0).normal(0, 0.02, (3, 3))
+    cz, sz = np.cos(0.2), np.sin(0.2)
+    return roty(np, 0.4) @ np.array([[1, 0, 0], [0, cz, -sz], [0, sz, cz]])
+
+
+def exact_small_cases(np):
+    """(kind, label, source shape, out shape, mats, offs, extents) of the
+    small cases: the reference's test maps one by one, then a batch of them
+    with a map that downscales by 4, true extents below the source shape and
+    an output shape that is no multiple of the kernel blocks."""
+    cases = []
+    maps2 = [(rot2(np, th, sc), off) for th, sc, off in [
+        (0.3, 1.0, (2.3, -4.7)), (0.0, 1.0, (0.5, 0.5)),
+        (-0.8, 1.3, (10.0, 3.2)), (1.4, 0.7, (-3.0, 8.1)),
+    ]]
+    maps_sepy = [(roty(np, th, 1.1), (1.2, -2.3, 3.4)) for th in (0.4, -0.7, 0.0, 1.2)]
+    maps_gen = [(coupled3(np, seed), (1.2, -2.3, 3.4)) for seed in (0, 1)]
+    for kind, maps, src, out in (
+        ("2d", maps2, (60, 90), (50, 80)),
+        ("sepy", maps_sepy, (20, 30, 40), (18, 25, 35)),
+        ("general", maps_gen, (20, 30, 40), (18, 25, 35)),
+    ):
+        ndim = len(src)
+        for i, (M, off) in enumerate(maps):
+            cases.append((kind, f"map{i}", src, out, M[None], np.array([off]), np.array([src])))
+        down = np.diag([4.0] * ndim) if kind != "general" else 4.0 * coupled3(np, 0)
+        mats = np.stack([m for m, _ in maps] + [down])
+        offs = np.array([o for _, o in maps] + [[0.25] * ndim])
+        extents = np.array([[s - (b % 3) * 5 for s in src] for b in range(len(mats))])
+        odd = tuple(o - 7 for o in out)
+        cases.append((kind, "batch", src, odd, mats, offs, extents))
+    return cases
+
+
+def check_exact_small_cases(np, torch, tea):
+    """Phase 3, exact-affine kernels: each against its plain version on the
+    card. Masks must be identical, values within EXACT_ATOL."""
+    wrappers = {
+        "2d": (tea.exact_affine_batch_2d, tea.exact_affine_batch_2d_plain),
+        "sepy": (tea.exact_affine_batch_3d_sepy, tea.exact_affine_batch_3d_sepy_plain),
+        "general": (tea.exact_affine_batch_3d_general, tea.exact_affine_batch_3d_general_plain),
+    }
+    worst = {k: 0.0 for k in wrappers}
+    rng = np.random.default_rng(1)
+
+    def compare(kind, label, args, kw):
+        fn, plain = wrappers[kind]
+        got, ref = fn(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert got.is_cuda and got.dtype == torch.float32 and got.shape == ref.shape
+        g, r = got.cpu().numpy(), ref.cpu().numpy()
+        if not np.array_equal(np.isnan(g), np.isnan(r)):
+            raise AssertionError(f"exact {kind} {label}: masks differ")
+        if not np.array_equal(g == 0, r == 0):
+            raise AssertionError(f"exact {kind} {label}: zero masks differ")
+        err = max_err(np.nan_to_num(g), np.nan_to_num(r), np)
+        inside = float(np.mean(~np.isnan(g) & (g != 0)))
+        ok = err < EXACT_ATOL and inside > 0.005
+        log(f"  exact {kind:7s} {label:22s}: inside {inside:.2f} "
+            f"max_abs_err={err:.3g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"exact {kind} {label}: kernel != plain ({err}, inside {inside})")
+        worst[kind] = max(worst[kind], err)
+
+    for kind, label, src, out, mats, offs, extents in exact_small_cases(np):
+        B, ndim = len(mats), len(src)
+        base = rng.random((B,) + src) * 99 + 1  # strictly positive: 0 marks the mask
+        tables = (mats.astype(np.float32), offs.astype(np.float32), extents.astype(np.float32), out)
+        dtypes = (np.float32, np.uint16, np.uint8) if label == "batch" else (np.float32,)
+        for dtype in dtypes:
+            data = torch.from_numpy(base.astype(dtype)).cuda()
+            for cval in (float("nan"), 0.0):
+                compare(kind, f"{label} {np.dtype(dtype).name} cval={cval}", (data, *tables),
+                        {"cval": cval})
+        if label != "batch":
+            continue
+        # float input with NaN and inf goes through nan_to_num
+        holed = base.astype(np.float32)
+        holed[0][(slice(None),) * (ndim - 2) + (10, 12)] = np.nan
+        holed[1][(slice(None),) * (ndim - 2) + (12, 15)] = np.inf
+        fn, plain = wrappers[kind]
+        got = fn(torch.from_numpy(holed).cuda(), *tables)
+        ref = plain(torch.from_numpy(holed).cuda(), *tables)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isnan(got), torch.isnan(ref)) or not bool(
+            torch.isfinite(got[~torch.isnan(got)]).all()
+        ):
+            raise AssertionError(f"exact {kind}: NaN/inf input is not read through nan_to_num")
+        # the same batch sampled out of a larger stack, with a padding slot
+        stack = rng.random((3,) + tuple(n + 9 for n in src)) * 99 + 1
+        stack = torch.from_numpy(stack.astype(np.uint16)).cuda()
+        tile_idx = np.arange(B + 1, dtype=np.int32) % 3
+        starts = rng.integers(0, 10, (B + 1, ndim)).astype(np.int32)
+        pad = lambda x, fill: np.concatenate([x, fill[None]]).astype(np.float32)  # noqa: E731
+        args = (stack, pad(mats, np.eye(ndim)), pad(offs, np.zeros(ndim)),
+                pad(extents, np.ones(ndim)), out)
+        kw = {"tile_idx": tile_idx, "starts": starts,
+              "valid": np.arange(B + 1) < B}
+        compare(kind, "stack uint16 cval=nan", args, dict(kw, cval=float("nan")))
+        compare(kind, "stack uint16 cval=0", args, dict(kw, cval=0.0))
+        last = fn(*args, **dict(kw, cval=float("nan")))[B]
+        if not bool(torch.isnan(last).all()):
+            raise AssertionError(f"exact {kind}: a padding slot was sampled")
+    return worst
+
+
+def about_centre(np, lin, centre):
+    """Homogeneous affine with linear part ``lin`` that keeps ``centre`` fixed."""
+    ndim = len(centre)
+    p = np.eye(ndim + 1)
+    p[:ndim, :ndim] = lin
+    p[:ndim, ndim] = np.asarray(centre) - lin @ np.asarray(centre)
+    return p
+
+
+def with_affine(tsi, sims, params):
+    for sim, p in zip(sims, params):
+        tsi.set_sim_affine(sim, p, transform_key=KEY)
+    return sims
+
+
+def multiview_sims(np, tsi, shape, angles_deg, seed):
+    """Views of one (z, y, x) volume rotated about y through the common
+    centre: the light-sheet multi-view geometry. The content is a smooth
+    volume at a quarter of the size, repeated 4 x per axis, rolled per view."""
+    rng = np.random.default_rng(seed)
+    base = smooth_tile(np, rng, tuple(n // 4 for n in shape))
+    for axis in range(3):
+        base = np.repeat(base, 4, axis=axis)
+    centre = [(n - 1) / 2 for n in shape]
+    sims, params = [], []
+    for iv, deg in enumerate(angles_deg):
+        data = np.ascontiguousarray(np.roll(base, 37 * iv, axis=2))
+        sims.append(tsi.get_sim_from_array(data, dims=["z", "y", "x"]))
+        params.append(about_centre(np, roty(np, np.deg2rad(deg)), centre))
+    return with_affine(tsi, sims, params)
+
+
+def affine_grid_sims(np, tsi, ndim, n, tile, overlap, seed, linear_part):
+    """n x n translation grid whose every tile also carries its own linear
+    part ``linear_part(rng)``, applied about the tile's centre."""
+    sims = grid_sims(np, tsi, ndim, n, tile, overlap, seed)
+    rng = np.random.default_rng(seed + 100)
+    sdims = ["z", "y", "x"][-ndim:]
+    params = []
+    for sim in sims:
+        centre = [sim.origin[d] + (tile - 1) / 2 for d in sdims]
+        params.append(about_centre(np, linear_part(rng), centre))
+    return with_affine(tsi, sims, params)
+
+
+def time_grid_sample_ms(np, torch, tiles, args, kw, ndim):
+    """One ``grid_sample`` call (bilinear, zero padding, align_corners=True,
+    f32 input) over the valid items of a main-path batch: a yardstick for
+    time only. The f32 copies of the items' tiles and the sampling grid are
+    made before the timed call."""
+    import torch.nn.functional as F
+
+    keep = np.flatnonzero(kw["valid"])
+    dev = tiles.device
+    mats = torch.as_tensor(args[1][keep], dtype=torch.float32, device=dev)
+    offs = torch.as_tensor(args[2][keep] + kw["starts"][keep], dtype=torch.float32, device=dev)
+    out_shape = args[4]
+    idx = torch.stack(torch.meshgrid(
+        *[torch.arange(n, dtype=torch.float32, device=dev) for n in out_shape], indexing="ij"
+    ), dim=-1)
+    coords = torch.einsum("brc,...c->b...r", mats, idx) + offs.reshape((-1,) + (1,) * ndim + (ndim,))
+    sizes = torch.tensor(tiles.shape[1:], dtype=torch.float32, device=dev)
+    grid = (2 * coords / (sizes - 1) - 1).flip(-1).contiguous()  # (x, y[, z]) order
+    src = torch.stack([tiles[int(i)].to(torch.float32) for i in kw["tile_idx"][keep]])[:, None]
+    F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, kind):
+    """Phase 6: one affine main path through fuse(), checked and timed."""
+    names = {"2d": EXACT_WRAPPERS[0], "sepy": EXACT_WRAPPERS[1], "general": EXACT_WRAPPERS[2]}
+    wrapper = getattr(tea, names[kind])
+    plain = getattr(tea, names[kind] + "_plain")
+    ndim = len(sims[0].data.shape)
+
+    def counts():
+        return {k: getattr(tea, n).launches for k, n in names.items()}
+
+    t0 = time.perf_counter()
+    cold = fuse(sims, transform_key=KEY, output_chunksize=chunksize)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    del cold
+
+    # the main path's run: counts set to 0 just before, read just after
+    for n in names.values():
+        getattr(tea, n).launches = 0
+    tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+    with StageTimer(torch, tcore, tf, tea) as st:
+        t0 = time.perf_counter()
+        fused = fuse(sims, transform_key=KEY, output_chunksize=chunksize)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        warm_s = t1 - t0
+        split = st.split_ms(t0, t1)
+    launched = counts()
+    if launched[kind] < 2 or any(v for k, v in launched.items() if k != kind) or (
+        tf.fuse_translation_2d.launches or tf.fuse_translation_3d.launches
+    ):
+        raise AssertionError(f"{label}: launches {launched}, expected only the {kind} kernel")
+
+    out = fused.data
+    top = max(int(s.data.max()) for s in sims)
+    covered = float(np.mean(out > 0))
+    if out.dtype != np.uint16 or out.ndim != ndim or int(out.max()) > top or covered < 0.3:
+        raise AssertionError(
+            f"{label}: output {out.shape} {out.dtype}, max {out.max()} (inputs {top}), "
+            f"covered {covered:.2f}"
+        )
+    log(f"{label}: output {out.shape} {out.dtype}, covered {covered:.2f}, cold fuse "
+        f"{cold_s:.3f} s, warm fuse {warm_s:.3f} s, launches {launched[kind]}")
+    log(f"{label}: warm split " + json.dumps({k: round(v, 3) for k, v in split.items()}))
+
+    # the same fuse with the wrappers swapped for their plain versions on the card
+    saved = {n: getattr(tea, n) for n in EXACT_WRAPPERS}
+    try:
+        for n in EXACT_WRAPPERS:
+            setattr(tea, n, getattr(tea, n + "_plain"))
+        t0 = time.perf_counter()
+        ref = fuse(sims, transform_key=KEY, output_chunksize=chunksize).data
+        torch.cuda.synchronize()
+        plain_fuse_s = time.perf_counter() - t0
+    finally:
+        for n, fn in saved.items():
+            setattr(tea, n, fn)
+    if counts() != launched:
+        raise AssertionError(f"{label}: the plain run launched a kernel")
+    diff = np.abs(out.astype(np.int32) - ref.astype(np.int32))
+    err, n_diff = int(diff.max()), int(np.count_nonzero(diff))
+    del ref, diff
+    if err > UINT_COUNTS:
+        raise AssertionError(f"{label}: fused output differs from the plain-version run by {err}")
+
+    # the fullest batch's data resample, tables already on the card
+    args, kw = st.kernel_call
+    tiles = args[0]
+    dev_args = (tiles,) + tuple(torch.as_tensor(x).cuda() for x in args[1:4]) + (args[4],)
+    dev_kw = {k: (torch.as_tensor(v).cuda() if k != "cval" else v) for k, v in kw.items()}
+    kernel_ms = time_kernel_ms(torch, wrapper, dev_args, dev_kw, reps=10)
+    got = wrapper(*dev_args, **dev_kw)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    plain(*dev_args, **dev_kw)  # warm
+    e0.record()
+    ref_b = plain(*dev_args, **dev_kw)
+    e1.record()
+    torch.cuda.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    if not torch.equal(torch.isnan(got), torch.isnan(ref_b)):
+        raise AssertionError(f"{label}: batch masks differ from the plain version")
+    batch_err = float((torch.nan_to_num(got) - torch.nan_to_num(ref_b)).abs().max())
+    # uint16 data up to `top`: the f32 ulps of the coordinate scale with the value
+    if batch_err > EXACT_ATOL * max(top, 100) / 100:
+        raise AssertionError(f"{label}: batch differs from the plain version by {batch_err}")
+    inside = int((~torch.isnan(got)).sum())
+    del ref_b
+    library_ms = time_grid_sample_ms(np, torch, tiles, args, kw, ndim)
+
+    n_valid = int(kw["valid"].sum())
+    voxels = n_valid * int(np.prod(args[4]))
+    window_bytes = int(
+        np.prod(np.asarray(args[3])[kw["valid"]], axis=1).sum() * tiles.element_size()
+    )
+    nbytes = got.numel() * 4 + window_bytes + sum(
+        int(np.asarray(x).nbytes) for x in list(args[1:4]) + [kw["tile_idx"], kw["starts"]]
+    )
+    ops = exact_ops(ndim, voxels, inside)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    log(f"{label}: fullest batch {n_valid} of {len(kw['valid'])} items x {tuple(args[4])}, "
+        f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.2f} ms, grid_sample {library_ms:.3f} ms, "
+        f"bound {max(t_bytes, t_ops):.4f} ms; plain-version fuse {plain_fuse_s:.2f} s, "
+        f"{n_diff} voxels differ by 1 count, batch max_abs_err {batch_err:.3g}")
+    return {
+        "launches": int(launched[kind]),
+        "max_abs_err": batch_err,
+        "fused_max_abs_err_counts": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+        "cold_fuse_s": cold_s,
+        "warm_fuse_s": warm_s,
+        "plain_fuse_s": plain_fuse_s,
+        **split,
+        "bytes": nbytes,
+        "batch_items": n_valid,
+        "batch_voxels_inside": inside,
+        "out_shape": list(out.shape),
+    }
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -410,11 +778,13 @@ def main() -> int:
     if not (REPO / "multiview_stitcher_torch").is_dir():
         print(f"chip_smoke: no multiview_stitcher_torch package beside {__file__}", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
     from multiview_stitcher_torch import si_utils as tsi
     from multiview_stitcher_torch.fusion import _core as tcore
     from multiview_stitcher_torch.fusion import fuse
     from multiview_stitcher_torch.ops import _build
+    from multiview_stitcher_torch.ops import exact_affine as tea
     from multiview_stitcher_torch.ops import translation_fusion as tf
 
     log(card_line())
@@ -427,13 +797,37 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    log("kernels against their plain versions on small layouts:")
+    log("kernels against their plain versions on small cases:")
     small_err = check_small_cases(np, torch, tsi, tcore, tf)
+    exact_err = check_exact_small_cases(np, torch, tea)
 
-    r3 = main_path(np, torch, tsi, tcore, tf, fuse, 3, n=32, tile=64, overlap=12, band_tiles=2)
-    r2 = main_path(np, torch, tsi, tcore, tf, fuse, 2, n=32, tile=512, overlap=64, band_tiles=64)
+    r3 = main_path(np, torch, tsi, tcore, tf, tea, fuse, 3, n=32, tile=64, overlap=12, band_tiles=2)
+    r2 = main_path(np, torch, tsi, tcore, tf, tea, fuse, 2, n=32, tile=512, overlap=64, band_tiles=64)
+
+    def coupling(rng):
+        return np.eye(3) + rng.uniform(0.005, 0.02, (3, 3)) * rng.choice([-1, 1], (3, 3))
+
+    def rotate_and_scale(rng):
+        return rot2(np, np.deg2rad(rng.uniform(-0.5, 0.5)), 1 + rng.uniform(-0.005, 0.005))
+
+    affine = {}
+    for kind, label, chunksize, make in (
+        ("sepy", "3d multi-view, rotated about y", 128,
+         lambda: multiview_sims(np, tsi, (256, 512, 512), (0, 47, 92, 137), seed=4)),
+        ("general", "3d grid, affine-resolved", 128,
+         lambda: affine_grid_sims(np, tsi, 3, 4, 256, 32, 5, coupling)),
+        ("2d", "2d slide scan, per-tile affines", 1024,
+         lambda: affine_grid_sims(np, tsi, 2, 16, 1024, 64, 6, rotate_and_scale)),
+    ):
+        sims = make()
+        affine[kind] = affine_main_path(
+            np, torch, tcore, tf, tea, fuse, label, sims, chunksize, kind
+        )
+        del sims
+        torch.cuda.empty_cache()
 
     source = "multiview_stitcher_torch/csrc/translation_fusion.cu"
+    exact_source = "multiview_stitcher_torch/csrc/exact_affine.cu"
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": "fuse_translation_3d", "route": "cuda", "source": source,
@@ -442,10 +836,21 @@ def main() -> int:
         {"name": "fuse_translation_2d", "route": "cuda", "source": source,
          "replaces": "multiview_stitcher_tpu/ops/pallas_fusion.py:100",
          **{k: r2[k] for k in keys}},
+        {"name": "exact_affine_batch_2d", "route": "cuda", "source": exact_source,
+         "replaces": "multiview_stitcher_tpu/ops/exact_affine.py:101",
+         **{k: affine["2d"][k] for k in keys}},
+        {"name": "exact_affine_batch_3d_sepy", "route": "cuda", "source": exact_source,
+         "replaces": "multiview_stitcher_tpu/ops/exact_affine.py:349",
+         **{k: affine["sepy"][k] for k in keys}},
+        {"name": "exact_affine_batch_3d_general", "route": "cuda", "source": exact_source,
+         "replaces": "multiview_stitcher_tpu/ops/exact_affine.py:643",
+         **{k: affine["general"][k] for k in keys}},
     ]
-    for k, ndim in zip(kernels, (3, 2)):
-        k["max_abs_err"] = max(k["max_abs_err"], small_err[ndim])
-    detail = {"3d": r3, "2d": r2, "build_s": build_s}
+    for k, worst in zip(kernels, (small_err[3], small_err[2], exact_err["2d"],
+                                  exact_err["sepy"], exact_err["general"])):
+        k["max_abs_err"] = max(k["max_abs_err"], worst)
+    detail = {"3d": r3, "2d": r2, **{f"affine_{k}": v for k, v in affine.items()},
+              "build_s": build_s, "total_s": time.perf_counter() - t_start}
     log("detail: " + json.dumps(detail))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -6,14 +6,18 @@ kernels for NVIDIA Hopper (sm_90a) on the device. It imports neither JAX nor
 the JAX package: the host helpers it needs are copied here under the same
 module names.
 
-This slice covers ``fusion.fuse`` of translation-placed 2D and 3D tile grids
-with the default weighted-average blending. Entry points run on the CUDA
-device unless the caller passes ``device="cpu"``, which takes the plain
-PyTorch version of every kernel.
+Ported so far: ``fusion.fuse`` of translation-placed 2D and 3D tile grids with
+the default weighted-average blending, ``fusion.fuse`` of views under any
+other affine (rotated multi-view stacks, affine-registered tile grids) with
+the builtin fusion functions, and ``transformation.transform_sim`` with linear
+interpolation. Entry points run on the CUDA device unless the caller passes
+``device="cpu"``, which takes the plain PyTorch version of every kernel.
 
 - ``si_utils`` / ``msi_utils`` / ``param_utils`` — data model
 - ``fusion`` — ``fuse``
+- ``transformation`` — ``transform_sim``, ``transform_pts``
 - ``ops.translation_fusion`` — the two translation-fusion kernels
+- ``ops.exact_affine`` — the three exact-affine resampling kernels
 - ``convert`` — builds this package's sims from the JAX package's fields
 """
 

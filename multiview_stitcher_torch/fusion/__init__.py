@@ -4,7 +4,9 @@ from multiview_stitcher_torch.fusion._core import (  # noqa: F401
     calc_stack_properties_from_volume,
     combine_stack_props,
     fuse,
+    max_fusion,
     process_output_chunksize,
     process_output_stack_properties,
+    simple_average_fusion,
     weighted_average_fusion,
 )

@@ -1,16 +1,25 @@
-"""Fusion core: ``fuse`` of translation-placed tile grids.
+"""Fusion core: ``fuse`` of views placed by translations or by any affine.
 
-The port of ``multiview_stitcher_tpu.fusion._core`` for the library's main
-path: a grid of translation-placed 2D or 3D tiles fused with the default
-weighted-average blending. Planning (output geometry, per-view kernel
-tables, per-tile view lists) is host-side numpy, as in the reference; the
-fusion itself is one call of the translation kernel over the whole output
-(``ops.translation_fusion``).
+The port of ``multiview_stitcher_tpu.fusion._core`` for two tiers of the
+library. Planning (output geometry, kernel tables, view lists, chunk plans)
+is host-side numpy in float64, as in the reference.
 
-Unlike the reference, which streams inputs above 192 MB through banded
-calls, the port runs the whole output in one call whenever it is given the
-tiles in memory: the main path's 537 MB of tiles fit the H100's 80 GB, and
-banded calls agree with one call over the full grid.
+- **Translation tier**: a grid of translation-placed 2D or 3D tiles fused
+  with the default weighted-average blending in one call of the translation
+  kernel over the whole output (``ops.translation_fusion``). Unlike the
+  reference, which streams inputs above 192 MB through banded calls, the
+  port runs the whole output in one call whenever it is given the tiles in
+  memory: the main path's 537 MB of tiles fit the H100's 80 GB, and banded
+  calls agree with one call over the full grid.
+- **Exact-affine tier**: views that are rotated, scaled or sheared. The
+  output is cut into chunks; each chunk lists the views that reach it and
+  their source windows (``_build_spatial_fusion_plan``); batches of chunks
+  are resampled view by view with the exact-affine kernels
+  (``ops.exact_affine``) straight from the tile stack on the device, once for
+  the data and once for the 5^ndim blending grids, and blended with torch
+  ops (``_reduce_views``). The reference sends maps whose windows exceed its
+  on-chip memory to a gather tier; the port's kernels have no window limit
+  and take every map.
 
 Any input this slice does not cover raises ``NotImplementedError`` naming
 the ROADMAP.md item that will cover it; nothing falls back quietly.
@@ -24,7 +33,8 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from multiview_stitcher_torch import msi_utils, param_utils, si_utils, weights
+from multiview_stitcher_torch import msi_utils, mv_graph, param_utils, si_utils, weights
+from multiview_stitcher_torch.ops import exact_affine
 from multiview_stitcher_torch.ops import resample as resample_ops
 from multiview_stitcher_torch.ops import translation_fusion
 from multiview_stitcher_torch.utils import misc as misc_utils
@@ -33,6 +43,20 @@ BoundingBox = Dict[str, Dict[str, Union[float, int]]]
 
 # where the inputs this slice refuses are queued
 _ROADMAP = "ROADMAP.md, queue 1"
+
+
+def max_fusion(transformed_views):
+    """Pixel-wise NaN-aware maximum over views (NaN where no view is valid)."""
+    nan = torch.isnan(transformed_views)
+    top = torch.where(nan, -torch.inf, transformed_views).amax(dim=0)
+    return torch.where(nan.all(dim=0), torch.nan, top)
+
+
+def simple_average_fusion(transformed_views):
+    """Unweighted NaN-aware mean over views (NaN where no view is valid)."""
+    n_valid = (~torch.isnan(transformed_views)).sum(dim=0).to(torch.float32)
+    n_valid = torch.where(n_valid == 0, torch.nan, n_valid)
+    return (torch.nansum(transformed_views, dim=0) / n_valid).to(transformed_views.dtype)
 
 
 def weighted_average_fusion(
@@ -49,7 +73,11 @@ def weighted_average_fusion(
     return torch.nansum(prod, dim=0).to(transformed_views.dtype)
 
 
-_BUILTIN_FUSION_MODES = {weighted_average_fusion: "weighted_average"}
+_BUILTIN_FUSION_MODES = {
+    max_fusion: "max",
+    weighted_average_fusion: "weighted_average",
+    simple_average_fusion: "simple_average",
+}
 
 
 # ---------------------------------------------------------------------------
@@ -459,14 +487,457 @@ def _execute_fusion_plan_translation(
     _download(fused, out)
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "fuse runs on the CUDA device by default and this machine has "
-            "none; pass device='cpu' for the plain PyTorch path"
+# ---------------------------------------------------------------------------
+# exact-affine tier
+# ---------------------------------------------------------------------------
+
+
+def _reduce_views(data_t, bw, mode: str, use_bw: bool, dim: int = 0):
+    """NaN-aware reduction over the view axis ``dim``; returns the fused
+    values and the normalized weights (None without ``use_bw``)."""
+    if use_bw:
+        bw = weights.cosine_weights(bw)
+        valid = ~torch.isnan(data_t)
+        bw = bw * valid
+        # zero total weight with valid data (the cosine taper hits exactly 0
+        # at the support border): fall back to the unweighted valid average so
+        # border pixels keep their values instead of dropping to 0
+        wsum = bw.sum(dim=dim, keepdim=True)
+        bw = torch.where(wsum > 0, bw, valid.to(bw.dtype))
+        bw = weights.normalize_weights(bw, dim=dim)
+    if mode == "weighted_average":
+        fused = torch.nansum(data_t * bw, dim=dim)
+    elif mode == "max":
+        nan = torch.isnan(data_t)
+        top = torch.where(nan, -torch.inf, data_t).amax(dim=dim)
+        fused = torch.where(nan.all(dim=dim), torch.nan, top)
+    elif mode == "simple_average":
+        n_valid = (~torch.isnan(data_t)).sum(dim=dim).to(torch.float32)
+        n_valid = torch.where(n_valid == 0, torch.nan, n_valid)
+        fused = torch.nansum(data_t, dim=dim) / n_valid
+    else:
+        raise ValueError(mode)
+    return fused, bw
+
+
+def _extend_bb(bb: BoundingBox, overlap_in_pixels: Dict[str, int]) -> BoundingBox:
+    return {
+        "origin": {
+            d: bb["origin"][d] - overlap_in_pixels[d] * bb["spacing"][d]
+            for d in bb["origin"]
+        },
+        "shape": {d: bb["shape"][d] + 2 * overlap_in_pixels[d] for d in bb["shape"]},
+        "spacing": dict(bb["spacing"]),
+    }
+
+
+def _build_spatial_fusion_plan(
+    *,
+    sparams,
+    views_bb,
+    output_stack_properties,
+    output_chunksize,
+    output_chunk_bbs,
+    output_chunk_bbs_with_overlap,
+    block_indices,
+    overlap_in_pixels,
+    interpolation_order,
+    sdims,
+    extra_source_margin_in_pixels: int = 0,
+):
+    """Map each output chunk to the views that reach it and their source
+    windows. ``sparams`` holds one (ndim+1, ndim+1) matrix per view.
+
+    ``extra_source_margin_in_pixels`` widens every source window beyond the
+    ``interpolation_order`` pixels that linear interpolation needs (the
+    reference's shear tier asks for it; the exact tier passes 0)."""
+    ndim = len(sdims)
+    inv_sparams = [np.linalg.inv(p) for p in sparams]
+
+    normalized = mv_graph.normalize_chunks(
+        [output_chunksize[d] for d in sdims],
+        [output_stack_properties["shape"][d] for d in sdims],
+    )
+    n_blocks_per_dim = [len(c) for c in normalized]
+    uniform_cs = [c[0] for c in normalized]
+    osp_origin = np.array([output_stack_properties["origin"][d] for d in sdims])
+    osp_spacing = np.array([output_stack_properties["spacing"][d] for d in sdims])
+    overlap_phys = np.array([overlap_in_pixels[d] for d in sdims]) * osp_spacing
+
+    chunk_to_tiles: dict = {}
+    for iview, (p, view_bb) in enumerate(zip(sparams, views_bb)):
+        pad_phys = overlap_phys + np.array(
+            [
+                (interpolation_order + extra_source_margin_in_pixels)
+                * view_bb["spacing"][d]
+                for d in sdims
+            ]
         )
-    return device
+        corners = param_utils.transform_pts(
+            mv_graph.get_vertices_from_stack_props(view_bb), p
+        )
+        aabb_min = corners.min(axis=0) - pad_phys
+        aabb_max = corners.max(axis=0) + pad_phys
+
+        idx_ranges = []
+        for idim in range(ndim):
+            cs_phys = uniform_cs[idim] * osp_spacing[idim]
+            i_first = max(
+                0, int(np.floor((aabb_min[idim] - osp_origin[idim]) / cs_phys))
+            )
+            i_last = min(
+                n_blocks_per_dim[idim] - 1,
+                int(np.floor((aabb_max[idim] - osp_origin[idim]) / cs_phys)),
+            )
+            if i_first > i_last:
+                break
+            idx_ranges.append(range(i_first, i_last + 1))
+        if len(idx_ranges) < ndim:
+            continue
+        for ci in product(*idx_ranges):
+            chunk_to_tiles.setdefault(ci, []).append(iview)
+
+    additional_extent = {
+        d: int(interpolation_order) + int(extra_source_margin_in_pixels)
+        for d in sdims
+    }
+
+    per_chunk_entries = []
+    for chunk_bb, chunk_bb_ov, block_index in zip(
+        output_chunk_bbs, output_chunk_bbs_with_overlap, block_indices
+    ):
+        chunk_views = []
+        for iview in chunk_to_tiles.get(tuple(block_index), []):
+            overlap = mv_graph.get_overlap_for_bbs(
+                target_bb=chunk_bb_ov,
+                query_bbs=[views_bb[iview]],
+                param=inv_sparams[iview],
+                additional_extent_in_pixels=additional_extent,
+                param_is_inverse=True,
+            )[0]
+            if overlap is not None:
+                chunk_views.append((iview, overlap))
+        per_chunk_entries.append(
+            {
+                "views": chunk_views,
+                "output_bb": chunk_bb,
+                "output_bb_overlap": chunk_bb_ov,
+                "block_index": tuple(int(i) for i in block_index),
+            }
+        )
+
+    return {"sparams": sparams, "per_chunk_entries": per_chunk_entries}
+
+
+def _plan_window_shapes(entries, sdims):
+    """(K_max, S_max, O_max) of a plan's non-empty entries: the most views
+    of a chunk, the largest source window and the largest chunk with its
+    halo, per dim."""
+    K_max = max(len(e["views"]) for e in entries)
+    S_max = tuple(
+        max(int(bb["shape"][d]) for e in entries for _, bb in e["views"])
+        for d in sdims
+    )
+    O_max = tuple(
+        max(int(e["output_bb_overlap"]["shape"][d]) for e in entries) for d in sdims
+    )
+    return K_max, S_max, O_max
+
+
+def exact_kernel_params(
+    entries, field_sims, sparams, sdims, S_max, O_max, stack_shape,
+    use_bw, blending_widths, shrink_distance,
+):
+    """Per (chunk entry, view) parameters of the exact-affine kernels, in
+    float64: for every entry a list of dicts with the chunk-pixel -> window-
+    pixel map ``m``, ``o``, the window's integer ``start`` in the view and
+    its true ``extent``, the view index ``iview`` and, with ``use_bw``, the
+    blending grid ``g`` and its map ``wm``, ``wo``.
+
+    The kernel grid of an entry is its chunk (with halo) extended to
+    ``O_max``. A window start is clamped so that an ``S_max`` window fits the
+    ``stack_shape`` tile stack (at least ``S_max`` wide), as the reference
+    clamps it for its on-device slice; the map's offset is relative to the
+    clamped start."""
+    ndim = len(sdims)
+    clamp_sizes = tuple(max(stack_shape[i], S_max[i]) for i in range(ndim))
+    views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
+    out = []
+    for entry in entries:
+        chunk_bb_ov = entry["output_bb_overlap"]
+        kernel_bb = {
+            "origin": dict(chunk_bb_ov["origin"]),
+            "spacing": dict(chunk_bb_ov["spacing"]),
+            "shape": {d: O_max[i] for i, d in enumerate(sdims)},
+        }
+        osp_spacing = np.array([chunk_bb_ov["spacing"][d] for d in sdims])
+        kp = []
+        for iview, window_bb in entry["views"]:
+            sim = field_sims[iview]
+            origin = si_utils.get_origin_from_sim(sim)
+            spacing = si_utils.get_spacing_from_sim(sim)
+            starts, extent = [], []
+            for i, d in enumerate(sdims):
+                start = int(round((window_bb["origin"][d] - origin[d]) / spacing[d]))
+                start = max(0, start)
+                stop = min(int(sim.sizes[d]), start + int(window_bb["shape"][d]))
+                start = min(start, max(0, clamp_sizes[i] - S_max[i]))
+                starts.append(start)
+                extent.append(stop - start)
+            slab_origin = {
+                d: origin[d] + starts[i] * spacing[d] for i, d in enumerate(sdims)
+            }
+            pm = sparams[iview]
+            m, o = resample_ops.physical_to_pixel_params(
+                np.linalg.inv(pm),
+                input_spacing=np.array([spacing[d] for d in sdims]),
+                input_origin=np.array([slab_origin[d] for d in sdims]),
+                output_spacing=osp_spacing,
+                output_origin=np.array([kernel_bb["origin"][d] for d in sdims]),
+            )
+            item = {"m": m, "o": o, "extent": extent, "start": starts, "iview": iview}
+            if use_bw:
+                g, wm, wo = weights.blending_weights_pixel_params(
+                    kernel_bb,
+                    views_bb[iview],
+                    pm,
+                    blending_widths=blending_widths,
+                    shrink_distance=shrink_distance,
+                )
+                item.update(g=g, wm=wm, wo=wo)
+            kp.append(item)
+        out.append(kp)
+    return out
+
+
+def _exact_kind(ndim, params, use_bw) -> str:
+    """Which kernel a plan takes: "2d", or in 3D "sepy" when every data map
+    and every weight map of the plan is y-decoupled, else "general"."""
+    if ndim == 2:
+        return "2d"
+    all_m = np.stack([it["m"] for kp in params for it in kp])
+    if exact_affine.is_y_decoupled(all_m) and (
+        not use_bw
+        or exact_affine.is_y_decoupled(np.stack([it["wm"] for kp in params for it in kp]))
+    ):
+        return "sepy"
+    return "general"
+
+
+def _build_exact_batch(batch_params, K_max, ndim, use_bw):
+    """Host tables of one batch of entries, every entry padded to ``K_max``
+    slots. Padding slots carry identity maps, extent 1 and ``valid`` False."""
+    B = len(batch_params)
+    eye = np.tile(np.eye(ndim, dtype=np.float32), (B, K_max, 1, 1))
+    t = {
+        "tile_idx": np.zeros((B, K_max), dtype=np.int32),
+        "starts": np.zeros((B, K_max, ndim), dtype=np.int32),
+        "mats": eye,
+        "offs": np.zeros((B, K_max, ndim), dtype=np.float32),
+        "extents": np.ones((B, K_max, ndim), dtype=np.float32),
+        "wgrids": np.zeros((B, K_max) + (5,) * ndim, dtype=np.float32),
+        "wmats": eye.copy(),
+        "woffs": np.zeros((B, K_max, ndim), dtype=np.float32),
+        "valid": np.zeros((B, K_max), dtype=bool),
+    }
+    for bi, kp in enumerate(batch_params):
+        for vi, it in enumerate(kp):
+            t["tile_idx"][bi, vi] = it["iview"]
+            t["starts"][bi, vi] = it["start"]
+            t["mats"][bi, vi] = it["m"]
+            t["offs"][bi, vi] = it["o"]
+            t["extents"][bi, vi] = it["extent"]
+            t["valid"][bi, vi] = True
+            if use_bw:
+                t["wgrids"][bi, vi] = it["g"]
+                t["wmats"][bi, vi] = it["wm"]
+                t["woffs"][bi, vi] = it["wo"]
+    return t
+
+
+def _blend_batch(data_t, bw, mode, use_bw, out_dtype):
+    """Blend (B, K, *O) resampled views over K; nan_to_num and the cast to
+    the output dtype (truncating for integers) run on the device."""
+    fused, _ = _reduce_views(data_t, bw, mode, use_bw, dim=1)
+    return translation_fusion._cast(fused, out_dtype)
+
+
+def _fuse_chunk_batch_kernel_exact(
+    data, mats, offs, extents, wgrids, wmats, woffs, view_valid,
+    out_shape, mode="weighted_average", use_bw=True, kind="sepy",
+    out_dtype=torch.float32, tile_idx=None, starts=None,
+):
+    """Fuse a batch of B chunks with up to K views each through the
+    exact-affine kernels: one launch resamples all B * K data items, a
+    second the 5^ndim blending grids (extent 5, ``cval`` 0), and torch ops
+    blend over K. ``data`` is (B, K, *S) slabs, or with ``tile_idx`` (B, K)
+    and ``starts`` (B, K, ndim) the (V, *T) tile stack itself. ``kind`` is
+    "2d", "sepy" or "general". Returns (B, *out_shape) in ``out_dtype``."""
+    ndim = len(out_shape)
+    B, K = np.shape(view_valid)
+    BK = B * K
+    resample = exact_affine.wrapper_for(ndim, kind == "sepy")
+    flat_valid = np.reshape(view_valid, BK)
+    if tile_idx is None:
+        data = data.reshape((BK,) + tuple(data.shape[2:]))
+        src = {}
+    else:
+        src = {
+            "tile_idx": np.reshape(tile_idx, BK),
+            "starts": np.reshape(starts, (BK, ndim)),
+        }
+    data_t = resample(
+        data, np.reshape(mats, (BK, ndim, ndim)), np.reshape(offs, (BK, ndim)),
+        np.reshape(extents, (BK, ndim)), out_shape, cval=float("nan"),
+        valid=flat_valid, **src,
+    ).reshape((B, K) + tuple(out_shape))
+    bw = None
+    if use_bw:
+        wg = torch.as_tensor(wgrids, dtype=torch.float32, device=data.device)
+        bw = resample(
+            wg.reshape((BK,) + (5,) * ndim), np.reshape(wmats, (BK, ndim, ndim)),
+            np.reshape(woffs, (BK, ndim)), np.full((BK, ndim), 5.0, np.float32),
+            out_shape, cval=0.0, valid=flat_valid,
+        ).reshape((B, K) + tuple(out_shape))
+    return _blend_batch(data_t, bw, mode, use_bw, out_dtype)
+
+
+def _fuse_chunk_batch_kernel_exact_devtiles(
+    tiles, tile_idx, starts, mats, offs, extents, wgrids, wmats, woffs,
+    view_valid, out_shape, mode="weighted_average", use_bw=True, kind="sepy",
+    out_dtype=torch.float32,
+):
+    """:func:`_fuse_chunk_batch_kernel_exact` on the device-resident (V, *T)
+    tile stack: slot (b, k) samples ``tiles[tile_idx[b, k]]`` from the
+    integer window start ``starts[b, k]``, with no slab copy and no f32
+    copy of the stack."""
+    return _fuse_chunk_batch_kernel_exact(
+        tiles, mats, offs, extents, wgrids, wmats, woffs, view_valid,
+        out_shape, mode, use_bw, kind, out_dtype, tile_idx=tile_idx, starts=starts,
+    )
+
+
+def _execute_fusion_plan_batched(
+    plan,
+    field_sims,
+    output_stack_properties,
+    sdims,
+    *,
+    mode,
+    use_bw,
+    blending_widths,
+    shrink_distance,
+    out,
+    device,
+    max_batch_elements=2**25,
+):
+    """Run a chunk plan through the exact-affine tier and write the trimmed
+    chunks into the host array ``out``.
+
+    Every chunk's view list is padded to K_max slots and every kernel grid
+    to the plan-wide largest chunk; chunks go through the kernels in batches
+    of ``max_batch_elements // (K_max * prod(S_max))`` (the reference's rule,
+    S_max being the largest source window), in order. The fused chunks are
+    assembled on the device and downloaded once."""
+    ndim = len(sdims)
+    entries = [e for e in plan["per_chunk_entries"] if e["views"]]
+    if not entries:
+        return
+    K_max, S_max, O_max = _plan_window_shapes(entries, sdims)
+    batch_size = max(1, int(max_batch_elements // max(K_max * int(np.prod(S_max)), 1)))
+    stack_shape = tuple(
+        max(int(s.data.shape[i]) for s in field_sims) for i in range(ndim)
+    )
+    params = exact_kernel_params(
+        entries, field_sims, plan["sparams"], sdims, S_max, O_max, stack_shape,
+        use_bw, blending_widths, shrink_distance,
+    )
+    kind = _exact_kind(ndim, params, use_bw)
+
+    tiles = _tiles_to_device(field_sims, device)
+    out_dtype = _torch_dtype(out.dtype)
+    out_dev = torch.zeros(out.shape, dtype=out_dtype, device=tiles.device)
+    osp = output_stack_properties
+    for i0 in range(0, len(entries), batch_size):
+        batch = entries[i0 : i0 + batch_size]
+        t = _build_exact_batch(params[i0 : i0 + batch_size], K_max, ndim, use_bw)
+        fused = _fuse_chunk_batch_kernel_exact_devtiles(
+            tiles, t["tile_idx"], t["starts"], t["mats"], t["offs"], t["extents"],
+            t["wgrids"], t["wmats"], t["woffs"], t["valid"],
+            O_max, mode, use_bw, kind, out_dtype,
+        )
+        for bi, entry in enumerate(batch):
+            chunk_bb, chunk_bb_ov = entry["output_bb"], entry["output_bb_overlap"]
+            # core region of the chunk inside its kernel grid, and in the output
+            core, dst = [], []
+            for d in sdims:
+                n = int(chunk_bb["shape"][d])
+                c0 = int(round(
+                    (chunk_bb["origin"][d] - chunk_bb_ov["origin"][d])
+                    / chunk_bb_ov["spacing"][d]
+                ))
+                o0 = int(round((chunk_bb["origin"][d] - osp["origin"][d]) / osp["spacing"][d]))
+                core.append(slice(c0, c0 + n))
+                dst.append(slice(o0, o0 + n))
+            out_dev[tuple(dst)] = fused[bi][tuple(core)]
+    _download(out_dev, out)
+
+
+def _fuse_affine_views(
+    param_mats,
+    field_sims,
+    output_stack_properties,
+    sdims,
+    *,
+    fusion_func,
+    output_chunksize,
+    overlap_in_pixels,
+    interpolation_order,
+    blending_widths,
+    shrink_distance,
+    out,
+    device,
+):
+    """Plan and run the exact-affine tier for views that are not all placed
+    by translations. Float tiles that hold NaN are refused: the kernels read
+    NaN as 0, while the tier that excludes NaN pixels per view is not ported."""
+    if np.issubdtype(np.dtype(field_sims[0].data.dtype), np.floating) and any(
+        bool(np.isnan(s.data).any()) for s in field_sims
+    ):
+        raise NotImplementedError(
+            "float views that contain NaN need the gather tier, which is not "
+            f"ported yet ({_ROADMAP}: items 6 and 10)"
+        )
+    views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
+    chunk_bbs, block_indices = mv_graph.get_chunk_bbs(
+        output_stack_properties, output_chunksize
+    )
+    plan = _build_spatial_fusion_plan(
+        sparams=param_mats,
+        views_bb=views_bb,
+        output_stack_properties=output_stack_properties,
+        output_chunksize=output_chunksize,
+        output_chunk_bbs=chunk_bbs,
+        output_chunk_bbs_with_overlap=[
+            _extend_bb(bb, overlap_in_pixels) for bb in chunk_bbs
+        ],
+        block_indices=block_indices,
+        overlap_in_pixels=overlap_in_pixels,
+        interpolation_order=interpolation_order,
+        sdims=sdims,
+    )
+    _execute_fusion_plan_batched(
+        plan,
+        field_sims,
+        output_stack_properties,
+        sdims,
+        mode=_BUILTIN_FUSION_MODES[fusion_func],
+        use_bw=misc_utils.has_keyword(fusion_func, "blending_weights"),
+        blending_widths=blending_widths,
+        shrink_distance=shrink_distance,
+        out=out,
+        device=device,
+    )
 
 
 def fuse(
@@ -489,15 +960,17 @@ def fuse(
     output_zarr_url: Optional[str] = None,
     device=None,
 ):
-    """Fuse translation-placed views into a single image.
+    """Fuse views into a single image.
 
-    Returns a Sim holding the fused output in host memory, in the input
-    dtype, with an identity affine under ``transform_key``. The fusion runs
-    on ``device``: the CUDA device by default (raising if there is none),
+    Views placed by translations take the translation tier (default
+    weighted average only); views with any other affine take the
+    exact-affine tier, with any builtin fusion function. Returns a Sim
+    holding the fused output in host memory, in the input dtype, with an
+    identity affine under ``transform_key``. The fusion runs on ``device``: the CUDA device by default (raising if there is none),
     or the CPU with ``device="cpu"``, which takes the kernels' plain
     PyTorch versions.
     """
-    device = _resolve_device(device)
+    device = misc_utils.resolve_device(device)
     if images is None or not len(images):
         raise ValueError("images must contain at least one image.")
     if any(msi_utils.is_msim(im) for im in images):
@@ -507,19 +980,17 @@ def fuse(
             f"fusing into zarr is not ported yet ({_ROADMAP}: zarr output, "
             "item 4 streaming zarr fusion)"
         )
-    if (
-        _BUILTIN_FUSION_MODES.get(fusion_func) != "weighted_average"
-        or fusion_func_kwargs
-        or weights_func is not None
-    ):
+    builtin_mode = _BUILTIN_FUSION_MODES.get(fusion_func)
+    if builtin_mode is None or fusion_func_kwargs or weights_func is not None:
         raise NotImplementedError(
-            "only the default weighted_average_fusion without weights_func "
-            f"or fusion_func_kwargs is ported ({_ROADMAP}: item 10, the "
-            "other fusion tiers)"
+            "only the builtin fusion functions without weights_func or "
+            f"fusion_func_kwargs are ported ({_ROADMAP}: item 10, the host "
+            "path and fuse_np)"
         )
     if interpolation_order != 1:
         raise NotImplementedError(
-            f"the translation tier interpolates linearly ({_ROADMAP}: item 10)"
+            "the ported tiers interpolate linearly; other orders need the "
+            f"gather tier ({_ROADMAP}: items 6 and 10)"
         )
 
     sims_in = list(images)
@@ -594,11 +1065,29 @@ def fuse(
                 si_utils.get_affine_from_sim(s, transform_key=transform_key).squeeze()
             )
             param_mats.append(m[0] if m.ndim == 3 else m)
+        ns_idx = tuple(
+            int(np.where(ns_coord_lists[nd] == c)[0][0]) for nd, c in zip(nsdims, combo)
+        )
         if not _plan_is_translation(param_mats, ndim):
+            _fuse_affine_views(
+                param_mats,
+                field_sims,
+                output_stack_properties,
+                sdims,
+                fusion_func=fusion_func,
+                output_chunksize=output_chunksize,
+                overlap_in_pixels=overlap_in_pixels,
+                interpolation_order=interpolation_order,
+                blending_widths=blending_widths,
+                shrink_distance=shrink_distance,
+                out=output_array[ns_idx],
+                device=device,
+            )
+            continue
+        if builtin_mode != "weighted_average":
             raise NotImplementedError(
-                "only translation-placed views are ported; rotated, scaled "
-                f"or sheared views need the exact-affine kernels ({_ROADMAP}: "
-                "item 10, and queue 2 kernels 3-5)"
+                "translation-placed views are ported for the default "
+                f"weighted_average_fusion only ({_ROADMAP}: item 10, the tiles tier)"
             )
         scale = _views_output_scale(field_sims, output_stack_properties, sdims)
         scales = (
@@ -611,9 +1100,6 @@ def fuse(
                 "view -> output pixel scales above 8 need the other fusion "
                 f"tiers ({_ROADMAP}: item 10)"
             )
-        ns_idx = tuple(
-            int(np.where(ns_coord_lists[nd] == c)[0][0]) for nd, c in zip(nsdims, combo)
-        )
         _execute_fusion_plan_translation(
             {"sparams": param_mats},
             field_sims,

@@ -1,4 +1,5 @@
-"""Halo and shrinkage declarations of fusion and weights functions.
+"""Halo and shrinkage declarations of fusion and weights functions, and
+the device an entry point runs on.
 
 Copy of the decorators and readers of ``multiview_stitcher_tpu.utils.misc``:
 a fusion or weights function declares the chunk halo or the source shrinkage
@@ -6,6 +7,10 @@ it needs, and the fusion planner reads the declaration.
 """
 
 from __future__ import annotations
+
+import inspect
+
+import torch
 
 
 def requires_overlap(overlap_spec):
@@ -33,3 +38,28 @@ def get_required_overlap(func, kwargs) -> object:
 def get_required_source_shrinkage(func, kwargs) -> object:
     spec = getattr(func, "required_source_shrinkage", None)
     return spec(kwargs) if spec is not None else 0
+
+
+def has_keyword(func, keyword: str) -> bool:
+    """Whether ``func`` names ``keyword`` among its parameters. Only named
+    parameters count: a ``**kwargs`` catch-all does not signal that a func
+    wants a given input."""
+    if func is None:
+        return False
+    try:
+        sig = inspect.signature(func)
+    except (TypeError, ValueError):
+        return False
+    return keyword in sig.parameters
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the CUDA device unless the caller
+    names another. Raises where CUDA is asked for and there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "this runs on the CUDA device by default and this machine has "
+            "none; pass device='cpu' for the plain PyTorch path"
+        )
+    return device

@@ -22,9 +22,10 @@ BoundingBox = Dict[str, Dict[str, Union[float, int]]]
 DEFAULT_BLENDING_WIDTHS = {"z": 3.0, "y": 10.0, "x": 10.0}
 
 
-def normalize_weights(weights: torch.Tensor) -> torch.Tensor:
-    """Normalize per-view weights to sum 1 where any view contributes."""
-    wsum = torch.nansum(weights, dim=0)
+def normalize_weights(weights: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Normalize per-view weights (views along ``dim``) to sum 1 where any
+    view contributes."""
+    wsum = torch.nansum(weights, dim=dim, keepdim=True)
     return weights / torch.where(wsum == 0, torch.ones_like(wsum), wsum)
 
 

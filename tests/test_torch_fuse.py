@@ -189,14 +189,27 @@ def test_fuse_refuses_what_the_slice_does_not_cover():
         fuse(overlap_in_pixels=4, trim_overlap=False)
     with pytest.raises(NotImplementedError, match="msims"):
         fuse(images=[msi_utils.get_msim_from_sim(s) for s in jsims])
+    # translation-placed views keep the default blending only (tiles tier)
+    with pytest.raises(NotImplementedError, match="tiles tier"):
+        fuse(fusion_func=tcore.max_fusion)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fuse(interpolation_order=3)
+    # rotated views fuse now, but not float views that hold NaN (gather tier)
     rot = np.eye(3)
     rot[:2, :2] = [[np.cos(0.1), -np.sin(0.1)], [np.sin(0.1), np.cos(0.1)]]
-    rotated = [
-        convert.sim_from_numpy(s.data, s.dims, s.spacing, s.origin, {KEY: rot})
-        for s in sims
-    ]
-    with pytest.raises(NotImplementedError, match="translation"):
-        fuse(images=rotated)
+
+    def rotated(dtype, hole):
+        out = []
+        for s in sims:
+            data = s.data.astype(dtype)
+            if hole:
+                data[4:8, 4:8] = np.nan
+            out.append(convert.sim_from_numpy(data, s.dims, s.spacing, s.origin, {KEY: rot}))
+        return out
+
+    assert fuse(images=rotated(np.uint16, False)).data.dtype == np.uint16
+    with pytest.raises(NotImplementedError, match="NaN"):
+        fuse(images=rotated(np.float32, True))
 
 
 def _layout_props(rng, ndim):
@@ -339,7 +352,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "    ('jax', 'jaxlib', 'multiview_stitcher_tpu', 'networkx', 'pandas', 'tensorstore'))\n"
+        "    ('jax', 'jaxlib', 'multiview_stitcher_tpu', 'networkx', 'pandas', 'tensorstore',\n"
+        "     'triton'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
