@@ -17,7 +17,16 @@ Phases, one printed line or block each:
    reference's test maps, a map that downscales by 4, uint8/uint16/f32
    sources, ``cval`` NaN and 0, a batch that samples a stack through
    ``tile_idx``/``starts`` and an output shape that is no multiple of the
-   blocks (identical masks, values within 5e-3 on data in [0, 100));
+   blocks (identical masks, values within 5e-3 on data in [0, 100)); then the
+   cases aimed at the 3D kernels' staged source boxes, through both 3D
+   kernels: rotations of 47, 92, 137 and -133 degrees about y on rows that
+   take 16-byte loads and rows that do not, NaN and inf in the source, a
+   shear steep enough that a block's box exceeds the shared-memory budget, a
+   stack whose windows are cut by every face, invalid items and a source
+   index outside the stack between valid ones, and the 5^3 weight grids of
+   ``fuse``. Each 3D line prints how many blocks or runs staged their box in
+   shared memory, took the large-footprint route, or were filled with
+   ``cval``;
 4. the 3D main path through ``fusion.fuse``: 32 x 32 tiles of 64^3 uint16,
    overlap 12, output (64, 1676, 1676) uint16; a cold and a warm call, the
    warm one split into plan, upload, kernel and download; the whole output
@@ -33,7 +42,8 @@ Phases, one printed line or block each:
    kernel). Each runs cold and warm, the warm call split into plan, upload,
    kernel, blend and download, and is held against the same ``fuse`` with
    the wrappers swapped for their plain versions on the card. The fullest
-   batch's data resample is timed beside its plain version and beside one
+   batch's data resample is timed warm and on a cold L2 (a 256 MB buffer
+   zeroed before each launch), beside its plain version and beside one
    ``grid_sample`` call (a yardstick for time only: its border rule is not
    the ``cval`` mask);
 7. a ``kernels`` JSON line: per kernel its launches in the main-path run,
@@ -334,16 +344,30 @@ def covered_voxel_views(np, offs, extents, scale_arr, out_shape):
     return total
 
 
-def time_kernel_ms(torch, fn, args, kw, reps):
+def time_kernel_ms(torch, fn, args, kw, reps, flush=None):
+    """Mean time of ``fn(*args, **kw)`` over ``reps`` calls, by CUDA events:
+    around the whole run of calls, or with ``flush`` (a buffer larger than
+    the L2 cache, zeroed before each call) around each call on a cold L2."""
     fn(*args, **kw)  # warm
     torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
+    if flush is None:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn(*args, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+    total = 0.0
     for _ in range(reps):
+        flush.zero_()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
         fn(*args, **kw)
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+        e1.record()
+        torch.cuda.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / reps
 
 
 def main_path(np, torch, tsi, tcore, tf, tea, fuse, ndim, n, tile, overlap, band_tiles):
@@ -499,35 +523,57 @@ def exact_small_cases(np):
     return cases
 
 
-def check_exact_small_cases(np, torch, tea):
-    """Phase 3, exact-affine kernels: each against its plain version on the
-    card. Masks must be identical, values within EXACT_ATOL."""
-    wrappers = {
+def exact_wrappers(tea):
+    return {
         "2d": (tea.exact_affine_batch_2d, tea.exact_affine_batch_2d_plain),
         "sepy": (tea.exact_affine_batch_3d_sepy, tea.exact_affine_batch_3d_sepy_plain),
         "general": (tea.exact_affine_batch_3d_general, tea.exact_affine_batch_3d_general_plain),
     }
+
+
+def compare_exact(np, torch, tea, worst, kind, label, args, kw, route=None):
+    """One exact-affine wrapper call against its plain version on the card:
+    identical masks, values within EXACT_ATOL. ``route`` names what the 3D
+    kernel must have done: "shared" (no block took the large-footprint
+    route, some staged a box) or "gather" (some block took it)."""
+    fn, plain = exact_wrappers(tea)[kind]
+    tea.record_routes(args[0].device)
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    routes = tea.read_routes()
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == torch.float32 and got.shape == ref.shape
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    if not np.array_equal(np.isnan(g), np.isnan(r)):
+        raise AssertionError(f"exact {kind} {label}: masks differ")
+    if not np.array_equal(g == 0, r == 0):
+        raise AssertionError(f"exact {kind} {label}: zero masks differ")
+    err = max_err(np.nan_to_num(g), np.nan_to_num(r), np)
+    inside = float(np.mean(~np.isnan(g) & (g != 0)))
+    ok = err < EXACT_ATOL and inside > 0.005
+    took = "" if kind == "2d" else " routes " + "/".join(f"{k} {v}" for k, v in routes.items())
+    log(f"  exact {kind:7s} {label:26s}: inside {inside:.2f} "
+        f"max_abs_err={err:.3g}{took} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"exact {kind} {label}: kernel != plain ({err}, inside {inside})")
+    if route == "shared" and (routes["gather"] or not routes["shared"]):
+        raise AssertionError(f"exact {kind} {label}: expected the shared-memory route, got {routes}")
+    if route == "gather" and not routes["gather"]:
+        raise AssertionError(f"exact {kind} {label}: expected the large-footprint route, got {routes}")
+    worst[kind] = max(worst[kind], err)
+    return got, ref
+
+
+def check_exact_small_cases(np, torch, tea):
+    """Phase 3, exact-affine kernels: each against its plain version on the
+    card. Masks must be identical, values within EXACT_ATOL."""
+    wrappers = exact_wrappers(tea)
     worst = {k: 0.0 for k in wrappers}
     rng = np.random.default_rng(1)
 
     def compare(kind, label, args, kw):
-        fn, plain = wrappers[kind]
-        got, ref = fn(*args, **kw), plain(*args, **kw)
-        torch.cuda.synchronize()
-        assert got.is_cuda and got.dtype == torch.float32 and got.shape == ref.shape
-        g, r = got.cpu().numpy(), ref.cpu().numpy()
-        if not np.array_equal(np.isnan(g), np.isnan(r)):
-            raise AssertionError(f"exact {kind} {label}: masks differ")
-        if not np.array_equal(g == 0, r == 0):
-            raise AssertionError(f"exact {kind} {label}: zero masks differ")
-        err = max_err(np.nan_to_num(g), np.nan_to_num(r), np)
-        inside = float(np.mean(~np.isnan(g) & (g != 0)))
-        ok = err < EXACT_ATOL and inside > 0.005
-        log(f"  exact {kind:7s} {label:22s}: inside {inside:.2f} "
-            f"max_abs_err={err:.3g} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"exact {kind} {label}: kernel != plain ({err}, inside {inside})")
-        worst[kind] = max(worst[kind], err)
+        compare_exact(np, torch, tea, worst, kind, label, args, kw)
 
     for kind, label, src, out, mats, offs, extents in exact_small_cases(np):
         B, ndim = len(mats), len(src)
@@ -568,7 +614,127 @@ def check_exact_small_cases(np, torch, tea):
         last = fn(*args, **dict(kw, cval=float("nan")))[B]
         if not bool(torch.isnan(last).all()):
             raise AssertionError(f"exact {kind}: a padding slot was sampled")
+    check_exact_3d_routes(np, torch, tea, worst)
     return worst
+
+
+def about_box_centre(np, lin, src, out):
+    """Offset that sends the centre of an ``out`` grid to the centre of ``src``."""
+    return (np.asarray(src) - 1) / 2 - lin @ ((np.asarray(out) - 1) / 2)
+
+
+def check_exact_3d_routes(np, torch, tea, worst):
+    """Phase 3, the cases aimed at the 3D kernels' staged source boxes. Both
+    3D kernels take every y-decoupled case; each line prints the routes the
+    kernel's blocks (general) or runs of y rows (y-decoupled) took."""
+    rng = np.random.default_rng(2)
+    both = ("sepy", "general")
+
+    def positive(shape, dtype):
+        return torch.from_numpy((rng.random(shape) * 99 + 1).astype(dtype)).cuda()
+
+    def tables(mats, offs, extents):
+        return tuple(np.asarray(x, np.float32) for x in (mats, offs, extents))
+
+    # rotations about y, all in one batch per source dtype; the source rows
+    # take 16-byte loads for every dtype (W = 48), the output shape is no
+    # multiple of a tile in any axis
+    src, out = (44, 26, 48), (37, 21, 45)
+    angles = (47, 92, 137, -133)
+    rots = np.stack([roty(np, np.deg2rad(a), 1.07) for a in angles])
+    offs = np.stack([about_box_centre(np, m, src, out) + (0.3, -0.4, 0.2) for m in rots])
+    ext = np.array([[s - 2 * b for s in src] for b in range(len(rots))])
+    for dtype in (np.float32, np.uint16, np.uint8):
+        data = positive((len(rots),) + src, dtype)
+        for kind in both:
+            for cval in (float("nan"), 0.0):
+                # the y-decoupled kernel stages these boxes; under them the
+                # general kernel's 32 x 8 tiles span so many planes that it
+                # stages runs of 4 planes or takes the large-footprint route
+                compare_exact(np, torch, tea, worst, kind,
+                              f"rot y {np.dtype(dtype).name} cval={cval}",
+                              (data, *tables(rots, offs, ext), out), {"cval": cval},
+                              "shared" if kind == "sepy" else None)
+    # the same on rows that take scalar loads (W = 45), NaN and inf in the source
+    src_odd = (44, 26, 45)
+    holed = (rng.random((len(rots),) + src_odd) * 99 + 1).astype(np.float32)
+    offs_odd = np.stack([about_box_centre(np, m, src_odd, out) for m in rots])
+    args = (torch.from_numpy(holed).cuda(), *tables(rots, offs_odd, [src_odd] * len(rots)), out)
+    for kind in both:
+        compare_exact(np, torch, tea, worst, kind, "rot y float32 odd rows", args, {},
+                      "shared" if kind == "sepy" else None)
+    holed[0, :, 10, 12] = np.nan
+    holed[1, :, 12, 15] = np.inf
+    holed[2, 20, :, 30] = -np.inf
+    args = (torch.from_numpy(holed).cuda(),) + args[1:]
+    for kind in both:
+        fn, plain = exact_wrappers(tea)[kind]
+        got, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isnan(got), torch.isnan(ref)) or not bool(
+            torch.isfinite(got[~torch.isnan(got)]).all()
+        ):
+            raise AssertionError(f"exact {kind}: NaN/inf input is not read through nan_to_num")
+        small = (got.abs() < 1e6) & (ref.abs() < 1e6)
+        if float((got - ref)[small].abs().max()) >= EXACT_ATOL:
+            raise AssertionError(f"exact {kind}: values beside NaN/inf input differ")
+    log("  exact sepy/general rot y float32 with NaN and inf: read through nan_to_num ok")
+
+    # couplings of 0.05 in every entry: the general kernel's box fits for runs
+    # of 8 of its tile's 16 planes
+    mats = np.stack([np.eye(3) + 0.05 * s for s in (np.ones((3, 3)), -np.ones((3, 3)))])
+    offs_c = np.stack([about_box_centre(np, m, src, out) for m in mats])
+    compare_exact(np, torch, tea, worst, "general", "couplings of 0.05 uint16",
+                  (positive((2,) + src, np.uint16), *tables(mats, offs_c, [src] * 2), out), {},
+                  "shared")
+
+    # a shear of z by 8 x: a tile's box is some 270 planes deep and exceeds
+    # the shared-memory budget; y-decoupled, so both kernels take it
+    src_tall, out_sh = (300, 12, 40), (18, 11, 37)
+    shear = np.eye(3)
+    shear[0, 2] = 8.0
+    args = (positive((2,) + src_tall, np.uint16),
+            *tables([shear, shear], [(0.4, 0.3, 0.6), (3.2, 0.7, 1.5)], [src_tall] * 2), out_sh)
+    for kind in both:
+        compare_exact(np, torch, tea, worst, kind, "shear 8 uint16", args, {}, "gather")
+    # fully coupled: the shear on top of the reference's two-axis rotation
+    args = (args[0], *tables([coupled3(np, 1) @ shear] * 2, [(30.0, 2.0, 3.0), (45.5, 1.0, 0.5)],
+                             [src_tall] * 2), out_sh)
+    compare_exact(np, torch, tea, worst, "general", "coupled shear uint16", args, {}, "gather")
+
+    # windows of a stack: one spans its source, so that the box of an edge
+    # tile is cut by every face of the stack; one sits at the far corner;
+    # between the valid items one marked invalid and one whose tile_idx lies
+    # outside the stack (a tensor, which the wrapper does not read back)
+    stack_shape = (24, 14, 32)
+    stack = positive((3,) + stack_shape, np.uint16)
+    tilt = roty(np, np.deg2rad(12))
+    far = np.array(stack_shape) - 8
+    mats = np.stack([tilt, np.eye(3), roty(np, 0.3), np.eye(3), roty(np, -0.2)])
+    offs = np.stack([about_box_centre(np, tilt, stack_shape, out), np.zeros(3),
+                     (-2.5, -1.5, -3.5), np.zeros(3), (1.0, 2.0, -4.0)])
+    ext = np.array([stack_shape, (1, 1, 1), (8, 8, 8), (1, 1, 1), (20, 14, 30)])
+    kw = {"tile_idx": torch.tensor([0, 1, 2, 5, 1], dtype=torch.int32).cuda(),
+          "starts": np.array([(0, 0, 0), (0, 0, 0), far, (0, 0, 0), (3, 0, 2)], np.int32),
+          "valid": np.array([True, False, True, True, True])}
+    for kind in both:
+        for cval in (float("nan"), 0.0):
+            got, _ = compare_exact(np, torch, tea, worst, kind, f"stack faces cval={cval}",
+                                   (stack, *tables(mats, offs, ext), out), dict(kw, cval=cval),
+                                   "shared")
+            for b in (1, 3):
+                unsampled = torch.isnan(got[b]) if cval != cval else got[b] == 0
+                if not bool(unsampled.all()):
+                    raise AssertionError(f"exact {kind}: item {b} of the stack batch was sampled")
+
+    # the blending-weight launch of fuse(): 5^3 f32 grids, extent 5, cval 0
+    grids = positive((len(rots), 5, 5, 5), np.float32)
+    wm = rots * (4.0 / 40)
+    wo = np.stack([about_box_centre(np, m, (5, 5, 5), out) for m in wm])
+    for kind in both:
+        compare_exact(np, torch, tea, worst, kind, "5^3 weight grids cval=0",
+                      (grids, *tables(wm, wo, np.full((len(rots), 3), 5.0)), out), {"cval": 0.0},
+                      "shared")
 
 
 def about_centre(np, lin, centre):
@@ -710,13 +876,31 @@ def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, ki
     if err > UINT_COUNTS:
         raise AssertionError(f"{label}: fused output differs from the plain-version run by {err}")
 
-    # the fullest batch's data resample, tables already on the card
+    # the fullest batch's data resample. The kernel is timed on tables packed
+    # once (a wrapper call packs them anew, which takes the host longer than
+    # the kernel takes the card), warm and on a cold L2; the wrapper's own
+    # call, tables on the card and on the host, is timed beside it
     args, kw = st.kernel_call
     tiles = args[0]
     dev_args = (tiles,) + tuple(torch.as_tensor(x).cuda() for x in args[1:4]) + (args[4],)
     dev_kw = {k: (torch.as_tensor(v).cuda() if k != "cval" else v) for k, v in kw.items()}
-    kernel_ms = time_kernel_ms(torch, wrapper, dev_args, dev_kw, reps=10)
+    packed = tea._check_args(ndim, tiles, *args[1:5], kw["cval"], kw["tile_idx"], kw["starts"],
+                             kw["valid"])
+    entry = tea._ENTRY_POINTS[list(names).index(kind)]
+    kernel_ms = time_kernel_ms(torch, tea._launch, (entry, packed), {}, reps=20)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=tiles.device)
+    cold_l2_ms = time_kernel_ms(torch, tea._launch, (entry, packed), {}, reps=10, flush=flush)
+    del flush
+    wrapper_ms = time_kernel_ms(torch, wrapper, dev_args, dev_kw, reps=10)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    wrapper_host_tables_ms = (time.perf_counter() - t0) / 20 * 1e3
+    tea.record_routes(tiles.device)
     got = wrapper(*dev_args, **dev_kw)
+    torch.cuda.synchronize()
+    routes = tea.read_routes()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     plain(*dev_args, **dev_kw)  # warm
     e0.record()
@@ -745,8 +929,10 @@ def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, ki
     ops = exact_ops(ndim, voxels, inside)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     log(f"{label}: fullest batch {n_valid} of {len(kw['valid'])} items x {tuple(args[4])}, "
-        f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.2f} ms, grid_sample {library_ms:.3f} ms, "
-        f"bound {max(t_bytes, t_ops):.4f} ms; plain-version fuse {plain_fuse_s:.2f} s, "
+        f"kernel {kernel_ms:.4f} ms warm, {cold_l2_ms:.4f} ms on a cold L2, plain {plain_ms:.2f} ms, "
+        f"grid_sample {library_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms; wrapper call "
+        f"{wrapper_ms:.3f} ms with tables on the card, {wrapper_host_tables_ms:.3f} ms (host "
+        f"clock) with host tables; routes {routes}; plain-version fuse {plain_fuse_s:.2f} s, "
         f"{n_diff} voxels differ by 1 count, batch max_abs_err {batch_err:.3g}")
     return {
         "launches": int(launched[kind]),
@@ -757,6 +943,10 @@ def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, ki
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
+        "cold_l2_ms": cold_l2_ms,
+        "wrapper_ms": wrapper_ms,
+        "wrapper_host_tables_ms": wrapper_host_tables_ms,
+        "routes": routes,
         "cold_fuse_s": cold_s,
         "warm_fuse_s": warm_s,
         "plain_fuse_s": plain_fuse_s,

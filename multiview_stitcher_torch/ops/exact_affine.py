@@ -13,14 +13,23 @@ reference's order ``(data, mats, offs, extents, out_shape, cval=nan)``.
 For a CUDA tensor a wrapper launches the hand-written CUDA C++ kernel of
 ``csrc/exact_affine.cu`` (built for sm_90a at first use) or raises; it takes
 the plain PyTorch version ``*_plain`` only for a tensor on the CPU. Each
-wrapper counts its launches in its ``launches`` attribute.
+wrapper counts its launches in its ``launches`` attribute. The tables of a
+call (``mats``, ``offs``, ``extents``, ``tile_idx``, ``starts``, ``valid``)
+are packed into the kernels' two parameter arrays on the host and uploaded in
+one copy when all of them are host arrays, and on the device, with no
+read-back, when any is a tensor.
 
 What the reference's wrappers take and these do not: ``tile``, ``HW``,
 ``WW``, ``ZS``, ``XS``, ``YW``, ``YB``, ``interpret`` and the
 ``plan_windows_*`` planners. They size the window DMAs and the banded-hat
 matmuls that stand in for a gather on a machine that has none. Here a
 thread computes its sample coordinate, takes ``floor`` and the fraction and
-reads its 4 or 8 neighbours, so no map is ever too large for a window.
+reads its 4 or 8 neighbours. The 3D kernels first copy the box of source
+voxels that a block's output tile can touch into shared memory and
+interpolate from there; a block whose box exceeds the shared-memory budget
+(a map that downscales, a steep shear) gathers from global memory instead, so
+no map is ever too large for a window. :func:`record_routes` and
+:func:`read_routes` count which of the two a call's blocks took.
 
 What these take and the reference's do not (all optional): ``tile_idx`` and
 ``starts`` make item ``b`` read ``data[tile_idx[b]]`` shifted by the integer
@@ -102,29 +111,69 @@ def _check_args(ndim, data, mats, offs, extents, out_shape, cval,
         raise ValueError(f"data must be (B, *{ndim}D), got {tuple(data.shape)}")
     if len(out_shape) != ndim:
         raise ValueError(f"out_shape needs {ndim} entries, got {tuple(out_shape)}")
-    dev = data.device
-    mats = torch.as_tensor(mats, dtype=torch.float32, device=dev)
-    if mats.dim() != 3 or tuple(mats.shape[1:]) != (ndim, ndim):
+    out_shape = tuple(int(o) for o in out_shape)
+    tables = [mats, offs, extents] + [x for x in (tile_idx, starts, valid) if x is not None]
+    pack = _pack_on_device if any(isinstance(x, torch.Tensor) for x in tables) else _pack_on_host
+    fparams, iparams = pack(ndim, data, mats, offs, extents, tile_idx, starts, valid)
+    return _Args(data.contiguous(), fparams, iparams, out_shape, float(cval))
+
+
+def _check_shapes(ndim, data, mats, offs, extents, tile_idx, starts) -> int:
+    """The argument checks both packings share; returns B."""
+    if mats.ndim != 3 or tuple(mats.shape[1:]) != (ndim, ndim):
         raise ValueError(f"mats must be (B, {ndim}, {ndim}), got {tuple(mats.shape)}")
     B = mats.shape[0]
-    cols = [mats.reshape(B, ndim * ndim)]
     for name, x in (("offs", offs), ("extents", extents)):
-        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
         if tuple(x.shape) != (B, ndim):
             raise ValueError(f"{name} must be ({B}, {ndim}), got {tuple(x.shape)}")
-        cols.append(x)
     if (tile_idx is None) != (starts is None):
         raise ValueError("tile_idx and starts go together")
     if tile_idx is None:
         if data.shape[0] != B:
             raise ValueError(f"data holds {data.shape[0]} items, mats {B}")
+    elif not isinstance(tile_idx, torch.Tensor):
+        idx = np.asarray(tile_idx)
+        if idx.size and (idx.min() < 0 or idx.max() >= data.shape[0]):
+            raise ValueError(f"tile_idx must lie in [0, {data.shape[0]}), got {idx.min()}..{idx.max()}")
+    return B
+
+
+def _pack_on_host(ndim, data, mats, offs, extents, tile_idx, starts, valid):
+    """``fparams`` and ``iparams`` from host arrays: packed with numpy into
+    one buffer, which goes to the device of ``data`` in one copy."""
+    mats, offs, extents = (np.asarray(x, dtype=np.float32) for x in (mats, offs, extents))
+    B = _check_shapes(ndim, data, mats, offs, extents, tile_idx, starts)
+    nf, ni = ndim * ndim + 2 * ndim, ndim + 2
+    buf = np.empty(B * (nf + ni), dtype=np.int32)
+    f = buf[: B * nf].view(np.float32).reshape(B, nf)
+    i = buf[B * nf :].reshape(B, ni)
+    f[:, : ndim * ndim] = mats.reshape(B, ndim * ndim)
+    f[:, ndim * ndim : ndim * ndim + ndim] = offs
+    f[:, ndim * ndim + ndim :] = extents
+    if tile_idx is None:
+        i[:, 0] = np.arange(B)
+        i[:, 1 : 1 + ndim] = 0
+    else:
+        i[:, 0] = np.asarray(tile_idx).reshape(B)
+        i[:, 1 : 1 + ndim] = np.asarray(starts).reshape(B, ndim)
+    i[:, ndim + 1] = 1 if valid is None else np.asarray(valid).reshape(B)
+    dev_buf = torch.from_numpy(buf).to(data.device)
+    return (dev_buf[: B * nf].view(torch.float32).reshape(B, nf),
+            dev_buf[B * nf :].reshape(B, ni))
+
+
+def _pack_on_device(ndim, data, mats, offs, extents, tile_idx, starts, valid):
+    """``fparams`` and ``iparams`` when a table is a tensor: converted and
+    concatenated on the device of ``data``, with no read-back."""
+    dev = data.device
+    mats, offs, extents = (
+        torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (mats, offs, extents)
+    )
+    B = _check_shapes(ndim, data, mats, offs, extents, tile_idx, starts)
+    if tile_idx is None:
         src = torch.arange(B, dtype=torch.int32, device=dev)
         st = torch.zeros((B, ndim), dtype=torch.int32, device=dev)
     else:
-        if not isinstance(tile_idx, torch.Tensor):
-            idx = np.asarray(tile_idx)
-            if idx.size and (idx.min() < 0 or idx.max() >= data.shape[0]):
-                raise ValueError(f"tile_idx must lie in [0, {data.shape[0]}), got {idx.min()}..{idx.max()}")
         src = torch.as_tensor(tile_idx, dtype=torch.int32, device=dev).reshape(B)
         st = torch.as_tensor(starts, dtype=torch.int32, device=dev).reshape(B, ndim)
     ok = (
@@ -132,12 +181,9 @@ def _check_args(ndim, data, mats, offs, extents, out_shape, cval,
         if valid is None
         else torch.as_tensor(valid, device=dev).reshape(B).to(torch.int32)
     )
-    return _Args(
-        data.contiguous(),
-        torch.cat(cols, dim=1).contiguous(),
+    return (
+        torch.cat([mats.reshape(B, ndim * ndim), offs, extents], dim=1).contiguous(),
         torch.cat([src[:, None], st, ok[:, None]], dim=1).contiguous(),
-        tuple(int(o) for o in out_shape),
-        float(cval),
     )
 
 
@@ -220,10 +266,38 @@ def _library() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mvs_exact_affine_2d.argtypes = [P, I, I, I, I, P, P, I, P, I, I, F, P]
     for name in _ENTRY_POINTS[1:]:
-        getattr(lib, name).argtypes = [P, I, I, I, I, I, P, P, I, P, I, I, I, F, P]
+        getattr(lib, name).argtypes = [P, I, I, I, I, I, P, P, I, P, I, I, I, F, P, P]
     for name in _ENTRY_POINTS:
         getattr(lib, name).restype = I
     return lib
+
+
+ROUTES = ("shared", "gather", "fill")
+_route_counts = None  # a CUDA int64 tensor of len(ROUTES) while routes are recorded
+
+
+def record_routes(device) -> None:
+    """Start counting, on ``device``, the routes the 3D kernels take: per
+    block (general) or run of y rows (y-decoupled), whether it staged its
+    source box in shared memory ("shared"), took the per-voxel global gathers
+    because the box exceeds the budget ("gather"), or filled a tile that no
+    valid sample reaches with ``cval`` ("fill"). Counting costs an atomic add
+    a block, so it is off unless asked for."""
+    global _route_counts
+    _route_counts = torch.zeros(len(ROUTES), dtype=torch.int64, device=device)
+
+
+def read_routes() -> dict:
+    """Stop counting; the counts since :func:`record_routes` by route."""
+    global _route_counts
+    counts, _route_counts = _route_counts, None
+    return dict(zip(ROUTES, counts.tolist()))
+
+
+def _route_counter(device) -> ctypes.c_void_p:
+    if _route_counts is None or _route_counts.device != device:
+        return ctypes.c_void_p(0)
+    return ctypes.c_void_p(_route_counts.data_ptr())
 
 
 def _launch(entry: str, a: _Args) -> tuple:
@@ -245,6 +319,7 @@ def _launch(entry: str, a: _Args) -> tuple:
             a.data.data_ptr(), _DTYPE_CODES[a.data.dtype], *a.data.shape,
             a.fparams.data_ptr(), a.iparams.data_ptr(), B,
             out.data_ptr(), *a.out_shape, ctypes.c_float(a.cval),
+            *([_route_counter(a.data.device)] if entry != _ENTRY_POINTS[0] else []),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _build.check(lib, rc, entry)

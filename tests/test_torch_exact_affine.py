@@ -22,6 +22,7 @@ from multiview_stitcher_torch import transformation as ttransformation
 from multiview_stitcher_torch.ops import exact_affine as tea
 from multiview_stitcher_tpu import si_utils, transformation
 from multiview_stitcher_tpu.ops import exact_affine as ea
+from multiview_stitcher_tpu.ops import resample as jresample
 
 VALUE_ATOL = 5e-3
 
@@ -115,6 +116,104 @@ def test_wrapper_matches_jax_on_the_reference_maps(case):
     data = (rng.random(src_shape) * 100).astype(np.float32)
     args = (data[None], M[None], np.array([off]), np.array([src_shape]), out_shape)
     _assert_same(_port(kind, *args), _jax(kind, *args))
+
+
+def _about_centre(M, src_shape, out_shape):
+    """Offset that sends the centre of the output grid to the source's."""
+    return (np.asarray(src_shape) - 1) / 2 - M @ ((np.asarray(out_shape) - 1) / 2)
+
+
+@pytest.mark.parametrize("kind", ["sepy", "general"])
+@pytest.mark.parametrize("degrees", [47, 92, 137, -133])
+def test_wrapper_matches_jax_on_steep_rotations_about_y(kind, degrees):
+    """The multi-view angles of the GPU smoke test, which spread a row of
+    output voxels over as many source planes; both 3D wrappers take them."""
+    src_shape, out_shape = (20, 30, 40), (18, 25, 35)
+    M = _roty(np.deg2rad(degrees), 1.07)
+    off = _about_centre(M, src_shape, out_shape) + (0.3, -0.4, 0.2)
+    data = (np.random.default_rng(abs(degrees)).random(src_shape) * 100).astype(np.float32)
+    args = (data[None], M[None], off[None], np.array([src_shape]), out_shape)
+    got = _port(kind, *args)
+    assert 0.3 < np.mean(~np.isnan(got)) < 0.9
+    _assert_same(got, _jax(kind, *args))
+
+
+_SHEAR_8 = np.array([[1.0, 0, 8.0], [0, 1, 0], [0, 0, 1]])
+
+
+@pytest.mark.parametrize("kind,M,off", [
+    ("sepy", _SHEAR_8, (0.4, 0.3, 0.6)),
+    ("general", _SHEAR_8, (0.4, 0.3, 0.6)),
+    ("general", _general(1) @ _SHEAR_8, (30.0, 2.0, 3.0)),
+])
+def test_wrapper_matches_the_gather_tier_on_a_steep_shear(kind, M, off):
+    """A shear of z by 8 x, alone and on top of the two-axis rotation: 32
+    output voxels along x span some 250 source planes. The reference's
+    ``plan_windows_*`` cannot window such a map (they return None), so the
+    case is held against its gather tier, ``ops.resample.affine_resample``,
+    whose mask and values the exact tier reproduces."""
+    src_shape, out_shape = (300, 12, 40), (18, 11, 37)
+    planner = ea.plan_windows_3d if kind == "sepy" else ea.plan_windows_3d_general
+    assert planner(M[None]) is None
+    data = (np.random.default_rng(11).random(src_shape) * 100).astype(np.float32)
+    got = _port(kind, data[None], M[None], np.array([off]), np.array([src_shape]), out_shape)[0]
+    ref = np.asarray(jresample.affine_resample(
+        jnp.asarray(data), M, np.asarray(off), out_shape, order=1))
+    assert 0.1 < np.mean(~np.isnan(got)) <= 1.0
+    _assert_same(got, ref)
+
+
+def _tables_as_the_device_packs_them(ndim, B, mats, offs, extents, tile_idx, starts, valid):
+    """``fparams`` and ``iparams`` built with ``torch.cat``, column by column."""
+    f = torch.cat([
+        torch.as_tensor(mats, dtype=torch.float32).reshape(B, ndim * ndim),
+        torch.as_tensor(offs, dtype=torch.float32),
+        torch.as_tensor(extents, dtype=torch.float32),
+    ], dim=1)
+    src = torch.arange(B, dtype=torch.int32) if tile_idx is None else torch.as_tensor(
+        tile_idx, dtype=torch.int32)
+    st = torch.zeros((B, ndim), dtype=torch.int32) if starts is None else torch.as_tensor(
+        starts, dtype=torch.int32)
+    ok = torch.ones(B, dtype=torch.int32) if valid is None else torch.as_tensor(valid).to(
+        torch.int32)
+    return f, torch.cat([src[:, None], st, ok[:, None]], dim=1)
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_host_packed_tables_equal_the_device_packed_ones(ndim, stacked, with_valid):
+    """Host arrays are packed with numpy into one buffer; tensors are
+    converted and concatenated with torch. Both give the same bits."""
+    rng = np.random.default_rng(ndim + 2 * stacked + 4 * with_valid)
+    B = 5
+    # float64 tables, as fuse() hands them over: both packings round them to f32
+    mats = rng.normal(0, 1, (B, ndim, ndim))
+    offs = rng.normal(0, 50, (B, ndim))
+    extents = rng.integers(1, 40, (B, ndim)).astype(np.float64)
+    data = torch.zeros((B if not stacked else 3,) + (8,) * ndim)
+    tile_idx = rng.integers(0, 3, B).astype(np.int64) if stacked else None
+    starts = rng.integers(0, 4, (B, ndim)).astype(np.int64) if stacked else None
+    valid = (rng.random(B) < 0.6) if with_valid else None
+    out_shape = (4,) * ndim
+
+    host = tea._check_args(ndim, data, mats, offs, extents, out_shape, 0.0,
+                           tile_idx, starts, valid)
+    as_tensor = lambda x: None if x is None else torch.as_tensor(x)  # noqa: E731
+    dev = tea._check_args(ndim, data, torch.as_tensor(mats), torch.as_tensor(offs),
+                          torch.as_tensor(extents), out_shape, 0.0,
+                          as_tensor(tile_idx), as_tensor(starts), as_tensor(valid))
+    f, i = _tables_as_the_device_packs_them(ndim, B, mats, offs, extents, tile_idx, starts, valid)
+    for a in (host, dev):
+        assert a.fparams.dtype == torch.float32 and a.iparams.dtype == torch.int32
+        assert a.fparams.is_contiguous() and a.iparams.is_contiguous()
+        # compared as bits: -0.0 and NaN payloads would count too
+        assert torch.equal(a.fparams.view(torch.int32), f.view(torch.int32))
+        assert torch.equal(a.iparams, i)
+    # lists and a mix of arrays and tensors pack the same tables
+    mixed = tea._check_args(ndim, data, mats.tolist(), torch.as_tensor(offs), extents,
+                            out_shape, 0.0, tile_idx, starts, valid)
+    assert torch.equal(mixed.fparams, f) and torch.equal(mixed.iparams, i)
 
 
 def _batch(kind, rng):

@@ -76,6 +76,18 @@ def _case(name, dtype=np.float32):
         R[0, 0], R[0, 2], R[2, 0], R[2, 2] = c, -s, s, c  # rotate around y
         return _sims([vol, vol.copy()], [(0.0, 0.0, 0.0), (0.0, 0.0, 36.0)],
                      [np.eye(4), R], ("z", "y", "x")), 32
+    if name == "multiview92":
+        # two views of one volume, the second rotated by 92 degrees about y
+        # through the common centre: the light-sheet multi-view geometry
+        vol = (_smooth((28, 20, 28)) * 100).astype(dtype)
+        c, s = np.cos(np.deg2rad(92)), np.sin(np.deg2rad(92))
+        lin = np.array([[c, 0, -s], [0, 1, 0], [s, 0, c]])
+        centre = (np.array(vol.shape) - 1) / 2
+        R = np.eye(4)
+        R[:3, :3] = lin
+        R[:3, 3] = centre - lin @ centre
+        return _sims([vol, np.ascontiguousarray(vol[::-1])], [(0.0, 0.0, 0.0)] * 2,
+                     [np.eye(4), R], ("z", "y", "x")), 16
     if name == "coupled":
         vol = (_smooth((24, 32, 32)) * 100).astype(dtype)
         R = np.eye(4)
@@ -148,6 +160,7 @@ _FUSE_CASES = [
     ("roty2", np.float32, "weighted_average_fusion"),
     ("roty3", np.uint16, "weighted_average_fusion"),
     ("roty3", np.float32, "weighted_average_fusion"),
+    ("multiview92", np.uint16, "weighted_average_fusion"),
     ("coupled", np.uint16, "weighted_average_fusion"),
     ("coupled", np.float32, "weighted_average_fusion"),
     ("affine_resolved", np.uint16, "weighted_average_fusion"),
