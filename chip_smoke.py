@@ -11,27 +11,35 @@ Phases, one printed line or block each:
 1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` gives it;
 2. the build of every CUDA source of the port, timed (nvcc, sm_90a);
 3. each kernel against its plain version on the card, on small cases: the
-   translation kernels on small layouts (unit scale, uniform and per-view
-   scales, a banded ``origin``, uint16 output, tile shapes that are and are
-   not multiples of the kernel blocks); the exact-affine kernels on the
+   translation kernels on small layouts (unit scale, uniform z stride 2 and
+   per-view scales, a banded ``origin``, uint16 output, views whose z
+   validity begins or ends inside a run of planes, tile shapes that are and
+   are not multiples of the kernel blocks, tile depths above, at half and
+   below the 3D kernel's run of planes, and view lists of 40 slots, which the
+   3D kernel stages in several passes); the exact-affine kernels on the
    reference's test maps, a map that downscales by 4, uint8/uint16/f32
    sources, ``cval`` NaN and 0, a batch that samples a stack through
    ``tile_idx``/``starts`` and an output shape that is no multiple of the
    blocks (identical masks, values within 5e-3 on data in [0, 100)); then the
-   cases aimed at the 3D kernels' staged source boxes, through both 3D
-   kernels: rotations of 47, 92, 137 and -133 degrees about y on rows that
-   take 16-byte loads and rows that do not, NaN and inf in the source, a
-   shear steep enough that a block's box exceeds the shared-memory budget, a
-   stack whose windows are cut by every face, invalid items and a source
-   index outside the stack between valid ones, and the 5^3 weight grids of
-   ``fuse``. Each 3D line prints how many blocks or runs staged their box in
-   shared memory, took the large-footprint route, or were filled with
-   ``cval``;
+   cases aimed at the kernels' staged source boxes. 2D: rotations of 47 and
+   92 degrees on rows that take 16-byte loads and rows that do not, output
+   widths that are and are not multiples of 4, NaN and inf in the source, a
+   map that downscales by 4 and a shear whose boxes exceed the shared-memory
+   budget beside a map that downscales by 2 and fits, a stack whose windows
+   are cut by every edge, invalid items and a source index outside the stack
+   between valid ones, and the 5 x 5 weight grids of ``fuse``. 3D, through
+   both kernels: rotations of 47, 92, 137 and -133 degrees about y, NaN and
+   inf, a steep shear, a stack cut by every face, invalid items, and the 5^3
+   weight grids. Each exact-affine line prints how many blocks or runs
+   staged their box in shared memory, took the large-footprint route, or
+   were filled with ``cval``;
 4. the 3D main path through ``fusion.fuse``: 32 x 32 tiles of 64^3 uint16,
    overlap 12, output (64, 1676, 1676) uint16; a cold and a warm call, the
    warm one split into plan, upload, kernel and download; the whole output
    against the plain version, run on the card band by band through
-   ``origin``;
+   ``origin``; the kernel's launch on arguments checked once, warm and on a
+   cold L2 (a 256 MB buffer zeroed before each launch), beside the wrapper's
+   own call;
 5. the same for a 2D slide-scan mosaic: 32 x 32 tiles of 512^2 uint16,
    overlap 64;
 6. three affine main paths through ``fusion.fuse``, one per exact-affine
@@ -42,10 +50,10 @@ Phases, one printed line or block each:
    kernel). Each runs cold and warm, the warm call split into plan, upload,
    kernel, blend and download, and is held against the same ``fuse`` with
    the wrappers swapped for their plain versions on the card. The fullest
-   batch's data resample is timed warm and on a cold L2 (a 256 MB buffer
-   zeroed before each launch), beside its plain version and beside one
-   ``grid_sample`` call (a yardstick for time only: its border rule is not
-   the ``cval`` mask);
+   batch's data resample is timed warm and on a cold L2, beside the same
+   batch's blending-weight launch, its plain version and one ``grid_sample``
+   call (a yardstick for time only: its border rule is not the ``cval``
+   mask); no block of that batch may take the large-footprint route;
 7. a ``kernels`` JSON line: per kernel its launches in the main-path run,
    its time, the plain version's time, its bound and its error.
 
@@ -168,13 +176,31 @@ def small_layout(np, tsi, tcore, ndim, case, rng):
     return tiles, tables, tuple(osp["shape"][d] for d in sdims), scale_arr, scale, scales
 
 
+def compare_translation(np, torch, fn, plain, label, args, kw):
+    """One translation wrapper call against its plain version on the card;
+    the largest difference, which must be within the tolerance."""
+    got = fn(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.device == args[0].device and tuple(got.shape) == tuple(kw["out_shape"]), got.shape
+    g = got.cpu().numpy().astype(np.float64 if kw["out_dtype"] == torch.float32 else np.int64)
+    r = ref.cpu().numpy().astype(g.dtype)
+    err, ok = max_err(g, r, np), within_tol(g, r, np)
+    log(f"  {label}: max_abs_err={err:.3g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel != plain")
+    return err
+
+
 def check_small_cases(np, torch, tsi, tcore, tf):
     """Phase 3: every kernel against its plain version on the card."""
     worst = {2: 0.0, 3: 0.0}
     rng = np.random.default_rng(0)
+    # 3D: the tile of fuse() (deeper than these outputs: one run of planes that
+    # ends early), a depth of one and a half runs, and depths below a run
     tile_shapes = {
         2: [tf.TILE_SHAPE_2D, (32, 128), (20, 50)],
-        3: [tf.TILE_SHAPE_3D, (8, 16, 128), (6, 12, 40)],
+        3: [tf.TILE_SHAPE_3D, (12, 8, 32), (4, 8, 32), (8, 16, 128), (6, 12, 40)],
     }
     for ndim in (2, 3):
         fn = tf.fuse_translation_3d if ndim == 3 else tf.fuse_translation_2d
@@ -190,6 +216,7 @@ def check_small_cases(np, torch, tsi, tcore, tf):
                 variants = [("f32", torch.float32, None, out_shape, view_idx)]
                 if case == "unit":
                     variants.append(("uint16", torch.uint16, None, out_shape, view_idx))
+                if case == "unit" and view_idx.shape[0] > 1:
                     origin = np.zeros(ndim, np.int32)
                     origin[0] = tile_shape[0]
                     band_shape = (min(tile_shape[0], out_shape[0] - origin[0]),) + out_shape[1:]
@@ -201,19 +228,54 @@ def check_small_cases(np, torch, tsi, tcore, tf):
                     kw = dict(out_shape=shape, tile_shape=tile_shape, K=vidx.shape[-1],
                               out_dtype=out_dtype, origin=origin, scale=scale,
                               scales=None if scales is None else np.asarray(scales, np.float32))
-                    got = fn(*args, **kw)
-                    ref = plain(*args, **kw)
-                    torch.cuda.synchronize()
-                    assert got.device == args[0].device and tuple(got.shape) == tuple(shape), got.shape
-                    g = got.cpu().numpy().astype(np.float64 if out_dtype == torch.float32 else np.int64)
-                    r = ref.cpu().numpy().astype(g.dtype)
-                    err = max_err(g, r, np)
-                    ok = within_tol(g, r, np)
-                    log(f"  {ndim}d {case:8s} {label:6s} tile={tile_shape}: "
-                        f"max_abs_err={err:.3g} {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise AssertionError(f"{ndim}d {case} {label} {tile_shape}: kernel != plain")
+                    err = compare_translation(
+                        np, torch, fn, plain, f"{ndim}d {case:8s} {label:6s} tile={tile_shape}",
+                        args, kw)
                     worst[ndim] = max(worst[ndim], err)
+    worst[3] = max(worst[3], check_long_view_lists(np, torch, tsi, tcore, tf, rng))
+    return worst
+
+
+def check_long_view_lists(np, torch, tsi, tcore, tf, rng):
+    """Phase 3, 3D translation kernel: view lists longer than one pass of
+    staged slots. Every view of a small layout is repeated ten times with its
+    own content and a jittered fractional offset, so a tile lists up to 40
+    views; uniform mode (stride 1 and 2) and per-view z scales, f32 and
+    uint16 output, and a band through ``origin``."""
+    worst = 0.0
+    for case in ("unit", "scaled", "per_view"):
+        tiles, tables, out_shape, scale_arr, scale, scales = small_layout(
+            np, tsi, tcore, 3, case, rng
+        )
+        reps, V = 10, len(tiles)
+        tiles = np.concatenate([tiles * rng.uniform(0.5, 1.0) for _ in range(reps)])
+        jitter = rng.uniform(-1.5, 1.5, (reps * V, 3)).astype(np.float32)
+        tables = tuple(np.concatenate([t] * reps) for t in tables)
+        tables = (tables[0] + jitter,) + tables[1:]
+        if scales is not None:
+            scales = np.concatenate([scales] * reps)
+            scale_arr = scales
+        tile_shape = (12, 8, 32)
+        view_idx = tcore.tile_view_lists(
+            tables[0], tables[1], np.asarray(scale_arr, np.float64), out_shape, tile_shape
+        )
+        K = view_idx.shape[-1]
+        if K <= 32:
+            raise AssertionError(f"3d long lists {case}: K = {K}, expected more than 32")
+        variants = [("f32", torch.float32, None, out_shape, view_idx),
+                    ("uint16", torch.uint16, None, out_shape, view_idx)]
+        if view_idx.shape[0] > 1:
+            origin = np.array([tile_shape[0], 0, 0], np.int32)
+            band_shape = (min(tile_shape[0], out_shape[0] - tile_shape[0]),) + out_shape[1:]
+            variants.append(("origin", torch.float32, origin, band_shape, view_idx[1:2]))
+        for label, out_dtype, org, shape, vidx in variants:
+            args = (torch.from_numpy(tiles).cuda(), vidx, *tables)
+            kw = dict(out_shape=shape, tile_shape=tile_shape, K=K, out_dtype=out_dtype,
+                      origin=org, scale=scale,
+                      scales=None if scales is None else np.asarray(scales, np.float32))
+            worst = max(worst, compare_translation(
+                np, torch, tf.fuse_translation_3d, tf.fuse_translation_3d_plain,
+                f"3d {case:8s} {label:6s} tile={tile_shape} K={K}", args, kw))
     return worst
 
 
@@ -260,6 +322,7 @@ class StageTimer:
         self.events = {}
         self.t_upload_start = None
         self.kernel_call = None
+        self.weights_call = None
         self.fullest = -1
 
     def _timed(self, name, fn, before=None):
@@ -294,7 +357,9 @@ class StageTimer:
             # data resamples have cval NaN, weight resamples cval 0
             n = int(k["valid"].sum())
             if k["cval"] != k["cval"] and n > self.fullest:
-                self.fullest, self.kernel_call = n, (a, k)
+                self.fullest, self.kernel_call, self.weights_call = n, (a, k), None
+            elif k["cval"] == 0 and self.kernel_call is not None and self.weights_call is None:
+                self.weights_call = (a, k)  # the weights launch that follows it
 
         tcore._tiles_to_device = self._timed("upload", tcore._tiles_to_device, mark)
         tcore._download = self._timed("download", tcore._download)
@@ -418,11 +483,23 @@ def main_path(np, torch, tsi, tcore, tf, tea, fuse, ndim, n, tile, overlap, band
         f"warm fuse {warm_s:.3f} s, launches {launches}")
     log(f"{label}: warm split " + json.dumps({k: round(v, 3) for k, v in split.items()}))
 
-    # the kernel's own call at the main-path shapes, tables already on the card
+    # the kernel at the main-path shapes: the launch alone, on arguments
+    # checked and packed once, warm and on a cold L2; beside it the wrapper's
+    # own call with its tables already on the card (it checks and packs them
+    # anew, some ten small torch ops a call)
     args, kw = st.kernel_call
     tiles = args[0]
     dev_args = (tiles,) + tuple(torch.as_tensor(x).cuda() for x in args[1:])
-    kernel_ms = time_kernel_ms(torch, wrapper, dev_args, kw, reps=10)
+    checked = tf._check_args(ndim, *dev_args, kw["out_shape"], kw["tile_shape"], kw["K"],
+                             kw.get("origin"), kw["scale"], kw.get("scales"))
+    launch_args = (ndim, tiles, kw["out_shape"], kw["tile_shape"], kw["K"], kw["out_dtype"],
+                   checked)
+    launch_kw = {"SZ": tf._z_stride(kw["scale"])} if ndim == 3 else {}
+    kernel_ms = time_kernel_ms(torch, tf._launch, launch_args, launch_kw, reps=10)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=tiles.device)
+    cold_l2_ms = time_kernel_ms(torch, tf._launch, launch_args, launch_kw, reps=5, flush=flush)
+    del flush
+    wrapper_ms = time_kernel_ms(torch, wrapper, dev_args, kw, reps=10)
 
     # the whole output against the plain version on the card, band by band
     view_idx = np.asarray(args[1])
@@ -447,8 +524,9 @@ def main_path(np, torch, tsi, tcore, tf, tea, fuse, ndim, n, tile, overlap, band
         if not within_tol(got.astype(np.int64), ref.astype(np.int64), np):
             raise AssertionError(f"{label}: band {b} differs from the plain version by {err}")
         del ref
-    log(f"{label}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms over {n_bands} bands, "
-        f"max_abs_err vs plain {err:g} counts")
+    log(f"{label}: kernel {kernel_ms:.3f} ms warm, {cold_l2_ms:.3f} ms on a cold L2, wrapper call "
+        f"{wrapper_ms:.3f} ms, view lists {tuple(view_idx.shape)} at tile {tuple(kw['tile_shape'])}, "
+        f"plain {plain_ms:.1f} ms over {n_bands} bands, max_abs_err vs plain {err:g} counts")
 
     offs, extents = np.asarray(args[2]), np.asarray(args[3])
     scale_arr = np.asarray(kw["scale"], np.float64) if kw.get("scales") is None else kw["scales"]
@@ -467,6 +545,8 @@ def main_path(np, torch, tsi, tcore, tf, tea, fuse, ndim, n, tile, overlap, band
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
+        "cold_l2_ms": cold_l2_ms,
+        "wrapper_ms": wrapper_ms,
         "cold_fuse_s": cold_s,
         "warm_fuse_s": warm_s,
         **split,
@@ -533,7 +613,7 @@ def exact_wrappers(tea):
 
 def compare_exact(np, torch, tea, worst, kind, label, args, kw, route=None):
     """One exact-affine wrapper call against its plain version on the card:
-    identical masks, values within EXACT_ATOL. ``route`` names what the 3D
+    identical masks, values within EXACT_ATOL. ``route`` names what the
     kernel must have done: "shared" (no block took the large-footprint
     route, some staged a box) or "gather" (some block took it)."""
     fn, plain = exact_wrappers(tea)[kind]
@@ -552,7 +632,7 @@ def compare_exact(np, torch, tea, worst, kind, label, args, kw, route=None):
     err = max_err(np.nan_to_num(g), np.nan_to_num(r), np)
     inside = float(np.mean(~np.isnan(g) & (g != 0)))
     ok = err < EXACT_ATOL and inside > 0.005
-    took = "" if kind == "2d" else " routes " + "/".join(f"{k} {v}" for k, v in routes.items())
+    took = " routes " + "/".join(f"{k} {v}" for k, v in routes.items())
     log(f"  exact {kind:7s} {label:26s}: inside {inside:.2f} "
         f"max_abs_err={err:.3g}{took} {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -614,6 +694,7 @@ def check_exact_small_cases(np, torch, tea):
         last = fn(*args, **dict(kw, cval=float("nan")))[B]
         if not bool(torch.isnan(last).all()):
             raise AssertionError(f"exact {kind}: a padding slot was sampled")
+    check_exact_2d_routes(np, torch, tea, worst)
     check_exact_3d_routes(np, torch, tea, worst)
     return worst
 
@@ -621,6 +702,99 @@ def check_exact_small_cases(np, torch, tea):
 def about_box_centre(np, lin, src, out):
     """Offset that sends the centre of an ``out`` grid to the centre of ``src``."""
     return (np.asarray(src) - 1) / 2 - lin @ ((np.asarray(out) - 1) / 2)
+
+
+def check_exact_2d_routes(np, torch, tea, worst):
+    """Phase 3, the cases aimed at the 2D kernel's staged source boxes; each
+    line prints the routes the kernel's blocks took."""
+    rng = np.random.default_rng(3)
+
+    def positive(shape, dtype):
+        return torch.from_numpy((rng.random(shape) * 99 + 1).astype(dtype)).cuda()
+
+    def tables(mats, offs, extents):
+        return tuple(np.asarray(x, np.float32) for x in (mats, offs, extents))
+
+    def compare(label, args, kw, route=None):
+        return compare_exact(np, torch, tea, worst, "2d", label, args, kw, route)
+
+    # rotations by 47 and 92 degrees and a near-identity map in one batch per
+    # source dtype. W = 176 takes 16-byte loads for every dtype, W = 171 for
+    # none; the output is several tiles wide and high, a multiple of 4 wide
+    # (16-byte fills) or not, and a multiple of a tile in neither axis
+    angles = (47, 92, 0.4)
+    rots = np.stack([rot2(np, np.deg2rad(a), 1.03) for a in angles])
+    for src, out in (((150, 176), (139, 164)), ((150, 171), (139, 163))):
+        offs = np.stack([about_box_centre(np, m, src, out) + (0.3, -0.4) for m in rots])
+        ext = np.array([[n - 3 * b for n in src] for b in range(len(rots))])
+        for dtype in (np.float32, np.uint16, np.uint8):
+            data = positive((len(rots),) + src, dtype)
+            for cval in (float("nan"), 0.0):
+                compare(f"rot W={src[1]} OX={out[1]} {np.dtype(dtype).name} cval={cval}",
+                        (data, *tables(rots, offs, ext), out), {"cval": cval}, "shared")
+    # NaN and inf in a float source are read through nan_to_num while staging
+    src, out = (150, 171), (139, 163)
+    holed = (rng.random((len(rots),) + src) * 99 + 1).astype(np.float32)
+    holed[0, 70:80, 60] = np.nan
+    holed[1, 75, 80:90] = np.inf
+    holed[2, 40, 50] = -np.inf
+    offs = np.stack([about_box_centre(np, m, src, out) for m in rots])
+    args = (torch.from_numpy(holed).cuda(), *tables(rots, offs, [src] * len(rots)), out)
+    got = tea.exact_affine_batch_2d(*args)
+    ref = tea.exact_affine_batch_2d_plain(*args)
+    torch.cuda.synchronize()
+    small = (got.abs() < 1e6) & (ref.abs() < 1e6)
+    if not torch.equal(torch.isnan(got), torch.isnan(ref)) or not bool(
+        torch.isfinite(got[~torch.isnan(got)]).all()
+    ) or float((got - ref)[small].abs().max()) >= EXACT_ATOL:
+        raise AssertionError("exact 2d: NaN/inf input is not read through nan_to_num")
+    log("  exact 2d      rot float32 with NaN and inf: read through nan_to_num ok")
+
+    # boxes over the shared-memory budget: a map that downscales by 4 and a
+    # shear of y by 3 x; a map that downscales by 2 still fits
+    src_big, out_small = (600, 700), (139, 163)
+    shear = np.eye(2)
+    shear[0, 1] = 3.0
+    big = positive((3,) + src_big, np.uint16)
+    mats = np.stack([np.diag([4.0, 4.0]), shear, rot2(np, 0.2, 4.0)])
+    offs = np.array([(0.25, 0.5), (0.4, 0.3), (100.2, 7.6)])
+    compare("downscale 4 and shear uint16", (big, *tables(mats, offs, [src_big] * 3), out_small),
+            {}, "gather")
+    compare("downscale 2 uint16",
+            (big[:1], *tables([np.diag([2.0, 2.0])], [(0.25, 0.5)], [src_big]), out_small),
+            {}, "shared")
+
+    # windows of a stack: one spans its source, so that the boxes of the edge
+    # tiles are cut by every edge of the stack; one sits at the far corner;
+    # between the valid items one marked invalid and one whose tile_idx lies
+    # outside the stack (a tensor, which the wrapper does not read back)
+    stack_shape = (90, 112)
+    out = (101, 131)
+    stack = positive((3,) + stack_shape, np.uint16)
+    tilt = rot2(np, np.deg2rad(12))
+    far = np.array(stack_shape) - 8
+    mats = np.stack([tilt, np.eye(2), rot2(np, 0.3), np.eye(2), rot2(np, -0.2)])
+    offs = np.stack([about_box_centre(np, tilt, stack_shape, out), np.zeros(2),
+                     (-2.5, -3.5), np.zeros(2), (1.0, -4.0)])
+    ext = np.array([stack_shape, (1, 1), (8, 8), (1, 1), (80, 100)])
+    kw = {"tile_idx": torch.tensor([0, 1, 2, 5, 1], dtype=torch.int32).cuda(),
+          "starts": np.array([(0, 0), (0, 0), far, (0, 0), (3, 2)], np.int32),
+          "valid": np.array([True, False, True, True, True])}
+    for cval in (float("nan"), 0.0):
+        got, _ = compare(f"stack edges cval={cval}", (stack, *tables(mats, offs, ext), out),
+                         dict(kw, cval=cval), "shared")
+        for b in (1, 3):
+            unsampled = torch.isnan(got[b]) if cval != cval else got[b] == 0
+            if not bool(unsampled.all()):
+                raise AssertionError(f"exact 2d: item {b} of the stack batch was sampled")
+
+    # the blending-weight launch of fuse(): 5 x 5 f32 grids, extent 5, cval 0
+    out = (139, 163)
+    grids = positive((len(rots), 5, 5), np.float32)
+    wm = rots * (4.0 / 170)
+    wo = np.stack([about_box_centre(np, m, (5, 5), out) for m in wm])
+    compare("5 x 5 weight grids cval=0",
+            (grids, *tables(wm, wo, np.full((len(rots), 2), 5.0)), out), {"cval": 0.0}, "shared")
 
 
 def check_exact_3d_routes(np, torch, tea, worst):
@@ -891,6 +1065,12 @@ def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, ki
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=tiles.device)
     cold_l2_ms = time_kernel_ms(torch, tea._launch, (entry, packed), {}, reps=10, flush=flush)
     del flush
+    # the same batch's blending-weight launch: 5^ndim sources, every voxel of a
+    # valid item inside
+    wargs, wkw = st.weights_call
+    wpacked = tea._check_args(ndim, torch.as_tensor(wargs[0]).cuda(), *wargs[1:5], wkw["cval"],
+                              wkw.get("tile_idx"), wkw.get("starts"), wkw.get("valid"))
+    weights_ms = time_kernel_ms(torch, tea._launch, (entry, wpacked), {}, reps=20)
     wrapper_ms = time_kernel_ms(torch, wrapper, dev_args, dev_kw, reps=10)
     t0 = time.perf_counter()
     for _ in range(20):
@@ -901,6 +1081,8 @@ def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, ki
     got = wrapper(*dev_args, **dev_kw)
     torch.cuda.synchronize()
     routes = tea.read_routes()
+    if routes["gather"] or not routes["shared"]:
+        raise AssertionError(f"{label}: main-path blocks off the shared-memory route: {routes}")
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     plain(*dev_args, **dev_kw)  # warm
     e0.record()
@@ -929,7 +1111,8 @@ def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, ki
     ops = exact_ops(ndim, voxels, inside)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     log(f"{label}: fullest batch {n_valid} of {len(kw['valid'])} items x {tuple(args[4])}, "
-        f"kernel {kernel_ms:.4f} ms warm, {cold_l2_ms:.4f} ms on a cold L2, plain {plain_ms:.2f} ms, "
+        f"kernel {kernel_ms:.4f} ms warm, {cold_l2_ms:.4f} ms on a cold L2, its weights launch "
+        f"{weights_ms:.4f} ms, plain {plain_ms:.2f} ms, "
         f"grid_sample {library_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms; wrapper call "
         f"{wrapper_ms:.3f} ms with tables on the card, {wrapper_host_tables_ms:.3f} ms (host "
         f"clock) with host tables; routes {routes}; plain-version fuse {plain_fuse_s:.2f} s, "
@@ -944,6 +1127,7 @@ def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, ki
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
         "cold_l2_ms": cold_l2_ms,
+        "weights_ms": weights_ms,
         "wrapper_ms": wrapper_ms,
         "wrapper_host_tables_ms": wrapper_host_tables_ms,
         "routes": routes,
@@ -988,8 +1172,11 @@ def main() -> int:
                 log(f"  ptxas: {line.strip()}")
 
     log("kernels against their plain versions on small cases:")
+    t_small = time.perf_counter()
     small_err = check_small_cases(np, torch, tsi, tcore, tf)
     exact_err = check_exact_small_cases(np, torch, tea)
+    small_s = time.perf_counter() - t_small
+    log(f"small cases: {small_s:.1f} s")
 
     r3 = main_path(np, torch, tsi, tcore, tf, tea, fuse, 3, n=32, tile=64, overlap=12, band_tiles=2)
     r2 = main_path(np, torch, tsi, tcore, tf, tea, fuse, 2, n=32, tile=512, overlap=64, band_tiles=64)
@@ -1040,7 +1227,8 @@ def main() -> int:
                                   exact_err["sepy"], exact_err["general"])):
         k["max_abs_err"] = max(k["max_abs_err"], worst)
     detail = {"3d": r3, "2d": r2, **{f"affine_{k}": v for k, v in affine.items()},
-              "build_s": build_s, "total_s": time.perf_counter() - t_start}
+              "build_s": build_s, "small_cases_s": small_s,
+              "total_s": time.perf_counter() - t_start}
     log("detail: " + json.dumps(detail))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

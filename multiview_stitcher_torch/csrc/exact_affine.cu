@@ -16,57 +16,71 @@
 // What bounds them on the H100. On paper all three are bound by bytes: the f32
 // output is written once (4 bytes a voxel) and the source window read about
 // once in its own dtype, against 2 x ndim multiply-adds and 3 (2D) or 7 (3D)
-// lerps a voxel. Measured on the first 3D kernels, which gave a thread one
-// voxel (general) or one (z, x) column of 16 rows (y-decoupled) and let it
-// gather its 8 neighbours from global memory (H100 80GB HBM3, 700 W, builds
-// with the gathers or the stores taken out):
-// - the general kernel was bound by its instruction count: 0.218 ms for
-//   12 x 128^3 voxels, still 0.182 ms with neither gathers nor stores. Three
-//   divisions for the block index, 20 parameter loads, 64-bit addresses and 8
-//   integer conversions a voxel cost more than the memory traffic;
+// lerps a voxel. Measured on the first kernels, which gave a thread one pixel
+// (2D), one voxel (general) or one (z, x) column of 16 rows (y-decoupled) and
+// let it gather its 4 or 8 neighbours from global memory (H100 80GB HBM3,
+// 700 W, builds with the gathers or the stores taken out):
+// - the 2D and the general kernel were bound by their instruction count. 2D:
+//   0.161 ms for 26 valid of 32 items of 1024^2, still 0.138 ms with neither
+//   gathers nor stores. General: 0.218 ms for 12 x 128^3 voxels, 0.182 ms with
+//   neither. Divisions for the block index, 12 or 20 parameter loads, 64-bit
+//   addresses and integer conversions a voxel cost more than the memory
+//   traffic, and a padding item went voxel by voxel through the same code;
 // - the y-decoupled kernel was bound by its gathers: 0.106 ms for 4 x 128^3
 //   voxels under rotations of 47, 92 and 137 degrees about y, 0.033 ms without
 //   them. A warp lies along output x, which such a map spreads over as many
 //   source z planes: one load touched up to 32 sectors for 64 useful bytes;
-// - a cold L2 changed neither by more than 3 %; parameters passed by value
+// - a cold L2 changed none by more than 3 %; parameters passed by value
 //   changed nothing.
 //
-// The 3D design (the 2D kernel keeps the one-pixel-a-thread gather):
-// - a block of 256 threads owns an output tile: 32 x 8 x 16 (x, y, z) voxels
-//   in the general kernel; 32 x 16 (x, z) columns times 16 y rows in the
-//   y-decoupled one. It loads the item's 20 parameters into shared memory
-//   once, and three threads compute, per axis, the range of stack indices the
-//   tile's samples can touch. Every coordinate is a sum of products that are
-//   each monotone in one output index, and rounding is monotone, so the
-//   extreme coordinates of a tile are those of two of its corners, evaluated
-//   by the voxels' own formula: the range is exact, with no safety margin;
+// The design, the same for all three:
+// - a block of 256 threads owns an output tile: 64 x 32 (x, y) pixels in the 2D
+//   kernel, where a thread takes two columns (lane, lane + 32) of four rows
+//   and keeps its columns' products; 32 x 8 x 16 (x, y, z) voxels in the
+//   general kernel; 32 x 16 (x, z) columns times 16 y rows in the y-decoupled
+//   one. It loads the item's parameters into shared memory once, and two or
+//   three threads compute, per axis, the range of stack indices the tile's
+//   samples can touch. Every coordinate is a sum of products that are each
+//   monotone in one output index, and rounding is monotone, so the extreme
+//   coordinates of a tile are those of two of its corners, evaluated by the
+//   voxels' own formula: the range is exact, with no safety margin;
 // - the block copies that box from the stack into shared memory as f32, with
 //   16-byte loads along source x where the rows allow it (x range widened to
 //   16-byte boundaries; scalar loads otherwise), converting integers and
 //   passing floats through nan_to_num on the way, so each source voxel is
 //   converted once and global reads are coalesced whatever the rotation;
 // - samples are interpolated from shared memory with 32-bit offsets; the
-//   thread's products m * index are computed once and reused over its voxels;
-// - the tile goes in runs that fit the box budget (kBoxFloats: 48,000 bytes,
+//   thread's products m * index are computed once and reused over its voxels.
+//   A warp lies along output x, so its shared-memory reads fall on
+//   neighbouring banks and its 4-byte stores fill whole lines (a thread that
+//   owned four neighbouring pixels could store 16 bytes, but its warp's reads
+//   would collide four ways);
+// - the 3D tiles go in runs that fit the box budget (kBoxFloats: 48,000 bytes,
 //   four blocks an SM). The y-decoupled kernel walks its y rows in runs of as
 //   many as fit and keeps its columns' (z, x) taps and weights in registers
 //   across the runs. The general kernel takes its 16 z planes at once, and
-//   halves the run, down to 4 planes, while the box is too large;
-// - a tile or run none of whose samples can be valid is filled with cval;
-// - a run whose box still exceeds the budget takes the large-footprint route:
-//   the per-voxel global gathers of the first design, inside the same kernel.
-//   A map that downscales, a steep shear, or in the general kernel a steep
-//   rotation (its 32-wide tile then spans some 25 planes) ends up there.
+//   halves the run, down to 4 planes, while the box is too large. The 2D
+//   kernel takes its tile whole: the box of a tile under any rotation, or a
+//   map that downscales by 2, fits;
+// - a tile or run none of whose samples can be valid, or whose item is
+//   padding, is filled with cval (the 2D kernel: 16 bytes a store where the
+//   output's rows allow it);
+// - a tile or run whose box still exceeds the budget takes the large-footprint
+//   route: the per-voxel global gathers of the first design, inside the same
+//   kernel. A map that downscales (by 3 or more in 2D), a steep shear, or in
+//   the general kernel a steep rotation (its 32-wide tile then spans some 25
+//   planes) ends up there.
 //
-// Measured on the same card and batches: general kernel 0.076 ms (from 0.218;
-// without its staging 0.060, without its shared-memory reads 0.068, and
-// writing its 100 MB of output alone takes 0.034); y-decoupled kernel
-// 0.058 ms (from 0.106; without its staging 0.033, without its shared-memory
-// reads 0.042). A tile rotated by 47 degrees stages the bounding box of a
-// rotated rectangle, 3.8 source voxels for each output voxel, and its warps
-// read shared memory across rows; staging each source row's own x range
-// halved the staged voxels but took as long (more, smaller loads), so the
-// bounding box stayed.
+// Measured on the same card and batches: 2D kernel 0.070 ms (from 0.161;
+// without its staging 0.060, without its stores 0.069, and writing its 134 MB
+// of output alone takes 0.044); general kernel 0.076 ms (from 0.218; without
+// its staging 0.060, without its shared-memory reads 0.068, and writing its
+// 100 MB of output alone takes 0.034); y-decoupled kernel 0.058 ms (from
+// 0.106; without its staging 0.033, without its shared-memory reads 0.042). A
+// tile rotated by 47 degrees stages the bounding box of a rotated rectangle,
+// 3.8 source voxels for each output voxel in 3D, and its warps read shared
+// memory across rows; staging each source row's own x range halved the staged
+// voxels but took as long (more, smaller loads), so the bounding box stayed.
 //
 // What the TPU kernels did that does not come across: the zero-padded copy of
 // the input, the (8, 128)-aligned window DMAs, the banded-hat matmuls on the
@@ -85,9 +99,9 @@
 // of cudaGetLastError() (0 on success), kBadDtype for an unsupported dtype, or
 // cudaErrorInvalidConfiguration for a grid too large (3D: more than 65,535
 // items or z tiles, or 2^31 voxels an item). Nothing is allocated and nothing
-// synchronises. The 3D launches take an optional device array of three
-// counters (blocks or runs that took the shared-memory route, the
-// large-footprint route, the cval fill); a null pointer counts nothing.
+// synchronises. Every launch takes an optional device array of three counters
+// (blocks or runs that took the shared-memory route, the large-footprint
+// route, the cval fill); a null pointer counts nothing.
 
 #include <cuda_runtime.h>
 
@@ -99,10 +113,12 @@ namespace {
 
 constexpr int kBadDtype = -1;
 
-// 2D block: 32 x 8 threads, one output pixel each.
-constexpr int kBX2 = 32, kBY2 = 8;
-// 3D blocks: 256 threads.
+// every block: 256 threads.
 constexpr int kThreads3 = 256;
+// 2D tile: 64 x 32 (x, y) pixels; a thread takes the columns lane and lane + 32
+// of the rows warp, warp + 8, warp + 16 and warp + 24.
+constexpr int kTX2 = 64, kTY2 = 32;
+constexpr int kCols2 = kTX2 / 32, kRows2 = kTY2 / (kThreads3 / 32);
 // general tile: 32 x 8 x 16 voxels; thread (x, y) walks the z planes.
 constexpr int kGX = 32, kGY = 8, kGZ = 16;
 // y-decoupled tile: 32 x 16 (x, z) columns, two a thread, times kSY y rows.
@@ -112,7 +128,7 @@ constexpr int kSCols = kSX * kSZ / kThreads3;
 constexpr int kBoxFloats = 12000;
 // blocks an SM should hold, which caps a thread's registers: 64 in the general
 // kernel, 80 in the y-decoupled one (which spills at 64 and runs slower)
-constexpr int kGBlocksPerSM = 4, kSBlocksPerSM = 3;
+constexpr int kGBlocksPerSM = 4, kSBlocksPerSM = 3, k2BlocksPerSM = 4;
 
 enum DType : int { kF32 = 0, kU16 = 1, kU8 = 2 };
 enum Route : int { kShared = 0, kGather = 1, kFill = 2 };
@@ -157,7 +173,7 @@ __device__ __forceinline__ bool item_ok(int source, int valid, int V) {
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // ---------------------------------------------------------------------------
-// 2D
+// what the three kernels share
 // ---------------------------------------------------------------------------
 
 struct Args2D {
@@ -168,41 +184,9 @@ struct Args2D {
   float* out;           // (B, OY, OX)
   int OY, OX;
   float cval;
+  int vec;                      // rows of the stack take 16-byte loads
+  unsigned long long* routes;   // [kShared, kGather, kFill] counters, or null
 };
-
-template <typename T>
-__global__ void __launch_bounds__(kBX2* kBY2)
-    exact_affine_2d_kernel(const Args2D a, int n_by, int n_bx) {
-  int blk = blockIdx.x;
-  const int bx = blk % n_bx;
-  blk /= n_bx;
-  const int by = blk % n_by;
-  const int b = blk / n_by;
-  const int i = by * kBY2 + threadIdx.y;
-  const int j = bx * kBX2 + threadIdx.x;
-  if (i >= a.OY || j >= a.OX) return;
-
-  const float* fp = a.fparams + static_cast<size_t>(b) * 8;
-  const int* ip = a.iparams + static_cast<size_t>(b) * 4;
-  float res = a.cval;
-  if (item_ok(ip[0], ip[3], a.V)) {
-    const float u = __fadd_rn(__fadd_rn(mul(fp[0], i), mul(fp[1], j)), fp[4]);
-    const float v = __fadd_rn(__fadd_rn(mul(fp[2], i), mul(fp[3], j)), fp[5]);
-    if (inside(u, fp[6]) && inside(v, fp[7])) {
-      const Tap ty = tap(u, ip[1], a.H), tx = tap(v, ip[2], a.W);
-      const T* src = static_cast<const T*>(a.data) + static_cast<size_t>(ip[0]) * a.H * a.W;
-      const T* r0 = src + static_cast<size_t>(ty.lo) * a.W;
-      const T* r1 = src + static_cast<size_t>(ty.hi) * a.W;
-      res = lerp(lerp(load(r0 + tx.lo), load(r0 + tx.hi), tx.f),
-                 lerp(load(r1 + tx.lo), load(r1 + tx.hi), tx.f), ty.f);
-    }
-  }
-  a.out[(static_cast<size_t>(b) * a.OY + i) * a.OX + j] = res;
-}
-
-// ---------------------------------------------------------------------------
-// 3D: what both kernels share
-// ---------------------------------------------------------------------------
 
 struct Args3D {
   const void* data;     // (V, D, H, W)
@@ -251,7 +235,8 @@ __device__ __forceinline__ void tap_range(float cmin, float cmax, float ext, int
   n = min(max(last + start, 0), size - 1) - lo + 1;
 }
 
-__device__ __forceinline__ void count_route(const Args3D& a, int route) {
+template <typename A>
+__device__ __forceinline__ void count_route(const A& a, int route) {
   if (a.routes != nullptr && threadIdx.x == 0) atomicAdd(a.routes + route, 1ull);
 }
 
@@ -299,18 +284,19 @@ struct Box {
 
 // x range [lo, lo + n) of a box widened to 16-byte boundaries where rows take
 // 16-byte loads
-template <typename T>
-__device__ __forceinline__ void widen_x(const Args3D& a, int lo, int n, Box& box) {
+template <typename T, typename A>
+__device__ __forceinline__ void widen_x(const A& a, int lo, int n, Box& box) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   box.x0 = a.vec ? lo & ~(kVec - 1) : lo;
   box.px = a.vec ? ((lo + n - 1) | (kVec - 1)) - box.x0 + 1 : n;
   box.pitch = pitch_of(box.px);
 }
 
-// Copy the box from `src` (one (D, H, W) array of the stack) to s as f32:
-// element (z, y, x) of the box goes to s[z * sz + y * sy + x].
-template <typename T>
-__device__ __forceinline__ void stage(const Args3D& a, const T* src, const Box& bx, int sz, int sy,
+// Copy the box from `src` (one (D, H, W) array of the stack; D = 1 and nz = 1
+// in 2D) to s as f32: element (z, y, x) of the box goes to
+// s[z * sz + y * sy + x].
+template <typename T, typename A>
+__device__ __forceinline__ void stage(const A& a, const T* src, const Box& bx, int sz, int sy,
                                       float* s) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   const int rows = bx.nz * bx.ny;
@@ -353,6 +339,137 @@ __device__ __forceinline__ float trilerp(Read at, Offset r00, Offset r01, Offset
   const float z1 = lerp(lerp(at(r10 + tx.lo), at(r10 + tx.hi), tx.f),
                         lerp(at(r11 + tx.lo), at(r11 + tx.hi), tx.f), fy);
   return lerp(z0, z1, fz);
+}
+
+// ---------------------------------------------------------------------------
+// 2D
+// ---------------------------------------------------------------------------
+
+// one item's parameters and the tile's box, in shared memory
+struct Block2D {
+  float f[8];
+  int i[4];
+  int lo[2], n[2];  // first stack index and count per axis; n == 0: no valid sample
+};
+
+// The tile's pixels. kFromShared: taps are relative to the staged box and read
+// from s; else they are stack indices and read from src.
+template <typename T, bool kFromShared>
+__device__ __forceinline__ void tile_2d(const Args2D& a, const Block2D& blk, const T* src,
+                                        const float* s, const Box& box, float* out, int x0,
+                                        int y0, int y1) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the products of the thread's columns, reused over its rows
+  float pj[kCols2][2];
+#pragma unroll
+  for (int k = 0; k < kCols2; ++k) {
+    pj[k][0] = mul(blk.f[1], x0 + lane + 32 * k);
+    pj[k][1] = mul(blk.f[3], x0 + lane + 32 * k);
+  }
+  const float m00 = blk.f[0], m10 = blk.f[2], off_y = blk.f[4], off_x = blk.f[5];
+  const float ext_y = blk.f[6], ext_x = blk.f[7];
+  const int sy = kFromShared ? blk.i[1] - box.y0 : blk.i[1], ny = kFromShared ? box.ny : a.H;
+  const int sx = kFromShared ? blk.i[2] - box.x0 : blk.i[2], nx = kFromShared ? box.px : a.W;
+  const int pitch = kFromShared ? box.pitch : a.W;
+#pragma unroll
+  for (int r = 0; r < kRows2; ++r) {
+    const int i = y0 + warp + r * (kThreads3 / 32);
+    if (i > y1) break;
+    const float pi0 = mul(m00, i), pi1 = mul(m10, i);
+    float* row = out + static_cast<size_t>(i) * a.OX;
+#pragma unroll
+    for (int k = 0; k < kCols2; ++k) {
+      const int j = x0 + lane + 32 * k;
+      if (j >= a.OX) break;
+      const float u = __fadd_rn(__fadd_rn(pi0, pj[k][0]), off_y);
+      const float v = __fadd_rn(__fadd_rn(pi1, pj[k][1]), off_x);
+      float res = a.cval;
+      if (inside(u, ext_y) && inside(v, ext_x)) {
+        const Tap ty = tap(u, sy, ny), tx = tap(v, sx, nx);
+        if (kFromShared) {
+          const int r0 = ty.lo * pitch, r1 = ty.hi * pitch;
+          res = lerp(lerp(s[r0 + tx.lo], s[r0 + tx.hi], tx.f),
+                     lerp(s[r1 + tx.lo], s[r1 + tx.hi], tx.f), ty.f);
+        } else {
+          const T* r0 = src + static_cast<size_t>(ty.lo) * a.W;
+          const T* r1 = src + static_cast<size_t>(ty.hi) * a.W;
+          res = lerp(lerp(load(r0 + tx.lo), load(r0 + tx.hi), tx.f),
+                     lerp(load(r1 + tx.lo), load(r1 + tx.hi), tx.f), ty.f);
+        }
+      }
+      row[j] = res;
+    }
+  }
+}
+
+// cval over the tile, 16 bytes a store where the rows of the output allow it
+__device__ __forceinline__ void fill_2d(const Args2D& a, float* out, int x0, int x1, int y0,
+                                        int y1) {
+  if (a.OX % 4 == 0) {
+    // x0 and OX are multiples of 4, so the tile's rows are whole float4s
+    const float4 c4 = make_float4(a.cval, a.cval, a.cval, a.cval);
+    for (int t = threadIdx.x; t < (kTX2 / 4) * kTY2; t += kThreads3) {
+      const int i = y0 + t / (kTX2 / 4), j = x0 + 4 * (t % (kTX2 / 4));
+      if (i <= y1 && j <= x1) {
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(i) * a.OX + j) = c4;
+      }
+    }
+  } else {
+    for (int t = threadIdx.x; t < kTX2 * kTY2; t += kThreads3) {
+      const int i = y0 + t / kTX2, j = x0 + t % kTX2;
+      if (i <= y1 && j <= x1) out[static_cast<size_t>(i) * a.OX + j] = a.cval;
+    }
+  }
+}
+
+// blockIdx.x = (item * n_by + tile row) * n_bx + tile column
+template <typename T>
+__global__ void __launch_bounds__(kThreads3, k2BlocksPerSM)
+    exact_affine_2d_kernel(const Args2D a, int n_by, int n_bx) {
+  extern __shared__ __align__(16) float s_box[];
+  __shared__ Block2D blk;
+  int t = blockIdx.x;
+  const int bx = t % n_bx;
+  t /= n_bx;
+  const int by = t % n_by, b = t / n_by;
+  const int x0 = bx * kTX2, y0 = by * kTY2;
+  const int x1 = min(x0 + kTX2, a.OX) - 1, y1 = min(y0 + kTY2, a.OY) - 1;
+  if (threadIdx.x < 8) {
+    blk.f[threadIdx.x] = a.fparams[static_cast<size_t>(b) * 8 + threadIdx.x];
+  } else if (threadIdx.x < 12) {
+    blk.i[threadIdx.x - 8] = a.iparams[static_cast<size_t>(b) * 4 + (threadIdx.x - 8)];
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    // the least and the largest coordinate of row r over the tile: each term is
+    // monotone in its index, so both are taken at a corner
+    const int r = threadIdx.x;
+    const float my = blk.f[2 * r], mx = blk.f[2 * r + 1], off = blk.f[4 + r];
+    const float cmin =
+        __fadd_rn(__fadd_rn(mul(my, my >= 0.f ? y0 : y1), mul(mx, mx >= 0.f ? x0 : x1)), off);
+    const float cmax =
+        __fadd_rn(__fadd_rn(mul(my, my >= 0.f ? y1 : y0), mul(mx, mx >= 0.f ? x1 : x0)), off);
+    tap_range(cmin, cmax, blk.f[6 + r], blk.i[1 + r], r == 0 ? a.H : a.W, blk.lo[r], blk.n[r]);
+  }
+  __syncthreads();
+  float* out = a.out + static_cast<size_t>(b) * a.OY * a.OX;
+  if (!item_ok(blk.i[0], blk.i[3], a.V) || blk.n[0] == 0 || blk.n[1] == 0) {
+    count_route(a, kFill);
+    fill_2d(a, out, x0, x1, y0, y1);
+    return;
+  }
+  const T* src = static_cast<const T*>(a.data) + static_cast<size_t>(blk.i[0]) * a.H * a.W;
+  Box box{0, 1, blk.lo[0], blk.n[0], 0, 0, 0};
+  widen_x<T>(a, blk.lo[1], blk.n[1], box);
+  if (static_cast<long long>(box.ny) * box.pitch <= kBoxFloats) {
+    count_route(a, kShared);
+    stage(a, src, box, box.ny * box.pitch, box.pitch, s_box);
+    __syncthreads();
+    tile_2d<T, true>(a, blk, src, s_box, box, out, x0, y0, y1);
+  } else {
+    count_route(a, kGather);
+    tile_2d<T, false>(a, blk, src, s_box, box, out, x0, y0, y1);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -641,22 +758,27 @@ __global__ void __launch_bounds__(kThreads3, kSBlocksPerSM)
 // blocks of one launch as a 1-D grid, or -1 when they exceed its limit
 int grid_1d(long long blocks) { return blocks > INT_MAX ? -1 : static_cast<int>(blocks); }
 
-template <typename T>
-int launch_2d(const Args2D& a, int B, cudaStream_t stream) {
-  const int n_by = cdiv(a.OY, kBY2), n_bx = cdiv(a.OX, kBX2);
-  const int grid = grid_1d(static_cast<long long>(B) * n_by * n_bx);
-  if (grid < 0) return cudaErrorInvalidConfiguration;
-  exact_affine_2d_kernel<T><<<grid, dim3(kBX2, kBY2), 0, stream>>>(a, n_by, n_bx);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // rows of the stack take 16-byte loads: the base is aligned and W is a
 // multiple of the vector
-template <typename T>
-Args3D with_vec(Args3D a) {
+template <typename T, typename A>
+A with_vec(A a) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   a.vec = reinterpret_cast<uintptr_t>(a.data) % 16 == 0 && a.W % kVec == 0;
   return a;
+}
+
+constexpr size_t kBoxBytes = kBoxFloats * sizeof(float);
+static_assert(kBoxBytes + sizeof(Block3D) <= 48 * 1024,
+              "dynamic shared memory above 48 KB needs cudaFuncSetAttribute");
+
+template <typename T>
+int launch_2d(const Args2D& args, int B, cudaStream_t stream) {
+  const Args2D a = with_vec<T>(args);
+  const int n_by = cdiv(a.OY, kTY2), n_bx = cdiv(a.OX, kTX2);
+  const int grid = grid_1d(static_cast<long long>(B) * n_by * n_bx);
+  if (grid < 0) return cudaErrorInvalidConfiguration;
+  exact_affine_2d_kernel<T><<<grid, kThreads3, kBoxBytes, stream>>>(a, n_by, n_bx);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // grid (tiles of two axes, tiles of the third, items), or an error
@@ -669,10 +791,6 @@ bool grid_3d(const Args3D& a, long long n_xy, int n_third, int B, dim3& grid) {
               static_cast<unsigned>(B));
   return true;
 }
-
-constexpr size_t kBoxBytes = kBoxFloats * sizeof(float);
-static_assert(kBoxBytes + sizeof(Block3D) <= 48 * 1024,
-              "dynamic shared memory above 48 KB needs cudaFuncSetAttribute");
 
 template <typename T>
 int launch_3d_sepy(const Args3D& args, int B, cudaStream_t stream) {
@@ -712,9 +830,10 @@ extern "C" {
 
 int mvs_exact_affine_2d(const void* data, int dtype, int V, int H, int W, const void* fparams,
                         const void* iparams, int B, void* out, int OY, int OX, float cval,
-                        void* stream) {
+                        void* routes, void* stream) {
   const Args2D a{data, V, H, W, static_cast<const float*>(fparams),
-                 static_cast<const int*>(iparams), static_cast<float*>(out), OY, OX, cval};
+                 static_cast<const int*>(iparams), static_cast<float*>(out), OY, OX, cval, 0,
+                 static_cast<unsigned long long*>(routes)};
   MVS_DISPATCH(dtype, launch_2d, a, B, static_cast<cudaStream_t>(stream))
 }
 

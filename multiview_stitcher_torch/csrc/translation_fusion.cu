@@ -12,17 +12,48 @@
 // weighted and the plain sums. The result is acc / wsum, or the plain valid
 // mean where wsum == 0, passed through nan_to_num and a truncating cast.
 //
-// What bounds them on the H100: memory. Each output pixel is read from about
-// 1.5 views on the main path and written once, at a few tens of f32
-// operations per covering view, against 3.35 TB/s and 67 TFLOP/s. The design:
+// What bounds them on the H100. On paper, memory: each output pixel is read
+// from about 1.5 views on the main path and written once, at a few tens of f32
+// operations per covering view, against 3.35 TB/s and 67 TFLOP/s. Measured
+// (H100 80GB HBM3, 700 W; 3D, output (64, 1676, 1676) uint16 from 1024 views of
+// 64^3), it is the instruction count. The first 3D kernel gave a block 4 x 8 x
+// 32 voxels and took 7.5 ms: 4.4 ms were left with neither gathers nor stores,
+// 1.0 ms of it the staging of 125 grid floats a view and block, 0.65 ms the
+// 5 x 5 x 5 hat sums and 0.8 ms the cosine. The 3D kernel below takes 2.2 ms,
+// 2.05 ms without its gathers, 1.95 ms without its stores, and 1.8 ms with the
+// hardware cosine in place of cosf: the card issues some 90 machine operations
+// for a covered voxel and view, a third of them integer work at half rate. The
+// 2D kernel still has the first design.
+//
+// The design:
 // - gather straight from the (V, [D,] H, W) stack in its native dtype, so a
 //   uint16 stack moves 2 bytes a voxel and no f32 copy of it is ever made;
-//   neighbouring threads read neighbouring x, and the 2x2(x2) lerp
-//   neighbourhood is shared through L1/L2;
-// - one block per (sub-)tile of the output; it stages its view-slot list,
-//   the views' parameter rows and their 5^ndim grids in shared memory once;
-// - in 3D a thread owns one (y, x) column of the tile: the y/x part of the
-//   hat expansion is done once per view and reused over the tile's z planes;
+//   the maps are translations, so a warp's taps are neighbours in x and the
+//   2x2(x2) lerp neighbourhood is shared through L1;
+// - 2D: one block per 16 x 32 sub-tile of a view-list tile; it stages its
+//   view-slot list, the views' parameter rows and their 5 x 5 grids in shared
+//   memory once, and a thread owns one pixel;
+// - 3D: one block per 8 x 32 (y, x) columns and up to 64 planes of a view-list
+//   tile, so that fuse() lists its views at tiles of (64, 8, 32) and a list is
+//   staged once for 16,384 voxels, not for 1,024. Whatever does not depend on
+//   all three indices is computed once a block into shared-memory tables: per
+//   view and plane the two source planes, the z fraction, the z validity and
+//   the five z hats; per view and block row or column the tap offsets, the
+//   fraction, the validity and the two hats that are not 0. A thread owns one
+//   column and walks the planes in runs of 8 with its sums in registers; per
+//   view and run it contracts the grid with the four y/x hat terms that are
+//   not 0 (a term with a hat of 0 adds exactly 0, so the sums keep their
+//   bits) and then, per plane, reads four taps (the upper plane of one output
+//   plane is the lower plane of the next in uniform mode with stride 1, and
+//   stays in registers; eight taps otherwise), lerps, contracts the z hats
+//   and tapers. The plane loop has no branch and reads every tap, valid or
+//   not, so the loads of a run's planes are in flight together. A tap's
+//   address is one 32 x 32 -> 64 bit multiply-add. A warp takes 16 x 2
+//   columns, not 32 x 1: its loads and stores still fill 32-byte sectors, and
+//   fewer of its lanes idle through a view that only part of the warp is in;
+// - the taper keeps cosf: with the hardware cosine (absolute error 4e-7) a
+//   voxel whose weights are all near 0 moved by 0.04 on data up to 900, past
+//   the tolerance against the plain version;
 // - nan_to_num and the cast to the output dtype are fused into the store.
 //
 // What the TPU kernels did that does not come across: the zero-padded atlas,
@@ -44,7 +75,8 @@
 //
 // Interface: plain C, loaded with ctypes. Every launch returns the
 // cudaError_t of cudaGetLastError() (0 on success), kBadDtype for an
-// unsupported dtype, or cudaErrorInvalidConfiguration for a grid too large.
+// unsupported dtype, or cudaErrorInvalidConfiguration for a grid too large
+// (3D also: a source plane of 2 GiB or more).
 
 #include <cuda_runtime.h>
 
@@ -55,11 +87,17 @@
 namespace {
 
 constexpr int kBadDtype = -1;
-constexpr int kSlotChunk = 32;  // view slots staged in shared memory per pass
+constexpr int kSlotChunk = 32;  // view slots the 2D kernel stages in shared memory per pass
 constexpr float kPi = 3.14159265358979323846f;
 
-// 3D block: 32 x 8 threads, each walking 4 z planes of one (y, x) column.
-constexpr int kBX3 = 32, kBY3 = 8, kBZ3 = 4;
+// 3D block: 32 x 8 threads, one (y, x) column each, walking up to kZSpan planes
+// of a view-list tile, kZRun planes at a time in registers. It stages
+// kSlotChunk3 view slots per pass; three blocks share an SM.
+constexpr int kBX3 = 32, kBY3 = 8;
+constexpr int kZSpan = 64, kZRun = 8;
+constexpr int kSlotChunk3 = 8;
+static_assert(kZSpan % kZRun == 0, "a span is whole runs");
+constexpr int kBlocksPerSM3 = 3;
 // 2D block: 32 x 16 threads, one output pixel each.
 constexpr int kBX2 = 32, kBY2 = 16;
 
@@ -131,6 +169,13 @@ __device__ __forceinline__ float taper(float w) {
   return fminf(fmaxf(w, 0.f), 1.f);
 }
 
+// The same without a branch, for a loop whose planes are to overlap: the
+// cosine is taken of every w and dropped where w >= 1.
+__device__ __forceinline__ float taper_select(float w) {
+  const float t = (cosf((1.f - w) * kPi) + 1.f) / 2.f;
+  return fminf(fmaxf(w < 1.f ? t : w, 0.f), 1.f);
+}
+
 __device__ __forceinline__ float lerp(float a, float b, float f) {
   return (1.f - f) * a + f * b;
 }
@@ -195,119 +240,230 @@ struct Args2D {
   int org_y, org_x;
 };
 
-// blockIdx.{x,y,z} = tile index * sub + sub-block index: a block never
-// straddles two tiles of the view-list grid, whatever the tile shape.
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(kBX3* kBY3)
-    fuse_translation_3d_kernel(Args3D a, int n_ty, int n_tx, int sub_z, int sub_y, int sub_x) {
-  __shared__ int s_view[kSlotChunk];
-  __shared__ float s_par[kSlotChunk][Par<3>::kRow];
-  __shared__ float s_grid[kSlotChunk][Par<3>::kGrid];
+// What a view needs on one plane of a block's span, the same for every column:
+// computed once a block, in shared memory.
+struct __align__(16) ZPlane {
+  unsigned lo, hi;  // lower and upper source plane, clamped to the stack
+  float fz;         // lerp fraction; negative: the view is not valid on this plane
+  float hz[5];      // hats of the plane's z weight coordinate
+};
 
-  const int tx = blockIdx.x / sub_x, ix = (blockIdx.x % sub_x) * kBX3 + threadIdx.x;
-  const int ty = blockIdx.y / sub_y, iy = (blockIdx.y % sub_y) * kBY3 + threadIdx.y;
-  const int tz = blockIdx.z / sub_z, iz0 = (blockIdx.z % sub_z) * kBZ3;
-  const int px = tx * a.TX + ix, py = ty * a.TY + iy;
+// What a view needs on one row (y) or one column (x) of a block, the same on
+// every plane: computed once a block, in shared memory.
+struct __align__(16) Axis {
+  int lo, hi;    // offsets of the lower and the upper tap (clamped) in a source plane
+  float f;       // lerp fraction
+  int g;         // first grid index of the pair of hats that are not 0; -1: not valid here
+  float h0, h1;  // hats at g and g + 1
+};
+
+// First of the two neighbouring grid indices, both in [0, 4], that hold every
+// non-zero hat of weight coordinate g: hat(g, i) is 0 unless |g - i| < 1.
+__device__ __forceinline__ int hat_pair(float g) {
+  return static_cast<int>(fminf(fmaxf(floorf(g), 0.f), 3.f));
+}
+
+// Entry of in-tile index i (absolute index o0 + i) along axis d (1: y, 2: x)
+// of a view with parameter row p; `size` entries of `pitch` elements each.
+__device__ __forceinline__ Axis axis_entry(const float* p, int d, int o0, int i, int size,
+                                           int pitch) {
+  const Sample sm = tile_sample(p[d], p[12 + d], o0, i);
+  const float g = mul_add(p[6 + d], o0 + i, p[9 + d]);
+  Axis e;
+  e.lo = clamp_idx(sm.idx, size) * pitch;
+  e.hi = clamp_idx(sm.idx + 1, size) * pitch;
+  e.f = sm.frac;
+  const int pair = hat_pair(g);
+  e.g = inside(p[12 + d], o0 + i, p[d], p[3 + d]) ? pair : -1;
+  e.h0 = hat(g, pair);
+  e.h1 = hat(g, pair + 1);
+  return e;
+}
+
+// Entries [zb, ze) of the z tables of the staged slots; plane j of the span is
+// in-tile plane iz0 + j of the tile whose origin has absolute index oz0. Only
+// the span's first nz planes exist: the others are marked not valid, with
+// source planes that can be read.
+__device__ __forceinline__ void build_z_tables(const Args3D& a, int nk, const int* s_view,
+                                               float (*s_par)[Par<3>::kRow],
+                                               ZPlane (*s_z)[kZSpan], int zb, int ze, int nz,
+                                               int iz0, int oz0, int tid, int nthreads) {
+  for (int e = tid; e < nk * kZSpan; e += nthreads) {
+    const int s = e / kZSpan, j = zb + e % kZSpan;
+    if (j >= ze) continue;
+    ZPlane z{0u, 0u, -1.f, {0.f, 0.f, 0.f, 0.f, 0.f}};
+    if (s_view[s] >= 0 && j < nz) {
+      const float* p = s_par[s];  // off 0-2 | ext 3-5 | wdiag 6-8 | woff 9-11 | scale 12-14
+      const int iz = iz0 + j, az = oz0 + iz;
+      int zlo;
+      float fz;
+      if (a.per_view_z) {
+        const Sample sz = tile_sample(p[0], p[12], oz0, iz);
+        zlo = sz.idx;
+        fz = sz.frac;
+      } else {
+        // uniform z mode: integer stride SZ from floor(c0), fixed fraction
+        const float cz0 = __fadd_rn(p[0], __fmul_rn(p[12], static_cast<float>(oz0)));
+        const float bz0 = floorf(cz0);
+        zlo = static_cast<int>(bz0) + a.SZ * iz;
+        fz = __fsub_rn(cz0, bz0);
+      }
+      z.lo = static_cast<unsigned>(clamp_idx(zlo, a.D));
+      z.hi = static_cast<unsigned>(clamp_idx(zlo + 1, a.D));
+      if (inside(p[12], az, p[0], p[3])) z.fz = fz;
+      const float gz = mul_add(p[6], az, p[9]);
+#pragma unroll
+      for (int i = 0; i < 5; ++i) z.hz[i] = hat(gz, i);
+    }
+    s_z[s][j] = z;
+  }
+}
+
+// One view's part of a run of kZRun planes of a column. q00..q11 point at the
+// column's four (y, x) taps in plane 0 of the view and a plane is plane_bytes
+// long (32 bits: one multiply-add gives a tap's address); kCarry: the upper
+// plane of one output plane is the lower plane of the next (uniform z mode,
+// stride 1), so its four taps stay in registers. Every tap is read, valid
+// plane or not (the table's source planes are clamped), and no plane is
+// skipped, so that the loads of all the run's planes can be in flight at once.
+template <typename Tin, bool kCarry>
+__device__ __forceinline__ void column_planes(const char* q00, const char* q10, const char* q01,
+                                              const char* q11, unsigned plane_bytes, float fy,
+                                              float fx, const float (&inner)[5],
+                                              const ZPlane* zt, float (&acc)[kZRun],
+                                              float (&wsum)[kZRun], float (&vacc)[kZRun],
+                                              float (&vcnt)[kZRun]) {
+  auto tap = [plane_bytes](const char* q, unsigned z) {
+    return Cast<Tin>::load(
+        reinterpret_cast<const Tin*>(q + static_cast<unsigned long long>(z) * plane_bytes));
+  };
+  float l00 = 0.f, l10 = 0.f, l01 = 0.f, l11 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kZRun; ++j) {
+    const ZPlane z = zt[j];
+    if (!kCarry || j == 0) {
+      l00 = tap(q00, z.lo), l10 = tap(q10, z.lo), l01 = tap(q01, z.lo), l11 = tap(q11, z.lo);
+    }
+    const float u00 = tap(q00, z.hi), u10 = tap(q10, z.hi);
+    const float u01 = tap(q01, z.hi), u11 = tap(q11, z.hi);
+    // z first, then y, then x
+    const float val = lerp(lerp(lerp(l00, u00, z.fz), lerp(l10, u10, z.fz), fy),
+                           lerp(lerp(l01, u01, z.fz), lerp(l11, u11, z.fz), fy), fx);
+    float w = 0.f;
+#pragma unroll
+    for (int i = 0; i < 5; ++i) w += z.hz[i] * inner[i];
+    w = taper_select(w);
+    if (z.fz >= 0.f) {
+      acc[j] += w * val;
+      wsum[j] += w;
+      vacc[j] += val;
+      vcnt[j] += 1.f;
+    }
+    if (kCarry) l00 = u00, l10 = u10, l01 = u01, l11 = u11;
+  }
+}
+
+// blockIdx.{x,y,z} = tile index * sub + sub-block index: a block never
+// straddles two tiles of the view-list grid, whatever the tile shape. A warp
+// takes 16 x 2 of the block's 32 x 8 columns: its loads and stores still fill
+// whole 32-byte sectors, and it meets fewer views of which only some of its
+// lanes are inside than a warp of 32 x 1 does.
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kBX3* kBY3, kBlocksPerSM3)
+    fuse_translation_3d_kernel(Args3D a, int n_ty, int n_tx, int sub_z, int sub_y, int sub_x) {
+  __shared__ int s_view[kSlotChunk3];
+  __shared__ float s_par[kSlotChunk3][Par<3>::kRow];
+  __shared__ float s_grid[kSlotChunk3][Par<3>::kGrid];
+  __shared__ Axis s_y[kSlotChunk3][kBY3], s_x[kSlotChunk3][kBX3];
+  __shared__ ZPlane s_z[kSlotChunk3][kZSpan];
+
+  const int tid = threadIdx.y * kBX3 + threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int tx = blockIdx.x / sub_x, ty = blockIdx.y / sub_y, tz = blockIdx.z / sub_z;
+  const int bx = (warp & 1) * 16 + (lane & 15), by = (warp >> 1) * 2 + (lane >> 4);
+  const int ix0 = (blockIdx.x % sub_x) * kBX3, iy0 = (blockIdx.y % sub_y) * kBY3;
+  const int ix = ix0 + bx, iy = iy0 + by;
+  const int iz0 = (blockIdx.z % sub_z) * kZSpan;
+  const int px = tx * a.TX + ix, py = ty * a.TY + iy, pz0 = tz * a.TZ + iz0;
+  // planes of the span that lie in the tile and in the output
+  const int nz = min(min(kZSpan, a.TZ - iz0), a.OZ - pz0);
+  if (nz <= 0) return;
   const bool active = ix < a.TX && iy < a.TY && px < a.OX && py < a.OY;
   // absolute output indices of the tile origin (the reference's o0)
   const int ox0 = tx * a.TX + a.org_x, oy0 = ty * a.TY + a.org_y, oz0 = tz * a.TZ + a.org_z;
-  const int tid = threadIdx.y * kBX3 + threadIdx.x;
   const int* slots = a.view_idx + ((static_cast<long long>(tz) * n_ty + ty) * n_tx + tx) * a.K;
-  const long long plane = static_cast<long long>(a.H) * a.W;
-  const long long vsize = plane * a.D;
+  const unsigned plane_bytes = static_cast<unsigned>(a.H * a.W) * sizeof(Tin);
+  const long long vsize = static_cast<long long>(a.H) * a.W * a.D;
   const Tin* tiles = static_cast<const Tin*>(a.tiles);
+  Tout* out = static_cast<Tout*>(a.out);
+  const bool carry = !a.per_view_z && a.SZ == 1;
+  // a list longer than a pass is staged anew for every run of planes, with
+  // the z tables of that run alone; a shorter one once, for the whole span
+  const bool restage = a.K > kSlotChunk3;
 
-  float acc[kBZ3], wsum[kBZ3], vacc[kBZ3], vcnt[kBZ3];
+  for (int z0 = 0; z0 < nz; z0 += kZRun) {
+    const int n = min(kZRun, nz - z0);
+    float acc[kZRun], wsum[kZRun], vacc[kZRun], vcnt[kZRun];
 #pragma unroll
-  for (int j = 0; j < kBZ3; ++j) acc[j] = wsum[j] = vacc[j] = vcnt[j] = 0.f;
+    for (int j = 0; j < kZRun; ++j) acc[j] = wsum[j] = vacc[j] = vcnt[j] = 0.f;
 
-  for (int k0 = 0; k0 < a.K; k0 += kSlotChunk) {
-    const int nk = min(kSlotChunk, a.K - k0);
-    stage_slots<3>(slots, k0, nk, a.params, a.wgrids, s_view, s_par, s_grid, tid, kBX3 * kBY3);
-    if (!active) continue;
-    for (int s = 0; s < nk; ++s) {
-      const int v = s_view[s];
-      if (v < 0) continue;
-      const float* p = s_par[s];  // off 0-2 | ext 3-5 | wdiag 6-8 | woff 9-11 | scale 12-14
-      // a view not valid at this (y, x) adds exactly 0 on every plane
-      if (!inside(p[13], oy0 + iy, p[1], p[4]) || !inside(p[14], ox0 + ix, p[2], p[5])) continue;
-      const Sample sy = tile_sample(p[1], p[13], oy0, iy);
-      const Sample sx = tile_sample(p[2], p[14], ox0, ix);
-      const int y0 = clamp_idx(sy.idx, a.H), y1 = clamp_idx(sy.idx + 1, a.H);
-      const int x0 = clamp_idx(sx.idx, a.W), x1 = clamp_idx(sx.idx + 1, a.W);
-
-      // y/x part of the hat expansion, reused over the z planes
-      const float gy = mul_add(p[7], oy0 + iy, p[10]);
-      const float gx = mul_add(p[8], ox0 + ix, p[11]);
-      float hy[5], hx[5], inner[5];
-#pragma unroll
-      for (int i = 0; i < 5; ++i) {
-        hy[i] = hat(gy, i);
-        hx[i] = hat(gx, i);
-      }
-      const float* g = s_grid[s];
-#pragma unroll
-      for (int i = 0; i < 5; ++i) {
-        float in_y = 0.f;
-#pragma unroll
-        for (int j = 0; j < 5; ++j) {
-          float in_x = 0.f;
-#pragma unroll
-          for (int k = 0; k < 5; ++k) in_x += g[(i * 5 + j) * 5 + k] * hx[k];
-          in_y += hy[j] * in_x;
+    for (int k0 = 0; k0 < a.K; k0 += kSlotChunk3) {
+      const int nk = min(kSlotChunk3, a.K - k0);
+      if (restage || z0 == 0) {
+        stage_slots<3>(slots, k0, nk, a.params, a.wgrids, s_view, s_par, s_grid, tid,
+                       kBX3 * kBY3);
+        for (int e = tid; e < nk * (kBY3 + kBX3); e += kBX3 * kBY3) {
+          const int s = e / (kBY3 + kBX3), i = e % (kBY3 + kBX3);
+          if (i < kBY3) {
+            s_y[s][i] = axis_entry(s_par[s], 1, oy0, iy0 + i, a.H, a.W);
+          } else {
+            s_x[s][i - kBY3] = axis_entry(s_par[s], 2, ox0, ix0 + i - kBY3, a.W, 1);
+          }
         }
-        inner[i] = in_y;
+        build_z_tables(a, nk, s_view, s_par, s_z, restage ? z0 : 0,
+                       restage ? z0 + kZRun : kZSpan, nz, iz0, oz0, tid, kBX3 * kBY3);
+        __syncthreads();
       }
-
-      // uniform z mode: integer stride SZ from floor(c0), fixed fraction
-      const float cz0 = __fadd_rn(p[0], __fmul_rn(p[12], static_cast<float>(oz0)));
-      const float bz0 = floorf(cz0);
-      const Tin* base = tiles + v * vsize;
+      if (!active) continue;
+      for (int s = 0; s < nk; ++s) {
+        const int v = s_view[s];
+        if (v < 0) continue;
+        // a view not valid at this (y, x) adds exactly 0 on every plane
+        const Axis cy = s_y[s][by], cx = s_x[s][bx];
+        if (cy.g < 0 || cx.g < 0) continue;
+        // y/x part of the hat expansion. At most two neighbouring hats an axis
+        // are not 0, and a term with a hat of 0 adds exactly 0 to the sums
+        // sum_j hy (sum_k g hx), so the four terms left give the sums' bits.
+        const float* g = s_grid[s] + cy.g * 5 + cx.g;
+        float inner[5];
 #pragma unroll
-      for (int j = 0; j < kBZ3; ++j) {
-        const int iz = iz0 + j, pz = tz * a.TZ + iz;
-        if (iz >= a.TZ || pz >= a.OZ) break;
-        const int az = oz0 + iz;
-        if (!inside(p[12], az, p[0], p[3])) continue;
-        int zlo;
-        float fz;
-        if (a.per_view_z) {
-          const Sample sz = tile_sample(p[0], p[12], oz0, iz);
-          zlo = sz.idx;
-          fz = sz.frac;
+        for (int i = 0; i < 5; ++i) {
+          const float in0 = g[i * 25] * cx.h0 + g[i * 25 + 1] * cx.h1;
+          const float in1 = g[i * 25 + 5] * cx.h0 + g[i * 25 + 6] * cx.h1;
+          inner[i] = cy.h0 * in0 + cy.h1 * in1;
+        }
+        const Tin* base = tiles + v * vsize;
+        const char* q00 = reinterpret_cast<const char*>(base + cy.lo + cx.lo);
+        const char* q10 = reinterpret_cast<const char*>(base + cy.hi + cx.lo);
+        const char* q01 = reinterpret_cast<const char*>(base + cy.lo + cx.hi);
+        const char* q11 = reinterpret_cast<const char*>(base + cy.hi + cx.hi);
+        const ZPlane* zt = s_z[s] + z0;
+        if (carry) {
+          column_planes<Tin, true>(q00, q10, q01, q11, plane_bytes, cy.f, cx.f, inner, zt, acc,
+                                   wsum, vacc, vcnt);
         } else {
-          zlo = static_cast<int>(bz0) + a.SZ * iz;
-          fz = __fsub_rn(cz0, bz0);
+          column_planes<Tin, false>(q00, q10, q01, q11, plane_bytes, cy.f, cx.f, inner, zt, acc,
+                                    wsum, vacc, vcnt);
         }
-        const Tin* q0 = base + clamp_idx(zlo, a.D) * plane;
-        const Tin* q1 = base + clamp_idx(zlo + 1, a.D) * plane;
-        const long long r0 = static_cast<long long>(y0) * a.W, r1 = static_cast<long long>(y1) * a.W;
-        const float z00 = lerp(Cast<Tin>::load(q0 + r0 + x0), Cast<Tin>::load(q1 + r0 + x0), fz);
-        const float z10 = lerp(Cast<Tin>::load(q0 + r1 + x0), Cast<Tin>::load(q1 + r1 + x0), fz);
-        const float z01 = lerp(Cast<Tin>::load(q0 + r0 + x1), Cast<Tin>::load(q1 + r0 + x1), fz);
-        const float z11 = lerp(Cast<Tin>::load(q0 + r1 + x1), Cast<Tin>::load(q1 + r1 + x1), fz);
-        const float val = lerp(lerp(z00, z10, sy.frac), lerp(z01, z11, sy.frac), sx.frac);
-
-        const float gz = mul_add(p[6], az, p[9]);
-        float w = 0.f;
-#pragma unroll
-        for (int i = 0; i < 5; ++i) w += hat(gz, i) * inner[i];
-        w = taper(w);
-        acc[j] += w * val;
-        wsum[j] += w;
-        vacc[j] += val;
-        vcnt[j] += 1.f;
       }
     }
-  }
-  if (!active) return;
-  Tout* out = static_cast<Tout*>(a.out);
+    if (!active) continue;
 #pragma unroll
-  for (int j = 0; j < kBZ3; ++j) {
-    const int iz = iz0 + j, pz = tz * a.TZ + iz;
-    if (iz >= a.TZ || pz >= a.OZ) break;
-    out[(static_cast<long long>(pz) * a.OY + py) * a.OX + px] =
-        Cast<Tout>::store(nan_to_num(fused_value(acc[j], wsum[j], vacc[j], vcnt[j])));
+    for (int j = 0; j < kZRun; ++j) {
+      if (j >= n) break;
+      out[(static_cast<long long>(pz0 + z0 + j) * a.OY + py) * a.OX + px] =
+          Cast<Tout>::store(nan_to_num(fused_value(acc[j], wsum[j], vacc[j], vcnt[j])));
+    }
   }
 }
 
@@ -379,12 +535,16 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 template <typename Tin, typename Tout>
 struct Launch3D {
   static int run(const Args3D& a, cudaStream_t stream) {
-    const int sub_z = cdiv(a.TZ, kBZ3), sub_y = cdiv(a.TY, kBY3), sub_x = cdiv(a.TX, kBX3);
+    const int sub_z = cdiv(a.TZ, kZSpan), sub_y = cdiv(a.TY, kBY3), sub_x = cdiv(a.TX, kBX3);
     const int n_tz = cdiv(a.OZ, a.TZ), n_ty = cdiv(a.OY, a.TY), n_tx = cdiv(a.OX, a.TX);
     const long long gx = static_cast<long long>(n_tx) * sub_x;
     const long long gy = static_cast<long long>(n_ty) * sub_y;
     const long long gz = static_cast<long long>(n_tz) * sub_z;
-    if (gx > INT_MAX || gy > 65535 || gz > 65535) return cudaErrorInvalidConfiguration;
+    // a thread keeps a plane's length in bytes in 32 bits
+    if (gx > INT_MAX || gy > 65535 || gz > 65535 ||
+        static_cast<long long>(a.H) * a.W * static_cast<long long>(sizeof(Tin)) > INT_MAX) {
+      return cudaErrorInvalidConfiguration;
+    }
     fuse_translation_3d_kernel<Tin, Tout>
         <<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy), static_cast<unsigned>(gz)),
            dim3(kBX3, kBY3), 0, stream>>>(a, n_ty, n_tx, sub_z, sub_y, sub_x);

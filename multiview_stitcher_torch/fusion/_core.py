@@ -454,6 +454,9 @@ def _execute_fusion_plan_translation(
         translation_fusion.TILE_SHAPE_3D if ndim == 3 else translation_fusion.TILE_SHAPE_2D
     )
     out_shape = tuple(int(output_stack_properties["shape"][d]) for d in sdims)
+    if ndim == 3:
+        # no tile deeper than the output: the plain version pads to whole tiles
+        tile_shape = (min(tile_shape[0], max(out_shape[0], 1)),) + tuple(tile_shape[1:])
     views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
     if scales is not None:
         scale_arr = np.asarray(scales, dtype=np.float64)

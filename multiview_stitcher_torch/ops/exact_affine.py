@@ -24,12 +24,13 @@ What the reference's wrappers take and these do not: ``tile``, ``HW``,
 ``plan_windows_*`` planners. They size the window DMAs and the banded-hat
 matmuls that stand in for a gather on a machine that has none. Here a
 thread computes its sample coordinate, takes ``floor`` and the fraction and
-reads its 4 or 8 neighbours. The 3D kernels first copy the box of source
+reads its 4 or 8 neighbours. Every kernel first copies the box of source
 voxels that a block's output tile can touch into shared memory and
-interpolate from there; a block whose box exceeds the shared-memory budget
-(a map that downscales, a steep shear) gathers from global memory instead, so
-no map is ever too large for a window. :func:`record_routes` and
-:func:`read_routes` count which of the two a call's blocks took.
+interpolates from there; a block whose box exceeds the shared-memory budget
+(a map that downscales by 3 or more, a steep shear) gathers from global
+memory instead, so no map is ever too large for a window, and a tile that no
+valid sample reaches is filled with ``cval`` at once. :func:`record_routes`
+and :func:`read_routes` count which of the three a call's blocks took.
 
 What these take and the reference's do not (all optional): ``tile_idx`` and
 ``starts`` make item ``b`` read ``data[tile_idx[b]]`` shifted by the integer
@@ -264,7 +265,7 @@ _ENTRY_POINTS = ("mvs_exact_affine_2d", "mvs_exact_affine_3d_sepy", "mvs_exact_a
 def _library() -> ctypes.CDLL:
     lib = _build.load("exact_affine")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mvs_exact_affine_2d.argtypes = [P, I, I, I, I, P, P, I, P, I, I, F, P]
+    lib.mvs_exact_affine_2d.argtypes = [P, I, I, I, I, P, P, I, P, I, I, F, P, P]
     for name in _ENTRY_POINTS[1:]:
         getattr(lib, name).argtypes = [P, I, I, I, I, I, P, P, I, P, I, I, I, F, P, P]
     for name in _ENTRY_POINTS:
@@ -277,8 +278,8 @@ _route_counts = None  # a CUDA int64 tensor of len(ROUTES) while routes are reco
 
 
 def record_routes(device) -> None:
-    """Start counting, on ``device``, the routes the 3D kernels take: per
-    block (general) or run of y rows (y-decoupled), whether it staged its
+    """Start counting, on ``device``, the routes the kernels take: per block
+    (2D and general 3D) or run of y rows (y-decoupled), whether it staged its
     source box in shared memory ("shared"), took the per-voxel global gathers
     because the box exceeds the budget ("gather"), or filled a tile that no
     valid sample reaches with ``cval`` ("fill"). Counting costs an atomic add
@@ -319,7 +320,7 @@ def _launch(entry: str, a: _Args) -> tuple:
             a.data.data_ptr(), _DTYPE_CODES[a.data.dtype], *a.data.shape,
             a.fparams.data_ptr(), a.iparams.data_ptr(), B,
             out.data_ptr(), *a.out_shape, ctypes.c_float(a.cval),
-            *([_route_counter(a.data.device)] if entry != _ENTRY_POINTS[0] else []),
+            _route_counter(a.data.device),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _build.check(lib, rc, entry)

@@ -16,13 +16,18 @@ For a CUDA tensor a wrapper launches the hand-written CUDA C++ kernel of
 takes the plain PyTorch version ``*_plain`` only for a tensor on the CPU.
 Each wrapper counts its launches in its ``launches`` attribute.
 
-What bounds the kernels on the H100 is memory: each input voxel is read
-about once and each output voxel written once, at a few tens of f32
-operations per covering view. The kernels gather straight from the tile
-stack in its native dtype (no f32 copy), stage each output tile's view list
-and weight grids in shared memory, reuse the y/x part of the weight over a
-tile's z planes, and fuse ``nan_to_num`` and the cast into the store; the
-source file's header gives the details.
+What bounds the kernels on the H100 is, on paper, memory (each input voxel is
+read about once and each output voxel written once, at a few tens of f32
+operations per covering view) and, as measured, their instruction count. The
+kernels gather straight from the tile stack in its native dtype (no f32
+copy), stage each output tile's view list and weight grids in shared memory
+and fuse ``nan_to_num`` and the cast into the store. The 3D kernel gives a
+block 8 x 32 columns and up to 64 planes of a view-list tile, which is why
+``fuse`` lists its views at ``TILE_SHAPE_3D = (64, 8, 32)``; it computes what
+depends on one index alone once a block, walks z in runs of 8 planes and
+carries a plane's upper taps to the next. The wrappers take any
+``tile_shape``; the source file's header gives the details and the
+measurements.
 
 Numerics kept from the reference, in f32 and in this order (named here
 because each is a place where a port goes wrong):
@@ -61,10 +66,12 @@ import torch
 from multiview_stitcher_torch import weights
 from multiview_stitcher_torch.ops import _build
 
-# the CUDA kernels' block tiles: per-tile view lists built at these sizes
-# map one block to one list
+# tile shapes at which ``fuse`` builds its per-tile view lists. 2D: the
+# kernel's block, one list a block. 3D: the block's 8 x 32 columns and the 64
+# planes a block walks, so a list, its parameters and its z tables are staged
+# once for 16,384 voxels
 TILE_SHAPE_2D = (16, 32)
-TILE_SHAPE_3D = (4, 8, 32)
+TILE_SHAPE_3D = (64, 8, 32)
 
 # dtype codes of csrc/translation_fusion.cu
 _DTYPE_CODES = {torch.float32: 0, torch.uint16: 1, torch.uint8: 2}

@@ -69,6 +69,11 @@ def _case(name):
         return _grid(rng, 2, 3, (48, 48), (40, 40), np.float32)
     if name == "grid3d_fractional":
         return _grid(rng, 3, 2, (12, 40, 40), (10, 33, 33), np.float32, frac=0.35)
+    if name.startswith("grid3d_deep"):
+        # deeper than one view-list tile of the port's 3D kernel (64 planes),
+        # at fractional offsets
+        dtype = np.uint16 if name.endswith("uint16") else np.float32
+        return _grid(rng, 3, 2, (70, 24, 24), (60, 20, 20), dtype, frac=0.35)
     if name == "mixed_shapes_uint16":
         shapes = [(40, 48), (48, 36), (36, 40)]
         origins = [(0.0, 0.0), (30.0, 5.0), (10.0, 40.0)]
@@ -132,6 +137,8 @@ _CASES = [
     "mixed_resolution_3d",
     "channels2d_uint16",
     "time2d_uint16",
+    "grid3d_deep_uint16",
+    "grid3d_deep_float32",
 ]
 
 

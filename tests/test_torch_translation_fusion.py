@@ -210,6 +210,43 @@ def test_wrappers_validate_inputs():
         )
     with pytest.raises(ValueError, match="view_idx must be"):
         tf.fuse_translation_3d(
-            torch.from_numpy(tiles), view_idx[:1], *tables.values(),
+            torch.from_numpy(tiles), view_idx[:, :1], *tables.values(),
             out_shape=out_shape, K=view_idx.shape[-1],
         )
+
+
+@pytest.mark.parametrize("case", ["unit", "scaled", "per_view"])
+@pytest.mark.parametrize("out_dtype", [np.float32, np.uint16])
+def test_plain_matches_pallas_at_the_tile_of_fuse(case, out_dtype):
+    """``fuse`` lists its views at ``TILE_SHAPE_3D``, a tile as deep as the
+    CUDA kernel's walk along z; the layouts have one view at fractional
+    offsets, so the tile-origin split is exercised at that shape."""
+    tiles, tables, out_shape, scale_arr, scales = _layout(
+        3, case, np.random.default_rng(20 + len(case))
+    )
+    if out_dtype == np.uint16:
+        tiles = tiles * 9
+    ref, got = _run_both(3, tiles, tables, out_shape, scale_arr, scales, tf.TILE_SHAPE_3D,
+                         out_dtype=out_dtype)
+    assert got.shape == ref.shape == out_shape
+    if out_dtype == np.uint16:
+        assert np.abs(got.astype(np.int64) - ref.astype(np.int64)).max() <= 1
+    else:
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
+
+
+def test_plain_banded_origin_at_a_tile_with_a_ragged_depth():
+    """A band through ``origin`` at a tile depth that is no multiple of the
+    CUDA kernel's run of planes equals the full output at that band."""
+    tiles, tables, out_shape, scale_arr, scales = _layout(3, "unit", np.random.default_rng(7))
+    tile_shape = (12, 8, 32)
+    ref, got = _run_both(3, tiles, tables, out_shape, scale_arr, scales, tile_shape, band=(1, 1))
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
+    view_idx = tcore.tile_view_lists(
+        tables["offs"], tables["extents"], scale_arr, out_shape, tile_shape
+    )
+    full = tf.fuse_translation_3d(
+        torch.from_numpy(tiles), view_idx, *tables.values(), out_shape=out_shape,
+        tile_shape=tile_shape, K=view_idx.shape[-1], scale=_kernel_scale(3, scale_arr),
+    ).numpy()
+    np.testing.assert_array_equal(got, full[tile_shape[0]:])
