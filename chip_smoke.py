@@ -15,8 +15,10 @@ Phases, one printed line or block each:
    per-view scales, a banded ``origin``, uint16 output, views whose z
    validity begins or ends inside a run of planes, tile shapes that are and
    are not multiples of the kernel blocks, tile depths above, at half and
-   below the 3D kernel's run of planes, and view lists of 40 slots, which the
-   3D kernel stages in several passes); the exact-affine kernels on the
+   below the 3D kernel's run of planes, tile heights of one and a half and
+   below the 2D kernel's run of rows and of one and a half of its blocks, and
+   view lists of 40 slots, which both kernels stage in several passes); the
+   exact-affine kernels on the
    reference's test maps, a map that downscales by 4, uint8/uint16/f32
    sources, ``cval`` NaN and 0, a batch that samples a stack through
    ``tile_idx``/``starts`` and an output shape that is no multiple of the
@@ -84,8 +86,9 @@ FP32_OPS_PER_S = 67e12
 # parts of the hat expansion amortized away: trilinear lerp 7 x 3, z weight
 # contraction 5 hats x 3 + 5 x 2, taper and clip 6, accumulation 5
 OPS_PER_VOXEL_VIEW_3D = 21 + 25 + 6 + 5
-# bilinear lerp 3 x 3, y weight contraction 25, taper and clip 6, accumulation 5
-OPS_PER_VOXEL_VIEW_2D = 9 + 25 + 6 + 5
+# bilinear lerp 3 x 3, the four hat terms that are not 0 (two multiplies and
+# an add each), taper and clip 6, accumulation 5
+OPS_PER_VOXEL_VIEW_2D = 9 + 12 + 6 + 5
 
 # exact-affine kernels, f32 operations per output voxel: ndim rows of ndim
 # multiplies and ndim adds for the coordinates, and for a voxel inside the
@@ -196,10 +199,12 @@ def check_small_cases(np, torch, tsi, tcore, tf):
     """Phase 3: every kernel against its plain version on the card."""
     worst = {2: 0.0, 3: 0.0}
     rng = np.random.default_rng(0)
-    # 3D: the tile of fuse() (deeper than these outputs: one run of planes that
-    # ends early), a depth of one and a half runs, and depths below a run
+    # the tiles of fuse() (deeper or taller than these outputs: one run of
+    # planes or one block of rows that ends early); 3D depths of one and a half
+    # runs of planes and below a run; 2D heights of one and a half runs of 4
+    # rows (6), below a run (3) and of one and a half blocks of 64 rows (96)
     tile_shapes = {
-        2: [tf.TILE_SHAPE_2D, (32, 128), (20, 50)],
+        2: [tf.TILE_SHAPE_2D, (32, 128), (20, 50), (6, 32), (3, 40), (96, 48)],
         3: [tf.TILE_SHAPE_3D, (12, 8, 32), (4, 8, 32), (8, 16, 128), (6, 12, 40)],
     }
     for ndim in (2, 3):
@@ -232,50 +237,56 @@ def check_small_cases(np, torch, tsi, tcore, tf):
                         np, torch, fn, plain, f"{ndim}d {case:8s} {label:6s} tile={tile_shape}",
                         args, kw)
                     worst[ndim] = max(worst[ndim], err)
-    worst[3] = max(worst[3], check_long_view_lists(np, torch, tsi, tcore, tf, rng))
+    for ndim in (2, 3):
+        worst[ndim] = max(worst[ndim], check_long_view_lists(np, torch, tsi, tcore, tf, ndim, rng))
     return worst
 
 
-def check_long_view_lists(np, torch, tsi, tcore, tf, rng):
-    """Phase 3, 3D translation kernel: view lists longer than one pass of
-    staged slots. Every view of a small layout is repeated ten times with its
-    own content and a jittered fractional offset, so a tile lists up to 40
-    views; uniform mode (stride 1 and 2) and per-view z scales, f32 and
-    uint16 output, and a band through ``origin``."""
+def check_long_view_lists(np, torch, tsi, tcore, tf, ndim, rng):
+    """Phase 3, translation kernels: view lists longer than one pass of staged
+    slots (8 in both kernels). Every view of a small layout is repeated ten
+    times with its own content and a jittered fractional offset, so a tile
+    lists up to 40 views; unit, scaled (3D: z stride 2) and per-view scales,
+    f32 and uint16 output, and a band through ``origin``; 2D at a tile height
+    of one and a half runs of rows and at the tile of fuse()."""
     worst = 0.0
+    fn = tf.fuse_translation_3d if ndim == 3 else tf.fuse_translation_2d
+    plain = tf.fuse_translation_3d_plain if ndim == 3 else tf.fuse_translation_2d_plain
+    tile_shapes = [(12, 8, 32)] if ndim == 3 else [(6, 32), tf.TILE_SHAPE_2D]
     for case in ("unit", "scaled", "per_view"):
         tiles, tables, out_shape, scale_arr, scale, scales = small_layout(
-            np, tsi, tcore, 3, case, rng
+            np, tsi, tcore, ndim, case, rng
         )
         reps, V = 10, len(tiles)
         tiles = np.concatenate([tiles * rng.uniform(0.5, 1.0) for _ in range(reps)])
-        jitter = rng.uniform(-1.5, 1.5, (reps * V, 3)).astype(np.float32)
+        jitter = rng.uniform(-1.5, 1.5, (reps * V, ndim)).astype(np.float32)
         tables = tuple(np.concatenate([t] * reps) for t in tables)
         tables = (tables[0] + jitter,) + tables[1:]
         if scales is not None:
             scales = np.concatenate([scales] * reps)
             scale_arr = scales
-        tile_shape = (12, 8, 32)
-        view_idx = tcore.tile_view_lists(
-            tables[0], tables[1], np.asarray(scale_arr, np.float64), out_shape, tile_shape
-        )
-        K = view_idx.shape[-1]
-        if K <= 32:
-            raise AssertionError(f"3d long lists {case}: K = {K}, expected more than 32")
-        variants = [("f32", torch.float32, None, out_shape, view_idx),
-                    ("uint16", torch.uint16, None, out_shape, view_idx)]
-        if view_idx.shape[0] > 1:
-            origin = np.array([tile_shape[0], 0, 0], np.int32)
-            band_shape = (min(tile_shape[0], out_shape[0] - tile_shape[0]),) + out_shape[1:]
-            variants.append(("origin", torch.float32, origin, band_shape, view_idx[1:2]))
-        for label, out_dtype, org, shape, vidx in variants:
-            args = (torch.from_numpy(tiles).cuda(), vidx, *tables)
-            kw = dict(out_shape=shape, tile_shape=tile_shape, K=K, out_dtype=out_dtype,
-                      origin=org, scale=scale,
-                      scales=None if scales is None else np.asarray(scales, np.float32))
-            worst = max(worst, compare_translation(
-                np, torch, tf.fuse_translation_3d, tf.fuse_translation_3d_plain,
-                f"3d {case:8s} {label:6s} tile={tile_shape} K={K}", args, kw))
+        for tile_shape in tile_shapes:
+            view_idx = tcore.tile_view_lists(
+                tables[0], tables[1], np.asarray(scale_arr, np.float64), out_shape, tile_shape
+            )
+            K = view_idx.shape[-1]
+            if K <= 32:
+                raise AssertionError(f"{ndim}d long lists {case}: K = {K}, expected more than 32")
+            variants = [("f32", torch.float32, None, out_shape, view_idx),
+                        ("uint16", torch.uint16, None, out_shape, view_idx)]
+            if view_idx.shape[0] > 1:
+                origin = np.zeros(ndim, np.int32)
+                origin[0] = tile_shape[0]
+                band_shape = (min(tile_shape[0], out_shape[0] - tile_shape[0]),) + out_shape[1:]
+                variants.append(("origin", torch.float32, origin, band_shape, view_idx[1:2]))
+            for label, out_dtype, org, shape, vidx in variants:
+                args = (torch.from_numpy(tiles).cuda(), vidx, *tables)
+                kw = dict(out_shape=shape, tile_shape=tile_shape, K=K, out_dtype=out_dtype,
+                          origin=org, scale=scale,
+                          scales=None if scales is None else np.asarray(scales, np.float32))
+                worst = max(worst, compare_translation(
+                    np, torch, fn, plain, f"{ndim}d {case:8s} {label:6s} tile={tile_shape} K={K}",
+                    args, kw))
     return worst
 
 
@@ -1179,7 +1190,8 @@ def main() -> int:
     log(f"small cases: {small_s:.1f} s")
 
     r3 = main_path(np, torch, tsi, tcore, tf, tea, fuse, 3, n=32, tile=64, overlap=12, band_tiles=2)
-    r2 = main_path(np, torch, tsi, tcore, tf, tea, fuse, 2, n=32, tile=512, overlap=64, band_tiles=64)
+    # 2D bands of 16 view-list tiles of 64 rows: about 1024 output rows each
+    r2 = main_path(np, torch, tsi, tcore, tf, tea, fuse, 2, n=32, tile=512, overlap=64, band_tiles=16)
 
     def coupling(rng):
         return np.eye(3) + rng.uniform(0.005, 0.02, (3, 3)) * rng.choice([-1, 1], (3, 3))

@@ -13,47 +13,55 @@
 // mean where wsum == 0, passed through nan_to_num and a truncating cast.
 //
 // What bounds them on the H100. On paper, memory: each output pixel is read
-// from about 1.5 views on the main path and written once, at a few tens of f32
-// operations per covering view, against 3.35 TB/s and 67 TFLOP/s. Measured
-// (H100 80GB HBM3, 700 W; 3D, output (64, 1676, 1676) uint16 from 1024 views of
-// 64^3), it is the instruction count. The first 3D kernel gave a block 4 x 8 x
-// 32 voxels and took 7.5 ms: 4.4 ms were left with neither gathers nor stores,
-// 1.0 ms of it the staging of 125 grid floats a view and block, 0.65 ms the
-// 5 x 5 x 5 hat sums and 0.8 ms the cosine. The 3D kernel below takes 2.2 ms,
-// 2.05 ms without its gathers, 1.95 ms without its stores, and 1.8 ms with the
-// hardware cosine in place of cosf: the card issues some 90 machine operations
-// for a covered voxel and view, a third of them integer work at half rate. The
-// 2D kernel still has the first design.
+// from about 1.3-1.5 views on the main paths and written once, at a few tens
+// of f32 operations per covering view, against 3.35 TB/s and 67 TFLOP/s.
+// Measured (H100 80GB HBM3, 700 W), it is the instruction count. The first
+// designs gave a thread one pixel and took 7.5 ms (3D, output (64, 1676, 1676)
+// uint16 from 1024 views of 64^3) and 5.4 ms (2D, output 14400^2 uint16 from
+// 1024 views of 512^2); with neither gathers nor stores they still took 4.4
+// ms each: per pixel and view they ran both validity tests, both sample
+// positions, all 5^ndim hats and the whole hat sum, some 230 machine
+// operations in 2D. The kernels below take 2.2 ms (3D) and 1.46 ms (2D); the
+// 2D one 1.13 ms with neither gathers nor stores, at some 70 operations per
+// pixel and view.
 //
 // The design:
 // - gather straight from the (V, [D,] H, W) stack in its native dtype, so a
 //   uint16 stack moves 2 bytes a voxel and no f32 copy of it is ever made;
 //   the maps are translations, so a warp's taps are neighbours in x and the
 //   2x2(x2) lerp neighbourhood is shared through L1;
-// - 2D: one block per 16 x 32 sub-tile of a view-list tile; it stages its
-//   view-slot list, the views' parameter rows and their 5 x 5 grids in shared
-//   memory once, and a thread owns one pixel;
-// - 3D: one block per 8 x 32 (y, x) columns and up to 64 planes of a view-list
-//   tile, so that fuse() lists its views at tiles of (64, 8, 32) and a list is
-//   staged once for 16,384 voxels, not for 1,024. Whatever does not depend on
-//   all three indices is computed once a block into shared-memory tables: per
+// - a block owns a part of one view-list tile that fuse() sizes to it, so a
+//   list is staged once for many pixels: (64, 8, 32) in 3D, (64, 32) in 2D.
+//   Whatever does not depend on all the indices is computed once a block
+//   into shared-memory tables: per view and row or column the tap offsets,
+//   the fraction, the validity and the two hats that are not 0; in 3D per
 //   view and plane the two source planes, the z fraction, the z validity and
-//   the five z hats; per view and block row or column the tap offsets, the
-//   fraction, the validity and the two hats that are not 0. A thread owns one
-//   column and walks the planes in runs of 8 with its sums in registers; per
-//   view and run it contracts the grid with the four y/x hat terms that are
-//   not 0 (a term with a hat of 0 adds exactly 0, so the sums keep their
-//   bits) and then, per plane, reads four taps (the upper plane of one output
-//   plane is the lower plane of the next in uniform mode with stride 1, and
-//   stays in registers; eight taps otherwise), lerps, contracts the z hats
-//   and tapers. The plane loop has no branch and reads every tap, valid or
-//   not, so the loads of a run's planes are in flight together. A tap's
-//   address is one 32 x 32 -> 64 bit multiply-add. A warp takes 16 x 2
-//   columns, not 32 x 1: its loads and stores still fill 32-byte sectors, and
-//   fewer of its lanes idle through a view that only part of the warp is in;
+//   the five z hats. A thread owns one column and walks it in runs (3D: 8
+//   planes, 2D: 4 rows) with the run's sums in registers, so the view loop is
+//   outside the run's loop;
+// - only the hat terms that are not 0 are summed (a term with a hat of 0
+//   adds exactly 0, so the sums keep their bits): per view and run the four
+//   y/x terms in 3D, per row the four terms in 2D;
+// - the upper plane (3D, uniform mode, stride 1) or row (2D, where the row
+//   table shows it) of one output plane or row is the lower one of the next,
+//   and its taps stay in registers;
+// - the loop over a run reads every tap, valid or not (the tables' offsets
+//   are clamped), and has no branch before its last tap is read, so the
+//   run's loads are in flight together. A tap's address is one 32-bit
+//   offset added to a 64-bit base;
+// - 3D: a warp takes 16 x 2 columns, not 32 x 1: its loads and stores still
+//   fill 32-byte sectors, and fewer of its lanes idle through a view that
+//   only part of the warp is in. 2D: a warp takes one run of 32 columns, so
+//   its lanes share the row table's entries, and a view whose rows miss the
+//   run is skipped (each slot keeps the rows it is valid on, by ballot);
+// - 2D: a thread walks two runs of 4 rows and five blocks share an SM (48
+//   registers): against one run of 8 rows at three blocks, more warps hide
+//   more of the gathers' latency;
 // - the taper keeps cosf: with the hardware cosine (absolute error 4e-7) a
 //   voxel whose weights are all near 0 moved by 0.04 on data up to 900, past
-//   the tolerance against the plain version;
+//   the tolerance against the plain version. In 2D it stays behind a branch
+//   (most of a tile has w >= 1) and out of line, so that cosf's slow path is
+//   not copied into every row of the unrolled loop;
 // - nan_to_num and the cast to the output dtype are fused into the store.
 //
 // What the TPU kernels did that does not come across: the zero-padded atlas,
@@ -68,7 +76,8 @@
 //   and wdiag * a + woff, each rounded as a separate f32 multiply and add
 //   (no FMA contraction: a pixel on a view border must not flip);
 // - the lerp runs z first, then y, then x (the reference's matmul order);
-// - the 3D hat expansion is summed as sum_i hz (sum_j hy (sum_k g hx));
+// - the 3D hat expansion is summed as sum_i hz (sum_j hy (sum_k g hx)), the
+//   2D one row-major, each term (g hy) hx;
 // - slots are summed in ascending slot order.
 // Reads at a view's last row/column/plane clamp the index to the stack; the
 // clamped neighbour has lerp weight 0 there, so the sum is the same.
@@ -76,7 +85,7 @@
 // Interface: plain C, loaded with ctypes. Every launch returns the
 // cudaError_t of cudaGetLastError() (0 on success), kBadDtype for an
 // unsupported dtype, or cudaErrorInvalidConfiguration for a grid too large
-// (3D also: a source plane of 2 GiB or more).
+// (3D: a source plane of 2 GiB or more; 2D: a view of 2^31 pixels or more).
 
 #include <cuda_runtime.h>
 
@@ -87,7 +96,6 @@
 namespace {
 
 constexpr int kBadDtype = -1;
-constexpr int kSlotChunk = 32;  // view slots the 2D kernel stages in shared memory per pass
 constexpr float kPi = 3.14159265358979323846f;
 
 // 3D block: 32 x 8 threads, one (y, x) column each, walking up to kZSpan planes
@@ -98,8 +106,17 @@ constexpr int kZSpan = 64, kZRun = 8;
 constexpr int kSlotChunk3 = 8;
 static_assert(kZSpan % kZRun == 0, "a span is whole runs");
 constexpr int kBlocksPerSM3 = 3;
-// 2D block: 32 x 16 threads, one output pixel each.
-constexpr int kBX2 = 32, kBY2 = 16;
+// 2D block: 32 x 8 threads. A thread owns one column and kRuns2 runs of kRun2
+// rows, one after the other, with a run's sums in registers; a warp owns the
+// same runs of all 32 columns, so its lanes walk the same rows. A block covers
+// kBH2 rows of a view-list tile and stages kSlotChunk2 view slots per pass,
+// one a warp; five blocks share an SM (48 registers a thread).
+constexpr int kBX2 = 32, kBY2 = 8, kRun2 = 4, kRuns2 = 2;
+constexpr int kBH2 = kBY2 * kRun2 * kRuns2;
+constexpr int kSlotChunk2 = 8;
+constexpr int kBlocksPerSM2 = 5;
+static_assert(kBX2 == 32 && kBH2 % 32 == 0, "a warp builds a slot's tables 32 entries at a time");
+static_assert(kSlotChunk2 <= kBY2, "a warp builds one slot's tables");
 
 enum DType : int { kF32 = 0, kU16 = 1, kU8 = 2 };
 
@@ -163,9 +180,14 @@ __device__ __forceinline__ float hat(float g, int i) {
   return fmaxf(0.f, 1.f - fabsf(g - static_cast<float>(i)));
 }
 
-// cosine taper of values < 1, then the clip to [0, 1]
+// (cos((1 - w) * pi) + 1) / 2, out of line: inlined, cosf's slow path (large
+// arguments, which a weight never gives) is copied into every call site
+__device__ __noinline__ float taper_cos(float w) { return (cosf((1.f - w) * kPi) + 1.f) / 2.f; }
+
+// cosine taper of values < 1, then the clip to [0, 1]; most of a 2D tile has
+// w >= 1, and skips the cosine
 __device__ __forceinline__ float taper(float w) {
-  if (w < 1.f) w = (cosf((1.f - w) * kPi) + 1.f) / 2.f;
+  if (w < 1.f) w = taper_cos(w);
   return fminf(fmaxf(w, 0.f), 1.f);
 }
 
@@ -263,18 +285,21 @@ __device__ __forceinline__ int hat_pair(float g) {
   return static_cast<int>(fminf(fmaxf(floorf(g), 0.f), 3.f));
 }
 
-// Entry of in-tile index i (absolute index o0 + i) along axis d (1: y, 2: x)
-// of a view with parameter row p; `size` entries of `pitch` elements each.
+// Entry of in-tile index i (absolute index o0 + i) along axis d (3D: 1 y,
+// 2 x; 2D: 0 y, 1 x) of a view with parameter row p (off | ext | wdiag | woff
+// | scale, NDIM each); `size` entries of `pitch` elements each.
+template <int NDIM>
 __device__ __forceinline__ Axis axis_entry(const float* p, int d, int o0, int i, int size,
                                            int pitch) {
-  const Sample sm = tile_sample(p[d], p[12 + d], o0, i);
-  const float g = mul_add(p[6 + d], o0 + i, p[9 + d]);
+  const float sc = p[4 * NDIM + d];
+  const Sample sm = tile_sample(p[d], sc, o0, i);
+  const float g = mul_add(p[2 * NDIM + d], o0 + i, p[3 * NDIM + d]);
   Axis e;
   e.lo = clamp_idx(sm.idx, size) * pitch;
   e.hi = clamp_idx(sm.idx + 1, size) * pitch;
   e.f = sm.frac;
   const int pair = hat_pair(g);
-  e.g = inside(p[12 + d], o0 + i, p[d], p[3 + d]) ? pair : -1;
+  e.g = inside(sc, o0 + i, p[d], p[NDIM + d]) ? pair : -1;
   e.h0 = hat(g, pair);
   e.h1 = hat(g, pair + 1);
   return e;
@@ -415,9 +440,9 @@ __global__ void __launch_bounds__(kBX3* kBY3, kBlocksPerSM3)
         for (int e = tid; e < nk * (kBY3 + kBX3); e += kBX3 * kBY3) {
           const int s = e / (kBY3 + kBX3), i = e % (kBY3 + kBX3);
           if (i < kBY3) {
-            s_y[s][i] = axis_entry(s_par[s], 1, oy0, iy0 + i, a.H, a.W);
+            s_y[s][i] = axis_entry<3>(s_par[s], 1, oy0, iy0 + i, a.H, a.W);
           } else {
-            s_x[s][i - kBY3] = axis_entry(s_par[s], 2, ox0, ix0 + i - kBY3, a.W, 1);
+            s_x[s][i - kBY3] = axis_entry<3>(s_par[s], 2, ox0, ix0 + i - kBY3, a.W, 1);
           }
         }
         build_z_tables(a, nk, s_view, s_par, s_z, restage ? z0 : 0,
@@ -467,67 +492,166 @@ __global__ void __launch_bounds__(kBX3* kBY3, kBlocksPerSM3)
   }
 }
 
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(kBX2* kBY2)
-    fuse_translation_2d_kernel(Args2D a, int n_tx, int sub_y, int sub_x) {
-  __shared__ int s_view[kSlotChunk];
-  __shared__ float s_par[kSlotChunk][Par<2>::kRow];
-  __shared__ float s_grid[kSlotChunk][Par<2>::kGrid];
+// What a view needs in one 2D block: its index, the rows of the block on which
+// it is valid, and whether its taps can be carried from row to row.
+struct __align__(16) Slot2D {
+  int view;         // -1: an empty slot
+  int first, last;  // first and last row of the block where the view is valid; none: last < first
+  int carry;        // every row's lower taps are the upper taps of the row before
+};
 
-  const int tx = blockIdx.x / sub_x, ix = (blockIdx.x % sub_x) * kBX2 + threadIdx.x;
-  const int ty = blockIdx.y / sub_y, iy = (blockIdx.y % sub_y) * kBY2 + threadIdx.y;
-  const int px = tx * a.TX + ix, py = ty * a.TY + iy;
-  const bool active = ix < a.TX && iy < a.TY && px < a.OX && py < a.OY;
+// Warp w of a 2D block stages view v (slot w of the pass): its parameter row
+// and grid, its row and column tables, the rows it is valid on (a view is
+// valid on one run of rows) and whether its taps can be carried.
+__device__ __forceinline__ void stage_slot_2d(const Args2D& a, int v, int w, int lane, int oy0,
+                                              int iy0, int ox0, int ix0, Slot2D* s_slot,
+                                              float (*s_par)[Par<2>::kRow],
+                                              float (*s_grid)[Par<2>::kGrid],
+                                              Axis (*s_y)[kBH2], Axis (*s_x)[kBX2]) {
+  Slot2D sl{v, kBH2, -1, 0};
+  if (v >= 0) {
+    float* p = s_par[w];  // off 0-1 | ext 2-3 | wdiag 4-5 | woff 6-7 | scale 8-9
+    if (lane < Par<2>::kRow) p[lane] = a.params[v * Par<2>::kRow + lane];
+    if (lane < Par<2>::kGrid) s_grid[w][lane] = a.wgrids[v * Par<2>::kGrid + lane];
+    __syncwarp();
+#pragma unroll
+    for (int i0 = 0; i0 < kBH2; i0 += 32) {
+      const Axis e = axis_entry<2>(p, 0, oy0, iy0 + i0 + lane, a.H, a.W);
+      s_y[w][i0 + lane] = e;
+      const unsigned valid = __ballot_sync(~0u, e.g >= 0);
+      if (valid) {
+        sl.first = min(sl.first, i0 + __ffs(valid) - 1);
+        sl.last = i0 + 31 - __clz(valid);
+      }
+    }
+    s_x[w][lane] = axis_entry<2>(p, 1, ox0, ix0 + lane, a.W, 1);
+    __syncwarp();
+    bool carry = true;
+    for (int i = lane + 1; i < kBH2; i += 32) carry = carry && s_y[w][i].lo == s_y[w][i - 1].hi;
+    sl.carry = __all_sync(~0u, carry);
+  }
+  if (lane == 0) s_slot[w] = sl;
+}
+
+// One view's part of a run of kRun2 rows of a column. base: the view's first
+// element; c0, c1: the column's lower and upper x tap; rows: the run's
+// entries of the view's row table; gcol: the view's grid at the column's first
+// x hat. kCarry: each row's lower taps are the upper taps of the row before
+// and stay in registers. The taps, lerps and hat sums of all the run's rows
+// come first, with no branch between them (every tap is read, valid row or
+// not: the tables' offsets are clamped), so that the run's loads are in
+// flight together; the tapers and the sums follow.
+template <typename Tin, bool kCarry>
+__device__ __forceinline__ void column_rows(const Tin* base, unsigned c0, unsigned c1, float fx,
+                                            float hx0, float hx1, const float* gcol,
+                                            const Axis* rows, float (&acc)[kRun2],
+                                            float (&wsum)[kRun2], float (&vacc)[kRun2],
+                                            float (&vcnt)[kRun2]) {
+  auto tap = [base](unsigned i) { return Cast<Tin>::load(base + i); };
+  float val[kRun2], w[kRun2];
+  unsigned valid = 0;
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kRun2; ++j) {
+    const Axis cy = rows[j];
+    const unsigned lo = static_cast<unsigned>(cy.lo), hi = static_cast<unsigned>(cy.hi);
+    if (!kCarry || j == 0) l0 = tap(lo + c0), l1 = tap(lo + c1);
+    const float u0 = tap(hi + c0), u1 = tap(hi + c1);
+    // y lerp first, then x (the reference's matmul order)
+    val[j] = lerp(lerp(l0, u0, cy.f), lerp(l1, u1, cy.f), fx);
+    // The hat expansion. At most two neighbouring hats an axis are not 0, and
+    // a term with a hat of 0 adds exactly 0: the four terms left, in the
+    // reference's order (row-major, each (g * hy) * hx), give the sum's bits.
+    const float* g = gcol + max(cy.g, 0) * 5;
+    w[j] = g[0] * cy.h0 * hx0;
+    w[j] += g[1] * cy.h0 * hx1;
+    w[j] += g[5] * cy.h1 * hx0;
+    w[j] += g[6] * cy.h1 * hx1;
+    valid |= static_cast<unsigned>(cy.g >= 0) << j;
+    if (kCarry) l0 = u0, l1 = u1;
+  }
+#pragma unroll
+  for (int j = 0; j < kRun2; ++j) {
+    if (!(valid >> j & 1u)) continue;
+    const float t = taper(w[j]);
+    acc[j] += t * val[j];
+    wsum[j] += t;
+    vacc[j] += val[j];
+    vcnt[j] += 1.f;
+  }
+}
+
+// blockIdx.{x,y} = tile index * sub + sub-block index: a block never straddles
+// two tiles of the view-list grid, whatever the tile shape.
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kBX2* kBY2, kBlocksPerSM2)
+    fuse_translation_2d_kernel(Args2D a, int n_tx, int sub_y, int sub_x) {
+  __shared__ Slot2D s_slot[kSlotChunk2];
+  __shared__ float s_par[kSlotChunk2][Par<2>::kRow];
+  __shared__ float s_grid[kSlotChunk2][Par<2>::kGrid];
+  __shared__ Axis s_y[kSlotChunk2][kBH2], s_x[kSlotChunk2][kBX2];
+
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tx = blockIdx.x / sub_x, ty = blockIdx.y / sub_y;
+  const int ix0 = (blockIdx.x % sub_x) * kBX2, iy0 = (blockIdx.y % sub_y) * kBH2;
+  const int ix = ix0 + lane;
+  const int px = tx * a.TX + ix;
+  // absolute output indices of the tile origin (the reference's o0)
   const int ox0 = tx * a.TX + a.org_x, oy0 = ty * a.TY + a.org_y;
-  const int tid = threadIdx.y * kBX2 + threadIdx.x;
   const int* slots = a.view_idx + (static_cast<long long>(ty) * n_tx + tx) * a.K;
   const long long vsize = static_cast<long long>(a.H) * a.W;
   const Tin* tiles = static_cast<const Tin*>(a.tiles);
+  // a list longer than a pass is staged anew for every run; a shorter one once
+  const bool restage = a.K > kSlotChunk2;
 
-  float acc = 0.f, wsum = 0.f, vacc = 0.f, vcnt = 0.f;
-  for (int k0 = 0; k0 < a.K; k0 += kSlotChunk) {
-    const int nk = min(kSlotChunk, a.K - k0);
-    stage_slots<2>(slots, k0, nk, a.params, a.wgrids, s_view, s_par, s_grid, tid, kBX2 * kBY2);
-    if (!active) continue;
-    for (int s = 0; s < nk; ++s) {
-      const int v = s_view[s];
-      if (v < 0) continue;
-      const float* p = s_par[s];  // off 0-1 | ext 2-3 | wdiag 4-5 | woff 6-7 | scale 8-9
-      if (!inside(p[8], oy0 + iy, p[0], p[2]) || !inside(p[9], ox0 + ix, p[1], p[3])) continue;
-      const Sample sy = tile_sample(p[0], p[8], oy0, iy);
-      const Sample sx = tile_sample(p[1], p[9], ox0, ix);
-      const Tin* base = tiles + v * vsize;
-      const Tin* r0 = base + static_cast<long long>(clamp_idx(sy.idx, a.H)) * a.W;
-      const Tin* r1 = base + static_cast<long long>(clamp_idx(sy.idx + 1, a.H)) * a.W;
-      const int x0 = clamp_idx(sx.idx, a.W), x1 = clamp_idx(sx.idx + 1, a.W);
-      // y lerp first, then x (the reference's matmul order)
-      const float val = lerp(lerp(Cast<Tin>::load(r0 + x0), Cast<Tin>::load(r1 + x0), sy.frac),
-                             lerp(Cast<Tin>::load(r0 + x1), Cast<Tin>::load(r1 + x1), sy.frac),
-                             sx.frac);
+  for (int run = 0; run < kRuns2; ++run) {
+    const int r0 = (warp * kRuns2 + run) * kRun2;
+    const int py0 = ty * a.TY + iy0 + r0;
+    // rows of the run that lie in the tile and in the output
+    const int nrows = min(min(kRun2, a.TY - iy0 - r0), a.OY - py0);
+    const bool active = ix < a.TX && px < a.OX && nrows > 0;
+    float acc[kRun2], wsum[kRun2], vacc[kRun2], vcnt[kRun2];
+#pragma unroll
+    for (int j = 0; j < kRun2; ++j) acc[j] = wsum[j] = vacc[j] = vcnt[j] = 0.f;
 
-      const float gy = mul_add(p[4], oy0 + iy, p[6]);
-      const float gx = mul_add(p[5], ox0 + ix, p[7]);
-      float hx[5];
-#pragma unroll
-      for (int j = 0; j < 5; ++j) hx[j] = hat(gx, j);
-      const float* g = s_grid[s];
-      float w = 0.f;
-#pragma unroll
-      for (int i = 0; i < 5; ++i) {
-        const float h = hat(gy, i);
-#pragma unroll
-        for (int j = 0; j < 5; ++j) w += g[i * 5 + j] * h * hx[j];
+    for (int k0 = 0; k0 < a.K; k0 += kSlotChunk2) {
+      const int nk = min(kSlotChunk2, a.K - k0);
+      if (restage || run == 0) {
+        __syncthreads();  // the previous pass is consumed
+        if (warp < nk) {
+          stage_slot_2d(a, slots[k0 + warp], warp, lane, oy0, iy0, ox0, ix0, s_slot, s_par,
+                        s_grid, s_y, s_x);
+        }
+        __syncthreads();
       }
-      w = taper(w);
-      acc += w * val;
-      wsum += w;
-      vacc += val;
-      vcnt += 1.f;
+      if (!active) continue;
+      for (int s = 0; s < nk; ++s) {
+        const Slot2D sl = s_slot[s];
+        // a view not valid on any row of the run, or at this column, adds exactly 0
+        if (sl.view < 0 || sl.first >= r0 + kRun2 || sl.last < r0) continue;
+        const Axis cx = s_x[s][lane];
+        if (cx.g < 0) continue;
+        const Tin* base = tiles + sl.view * vsize;
+        const unsigned c0 = static_cast<unsigned>(cx.lo), c1 = static_cast<unsigned>(cx.hi);
+        const float* gcol = s_grid[s] + cx.g;
+        if (sl.carry) {
+          column_rows<Tin, true>(base, c0, c1, cx.f, cx.h0, cx.h1, gcol, s_y[s] + r0, acc, wsum,
+                                 vacc, vcnt);
+        } else {
+          column_rows<Tin, false>(base, c0, c1, cx.f, cx.h0, cx.h1, gcol, s_y[s] + r0, acc, wsum,
+                                  vacc, vcnt);
+        }
+      }
+    }
+    if (!active) continue;
+    Tout* out = static_cast<Tout*>(a.out) + static_cast<long long>(py0) * a.OX + px;
+#pragma unroll
+    for (int j = 0; j < kRun2; ++j) {
+      if (j >= nrows) break;
+      out[static_cast<long long>(j) * a.OX] =
+          Cast<Tout>::store(nan_to_num(fused_value(acc[j], wsum[j], vacc[j], vcnt[j])));
     }
   }
-  if (!active) return;
-  static_cast<Tout*>(a.out)[static_cast<long long>(py) * a.OX + px] =
-      Cast<Tout>::store(nan_to_num(fused_value(acc, wsum, vacc, vcnt)));
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -555,11 +679,14 @@ struct Launch3D {
 template <typename Tin, typename Tout>
 struct Launch2D {
   static int run(const Args2D& a, cudaStream_t stream) {
-    const int sub_y = cdiv(a.TY, kBY2), sub_x = cdiv(a.TX, kBX2);
+    const int sub_y = cdiv(a.TY, kBH2), sub_x = cdiv(a.TX, kBX2);
     const int n_ty = cdiv(a.OY, a.TY), n_tx = cdiv(a.OX, a.TX);
     const long long gx = static_cast<long long>(n_tx) * sub_x;
     const long long gy = static_cast<long long>(n_ty) * sub_y;
-    if (gx > INT_MAX || gy > 65535) return cudaErrorInvalidConfiguration;
+    // a thread keeps a tap's offset in a view in 32 bits
+    if (gx > INT_MAX || gy > 65535 || static_cast<long long>(a.H) * a.W > INT_MAX) {
+      return cudaErrorInvalidConfiguration;
+    }
     fuse_translation_2d_kernel<Tin, Tout>
         <<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)), dim3(kBX2, kBY2), 0,
            stream>>>(a, n_tx, sub_y, sub_x);

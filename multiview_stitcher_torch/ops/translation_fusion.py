@@ -20,14 +20,16 @@ What bounds the kernels on the H100 is, on paper, memory (each input voxel is
 read about once and each output voxel written once, at a few tens of f32
 operations per covering view) and, as measured, their instruction count. The
 kernels gather straight from the tile stack in its native dtype (no f32
-copy), stage each output tile's view list and weight grids in shared memory
-and fuse ``nan_to_num`` and the cast into the store. The 3D kernel gives a
-block 8 x 32 columns and up to 64 planes of a view-list tile, which is why
-``fuse`` lists its views at ``TILE_SHAPE_3D = (64, 8, 32)``; it computes what
-depends on one index alone once a block, walks z in runs of 8 planes and
-carries a plane's upper taps to the next. The wrappers take any
-``tile_shape``; the source file's header gives the details and the
-measurements.
+copy), stage each output tile's view list and weight grids in shared memory,
+compute what depends on one index alone once a block into tables, carry a
+row's or plane's upper taps to the next and fuse ``nan_to_num`` and the cast
+into the store. The 3D kernel gives a block 8 x 32 columns and up to 64
+planes of a view-list tile, which is why ``fuse`` lists its views at
+``TILE_SHAPE_3D = (64, 8, 32)``, and walks z in runs of 8 planes; the 2D
+kernel gives a block 64 rows x 32 columns, a thread one column and a run of
+8 rows, so ``fuse`` lists its views at ``TILE_SHAPE_2D = (64, 32)``. The
+wrappers take any ``tile_shape``; the source file's header gives the details
+and the measurements.
 
 Numerics kept from the reference, in f32 and in this order (named here
 because each is a place where a port goes wrong):
@@ -66,11 +68,12 @@ import torch
 from multiview_stitcher_torch import weights
 from multiview_stitcher_torch.ops import _build
 
-# tile shapes at which ``fuse`` builds its per-tile view lists. 2D: the
-# kernel's block, one list a block. 3D: the block's 8 x 32 columns and the 64
-# planes a block walks, so a list, its parameters and its z tables are staged
-# once for 16,384 voxels
-TILE_SHAPE_2D = (16, 32)
+# tile shapes at which ``fuse`` builds its per-tile view lists: a kernel
+# block's, one list a block. 2D: 64 rows x 32 columns, so a list, its
+# parameters and its row and column tables are staged once for 2,048 pixels.
+# 3D: the block's 8 x 32 columns and the 64 planes a block walks, so a list,
+# its parameters and its z tables are staged once for 16,384 voxels
+TILE_SHAPE_2D = (64, 32)
 TILE_SHAPE_3D = (64, 8, 32)
 
 # dtype codes of csrc/translation_fusion.cu

@@ -14,6 +14,7 @@ truncation tie); fused f32 outputs agree to rtol 1e-4, atol 1e-3 (f32 ulps of
 the sample coordinates on data in [0, 100)).
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -128,6 +129,10 @@ def exact_tier(monkeypatch):
     jcore.clear_device_tile_cache()
     yield
     jcore.clear_device_tile_cache()
+    # the reference's jitted entries keep their traces at these shapes; a
+    # later test that spies on a function they call while tracing (the JAX
+    # package's own exact-tier tests) would not see it called
+    jax.clear_caches()
 
 
 def _jax_fuse_spied(monkeypatch, sims, **kw):

@@ -132,6 +132,8 @@ def _run_both(ndim, tiles, tables, out_shape, scale_arr, scales, tile_shape,
 
 
 _TILES = {2: (16, 128), 3: (4, 16, 128)}
+# the tiles at which ``fuse`` lists its views: the CUDA kernels' blocks
+_FUSE_TILE = {2: tf.TILE_SHAPE_2D, 3: tf.TILE_SHAPE_3D}
 
 
 @pytest.mark.parametrize("ndim", [2, 3])
@@ -180,18 +182,21 @@ def test_plain_matches_pallas_uint16_output(ndim):
     assert np.abs(got.astype(np.int64) - ref.astype(np.int64)).max() <= 1
 
 
-def test_plain_output_does_not_depend_on_tile_shape():
-    """The port lists views at its own (smaller) tiles; a listed view that
-    is not valid at a pixel adds exactly 0, so the output is the same."""
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_plain_output_does_not_depend_on_tile_shape(ndim):
+    """The port lists views at its own tiles; a listed view that is not valid
+    at a pixel adds exactly 0, so the output is the same."""
     tiles, tables, out_shape, scale_arr, scales = _layout(
-        3, "unit", np.random.default_rng(5)
+        ndim, "unit", np.random.default_rng(5)
     )
+    fn = tf.fuse_translation_3d if ndim == 3 else tf.fuse_translation_2d
+    other = (8, 16, 64) if ndim == 3 else (8, 64)
     outs = []
-    for tile_shape in (tf.TILE_SHAPE_3D, (8, 16, 64)):
+    for tile_shape in (_FUSE_TILE[ndim], other):
         view_idx = tcore.tile_view_lists(
             tables["offs"], tables["extents"], scale_arr, out_shape, tile_shape
         )
-        outs.append(tf.fuse_translation_3d(
+        outs.append(fn(
             torch.from_numpy(tiles), view_idx, *tables.values(),
             out_shape=out_shape, tile_shape=tile_shape, K=view_idx.shape[-1],
         ).numpy())
@@ -215,18 +220,20 @@ def test_wrappers_validate_inputs():
         )
 
 
+@pytest.mark.parametrize("ndim", [2, 3])
 @pytest.mark.parametrize("case", ["unit", "scaled", "per_view"])
 @pytest.mark.parametrize("out_dtype", [np.float32, np.uint16])
-def test_plain_matches_pallas_at_the_tile_of_fuse(case, out_dtype):
-    """``fuse`` lists its views at ``TILE_SHAPE_3D``, a tile as deep as the
-    CUDA kernel's walk along z; the layouts have one view at fractional
-    offsets, so the tile-origin split is exercised at that shape."""
+def test_plain_matches_pallas_at_the_tile_of_fuse(case, out_dtype, ndim):
+    """``fuse`` lists its views at ``TILE_SHAPE_3D`` (a tile as deep as the
+    3D CUDA kernel's walk along z) and ``TILE_SHAPE_2D`` (as tall as a block
+    of the 2D kernel, taller than these outputs); the layouts have one view at
+    fractional offsets, so the tile-origin split is exercised at that shape."""
     tiles, tables, out_shape, scale_arr, scales = _layout(
-        3, case, np.random.default_rng(20 + len(case))
+        ndim, case, np.random.default_rng(20 + len(case))
     )
     if out_dtype == np.uint16:
         tiles = tiles * 9
-    ref, got = _run_both(3, tiles, tables, out_shape, scale_arr, scales, tf.TILE_SHAPE_3D,
+    ref, got = _run_both(ndim, tiles, tables, out_shape, scale_arr, scales, _FUSE_TILE[ndim],
                          out_dtype=out_dtype)
     assert got.shape == ref.shape == out_shape
     if out_dtype == np.uint16:
@@ -238,15 +245,26 @@ def test_plain_matches_pallas_at_the_tile_of_fuse(case, out_dtype):
 def test_plain_banded_origin_at_a_tile_with_a_ragged_depth():
     """A band through ``origin`` at a tile depth that is no multiple of the
     CUDA kernel's run of planes equals the full output at that band."""
-    tiles, tables, out_shape, scale_arr, scales = _layout(3, "unit", np.random.default_rng(7))
-    tile_shape = (12, 8, 32)
-    ref, got = _run_both(3, tiles, tables, out_shape, scale_arr, scales, tile_shape, band=(1, 1))
+    _check_band_at_a_ragged_tile(3, (12, 8, 32))
+
+
+def test_plain_banded_origin_at_a_tile_with_a_ragged_height():
+    """The same in 2D, at a tile height that is no multiple of the 2D CUDA
+    kernel's run of 4 rows."""
+    _check_band_at_a_ragged_tile(2, (10, 32))
+
+
+def _check_band_at_a_ragged_tile(ndim, tile_shape):
+    tiles, tables, out_shape, scale_arr, scales = _layout(ndim, "unit", np.random.default_rng(7))
+    ref, got = _run_both(ndim, tiles, tables, out_shape, scale_arr, scales, tile_shape,
+                         band=(1, 1))
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
     view_idx = tcore.tile_view_lists(
         tables["offs"], tables["extents"], scale_arr, out_shape, tile_shape
     )
-    full = tf.fuse_translation_3d(
+    fn = tf.fuse_translation_3d if ndim == 3 else tf.fuse_translation_2d
+    full = fn(
         torch.from_numpy(tiles), view_idx, *tables.values(), out_shape=out_shape,
-        tile_shape=tile_shape, K=view_idx.shape[-1], scale=_kernel_scale(3, scale_arr),
+        tile_shape=tile_shape, K=view_idx.shape[-1], scale=_kernel_scale(ndim, scale_arr),
     ).numpy()
-    np.testing.assert_array_equal(got, full[tile_shape[0]:])
+    np.testing.assert_array_equal(got, full[tile_shape[0]:tile_shape[0] + got.shape[0]])
