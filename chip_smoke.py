@@ -8,7 +8,9 @@ Run from the root of the repository, on a machine with a CUDA device:
 
 Phases, one printed line or block each:
 
-1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` gives it;
+1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` gives it, and
+   whether ``zarr``, ``numcodecs`` or a blosc module imports (in a child
+   process: the port's zarr IO needs none of them);
 2. the build of every CUDA source of the port, timed (nvcc, sm_90a);
 3. each kernel against its plain version on the card, on small cases: the
    translation kernels on small layouts (unit scale, uniform z stride 2 and
@@ -34,17 +36,31 @@ Phases, one printed line or block each:
    inf, a steep shear, a stack cut by every face, invalid items, and the 5^3
    weight grids. Each exact-affine line prints how many blocks or runs
    staged their box in shared memory, took the large-footprint route, or
-   were filled with ``cval``;
+   were filled with ``cval``. Both translation kernels also take int16 and
+   float64 tiles and outputs, and the exact-affine kernels int16 and float64
+   sources (cast to float32 on the card); ``fuse`` keeps int16 and float64
+   views in their dtype on both tiers, against ``fuse(device="cpu")``;
 4. the 3D main path through ``fusion.fuse``: 32 x 32 tiles of 64^3 uint16,
-   overlap 12, output (64, 1676, 1676) uint16; a cold and a warm call, the
-   warm one split into plan, upload, kernel and download; the whole output
-   against the plain version, run on the card band by band through
-   ``origin``; the kernel's launch on arguments checked once, warm and on a
-   cold L2 (a 256 MB buffer zeroed before each launch), beside the wrapper's
-   own call;
-5. the same for a 2D slide-scan mosaic: 32 x 32 tiles of 512^2 uint16,
+   overlap 12, output (64, 1676, 1676) uint16; a cold and a warm call, both
+   streamed through banded kernel calls on three CUDA streams (its 537 MB of
+   tiles are above ``STREAM_BYTES``), with the streams' busy times; then the
+   monolithic tier on the same tiles, split into plan, upload, kernel and
+   download, and held against the streamed output; the whole output against
+   the plain version, run on the card band by band through ``origin``; the
+   kernel's launch on arguments checked once, warm and on a cold L2 (a
+   256 MB buffer zeroed before each launch), beside the wrapper's own call;
+   the middle band of the streamed run: its launch against the plain
+   version on the same checked arguments, and timed;
+5. the north star zarr -> zarr: the same 1024 tiles, each written as its own
+   zarr v2 array by the port's writer under ``.bench_large/``, opened lazily
+   and fused with ``output_chunksize=128`` into an OME-Zarr, cold and warm:
+   bands, views a band, batches, bytes each way, the streams' busy times,
+   wall time and output Mvox/s; level 0 read back and held against the
+   monolithic output of phase 4, the multiscales metadata and every pyramid
+   level checked; about 1 GB of disk, removed at the end;
+6. the same as 4 for a 2D slide-scan mosaic: 32 x 32 tiles of 512^2 uint16,
    overlap 64;
-6. three affine main paths through ``fusion.fuse``, one per exact-affine
+7. three affine main paths through ``fusion.fuse``, one per exact-affine
    kernel: four (256, 512, 512) uint16 views rotated about y (y-decoupled
    kernel); a 4 x 4 grid of 256^3 uint16 tiles under affine-resolved
    transforms with every matrix entry coupled (general kernel); a 16 x 16
@@ -56,7 +72,7 @@ Phases, one printed line or block each:
    batch's blending-weight launch, its plain version and one ``grid_sample``
    call (a yardstick for time only: its border rule is not the ``cval``
    mask); no block of that batch may take the large-footprint route;
-7. a ``kernels`` JSON line: per kernel its launches in the main-path run,
+8. a ``kernels`` JSON line: per kernel its launches in the main-path run,
    its time, the plain version's time, its bound and its error.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -186,7 +202,8 @@ def compare_translation(np, torch, fn, plain, label, args, kw):
     ref = plain(*args, **kw)
     torch.cuda.synchronize()
     assert got.device == args[0].device and tuple(got.shape) == tuple(kw["out_shape"]), got.shape
-    g = got.cpu().numpy().astype(np.float64 if kw["out_dtype"] == torch.float32 else np.int64)
+    assert got.dtype == kw["out_dtype"], (got.dtype, kw["out_dtype"])
+    g = got.cpu().numpy().astype(np.float64 if kw["out_dtype"].is_floating_point else np.int64)
     r = ref.cpu().numpy().astype(g.dtype)
     err, ok = max_err(g, r, np), within_tol(g, r, np)
     log(f"  {label}: max_abs_err={err:.3g} {'ok' if ok else 'FAIL'}")
@@ -221,14 +238,20 @@ def check_small_cases(np, torch, tsi, tcore, tf):
                 variants = [("f32", torch.float32, None, out_shape, view_idx)]
                 if case == "unit":
                     variants.append(("uint16", torch.uint16, None, out_shape, view_idx))
+                    # tiles and outputs in dtypes the kernels do not read or
+                    # write: cast on the card (F1)
+                    variants += [(n, t, None, out_shape, view_idx)
+                                 for n, t in (("int16", torch.int16), ("f64", torch.float64))]
                 if case == "unit" and view_idx.shape[0] > 1:
                     origin = np.zeros(ndim, np.int32)
                     origin[0] = tile_shape[0]
                     band_shape = (min(tile_shape[0], out_shape[0] - origin[0]),) + out_shape[1:]
                     variants.append(("origin", torch.float32, origin, band_shape, view_idx[1:2]))
                 for label, out_dtype, origin, shape, vidx in variants:
+                    src = tiles if out_dtype not in (torch.int16, torch.float64) else (
+                        tiles.astype(np.int16 if out_dtype == torch.int16 else np.float64))
                     args = (
-                        torch.from_numpy(tiles).cuda(), vidx, *tables,
+                        torch.from_numpy(src).cuda(), vidx, *tables,
                     )
                     kw = dict(out_shape=shape, tile_shape=tile_shape, K=vidx.shape[-1],
                               out_dtype=out_dtype, origin=origin, scale=scale,
@@ -446,8 +469,13 @@ def time_kernel_ms(torch, fn, args, kw, reps, flush=None):
     return total / reps
 
 
-def main_path(np, torch, tsi, tcore, tf, tea, fuse, ndim, n, tile, overlap, band_tiles):
-    """Phases 4 and 5: one main path through fuse(), checked and timed."""
+def main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, ndim, n, tile, overlap, band_tiles):
+    """Phases 4 and 6: one main path through fuse(), checked and timed. Its
+    537 MB of tiles stream through banded kernel calls (fusion._streaming),
+    as in the reference; the monolithic tier runs on the same tiles in the
+    same run (STREAM_BYTES raised for that call) for its stage split and the
+    kernel's own timings, and the two outputs are compared. Returns the
+    results, the sims and the monolithic output."""
     label = f"{ndim}d main path"
     sims = grid_sims(np, tsi, ndim, n, tile, overlap, seed=ndim)
     step = tile - overlap
@@ -461,22 +489,61 @@ def main_path(np, torch, tsi, tcore, tf, tea, fuse, ndim, n, tile, overlap, band
     cold_s = time.perf_counter() - t0
     del cold
 
-    # the main path's run: counts set to 0 just before, read just after
+    # the main path's run: counts set to 0 just before, read just after. The
+    # arguments of the middle band's launch, as the wrapper checked them, are
+    # kept to check and time the kernel at the shapes the streamed path gives
+    # it (the wrappers count their launches through their own module names,
+    # so the launch is watched, not them; nothing here waits for the card)
+    middle = tstream.last_telemetry["bands_total"] // 2
     tf.fuse_translation_2d.launches = 0
     tf.fuse_translation_3d.launches = 0
-    with StageTimer(torch, tcore, tf, tea) as st:
+    launch = tf._launch
+    seen = []
+
+    def keep_middle_band(*a, **k):
+        if len(seen) == middle:
+            band[:] = [a, k]
+        seen.append(1)
+        return launch(*a, **k)
+
+    band = []
+    tf._launch = keep_middle_band
+    try:
         t0 = time.perf_counter()
         fused = fuse(sims, transform_key=KEY)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        warm_s = t1 - t0
-        split = st.split_ms(t0, t1)
+        warm_s = time.perf_counter() - t0
+    finally:
+        tf._launch = launch
+    stream = dict(tstream.last_telemetry)
     launches = wrapper.launches
     other = tf.fuse_translation_2d if ndim == 3 else tf.fuse_translation_3d
-    if launches < 1 or other.launches != 0:
-        raise AssertionError(f"{label}: kernel launches {launches}, other kernel {other.launches}")
+    if (launches < 3 or launches != stream["bands_total"] or stream["bands_done"] != launches
+            or other.launches):
+        raise AssertionError(f"{label}: kernel launches {launches}, other kernel {other.launches}, "
+                             f"streaming {stream}")
 
+    # the monolithic tier on the same tiles, split into its stages
+    saved = tcore.STREAM_BYTES
+    tcore.STREAM_BYTES = 1 << 62
+    try:
+        with StageTimer(torch, tcore, tf, tea) as st:
+            t0 = time.perf_counter()
+            mono = fuse(sims, transform_key=KEY).data
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mono_s = t1 - t0
+            split = st.split_ms(t0, t1)
+    finally:
+        tcore.STREAM_BYTES = saved
     out = fused.data
+    diff = np.abs(out.astype(np.int32) - mono.astype(np.int32))
+    stream_err, stream_diff = int(diff.max()), int(np.count_nonzero(diff))
+    del diff
+    if stream_err > UINT_COUNTS:
+        raise AssertionError(
+            f"{label}: streamed output differs from the monolithic one by {stream_err}")
+
     if out.shape != expect or out.dtype != np.uint16:
         raise AssertionError(f"{label}: output {out.shape} {out.dtype}, expected {expect} uint16")
     # a window in the middle of tile (5, 5), away from every overlap and
@@ -491,8 +558,12 @@ def main_path(np, torch, tsi, tcore, tf, tea, fuse, ndim, n, tile, overlap, band
     if not np.array_equal(out[win], sims[5 * n + 5].data[twin]):
         raise AssertionError(f"{label}: interior of tile (5, 5) is not the tile")
     log(f"{label}: output {out.shape} {out.dtype}, cold fuse {cold_s:.3f} s, "
-        f"warm fuse {warm_s:.3f} s, launches {launches}")
-    log(f"{label}: warm split " + json.dumps({k: round(v, 3) for k, v in split.items()}))
+        f"warm fuse {warm_s:.3f} s (streamed), launches {launches}")
+    log(f"{label}: streaming " + json.dumps({
+        k: (round(v, 3) if isinstance(v, float) else v) for k, v in stream.items()
+    }) + f"; {stream_diff} voxels differ from the monolithic output (max {stream_err})")
+    log(f"{label}: monolithic warm fuse {mono_s:.3f} s, split "
+        + json.dumps({k: round(v, 3) for k, v in split.items()}))
 
     # the kernel at the main-path shapes: the launch alone, on arguments
     # checked and packed once, warm and on a cold L2; beside it the wrapper's
@@ -539,15 +610,35 @@ def main_path(np, torch, tsi, tcore, tf, tea, fuse, ndim, n, tile, overlap, band
         f"{wrapper_ms:.3f} ms, view lists {tuple(view_idx.shape)} at tile {tuple(kw['tile_shape'])}, "
         f"plain {plain_ms:.1f} ms over {n_bands} bands, max_abs_err vs plain {err:g} counts")
 
-    offs, extents = np.asarray(args[2]), np.asarray(args[3])
-    scale_arr = np.asarray(kw["scale"], np.float64) if kw.get("scales") is None else kw["scales"]
-    pairs = covered_voxel_views(np, offs, extents, scale_arr, expect)
-    nbytes = (
-        tiles.numel() * tiles.element_size() + int(np.prod(expect)) * 2
-        + sum(int(np.asarray(a).nbytes) for a in args[1:])
+    t_bytes, t_ops, nbytes, pairs = translation_bound(
+        np, ndim, tiles, args[1:], np.asarray(args[2]), np.asarray(args[3]),
+        np.asarray(kw["scale"], np.float64) if kw.get("scales") is None else kw["scales"], expect,
     )
-    ops = pairs * (OPS_PER_VOXEL_VIEW_3D if ndim == 3 else OPS_PER_VOXEL_VIEW_2D)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+
+    # the middle band of the streamed run: its launch against the plain
+    # version on the same checked arguments, and timed
+    bargs, bkw = band
+    got, _ = launch(*bargs, **bkw)
+    ref = tf._plain(*bargs, **bkw)
+    torch.cuda.synchronize()
+    band_err = max_err(got.cpu().numpy(), ref.cpu().numpy(), np)
+    if band_err > UINT_COUNTS:
+        raise AssertionError(
+            f"{label}: the middle band differs from the plain version by {band_err}")
+    del got, ref
+    band_ms = time_kernel_ms(torch, launch, bargs, bkw, reps=20)
+    btiles, bshape, bchecked = bargs[1], bargs[2], bargs[6]
+    bp = bchecked.params.cpu().numpy()
+    # a band's voxel o is the output's o + origin (unit scale)
+    b_bytes, b_ops, _, _ = translation_bound(
+        np, ndim, btiles, (bchecked.view_idx, bchecked.params, bchecked.wgrids),
+        bp[:, :ndim] + np.asarray(bchecked.origin, np.float32), bp[:, ndim:2 * ndim],
+        bp[:, 4 * ndim:], bshape,
+    )
+    log(f"{label}: middle band {tuple(btiles.shape)} -> {tuple(bshape)} at origin "
+        f"{list(bchecked.origin)}, kernel {band_ms:.4f} ms (bound {max(b_bytes, b_ops):.4f} ms), "
+        f"max_abs_err vs plain {band_err:g} counts")
+    err = max(err, band_err)
     return {
         "launches": int(launches),
         "max_abs_err": err,
@@ -560,10 +651,186 @@ def main_path(np, torch, tsi, tcore, tf, tea, fuse, ndim, n, tile, overlap, band
         "wrapper_ms": wrapper_ms,
         "cold_fuse_s": cold_s,
         "warm_fuse_s": warm_s,
+        "stream": stream,
+        "stream_vs_mono_max_counts": stream_err,
+        "stream_vs_mono_voxels": stream_diff,
+        "mono_warm_fuse_s": mono_s,
         **split,
         "bytes": nbytes,
         "voxel_views": pairs,
-    }
+        "band_kernel_ms": band_ms,
+        "band_bound_ms": max(b_bytes, b_ops),
+        "band_max_abs_err": band_err,
+    }, sims, mono
+
+
+def translation_bound(np, ndim, tiles, tables, offs, extents, scale_arr, out_shape):
+    """(byte time, operation time, bytes, covered voxel-view pairs) of one
+    translation-kernel call: the tiles and ``tables`` read once, the uint16
+    output written once; the operations of each covered (voxel, view) pair."""
+    pairs = covered_voxel_views(np, offs, extents, scale_arr, out_shape)
+    nbytes = (
+        tiles.numel() * tiles.element_size() + int(np.prod(out_shape)) * 2
+        + sum(int(t.numel() * t.element_size()) if hasattr(t, "numel")
+              else int(np.asarray(t).nbytes) for t in tables)
+    )
+    ops = pairs * (OPS_PER_VOXEL_VIEW_3D if ndim == 3 else OPS_PER_VOXEL_VIEW_2D)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3, nbytes, pairs
+
+
+def check_f1_fuse(np, torch, tsi, tf, tea, fuse):
+    """Phase 3, fault F1: fuse() on the card keeps int16 and float64 views in
+    their dtype on both tiers (the kernels read and write them as float32),
+    against fuse(device="cpu"), which takes the plain versions. Inputs: a
+    2 x 2 grid of 40^2 tiles at offsets 0 and 30, values 0-999, placed by
+    translations or each turned a little about its centre."""
+    worst = {}
+    counters = {"translation": tf.fuse_translation_2d, "affine": tea.exact_affine_batch_2d}
+    for tier, counter in counters.items():
+        for dtype in (np.int16, np.float64):
+            rng = np.random.default_rng(17)
+            sims = []
+            for iy in range(2):
+                for ix in range(2):
+                    sim = tsi.get_sim_from_array((rng.random((40, 40)) * 999).astype(dtype),
+                                                 translation={"y": 30.0 * iy, "x": 30.0 * ix})
+                    if tier == "affine":
+                        lin = rot2(np, 0.05 * (2 * iy + ix - 1.5))
+                        tsi.set_sim_affine(sim, about_centre(np, lin, [30.0 * iy + 19.5,
+                                                                       30.0 * ix + 19.5]), KEY)
+                    sims.append(sim)
+            before = counter.launches
+            got = fuse(sims, transform_key=KEY, output_chunksize=32).data
+            torch.cuda.synchronize()
+            launched = counter.launches - before
+            ref = fuse(sims, transform_key=KEY, output_chunksize=32, device="cpu").data
+            err = max_err(got, ref, np)
+            if dtype == np.int16:
+                ok = err <= UINT_COUNTS
+            elif tier == "translation":
+                ok = within_tol(got, ref, np)
+            else:  # the exact-affine bound on data in [0, 100), on data in [0, 999)
+                ok = err <= EXACT_ATOL * 10
+            ok = ok and got.dtype == ref.dtype == dtype and got.shape == ref.shape and launched > 0
+            log(f"  F1 fuse {tier:11s} {np.dtype(dtype).name:7s}: output {got.shape} {got.dtype}, "
+                f"{launched} launches, max_abs_err vs plain {err:.3g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"F1 fuse {tier} {np.dtype(dtype).name}: {got.dtype}, err {err}")
+            worst[f"{tier}_{np.dtype(dtype).name}"] = err
+    return worst
+
+
+def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
+    """Phase 5: the north star zarr -> zarr at full size. Each tile of the 3D
+    main path is written as its own zarr v2 array by the port's writer,
+    opened lazily, and fused with ``output_chunksize=128`` into an OME-Zarr
+    through the streaming tier, cold and warm (the warm run is the one whose
+    launches count). Level 0, read back through the port's reader, is held
+    against the monolithic output of the same tiles (itself held against the
+    plain version in phase 4); the multiscales metadata and every pyramid
+    level must exist, and level 1 must be the block mean of level 0. The
+    files live under ``work``, removed at the end."""
+    import shutil
+
+    from multiview_stitcher_torch import msi_utils
+    from multiview_stitcher_torch.fusion import _core as tcore
+    from multiview_stitcher_torch.io import zarr_backend
+
+    label = "3d zarr->zarr"
+    shutil.rmtree(work, ignore_errors=True)
+    finalize = tcore.ngff_utils.finalize_ome_zarr_levels
+    pyramid_s = []
+
+    def timed_finalize(*a, **k):
+        t = time.perf_counter()
+        finalize(*a, **k)
+        pyramid_s.append(time.perf_counter() - t)
+
+    try:
+        # the disk's own rate: one 256 MiB file written from memory
+        work.mkdir(parents=True)
+        blob = np.ones(128 << 20, np.uint16)
+        t0 = time.perf_counter()
+        blob.tofile(work / "probe.bin")
+        disk_mb_s = blob.nbytes / 1e6 / (time.perf_counter() - t0)
+        (work / "probe.bin").unlink()
+        del blob
+        t0 = time.perf_counter()
+        lazy = []
+        for i, s in enumerate(sims):
+            url = str(work / "tiles" / f"tile_{i:04d}.zarr")
+            arr = zarr_backend.create_zarr_array(url, s.data.shape, s.data.shape, s.data.dtype)
+            arr[...] = s.data
+            lazy.append(tsi.get_sim_from_array(zarr_backend.open_zarr_array(url), dims=s.dims,
+                                               translation=dict(s.origin)))
+        write_s = time.perf_counter() - t0
+        out_url = str(work / "fused.ome.zarr")
+        runs = {}
+        tcore.ngff_utils = types.SimpleNamespace(
+            finalize_ome_zarr_levels=timed_finalize,
+            read_sim_from_ome_zarr=tcore.ngff_utils.read_sim_from_ome_zarr,
+        )
+        for run in ("cold", "warm"):
+            # the warm run is this path's run: counts set to 0 just before
+            tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+            t0 = time.perf_counter()
+            res = fuse(lazy, transform_key=KEY, output_chunksize=128, output_zarr_url=out_url)
+            torch.cuda.synchronize()
+            runs[run] = {"wall_s": time.perf_counter() - t0, "pyramid_s": pyramid_s[-1],
+                         **tstream.last_telemetry}
+        launches = tf.fuse_translation_3d.launches
+        tele = runs["warm"]
+        if (launches < 3 or launches != tele["bands_total"] or tele["bands_done"] != launches
+                or tf.fuse_translation_2d.launches):
+            raise AssertionError(f"{label}: launches {launches}, streaming {tele}")
+
+        level0 = np.asarray(zarr_backend.open_zarr_array(out_url + "/0"))
+        if level0.shape != mono.shape or level0.dtype != mono.dtype or res.data.shape != mono.shape:
+            raise AssertionError(f"{label}: level 0 {level0.shape} {level0.dtype}, expected "
+                                 f"{mono.shape} {mono.dtype}")
+        diff = np.abs(level0.astype(np.int32) - mono.astype(np.int32))
+        err, n_diff = int(diff.max()), int(np.count_nonzero(diff))
+        del diff
+        if err > UINT_COUNTS:
+            raise AssertionError(f"{label}: level 0 differs from the in-memory output by {err}")
+        attrs, fmt = zarr_backend.read_group_metadata(out_url)
+        datasets = attrs["multiscales"][0]["datasets"]
+        shapes = msi_utils.calc_resolution_levels(dict(zip("zyx", level0.shape)))[0]
+        levels = []
+        for ds, shp in zip(datasets, shapes):
+            arr = zarr_backend.open_zarr_array(f"{out_url}/{ds['path']}")
+            levels.append(arr.shape)
+            if arr.shape != tuple(shp.values()) or arr.dtype != level0.dtype:
+                raise AssertionError(f"{label}: level {ds['path']} is {arr.shape} {arr.dtype}")
+        if fmt != 2 or len(datasets) != len(shapes) or len(shapes) < 2:
+            raise AssertionError(f"{label}: {len(datasets)} levels in the metadata, expected "
+                                 f"{len(shapes)}")
+        level1 = np.asarray(zarr_backend.open_zarr_array(out_url + "/1"))
+        if not np.array_equal(level1, msi_utils._coarsen_mean(level0, (1, 2, 2))):
+            raise AssertionError(f"{label}: level 1 is not the block mean of level 0")
+        disk = sum(f.stat().st_size for f in work.rglob("*") if f.is_file())
+    finally:
+        tcore.ngff_utils = sys.modules["multiview_stitcher_torch.io.ngff_utils"]
+        shutil.rmtree(work, ignore_errors=True)
+    mvox = level0.size / 1e6
+    for run, r in runs.items():
+        log(f"{label} {run}: wall {r['wall_s'] * 1e3:.1f} ms, {mvox / r['wall_s']:.1f} Mvox/s out, "
+            f"streaming {r['elapsed_s'] * 1e3:.1f} ms, pyramid and metadata "
+            f"{r['pyramid_s'] * 1e3:.1f} ms, "
+            f"bands {r['bands_total']} of {r['band_height']} rows on axis {r['band_axis']}, "
+            f"NV {r['nv']}, batches {r['batches']} of {r['batch_views']} views, "
+            f"up {r['up_bytes'] / 1e6:.1f} MB, down {r['down_bytes'] / 1e6:.1f} MB, "
+            "stream spans ms "
+            + " ".join(f"{k} {r[k + '_ms']}" for k in ("up", "compute", "down"))
+            + " (each the summed span, first to last event, of its stage's work)")
+    log(f"{label}: tiles written in {write_s:.2f} s, a 256 MiB file at {disk_mb_s:.0f} MB/s, "
+        f"levels {levels}, {disk / 1e6:.0f} MB on disk, "
+        f"level 0 vs in-memory {n_diff} voxels differ (max {err} counts); {card_line()}")
+    return {"launches": int(launches), "max_abs_err": err, "voxels_differ": n_diff,
+            "tiles_write_s": write_s, "disk_write_mb_s": disk_mb_s,
+            "levels": [list(x) for x in levels], "disk_bytes": disk,
+            "out_mvox": mvox, **{run: r for run, r in runs.items()}}
 
 
 def rot2(np, theta, scale=1.0):
@@ -670,7 +937,9 @@ def check_exact_small_cases(np, torch, tea):
         B, ndim = len(mats), len(src)
         base = rng.random((B,) + src) * 99 + 1  # strictly positive: 0 marks the mask
         tables = (mats.astype(np.float32), offs.astype(np.float32), extents.astype(np.float32), out)
-        dtypes = (np.float32, np.uint16, np.uint8) if label == "batch" else (np.float32,)
+        # int16 and float64 sources are cast to float32 on the card (F1)
+        dtypes = ((np.float32, np.uint16, np.uint8, np.int16, np.float64) if label == "batch"
+                  else (np.float32,))
         for dtype in dtypes:
             data = torch.from_numpy(base.astype(dtype)).cuda()
             for cval in (float("nan"), 0.0):
@@ -997,7 +1266,7 @@ def time_grid_sample_ms(np, torch, tiles, args, kw, ndim):
 
 
 def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, kind):
-    """Phase 6: one affine main path through fuse(), checked and timed."""
+    """Phase 7: one affine main path through fuse(), checked and timed."""
     names = {"2d": EXACT_WRAPPERS[0], "sepy": EXACT_WRAPPERS[1], "general": EXACT_WRAPPERS[2]}
     wrapper = getattr(tea, names[kind])
     plain = getattr(tea, names[kind] + "_plain")
@@ -1167,6 +1436,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from multiview_stitcher_torch import si_utils as tsi
     from multiview_stitcher_torch.fusion import _core as tcore
+    from multiview_stitcher_torch.fusion import _streaming as tstream
     from multiview_stitcher_torch.fusion import fuse
     from multiview_stitcher_torch.ops import _build
     from multiview_stitcher_torch.ops import exact_affine as tea
@@ -1174,6 +1444,12 @@ def main() -> int:
 
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    # probed in a child process, so that this one imports none of them
+    found = {m: subprocess.run([sys.executable, "-c", f"import {m}"], capture_output=True,
+                               timeout=120).returncode == 0
+             for m in ("zarr", "numcodecs", "blosc")}
+    log("modules that import here (the port's zarr IO needs none; blosc chunks need "
+        "numcodecs or blosc): " + json.dumps(found))
 
     names, paths, build_s = build_all(_build)
     log(f"build: {names} in {build_s:.1f} s")
@@ -1186,12 +1462,18 @@ def main() -> int:
     t_small = time.perf_counter()
     small_err = check_small_cases(np, torch, tsi, tcore, tf)
     exact_err = check_exact_small_cases(np, torch, tea)
+    f1_err = check_f1_fuse(np, torch, tsi, tf, tea, fuse)
     small_s = time.perf_counter() - t_small
     log(f"small cases: {small_s:.1f} s")
 
-    r3 = main_path(np, torch, tsi, tcore, tf, tea, fuse, 3, n=32, tile=64, overlap=12, band_tiles=2)
+    r3, sims3, mono3 = main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, 3, n=32, tile=64,
+                                 overlap=12, band_tiles=2)
+    zarr = zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims3, mono3,
+                           REPO / ".bench_large" / "chip_smoke_zarr")
+    del sims3, mono3
     # 2D bands of 16 view-list tiles of 64 rows: about 1024 output rows each
-    r2 = main_path(np, torch, tsi, tcore, tf, tea, fuse, 2, n=32, tile=512, overlap=64, band_tiles=16)
+    r2, _, _ = main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, 2, n=32, tile=512,
+                         overlap=64, band_tiles=16)
 
     def coupling(rng):
         return np.eye(3) + rng.uniform(0.005, 0.02, (3, 3)) * rng.choice([-1, 1], (3, 3))
@@ -1238,8 +1520,8 @@ def main() -> int:
     for k, worst in zip(kernels, (small_err[3], small_err[2], exact_err["2d"],
                                   exact_err["sepy"], exact_err["general"])):
         k["max_abs_err"] = max(k["max_abs_err"], worst)
-    detail = {"3d": r3, "2d": r2, **{f"affine_{k}": v for k, v in affine.items()},
-              "build_s": build_s, "small_cases_s": small_s,
+    detail = {"3d": r3, "2d": r2, "zarr": zarr, **{f"affine_{k}": v for k, v in affine.items()},
+              "f1_fuse_max_abs_err": f1_err, "build_s": build_s, "small_cases_s": small_s,
               "total_s": time.perf_counter() - t_start}
     log("detail: " + json.dumps(detail))
     log(json.dumps({"kernels": kernels}))

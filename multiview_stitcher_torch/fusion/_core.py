@@ -5,12 +5,12 @@ library. Planning (output geometry, kernel tables, view lists, chunk plans)
 is host-side numpy in float64, as in the reference.
 
 - **Translation tier**: a grid of translation-placed 2D or 3D tiles fused
-  with the default weighted-average blending in one call of the translation
-  kernel over the whole output (``ops.translation_fusion``). Unlike the
-  reference, which streams inputs above 192 MB through banded calls, the
-  port runs the whole output in one call whenever it is given the tiles in
-  memory: the main path's 537 MB of tiles fit the H100's 80 GB, and banded
-  calls agree with one call over the full grid.
+  with the default weighted-average blending by the translation kernels
+  (``ops.translation_fusion``). As in the reference, tiles that are lazy
+  (zarr-backed), that exceed :data:`TILES_MAX_BYTES` or that hold more than
+  :data:`STREAM_BYTES` stream through banded kernel calls that overlap
+  upload, kernel and download (``fusion._streaming``) when their layout
+  bands; other grids run in one kernel call over the whole output.
 - **Exact-affine tier**: views that are rotated, scaled or sheared. The
   output is cut into chunks; each chunk lists the views that reach it and
   their source windows (``_build_spatial_fusion_plan``); batches of chunks
@@ -21,12 +21,19 @@ is host-side numpy in float64, as in the reference.
   on-chip memory to a gather tier; the port's kernels have no window limit
   and take every map.
 
+``fuse(output_zarr_url=...)`` writes the output chunk by chunk into a zarr v2
+array (an OME-Zarr level 0 with its pyramid, by default) through
+``io.zarr_backend``, and returns a sim backed by it.
+
 Any input this slice does not cover raises ``NotImplementedError`` naming
 the ROADMAP.md item that will cover it; nothing falls back quietly.
 """
 
 from __future__ import annotations
 
+import logging
+import time
+from concurrent.futures import ThreadPoolExecutor
 from itertools import product
 from typing import Callable, Dict, Optional, Sequence, Union
 
@@ -34,6 +41,8 @@ import numpy as np
 import torch
 
 from multiview_stitcher_torch import msi_utils, mv_graph, param_utils, si_utils, weights
+from multiview_stitcher_torch.fusion import _streaming
+from multiview_stitcher_torch.io import ngff_utils, zarr_backend
 from multiview_stitcher_torch.ops import exact_affine
 from multiview_stitcher_torch.ops import resample as resample_ops
 from multiview_stitcher_torch.ops import translation_fusion
@@ -41,8 +50,21 @@ from multiview_stitcher_torch.utils import misc as misc_utils
 
 BoundingBox = Dict[str, Dict[str, Union[float, int]]]
 
+logger = logging.getLogger(__name__)
+
 # where the inputs this slice refuses are queued
 _ROADMAP = "ROADMAP.md, queue 1"
+
+# the translation tier streams tiles that hold more than STREAM_BYTES, and
+# tiles that are not in memory whatever their size; lazy tiles above
+# TILES_MAX_BYTES that do not band are refused (the reference's host-slab
+# route is not ported)
+STREAM_BYTES = 192 << 20
+TILES_MAX_BYTES = 2 << 30
+# lazy tiles are read by this many threads, each read retried this many times
+# on a transient IO error
+_READ_WORKERS = 16
+_READ_RETRIES = 2
 
 
 def max_fusion(transformed_views):
@@ -388,30 +410,65 @@ def _edge_pad(view: torch.Tensor, shape) -> torch.Tensor:
     return out
 
 
+def _materialize_tiles(field_sims, out=None) -> np.ndarray:
+    """(V, *tile) array of equal-shape tiles (into ``out`` when given).
+    Lazy tiles are read in parallel by a thread pool (file reads release the
+    GIL; one at a time, 1000 small tiles pay each read's latency), each read
+    retried up to ``_READ_RETRIES`` times, after a short backoff, on a
+    transient IO error; any other error surfaces at once."""
+    V = len(field_sims)
+    if out is None:
+        shape = tuple(field_sims[0].data.shape)
+        out = np.empty((V,) + shape, dtype=np.dtype(field_sims[0].data.dtype))
+    lazy = [si_utils._is_lazy(s.data) for s in field_sims]
+    if not any(lazy):
+        for i, s in enumerate(field_sims):
+            out[i] = s.data
+        return out
+
+    def fetch(i):
+        for attempt in range(_READ_RETRIES + 1):
+            try:
+                out[i] = np.asarray(field_sims[i].data)
+                return
+            except (OSError, TimeoutError) as e:
+                if attempt == _READ_RETRIES:
+                    raise
+                logger.warning(
+                    "lazy tile read %d failed (%s: %s), retry %d/%d",
+                    i, type(e).__name__, e, attempt + 1, _READ_RETRIES,
+                )
+                time.sleep(0.2 * 2**attempt)
+
+    with ThreadPoolExecutor(max_workers=min(_READ_WORKERS, V)) as ex:
+        list(ex.map(fetch, range(V)))
+    return out
+
+
 def _tiles_to_device(field_sims, device) -> torch.Tensor:
     """(V, *tile) stack of the views on ``device`` in their native dtype.
 
-    Float tiles get ``nan_to_num`` before the upload. Mixed tile shapes are
-    uploaded as they are, one group per shape, and edge-padded on the device
-    to the common maximum shape; the kernels mask each view by its true
-    extents."""
+    Lazy tiles are read first (:func:`_materialize_tiles`); float tiles get
+    ``nan_to_num`` before the upload. Mixed tile shapes are uploaded as they
+    are, one group per shape, and edge-padded on the device to the common
+    maximum shape; the kernels mask each view by its true extents."""
 
-    def put(arrays):
-        stack = np.stack([np.asarray(a) for a in arrays])
+    def put(sims):
+        stack = _materialize_tiles(sims)
         if np.issubdtype(stack.dtype, np.floating):
             stack = np.nan_to_num(stack)
         return torch.from_numpy(stack).to(device)
 
     shapes = [tuple(int(x) for x in s.data.shape) for s in field_sims]
     if len(set(shapes)) == 1:
-        return put([s.data for s in field_sims])
+        return put(field_sims)
     max_shape = tuple(max(s[i] for s in shapes) for i in range(len(shapes[0])))
     groups: dict = {}
     for i, shp in enumerate(shapes):
         groups.setdefault(shp, []).append(i)
     tiles = None
     for idxs in groups.values():
-        dev = put([field_sims[i].data for i in idxs])
+        dev = put([field_sims[i] for i in idxs])
         if tiles is None:
             tiles = torch.empty(
                 (len(field_sims),) + max_shape, dtype=dev.dtype, device=dev.device
@@ -425,12 +482,47 @@ def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
-def _download(fused: torch.Tensor, out: np.ndarray) -> None:
-    """Copy the fused output into the host array ``out``."""
-    if out.flags.c_contiguous:
+class _PrefixedSink:
+    """Spatial-region writes onto a region-writable array with leading
+    non-spatial (t/c) dims, at the fixed index ``prefix_idx`` of those."""
+
+    def __init__(self, array, prefix_idx):
+        self.array = array
+        self.prefix = tuple(prefix_idx)
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.array.shape[len(self.prefix):])
+
+    @property
+    def dtype(self) -> np.dtype:
+        return np.dtype(self.array.dtype)
+
+    def __setitem__(self, slices, value):
+        if not isinstance(slices, tuple):
+            slices = (slices,)
+        self.array[self.prefix + slices] = value
+
+
+def _download(fused: torch.Tensor, out) -> None:
+    """Copy the fused output into ``out``: a host array, or a sink written
+    by regions (:class:`_PrefixedSink`)."""
+    if not isinstance(out, np.ndarray):
+        out[(slice(None),) * fused.dim()] = fused.cpu().numpy()
+    elif out.flags.c_contiguous:
         torch.from_numpy(out).copy_(fused)
     else:
         out[...] = fused.cpu().numpy()
+
+
+def _kernel_tile_shape(ndim, out_shape) -> tuple:
+    """The view-list tile of the translation kernels for an output of
+    ``out_shape``: in 3D no deeper than the output (the plain version pads
+    to whole tiles)."""
+    if ndim == 2:
+        return translation_fusion.TILE_SHAPE_2D
+    tile_shape = translation_fusion.TILE_SHAPE_3D
+    return (min(tile_shape[0], max(int(out_shape[0]), 1)),) + tuple(tile_shape[1:])
 
 
 def _execute_fusion_plan_translation(
@@ -450,13 +542,8 @@ def _execute_fusion_plan_translation(
     lists. ``scale`` is the per-dim output-pixel -> view-pixel scale shared
     by all views; ``scales`` the (V, ndim) per-view variant."""
     ndim = len(sdims)
-    tile_shape = (
-        translation_fusion.TILE_SHAPE_3D if ndim == 3 else translation_fusion.TILE_SHAPE_2D
-    )
     out_shape = tuple(int(output_stack_properties["shape"][d]) for d in sdims)
-    if ndim == 3:
-        # no tile deeper than the output: the plain version pads to whole tiles
-        tile_shape = (min(tile_shape[0], max(out_shape[0], 1)),) + tuple(tile_shape[1:])
+    tile_shape = _kernel_tile_shape(ndim, out_shape)
     views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
     if scales is not None:
         scale_arr = np.asarray(scales, dtype=np.float64)
@@ -488,6 +575,75 @@ def _execute_fusion_plan_translation(
         scales=None if scales is None else np.asarray(scales, np.float32),
     )
     _download(fused, out)
+
+
+def _fuse_translation_views(
+    param_mats,
+    field_sims,
+    output_stack_properties,
+    sdims,
+    *,
+    scale,
+    scales,
+    blending_widths,
+    shrink_distance,
+    out,
+    device,
+    output_chunksize,
+):
+    """The reference's choice of translation tier: the banded streaming tier
+    for uniform unit-scale tiles that are lazy, too large for the device or
+    above :data:`STREAM_BYTES`, when their layout bands; otherwise one
+    monolithic kernel call. A failed streaming run raises."""
+    plan = {"sparams": param_mats}
+    tiles_in_memory = all(not si_utils._is_lazy(s.data) for s in field_sims)
+    total_tile_bytes = sum(
+        int(np.prod(s.data.shape)) * np.dtype(s.data.dtype).itemsize for s in field_sims
+    )
+    tiles_fit_on_device = tiles_in_memory or total_tile_bytes <= TILES_MAX_BYTES
+    stream_worthy = (
+        len({tuple(s.data.shape) for s in field_sims}) == 1
+        and scale is not None
+        and all(s == 1.0 for s in scale)
+        and (
+            not tiles_in_memory
+            or not tiles_fit_on_device
+            or total_tile_bytes > STREAM_BYTES
+        )
+    )
+    if stream_worthy:
+        res = _streaming.execute_streaming(
+            plan,
+            field_sims,
+            output_stack_properties,
+            sdims,
+            blending_widths=blending_widths,
+            shrink_distance=shrink_distance,
+            out_dtype=out.dtype,
+            device=device,
+            out_sink=out,
+            output_chunksize=output_chunksize,
+            is_zarr_sink=not isinstance(out, np.ndarray),
+        )
+        if res is not None:
+            return
+    if not tiles_fit_on_device:
+        raise NotImplementedError(
+            f"{total_tile_bytes} bytes of lazy tiles that do not band need the "
+            f"host-slab route, which is not ported yet ({_ROADMAP}: item 10)"
+        )
+    _execute_fusion_plan_translation(
+        plan,
+        field_sims,
+        output_stack_properties,
+        sdims,
+        blending_widths=blending_widths,
+        shrink_distance=shrink_distance,
+        out=out,
+        device=device,
+        scale=scale,
+        scales=scales,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -858,6 +1014,10 @@ def _execute_fusion_plan_batched(
     kind = _exact_kind(ndim, params, use_bw)
 
     tiles = _tiles_to_device(field_sims, device)
+    if tiles.is_cuda:
+        # read as float32 once for all launches where the kernels do not
+        # read the dtype (the wrappers would cast it at every launch)
+        tiles = exact_affine.kernel_input(tiles)
     out_dtype = _torch_dtype(out.dtype)
     out_dev = torch.zeros(out.shape, dtype=out_dtype, device=tiles.device)
     osp = output_stack_properties
@@ -961,28 +1121,37 @@ def fuse(
     interpolation_order: int = 1,
     blending_widths: Optional[Dict[str, float]] = None,
     output_zarr_url: Optional[str] = None,
+    zarr_options: Optional[dict] = None,
     device=None,
 ):
     """Fuse views into a single image.
 
     Views placed by translations take the translation tier (default
     weighted average only); views with any other affine take the
-    exact-affine tier, with any builtin fusion function. Returns a Sim
-    holding the fused output in host memory, in the input dtype, with an
-    identity affine under ``transform_key``. The fusion runs on ``device``: the CUDA device by default (raising if there is none),
-    or the CPU with ``device="cpu"``, which takes the kernels' plain
-    PyTorch versions.
+    exact-affine tier, with any builtin fusion function. Views may hold
+    numpy arrays or lazy zarr arrays (``io.zarr_backend``). Returns a Sim in
+    the input dtype with an identity affine under ``transform_key``: in host
+    memory, or, with ``output_zarr_url``, backed by the zarr v2 array written
+    there. ``zarr_options``: ``ome_zarr`` (default True: an NGFF 0.4
+    OME-Zarr with level 0 at ``{url}/0``, its pyramid and metadata; False: a
+    plain array at ``url``), ``ngff_version`` ("0.4"), ``create_output``
+    (default True; False writes into the array already there),
+    ``overwrite`` (default True) and ``zarr_array_creation_kwargs`` (for
+    example a ``compressor``). The output's zarr chunks are
+    ``output_chunksize``, 1 on each non-spatial dim.
+
+    The fusion runs on ``device``: the CUDA device by default (raising if
+    there is none), or the CPU with ``device="cpu"``, which takes the
+    kernels' plain PyTorch versions.
     """
     device = misc_utils.resolve_device(device)
     if images is None or not len(images):
         raise ValueError("images must contain at least one image.")
     if any(msi_utils.is_msim(im) for im in images):
         raise NotImplementedError(f"fusing msims is not ported yet ({_ROADMAP}: msims)")
-    if output_zarr_url is not None:
-        raise NotImplementedError(
-            f"fusing into zarr is not ported yet ({_ROADMAP}: zarr output, "
-            "item 4 streaming zarr fusion)"
-        )
+    zarr_options = dict(zarr_options or {})
+    if output_zarr_url is not None and zarr_options.get("ngff_version", "0.4") != "0.4":
+        raise NotImplementedError(zarr_backend._V3)
     builtin_mode = _BUILTIN_FUSION_MODES.get(fusion_func)
     if builtin_mode is None or fusion_func_kwargs or weights_func is not None:
         raise NotImplementedError(
@@ -1055,7 +1224,28 @@ def fuse(
     )
     spatial_out_shape = tuple(output_stack_properties["shape"][d] for d in sdims)
     out_full_shape = tuple(len(ns_coord_lists[nd]) for nd in nsdims) + spatial_out_shape
-    output_array = np.zeros(out_full_shape, dtype=np.dtype(sims_in[0].dtype))
+    out_dtype = np.dtype(sims_in[0].dtype)
+    ome_zarr = zarr_options.get("ome_zarr", True)
+    if output_zarr_url is None:
+        output_array = np.zeros(out_full_shape, dtype=out_dtype)
+    else:
+        # fused regions go straight into the zarr array, nothing is
+        # assembled in memory
+        level0_url = f"{output_zarr_url}/0" if ome_zarr else str(output_zarr_url)
+        zarr_chunks = tuple(1 for _ in nsdims) + tuple(
+            min(output_chunksize[d], output_stack_properties["shape"][d]) for d in sdims
+        )
+        if zarr_options.get("create_output", True):
+            output_array = zarr_backend.create_zarr_array(
+                level0_url,
+                shape=out_full_shape,
+                chunks=zarr_chunks,
+                dtype=out_dtype,
+                overwrite=zarr_options.get("overwrite", True),
+                **(zarr_options.get("zarr_array_creation_kwargs") or {}),
+            )
+        else:
+            output_array = zarr_backend.attach_zarr_array(level0_url)
 
     for combo in ns_combos:
         sel = dict(zip(nsdims, combo))
@@ -1071,6 +1261,10 @@ def fuse(
         ns_idx = tuple(
             int(np.where(ns_coord_lists[nd] == c)[0][0]) for nd, c in zip(nsdims, combo)
         )
+        out = (
+            output_array[ns_idx] if isinstance(output_array, np.ndarray)
+            else _PrefixedSink(output_array, ns_idx)
+        )
         if not _plan_is_translation(param_mats, ndim):
             _fuse_affine_views(
                 param_mats,
@@ -1083,7 +1277,7 @@ def fuse(
                 interpolation_order=interpolation_order,
                 blending_widths=blending_widths,
                 shrink_distance=shrink_distance,
-                out=output_array[ns_idx],
+                out=out,
                 device=device,
             )
             continue
@@ -1103,27 +1297,38 @@ def fuse(
                 "view -> output pixel scales above 8 need the other fusion "
                 f"tiers ({_ROADMAP}: item 10)"
             )
-        _execute_fusion_plan_translation(
-            {"sparams": param_mats},
+        _fuse_translation_views(
+            param_mats,
             field_sims,
             output_stack_properties,
             sdims,
-            blending_widths=blending_widths,
-            shrink_distance=shrink_distance,
-            out=output_array[ns_idx],
-            device=device,
             scale=scale,
             scales=scales,
+            blending_widths=blending_widths,
+            shrink_distance=shrink_distance,
+            out=out,
+            device=device,
+            output_chunksize=output_chunksize,
         )
 
-    out_sim = si_utils.to_spatial_image(
-        output_array,
-        dims=tuple(nsdims) + tuple(sdims),
-        scale=output_stack_properties["spacing"],
-        translation=dict(output_stack_properties["origin"]),
-        t_coords=ns_coord_lists.get("t"),
-        c_coords=ns_coord_lists.get("c"),
-    )
+    if output_zarr_url is not None and ome_zarr:
+        ngff_utils.finalize_ome_zarr_levels(
+            output_zarr_url,
+            dims=tuple(nsdims) + tuple(sdims),
+            stack_properties=output_stack_properties,
+            c_coords=ns_coord_lists.get("c"),
+        )
+        out_sim = ngff_utils.read_sim_from_ome_zarr(output_zarr_url)
+    else:
+        out_sim = si_utils.to_spatial_image(
+            output_array if output_zarr_url is None
+            else zarr_backend.open_zarr_array(str(output_zarr_url)),
+            dims=tuple(nsdims) + tuple(sdims),
+            scale=output_stack_properties["spacing"],
+            translation=dict(output_stack_properties["origin"]),
+            t_coords=ns_coord_lists.get("t"),
+            c_coords=ns_coord_lists.get("c"),
+        )
     si_utils.set_sim_affine(
         out_sim,
         param_utils.identity_transform(ndim, t_coords=ns_coord_lists.get("t")),

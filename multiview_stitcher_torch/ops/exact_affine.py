@@ -301,15 +301,20 @@ def _route_counter(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(_route_counts.data_ptr())
 
 
+def kernel_input(data: torch.Tensor) -> torch.Tensor:
+    """``data`` in a dtype the kernels read: as it is when uint8, uint16 or
+    float32, else cast to float32 on its device, as the reference casts every
+    input before its kernels."""
+    return data if data.dtype in _DTYPE_CODES else data.to(torch.float32)
+
+
 def _launch(entry: str, a: _Args) -> tuple:
     """Launch ``entry`` on the current stream; (output, whether it launched)."""
     if a.data.device.type != "cuda":
         raise ValueError(f"data must lie on the CPU or a CUDA device, got {a.data.device}")
     if a.data.dtype not in _DTYPE_CODES:
-        raise NotImplementedError(
-            f"the CUDA exact-affine kernels take dtypes "
-            f"{sorted(str(d) for d in _DTYPE_CODES)}, got {a.data.dtype}"
-        )
+        # other dtypes are read as float32, cast on the device as the reference does
+        a = a._replace(data=kernel_input(a.data))
     B = a.fparams.shape[0]
     out = torch.empty((B,) + a.out_shape, dtype=torch.float32, device=a.data.device)
     if out.numel() == 0:
@@ -356,8 +361,9 @@ def _make(name: str, ndim: int, entry: str, terms, doc: str):
 
 _COMMON_DOC = """
 
-    ``data`` (B, *S) uint8, uint16 or float32 (float input may hold NaN or
-    inf: it is read through ``nan_to_num``); ``mats`` (B, ndim, ndim),
+    ``data`` (B, *S) of any real dtype (the kernels read uint8, uint16 and
+    float32; others are cast to float32 on the device first; float input may
+    hold NaN or inf: it is read through ``nan_to_num``); ``mats`` (B, ndim, ndim),
     ``offs`` and ``extents`` (B, ndim); ``out_shape`` the output shape of
     every item; ``cval`` the value outside ``[0, extents - 1]``. With
     ``tile_idx`` (B,) and ``starts`` (B, ndim), ``data`` is a (V, *S) stack

@@ -129,12 +129,21 @@ def _z_stride(scale) -> int:
 
 
 def _cast(res: torch.Tensor, out_dtype) -> torch.Tensor:
-    """nan_to_num, then a cast that truncates toward zero for integer types."""
+    """nan_to_num, then jnp's ``astype``: integer types truncate toward zero
+    and saturate at their range, float types round."""
     res = torch.nan_to_num(res)
-    if not out_dtype.is_floating_point:
-        info = torch.iinfo(out_dtype)
-        res = res.clamp(info.min, info.max)
-    return res.to(out_dtype)
+    if out_dtype.is_floating_point:
+        return res.to(out_dtype)
+    info = torch.iinfo(out_dtype)
+    if info.bits < 32:
+        return res.clamp(info.min, info.max).to(out_dtype)
+    # f32 holds none of 2**31 - 1, 2**32 - 1, 2**63 - 1: decide the ends in
+    # f64, where 2**bits-ish bounds are exact, and convert only what is inside
+    res = res.to(torch.float64)
+    top = float(info.max) + 1.0  # 2**31, 2**32, 2**63 or 2**64 exactly
+    inside = torch.where((res > info.min) & (res < top), res, 0.0).to(out_dtype)
+    full = torch.full_like(inside, info.max)
+    return torch.where(res >= top, full, torch.where(res <= info.min, info.min, inside))
 
 
 def _lerp(a, b, f):
@@ -284,24 +293,26 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _dtype_code(dtype, what: str) -> int:
-    if dtype not in _DTYPE_CODES:
-        raise NotImplementedError(
-            f"the CUDA translation-fusion kernels take {what} dtypes "
-            f"{sorted(str(d) for d in _DTYPE_CODES)}, got {dtype}"
-        )
-    return _DTYPE_CODES[dtype]
+def kernel_input(tiles: torch.Tensor) -> torch.Tensor:
+    """``tiles`` in a dtype the kernels read: as they are when uint8, uint16
+    or float32, else cast to float32 on their device, as the reference casts
+    every input before its kernels."""
+    return tiles if tiles.dtype in _DTYPE_CODES else tiles.to(torch.float32)
 
 
 def _launch(ndim, tiles, out_shape, tile_shape, K, out_dtype, a: _Args, SZ=1):
+    """Launch the kernel on the current stream; (output, whether it launched).
+    Other input dtypes are read as float32; other output dtypes are written
+    as float32 and then cast by :func:`_cast`."""
     if tiles.device.type != "cuda":
         raise ValueError(f"tiles must lie on the CPU or a CUDA device, got {tiles.device}")
-    in_code = _dtype_code(tiles.dtype, "input")
-    out_code = _dtype_code(out_dtype, "output")
-    tiles = tiles.contiguous()
-    out = torch.empty(tuple(int(o) for o in out_shape), dtype=out_dtype, device=tiles.device)
+    tiles = kernel_input(tiles).contiguous()
+    in_code = _DTYPE_CODES[tiles.dtype]
+    write_dtype = out_dtype if out_dtype in _DTYPE_CODES else torch.float32
+    out_code = _DTYPE_CODES[write_dtype]
+    out = torch.empty(tuple(int(o) for o in out_shape), dtype=write_dtype, device=tiles.device)
     if out.numel() == 0:
-        return out, False
+        return _cast(out, out_dtype), False
     lib = _library()
     with torch.cuda.device(tiles.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -321,7 +332,7 @@ def _launch(ndim, tiles, out_shape, tile_shape, K, out_dtype, a: _Args, SZ=1):
                 *out.shape, *(int(t) for t in tile_shape), *a.origin, stream,
             )
     _build.check(lib, rc, f"fuse_translation_{ndim}d")
-    return out, True
+    return (out if write_dtype == out_dtype else _cast(out, out_dtype)), True
 
 
 def fuse_translation_2d_plain(

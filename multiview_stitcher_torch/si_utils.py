@@ -2,7 +2,9 @@
 
 A "sim" is a :class:`Sim` carrying:
 
-- ``data``: a numpy array;
+- ``data``: a numpy array, or a lazy array handle exposing ``shape``,
+  ``dtype``, ``__getitem__`` and ``__array__`` (a zarr-backed
+  ``io.zarr_backend.LazyZarrArray``); slicing a sim keeps a lazy handle lazy;
 - ``dims``: tuple of dim names, ordered subset of ('t','c','z','y','x');
 - ``spacing``/``origin``: physical pixel spacing and origin per spatial dim
   (pixel-center convention: coord = origin + spacing * index);
@@ -27,6 +29,11 @@ ALL_DIMS = ["t", "c", "z", "y", "x"]
 
 DEFAULT_SPATIAL_CHUNKSIZES_3D = {dim: 256 for dim in ["z", "y", "x"]}
 DEFAULT_SPATIAL_CHUNKSIZES_2D = {dim: 2048 for dim in ["y", "x"]}
+
+
+def _is_lazy(data) -> bool:
+    """True for array handles that are read only when materialized."""
+    return not isinstance(data, np.ndarray)
 
 
 @dataclass
@@ -63,6 +70,10 @@ class Sim:
     @property
     def dtype(self):
         return self.data.dtype
+
+    def to_numpy(self) -> np.ndarray:
+        """The data as a numpy array (reads a lazy handle)."""
+        return np.asarray(self.data)
 
     @property
     def sizes(self) -> Dict[str, int]:
@@ -153,7 +164,8 @@ def get_sim_from_array(
     c_coords=None,
     t_coords=None,
 ) -> Sim:
-    """Construct a sim from a numpy array."""
+    """Construct a sim from a numpy array or a lazy array handle, which the
+    sim holds without reading it."""
     if dims is None:
         dims = ALL_DIMS[-len(array.shape):]
     sdims = [d for d in dims if d in SPATIAL_DIMS]

@@ -1,0 +1,618 @@
+"""The port's streaming tier, its zarr v2 / OME-Zarr IO and
+``fuse(output_zarr_url=...)`` against the JAX package, and the dtype cast of
+the kernels' outputs (fault F1) against jnp.
+
+Inputs are made from a seed with numpy, on the grid shapes of
+tests/test_streaming_fusion.py (n=5-7, tiles of 40-48, overlap 10-12). The
+reference runs on the CPU (its Pallas kernels in interpret mode) with
+``MVS_TPU_STREAM_BYTES=0``, so it streams too; its zarr IO is tensorstore,
+which also reads what the port writes. The port runs with ``device="cpu"``.
+
+Tolerances: the port's streaming output is bit-equal to its monolithic
+output; against the reference, uint16 within 1 count (truncation ties) and
+f32 rtol 1e-4, atol 1e-3 (tests/test_pallas_fusion.py:98); the cast equals
+jnp's ``astype`` exactly.
+"""
+
+import json
+import sys
+import types
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import tensorstore as ts
+import torch
+
+from multiview_stitcher_torch import convert, msi_utils as tmsi
+from multiview_stitcher_torch import si_utils as tsi
+from multiview_stitcher_torch.fusion import _core as tcore
+from multiview_stitcher_torch.fusion import _streaming as tstream
+from multiview_stitcher_torch.fusion import fuse as tfuse
+from multiview_stitcher_torch.io import ngff_utils as tngff
+from multiview_stitcher_torch.io import zarr_backend as tzb
+from multiview_stitcher_torch.ops import translation_fusion as ttf
+from multiview_stitcher_tpu import msi_utils, si_utils
+from multiview_stitcher_tpu.fusion import _core as jcore
+from multiview_stitcher_tpu.fusion import _streaming as jstream
+from multiview_stitcher_tpu.fusion import fuse as jfuse
+from multiview_stitcher_tpu.io import ngff_utils as jngff
+from multiview_stitcher_tpu.io import zarr_backend as jzb
+
+KEY = si_utils.DEFAULT_TRANSFORM_KEY
+
+
+def _to_port(sims):
+    return [
+        convert.sim_from_numpy(
+            s.data, s.dims, s.spacing, s.origin,
+            {k: v.data for k, v in s.transforms.items()}, coords=s.coords,
+        )
+        for s in sims
+    ]
+
+
+def _grid_sims(n=5, tile=48, overlap=12, ndim=2, dtype=np.uint16, seed=0, channels=None):
+    """The reference tests' grid: n x n tiles (1 x n x n in 3D), values in
+    [0, 3000), as JAX sims; with ``channels`` a leading ``c`` axis."""
+    rng = np.random.default_rng(seed)
+    sdims = ["z", "y", "x"][-ndim:]
+    step = tile - overlap
+    grid = (1, n, n) if ndim == 3 else (n, n)
+    lead = () if channels is None else (len(channels),)
+    sims = []
+    for idx in np.ndindex(grid):
+        data = rng.integers(0, 3000, lead + (tile,) * ndim).astype(dtype)
+        sims.append(si_utils.get_sim_from_array(
+            data, dims=(["c"] if channels else []) + sdims, c_coords=channels,
+            translation={d: float(idx[i] * step) for i, d in enumerate(sdims)},
+        ))
+    return sims
+
+
+def _assert_close(got, ref):
+    assert got.dtype == ref.dtype and got.shape == ref.shape, (got.shape, ref.shape)
+    if np.issubdtype(ref.dtype, np.integer):
+        assert np.abs(got.astype(np.int64) - ref.astype(np.int64)).max(initial=0) <= 1
+    else:
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.fixture
+def jax_streams(monkeypatch):
+    """The reference streams test-sized grids (its fixture's settings)."""
+    monkeypatch.setenv("MVS_TPU_STREAM_BYTES", "0")
+    monkeypatch.setenv("MVS_TPU_PALLAS_TILE_2D", "64,64")
+    monkeypatch.setenv("MVS_TPU_PALLAS_TILE_3D", "8,32,64")
+    jcore.clear_device_tile_cache()
+    yield
+    jcore.clear_device_tile_cache()
+
+
+def _spy_streaming(monkeypatch, module):
+    ran = []
+    orig = module.execute_streaming
+
+    def spy(*a, **k):
+        res = orig(*a, **k)
+        ran.append(res is not None)
+        return res
+
+    monkeypatch.setattr(module, "execute_streaming", spy)
+    return ran
+
+
+# ---------------------------------------------------------------------------
+# zarr v2 IO against tensorstore
+# ---------------------------------------------------------------------------
+
+_COMPRESSORS = {"none": None, "zlib": {"id": "zlib", "level": 3}}
+
+
+@pytest.mark.parametrize("sep", [".", "/"])
+@pytest.mark.parametrize("compressor", ["none", "zlib"])
+def test_port_writes_and_tensorstore_reads(tmp_path, sep, compressor):
+    rng = np.random.default_rng(1)
+    a = rng.integers(0, 60000, (13, 17, 9)).astype(np.uint16)  # edge chunks on every axis
+    url = str(tmp_path / "a.zarr")
+    arr = tzb.create_zarr_array(url, a.shape, (5, 8, 4), a.dtype, fill_value=7,
+                                compressor=_COMPRESSORS[compressor], dimension_separator=sep)
+    expect = np.full(a.shape, 7, np.uint16)  # chunks never written read as fill_value
+    arr[0:10, 0:16, 0:8] = a[0:10, 0:16, 0:8]  # whole chunks
+    arr[2:7, 3:11, 1:2] = 5  # an unaligned region: read, modify, write
+    arr[12, 16, 8] = 9  # the last voxel, in the last edge chunk
+    expect[0:10, 0:16, 0:8] = a[0:10, 0:16, 0:8]
+    expect[2:7, 3:11, 1:2] = 5
+    expect[12, 16, 8] = 9
+    np.testing.assert_array_equal(jzb.open_zarr_array(url).read(), expect)
+    np.testing.assert_array_equal(np.asarray(tzb.open_zarr_array(url)), expect)
+    meta = json.loads((tmp_path / "a.zarr" / ".zarray").read_text())
+    assert meta["compressor"] == _COMPRESSORS[compressor] and meta["dimension_separator"] == sep
+
+
+@pytest.mark.parametrize("sep", [".", "/"])
+@pytest.mark.parametrize("compressor", ["none", "zlib"])
+@pytest.mark.parametrize("dtype", ["<u2", "<f4"])
+def test_tensorstore_writes_and_port_reads(tmp_path, sep, compressor, dtype):
+    rng = np.random.default_rng(2)
+    a = (rng.random((13, 17, 9)) * 1000).astype(dtype)
+    url = str(tmp_path / "a.zarr")
+    fill = 3 if dtype == "<u2" else "NaN"
+    store = ts.open({
+        "driver": "zarr", "kvstore": {"driver": "file", "path": url},
+        "metadata": {"shape": list(a.shape), "chunks": [6, 6, 6], "dtype": dtype,
+                     "fill_value": fill, "compressor": _COMPRESSORS[compressor],
+                     "dimension_separator": sep},
+        "create": True, "delete_existing": True,
+    }).result()
+    store[0:6, 0:6, 0:6] = a[0:6, 0:6, 0:6]
+    store[10:13, 12:17, 6:9] = a[10:13, 12:17, 6:9]  # parts of edge chunks
+    expect = np.full(a.shape, 3 if dtype == "<u2" else np.nan, a.dtype)
+    expect[0:6, 0:6, 0:6] = a[0:6, 0:6, 0:6]
+    expect[10:13, 12:17, 6:9] = a[10:13, 12:17, 6:9]
+    lazy = tzb.open_zarr_array(url)
+    assert lazy.shape == a.shape and lazy.dtype == a.dtype
+    np.testing.assert_array_equal(np.asarray(lazy), expect)
+    np.testing.assert_array_equal(np.asarray(lazy[4:12, 1, ::3]), expect[4:12, 1, ::3])
+
+
+def test_lazy_views_compose_and_write_regions(tmp_path):
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 255, (2, 11, 14)).astype(np.uint8)
+    arr = tzb.create_zarr_array(str(tmp_path / "a.zarr"), a.shape, (1, 4, 5), a.dtype)
+    arr[...] = a
+    view = arr[1, 2:9:2]
+    assert isinstance(view, tzb.LazyZarrArray) and view.shape == (4, 14)
+    for idx in [(slice(1, 3), 5), (-1,), (Ellipsis, slice(3, None, 4)), np.s_[::-1]]:
+        np.testing.assert_array_equal(np.asarray(view[idx]), a[1, 2:9:2][idx])
+    assert arr[0, 3, 4] == a[0, 3, 4]
+    np.testing.assert_array_equal(np.asarray(arr[:, [1, 3]]), a[:, [1, 3]])
+    arr[1, 2:9][1:3, 2:6] = 200  # a region write through a view: rows 3-4 of channel 1
+    a[1, 3:5, 2:6] = 200
+    with pytest.raises(NotImplementedError, match="step"):
+        view[1:3, 2:6] = 0
+    np.testing.assert_array_equal(jzb.open_zarr_array(str(tmp_path / "a.zarr")).read(), a)
+
+
+def test_blosc_and_other_compressors_are_refused_with_their_name(tmp_path, monkeypatch):
+    url = str(tmp_path / "blosc.zarr")
+    # the reference's create_zarr_array sets no compressor: tensorstore's
+    # default, blosc-lz4, applies
+    jzb.create_zarr_array(url, (8, 8), (4, 4), np.uint16)[...] = np.ones((8, 8), np.uint16)
+    assert json.loads((tmp_path / "blosc.zarr" / ".zarray").read_text())["compressor"]["id"] == "blosc"
+    monkeypatch.setitem(sys.modules, "numcodecs", None)  # neither blosc module imports
+    monkeypatch.setitem(sys.modules, "blosc", None)
+    with pytest.raises(NotImplementedError, match="blosc"):
+        tzb.open_zarr_array(url)
+    with pytest.raises(NotImplementedError, match="blosc"):
+        tzb.create_zarr_array(str(tmp_path / "b.zarr"), (4,), (2,), np.uint8,
+                              compressor={"id": "blosc", "cname": "lz4"})
+    with pytest.raises(NotImplementedError, match="zstd"):
+        tzb.create_zarr_array(str(tmp_path / "c.zarr"), (4,), (2,), np.uint8,
+                              compressor={"id": "zstd", "level": 1})
+
+
+class _FakeBlosc:
+    """Stands in for numcodecs' codec and the blosc module: zlib under
+    blosc's name, to run both of the port's blosc paths."""
+
+    def encode(self, chunk):
+        return zlib.compress(chunk.tobytes())
+
+    def compress(self, raw, **kw):
+        return zlib.compress(raw)
+
+    def decode(self, raw):
+        return zlib.decompress(raw)
+
+    decompress = decode
+
+
+@pytest.mark.parametrize("module", ["numcodecs", "blosc"])
+def test_blosc_chunks_go_through_whichever_blosc_module_imports(tmp_path, monkeypatch, module):
+    fake = _FakeBlosc()
+    if module == "numcodecs":
+        monkeypatch.setitem(sys.modules, "numcodecs", types.SimpleNamespace(get_codec=lambda c: fake))
+    else:
+        monkeypatch.setitem(sys.modules, "numcodecs", None)
+        monkeypatch.setitem(sys.modules, "blosc", fake)
+    a = np.arange(6 * 7, dtype=np.uint16).reshape(6, 7)
+    url = str(tmp_path / "a.zarr")
+    blosc = {"id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": -1, "blocksize": 0}
+    tzb.create_zarr_array(url, a.shape, (4, 4), a.dtype, compressor=blosc)[...] = a
+    np.testing.assert_array_equal(np.asarray(tzb.open_zarr_array(url)), a)
+    assert zlib.decompress((tmp_path / "a.zarr" / "1.1").read_bytes())[:2] == a[4, 4:5].tobytes()
+
+
+def test_zarr_v3_is_refused_naming_its_roadmap_item(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 21"):
+        tzb.create_zarr_array(str(tmp_path / "a.zarr"), (4,), (2,), np.uint8, zarr_format=3)
+    url = str(tmp_path / "v3.zarr")
+    jzb.create_zarr_array(url, (4, 4), (2, 2), np.uint16, zarr_format=3)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        tzb.open_zarr_array(url)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        tfuse(_to_port(_grid_sims(n=2)), transform_key=KEY, device="cpu",
+              output_zarr_url=str(tmp_path / "out.zarr"), zarr_options={"ngff_version": "0.5"})
+
+
+def test_group_metadata_reads_back_in_both_packages(tmp_path):
+    attrs = {"multiscales": [{"version": "0.4", "datasets": [{"path": "0"}]}]}
+    tzb.write_group_metadata(str(tmp_path / "g"), attrs)
+    assert jzb.read_group_metadata(str(tmp_path / "g")) == (attrs, 2)
+    jzb.write_group_metadata(str(tmp_path / "h"), attrs)
+    assert tzb.read_group_metadata(str(tmp_path / "h")) == (attrs, 2)
+
+
+# ---------------------------------------------------------------------------
+# pyramid plan, NGFF metadata, lazy sims
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [{"z": 64, "y": 1676, "x": 1676}, {"y": 228, "x": 90},
+                                   {"y": 50, "x": 40}])
+def test_resolution_levels_and_coarsening_match_the_reference(shape):
+    assert tmsi.calc_resolution_levels(shape) == msi_utils.calc_resolution_levels(shape)
+    _, _, abs_f = tmsi.calc_resolution_levels(shape)
+    props = {"spacing": {d: 0.5 for d in shape}, "origin": {d: 3.0 for d in shape}}
+    assert (tngff.calc_ngff_coordinate_transformations_and_axes(props, abs_f, nsdims=["c"])
+            == jngff.calc_ngff_coordinate_transformations_and_axes(props, abs_f, nsdims=["c"]))
+    data = np.random.default_rng(4).integers(0, 65535, (2, 9, 13)).astype(np.uint16)
+    np.testing.assert_array_equal(tmsi._coarsen_mean(data, (1, 2, 3)),
+                                  msi_utils._coarsen_mean(data, (1, 2, 3)))
+
+
+def test_sims_keep_a_zarr_array_lazy(tmp_path, monkeypatch):
+    a = np.arange(2 * 6 * 7, dtype=np.uint16).reshape(2, 6, 7)
+    arr = tzb.create_zarr_array(str(tmp_path / "a.zarr"), a.shape, (1, 3, 3), a.dtype)
+    arr[...] = a
+    reads = []
+    orig = tzb.ZarrV2.read
+    monkeypatch.setattr(tzb.ZarrV2, "read", lambda self, box: reads.append(box) or orig(self, box))
+    sim = tsi.get_sim_from_array(tzb.open_zarr_array(str(tmp_path / "a.zarr")),
+                                 dims=("c", "y", "x"), c_coords=["a", "b"])
+    one = tsi.sim_sel_coords(sim, {"c": "b"})
+    crop = tsi.sim_sel_coords(one, {"y": slice(2, 4)})
+    assert isinstance(crop.data, tzb.LazyZarrArray) and crop.data.shape == (3, 7)
+    assert crop.origin == {"y": 2.0, "x": 0.0} and not reads
+    np.testing.assert_array_equal(crop.to_numpy(), a[1, 2:5])
+    assert reads == [[(1, 2), (2, 5), (0, 7)]]
+
+
+def test_lazy_tiles_that_do_not_band_take_the_monolithic_tier(tmp_path, monkeypatch):
+    sims = _grid_sims(n=2)  # two rows of tiles: fewer than 3 bands
+    _, psims = _zarr_tiles(tmp_path, sims)
+    ran = _spy_streaming(monkeypatch, tstream)
+    got = _port_fuse(psims)
+    assert ran == [False]
+    np.testing.assert_array_equal(got, _port_fuse(_to_port(sims)))
+
+
+def test_lazy_tile_reads_retry_transient_errors_only(monkeypatch):
+    monkeypatch.setattr(tcore.time, "sleep", lambda s: None)
+    data = np.arange(12, dtype=np.uint16).reshape(3, 4)
+
+    class Flaky:
+        shape, dtype = data.shape, data.dtype
+
+        def __init__(self, failures, error):
+            self.failures, self.error = failures, error
+
+        def __array__(self, dtype=None, copy=None):
+            if self.failures:
+                self.failures -= 1
+                raise self.error
+            return data
+
+    def sims(failures, error):
+        return [tsi.get_sim_from_array(Flaky(failures, error), dims=("y", "x"))]
+
+    np.testing.assert_array_equal(tcore._materialize_tiles(sims(2, OSError("reset")))[0], data)
+    with pytest.raises(OSError):
+        tcore._materialize_tiles(sims(3, OSError("reset")))  # one more than the retries
+    with pytest.raises(ValueError):
+        tcore._materialize_tiles(sims(1, ValueError("not transient")))
+
+
+# ---------------------------------------------------------------------------
+# band plan and streaming tier
+# ---------------------------------------------------------------------------
+
+
+def _layout(name):
+    """(offs, extents, out_shape, tile_shape, axis_chunk) of a band plan."""
+    if name == "column":
+        offs = np.zeros((8, 2), np.float32)
+        offs[:, 0] = -np.arange(8) * 32.0
+        return offs, np.full((8, 2), 64.0, np.float32), (288, 64), (16, 16), None
+    if name == "grid_3d_zarr":
+        # the north star's grid: 32 x 32 tiles of 64^3 at a step of 52
+        yy, xx = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+        offs = np.stack([np.zeros(1024), -52.0 * yy.ravel(), -52.0 * xx.ravel()], 1)
+        return (offs.astype(np.float32), np.full((1024, 3), 64.0, np.float32),
+                (64, 1676, 1676), (64, 8, 32), (128, 128, 128))
+    if name == "irregular":
+        # a sparse column of tiles, then a dense row sharing one band
+        offs = np.array([[-30.0 * i, 0.0] for i in range(6)]
+                        + [[-200.0, -12.0 * i] for i in range(12)], np.float32)
+        return offs, np.full((18, 2), 40.0, np.float32), (240, 172), (16, 16), None
+    if name == "degenerate":
+        return np.zeros((4, 2), np.float32), np.full((4, 2), 64.0, np.float32), (64, 64), (16, 16), None
+    if name == "mixed_extents":
+        offs = np.zeros((6, 2), np.float32)
+        offs[:, 1] = -np.arange(6) * 30.0
+        ext = np.full((6, 2), 40.0, np.float32)
+        ext[::2, 1] = 36.0  # band axis 1 has mixed extents; axis 0 one band
+        return offs, ext, (40, 190), (8, 8), None
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["column", "grid_3d_zarr", "irregular", "degenerate",
+                                  "mixed_extents"])
+def test_plan_bands_matches_the_reference(name):
+    args = _layout(name)
+    got, ref = tstream.plan_bands(*args), jstream.plan_bands(*args)
+    if ref is None:
+        assert got is None
+        return
+    assert got.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def _port_fuse(sims, **kw):
+    return tfuse(sims, transform_key=KEY, device="cpu", **kw).to_numpy()
+
+
+@pytest.mark.parametrize("ndim,dtype", [(2, np.uint16), (2, np.float32), (3, np.uint16),
+                                        (3, np.float32)])
+def test_streaming_is_bit_equal_to_monolithic(ndim, dtype, monkeypatch):
+    sims = _to_port(_grid_sims(n=5 if ndim == 2 else 4, tile=48 if ndim == 2 else 32,
+                               overlap=12 if ndim == 2 else 8, ndim=ndim, dtype=dtype))
+    ran = _spy_streaming(monkeypatch, tstream)
+    monkeypatch.setattr(tcore, "STREAM_BYTES", 0)
+    streamed = _port_fuse(sims)
+    assert ran == [True]
+    tele = tstream.last_telemetry
+    assert tele["bands_done"] == tele["bands_total"] >= 3 and tele["voxels_written"] == streamed.size
+    monkeypatch.setattr(tcore, "STREAM_BYTES", 1 << 40)
+    mono = _port_fuse(sims)
+    assert ran == [True]
+    np.testing.assert_array_equal(streamed, mono)
+
+
+def test_streaming_windows_of_single_view_batches(monkeypatch):
+    """One view a batch: a band's window spans many batches and runs past the
+    last one; the sparse column and the dense row of the reference's test."""
+    rng = np.random.default_rng(33)
+    sims = [si_utils.get_sim_from_array(rng.integers(0, 3000, (40, 40)).astype(np.uint16),
+                                        translation={"y": float(iy * 30), "x": 0.0})
+            for iy in range(6)]
+    sims += [si_utils.get_sim_from_array(rng.integers(0, 3000, (40, 40)).astype(np.uint16),
+                                         translation={"y": 200.0, "x": float(ix * 12)})
+             for ix in range(12)]
+    monkeypatch.setattr(tstream, "_BATCH_BYTES", 1)
+    monkeypatch.setattr(tcore, "STREAM_BYTES", 0)
+    streamed = _port_fuse(_to_port(sims))
+    assert tstream.last_telemetry["batch_views"] == 1 and tstream.last_telemetry["bands_done"] > 3
+    monkeypatch.setattr(tcore, "STREAM_BYTES", 1 << 40)
+    np.testing.assert_array_equal(streamed, _port_fuse(_to_port(sims)))
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+def test_streaming_matches_the_reference_streaming(dtype, jax_streams, monkeypatch):
+    sims = _grid_sims(n=6, tile=48, overlap=12, dtype=dtype)
+    jran = _spy_streaming(monkeypatch, jstream)
+    ref = np.asarray(jfuse(sims, transform_key=KEY, output_chunksize=64).data)
+    assert jran == [True]
+    ran = _spy_streaming(monkeypatch, tstream)
+    monkeypatch.setattr(tcore, "STREAM_BYTES", 0)
+    got = _port_fuse(_to_port(sims), output_chunksize=64)
+    assert ran == [True]
+    _assert_close(got, ref)
+
+
+def test_deadline_aborts_with_telemetry():
+    sims = _to_port(_grid_sims(n=6))
+    osp = tcore.process_output_stack_properties(sims, transform_key=KEY)
+    with pytest.raises(tstream.StreamingDeadlineError) as ei:
+        tstream.execute_streaming(
+            {"sparams": [np.eye(3)] * len(sims)}, sims, osp, ["y", "x"],
+            blending_widths=None, shrink_distance=0, out_dtype=np.uint16, deadline_s=0,
+        )
+    tele = ei.value.telemetry
+    assert tele["aborted"] and tele["deadline_s"] == 0
+    assert tele["bands_done"] < tele["bands_total"]
+    assert tele is tstream.last_telemetry
+
+
+def test_a_failing_band_write_raises_and_nothing_falls_back(tmp_path, monkeypatch):
+    sims = _to_port(_grid_sims(n=6))
+    called = []
+    monkeypatch.setattr(tcore, "_execute_fusion_plan_translation", lambda *a, **k: called.append(1))
+
+    def failing_write(self, box, value):
+        raise OSError("injected band write failure")
+
+    monkeypatch.setattr(tzb.ZarrV2, "write", failing_write)
+    with pytest.raises(OSError, match="injected"):
+        _port_fuse(_zarr_tiles(tmp_path, sims)[1], output_chunksize=64,
+                   output_zarr_url=str(tmp_path / "out.zarr"))
+    assert not called
+
+
+# ---------------------------------------------------------------------------
+# zarr -> zarr end to end
+# ---------------------------------------------------------------------------
+
+
+def _zarr_tiles(tmp_path, sims):
+    """Each tile as its own zarr v2 array (tensorstore, zlib); the reference's
+    and the port's sims of them, lazy."""
+    jsims, psims = [], []
+    for i, s in enumerate(sims):
+        url = str(tmp_path / "tiles" / f"tile_{i}.zarr")
+        data = np.asarray(s.data)
+        jzb.create_zarr_array(url, data.shape, data.shape, data.dtype,
+                              compressor={"id": "zlib", "level": 1})[...] = data
+        kw = dict(dims=s.dims, translation=dict(s.origin),
+                  c_coords=s.coords.get("c") if "c" in s.dims else None)
+        jsim = si_utils.get_sim_from_array(jzb.open_zarr_array(url), **kw)
+        psim = tsi.get_sim_from_array(tzb.open_zarr_array(url), **kw)
+        for key, x in s.transforms.items():
+            si_utils.set_sim_affine(jsim, x.data, transform_key=key)
+            tsi.set_sim_affine(psim, x.data, transform_key=key)
+        jsims.append(jsim)
+        psims.append(psim)
+    return jsims, psims
+
+
+def _rotated_sims():
+    sims = _grid_sims(n=2, tile=120, overlap=24)
+    for i, s in enumerate(sims):
+        c, sn = np.cos(0.04 * (i - 1.5)), np.sin(0.04 * (i - 1.5))
+        m = np.eye(3)
+        m[:2, :2] = [[c, -sn], [sn, c]]
+        si_utils.set_sim_affine(s, m, transform_key=KEY)
+    return sims
+
+
+_ZARR_CASES = {
+    # (sims, zarr options): two pyramid levels in every OME-Zarr case
+    "grid_2d": (lambda: _grid_sims(n=6, tile=48, overlap=12), {}),
+    "grid_2d_channels": (lambda: _grid_sims(n=6, tile=48, overlap=12, channels=["a", "b"]), {}),
+    "plain_array": (lambda: _grid_sims(n=6, tile=48, overlap=12), {"ome_zarr": False}),
+    "rotated_affine_tier": (_rotated_sims, {}),
+}
+
+
+@pytest.mark.parametrize("name", list(_ZARR_CASES))
+def test_zarr_to_zarr_matches_the_reference(name, tmp_path, jax_streams, monkeypatch):
+    make, zarr_options = _ZARR_CASES[name]
+    jsims, psims = _zarr_tiles(tmp_path, make())
+    if name == "rotated_affine_tier":
+        monkeypatch.setenv("MVS_TPU_EXACT_AFFINE", "1")
+        monkeypatch.setenv("MVS_TPU_SHEAR", "0")
+    ran = _spy_streaming(monkeypatch, tstream)
+    kw = dict(transform_key=KEY, output_chunksize=64, zarr_options=zarr_options)
+    jurl, purl = str(tmp_path / "jax.ome.zarr"), str(tmp_path / "port.ome.zarr")
+    ref = jfuse(jsims, output_zarr_url=jurl, **kw)
+    got = tfuse(psims, output_zarr_url=purl, device="cpu", **kw)
+    # lazy translation tiles always stream, once a channel; the affine tier
+    # has no bands
+    assert ran == ([] if name == "rotated_affine_tier" else [True] * (2 if "channels" in name else 1))
+    assert isinstance(got.data, tzb.LazyZarrArray)
+    assert got.dims == ref.dims and got.spacing == ref.spacing and got.origin == ref.origin
+    np.testing.assert_array_equal(got.transforms[KEY].data, ref.transforms[KEY].data)
+    if not zarr_options.get("ome_zarr", True):
+        _assert_close(jzb.open_zarr_array(purl).read(), jzb.open_zarr_array(jurl).read())
+        _assert_close(np.asarray(got.data), np.asarray(ref.data))
+        return
+    jattrs, pattrs = jzb.read_group_metadata(jurl), jzb.read_group_metadata(purl)
+    assert pattrs == jattrs
+    datasets = jattrs[0]["multiscales"][0]["datasets"]
+    assert len(datasets) >= 2
+    for ds in datasets:
+        p = jzb.open_zarr_array(f"{purl}/{ds['path']}").read()
+        _assert_close(p, jzb.open_zarr_array(f"{jurl}/{ds['path']}").read())
+        assert p.any()
+    _assert_close(np.asarray(got.data), np.asarray(ref.data))
+
+
+def test_zarr_to_zarr_3d_equals_the_in_memory_fusion(tmp_path, monkeypatch):
+    """A 3D grid of zarr tiles fused into an OME-Zarr: level 0 bit-equal to
+    the in-memory monolithic fusion of the same tiles, each pyramid level the
+    reference's block mean of the level before (the 3D kernel is held
+    against the reference in tests/test_torch_fuse.py; the reference's 3D
+    interpret-mode streaming would cost this file a minute of compiling)."""
+    sims = _grid_sims(n=7, tile=40, overlap=10, ndim=3)
+    _, psims = _zarr_tiles(tmp_path, sims)
+    ran = _spy_streaming(monkeypatch, tstream)
+    url = str(tmp_path / "port.ome.zarr")
+    got = tfuse(psims, transform_key=KEY, device="cpu", output_chunksize=64,
+                output_zarr_url=url)
+    assert ran == [True] and tstream.last_telemetry["bands_done"] >= 3
+    monkeypatch.setattr(tcore, "STREAM_BYTES", 1 << 40)
+    mono = _port_fuse(_to_port(sims), output_chunksize=64)
+    np.testing.assert_array_equal(np.asarray(got.data), mono)
+    attrs, fmt = jzb.read_group_metadata(url)
+    datasets = attrs["multiscales"][0]["datasets"]
+    assert fmt == 2 and len(datasets) == 2
+    prev = jzb.open_zarr_array(f"{url}/0").read()
+    np.testing.assert_array_equal(prev, mono)
+    level1 = jzb.open_zarr_array(f"{url}/1").read()
+    np.testing.assert_array_equal(level1, msi_utils._coarsen_mean(prev, (1, 2, 2)))
+    assert attrs == {"multiscales": [{
+        "axes": [{"name": d, "type": "space", "unit": "micrometer"} for d in "zyx"],
+        "datasets": [
+            {"path": str(i), "coordinateTransformations": [
+                {"type": "scale", "scale": [1.0, 2.0**i, 2.0**i]},
+                {"type": "translation", "translation": [0.0, 0.5 * (2**i - 1), 0.5 * (2**i - 1)]},
+            ]} for i in range(2)
+        ],
+        "version": "0.4",
+    }]}
+
+
+# ---------------------------------------------------------------------------
+# F1: outputs in dtypes the kernels do not write
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["int16", "uint16", "uint8", "int8", "int32", "uint32",
+                                   "int64", "uint64", "float16", "float64"])
+def test_cast_matches_jnp_astype(dtype):
+    # truncation, negative values, values out of range and at the ends of
+    # the 32- and 64-bit ranges, inf and NaN (the tests run jnp with x64)
+    x = np.array([-70000.7, -40000.2, -32768.9, -5.7, -0.5, 0.4, 3.9, 254.6, 32767.9, 40000.5,
+                  65535.9, 70000.1, 3e9, -3e9, 2147483520.0, 5e9, 1e19, 2e19, -1e19,
+                  np.inf, -np.inf, np.nan], np.float32)
+    ref = np.asarray(jnp.nan_to_num(jnp.asarray(x)).astype(jnp.dtype(dtype)))
+    got = ttf._cast(torch.from_numpy(x), tcore._torch_dtype(np.dtype(dtype))).numpy()
+    assert got.dtype == ref.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got, ref)
+
+
+def _f1_sims(dtype, rotated):
+    """ROADMAP F1's inputs: a 2 x 2 grid of 40^2 tiles at offsets 0 and 30,
+    values 0-999; ``rotated`` turns each tile a little about its centre."""
+    rng = np.random.default_rng(17)
+    sims = []
+    for iy in range(2):
+        for ix in range(2):
+            sim = si_utils.get_sim_from_array(
+                (rng.random((40, 40)) * 999).astype(dtype),
+                translation={"y": 30.0 * iy, "x": 30.0 * ix},
+            )
+            if rotated:
+                th = 0.05 * (2 * iy + ix - 1.5)
+                lin = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+                centre = np.array([30.0 * iy, 30.0 * ix]) + 19.5
+                m = np.eye(3)
+                m[:2, :2], m[:2, 2] = lin, centre - lin @ centre
+                si_utils.set_sim_affine(sim, m, transform_key=KEY)
+            sims.append(sim)
+    return sims
+
+
+@pytest.mark.parametrize("tier", ["translation", "affine"])
+@pytest.mark.parametrize("dtype", [np.int16, np.float64])
+def test_fuse_keeps_int16_and_float64_as_the_reference(tier, dtype, monkeypatch):
+    monkeypatch.setenv("MVS_TPU_EXACT_AFFINE", "1")
+    monkeypatch.setenv("MVS_TPU_SHEAR", "0")
+    jcore.clear_device_tile_cache()
+    sims = _f1_sims(dtype, rotated=tier == "affine")
+    ref = np.asarray(jfuse(sims, transform_key=KEY, output_chunksize=32).data)
+    got = _port_fuse(_to_port(sims), output_chunksize=32)
+    assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
+    if dtype == np.int16:
+        assert np.abs(got.astype(np.int64) - ref.astype(np.int64)).max() <= 1
+    elif tier == "translation":
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
+    else:
+        # the exact-affine bound, 5e-3 on data in [0, 100), on data in [0, 999)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=5e-2)
+    jcore.clear_device_tile_cache()
+    jax.clear_caches()
