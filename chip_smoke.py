@@ -71,8 +71,28 @@ Phases, one printed line or block each:
    batch's data resample is timed warm and on a cold L2, beside the same
    batch's blending-weight launch, its plain version and one ``grid_sample``
    call (a yardstick for time only: its border rule is not the ``cval``
-   mask); no block of that batch may take the large-footprint route;
-8. a ``kernels`` JSON line: per kernel its launches in the main-path run,
+   mask); no block of that batch may take the large-footprint route.
+   The cold call leaves the tile stack in the device tile cache; it is
+   dropped before the warm call, whose upload stage then measures the
+   upload, and a repeat call after it must upload 0 bytes and give the same
+   output;
+8. ``stitch()`` of the north star's grid: 32 x 32 tiles of 64^3 uint16,
+   overlap 12, cut from one band-limited volume (numpy, seeded) at known
+   true positions, their metadata origins off by integers in [-1, 1] (z)
+   and [-3, 3] (y, x), registered with an overlap tolerance of 1 / 3 / 3 px
+   that covers that error; a cold and a warm call, each from an empty
+   device tile cache, the warm one split into graph and pruning, crop
+   planning, tile upload, pairwise batches (host clock and CUDA events),
+   resolution and fuse, with the edge and pair counts, the bytes uploaded
+   and the ``fuse_translation_3d`` launches inside it. Held: every pair's
+   shift within 1e-3 px of the true one; every tile's offset, resolved by
+   shortest paths over that pairwise graph, within 0.25 px of the truth
+   after removing the global offset (the default global optimisation's
+   error is printed: it stops unconverged on 1024 tiles, in the JAX package
+   as in the port); the output equal to ``fuse()`` under the resolved key;
+   ``register()`` on the card within 1e-3 px of ``register(device="cpu")``
+   on the grid's 4 x 4 corner;
+9. a ``kernels`` JSON line: per kernel its launches in the main-path run,
    its time, the plain version's time, its bound and its error.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -1281,7 +1301,10 @@ def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, ki
     cold_s = time.perf_counter() - t0
     del cold
 
-    # the main path's run: counts set to 0 just before, read just after
+    # the main path's run: counts set to 0 just before, read just after. The
+    # cold call left the tile stack in the device tile cache: it is dropped,
+    # so that this call's upload stage measures the upload
+    tcore.clear_device_tile_cache()
     for n in names.values():
         getattr(tea, n).launches = 0
     tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
@@ -1329,6 +1352,21 @@ def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, ki
     del ref, diff
     if err > UINT_COUNTS:
         raise AssertionError(f"{label}: fused output differs from the plain-version run by {err}")
+    # a repeat call reads the stack from the device tile cache: no upload,
+    # the same output
+    uploaded = tcore.tile_upload_bytes
+    t0 = time.perf_counter()
+    again = fuse(sims, transform_key=KEY, output_chunksize=chunksize).data
+    torch.cuda.synchronize()
+    repeat_s = time.perf_counter() - t0
+    if tcore.tile_upload_bytes != uploaded or not np.array_equal(again, out):
+        raise AssertionError(
+            f"{label}: the repeat fuse uploaded {tcore.tile_upload_bytes - uploaded} bytes, "
+            f"output equal: {np.array_equal(again, out)}"
+        )
+    del again
+    log(f"{label}: repeat fuse from the device tile cache {repeat_s:.3f} s, 0 bytes uploaded, "
+        f"output bit-equal")
 
     # the fullest batch's data resample. The kernel is timed on tables packed
     # once (a wrapper call packs them anew, which takes the host longer than
@@ -1413,12 +1451,242 @@ def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, ki
         "routes": routes,
         "cold_fuse_s": cold_s,
         "warm_fuse_s": warm_s,
+        "repeat_fuse_s": repeat_s,
         "plain_fuse_s": plain_fuse_s,
         **split,
         "bytes": nbytes,
         "batch_items": n_valid,
         "batch_voxels_inside": inside,
         "out_shape": list(out.shape),
+    }
+
+
+# the stitch phase's grid: overlap tolerance (physical units, spacing 1) that
+# covers the metadata's error, so that every pair's crops hold their common
+# content
+STITCH_TOLERANCE = {"z": 1.0, "y": 3.0, "x": 3.0}
+# each pair's registered shift against the true one, in px
+STITCH_PAIR_ATOL = 1e-3
+# resolved tile offsets against the truth, after removing the global offset:
+# held for the shortest-path resolution of the stitch's pairwise graph. The
+# default global optimisation (the reference's Gauss-Seidel sweep, at most
+# 500 iterations) does not converge on a grid of 1024 tiles, in the JAX
+# package as in the port: its error is printed, not held
+STITCH_OFFSET_ATOL = 0.25
+# the card's register() against the CPU's on the 4 x 4 corner, in px
+STITCH_CORNER_ATOL = 1e-3
+
+
+def stitch_grid_sims(np, tsi, n, tile, overlap, seed):
+    """n x n tiles of tile^3 uint16 cut from one band-limited volume (white
+    noise from the seed, a 1.5 px gaussian) at true positions on a grid of
+    step ``tile - overlap``; each tile's metadata origin is its true one
+    perturbed by integers in [-1, 1] (z) and [-3, 3] (y, x). Returns the
+    sims, the true origins and the metadata origins, (n*n, 3) each."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(seed)
+    step = tile - overlap
+    extent = (n - 1) * step + tile
+    noise = rng.random((tile, extent, extent), dtype=np.float32)
+    vol = np.empty_like(noise)
+    # the filter in y slabs with a halo of its radius, in parallel (the same
+    # values as one call)
+    halo, slabs = 7, 8
+    bounds = np.linspace(0, extent, slabs + 1).astype(int)
+
+    def smooth(k):
+        y0, y1 = bounds[k], bounds[k + 1]
+        lo, hi = max(0, y0 - halo), min(extent, y1 + halo)
+        vol[:, y0:y1] = gaussian_filter(noise[:, lo:hi], 1.5)[:, y0 - lo:y1 - lo]
+
+    with ThreadPoolExecutor(max_workers=slabs) as ex:
+        list(ex.map(smooth, range(slabs)))
+    del noise
+    vol -= vol.min()
+    vol *= 1000.0 / vol.max()
+    vol = vol.astype(np.uint16)
+    sims, truth, meta = [], [], []
+    for iy in range(n):
+        for ix in range(n):
+            true = np.array([0.0, iy * step, ix * step])
+            pert = np.array([rng.integers(-1, 2), rng.integers(-3, 4), rng.integers(-3, 4)])
+            data = np.ascontiguousarray(vol[:, iy * step:iy * step + tile,
+                                            ix * step:ix * step + tile])
+            m = true + pert
+            sims.append(tsi.get_sim_from_array(data, dims=["z", "y", "x"],
+                                               translation=dict(zip("zyx", m))))
+            truth.append(true)
+            meta.append(m)
+    return sims, np.array(truth), np.array(meta)
+
+
+def stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n, tile, overlap):
+    """Phase 8: stitch() of the north-star grid on the card, cold then warm,
+    split into its stages; the resolved offsets against the truth; the output
+    against fuse() under the resolved key; register() on the card against
+    register(device="cpu") on the grid's 4 x 4 corner."""
+    from multiview_stitcher_torch import msi_utils as tmsi
+    from multiview_stitcher_torch import param_resolution as tpr
+    from multiview_stitcher_torch import param_utils as tpu
+    from multiview_stitcher_torch import registration as treg
+    from multiview_stitcher_torch import stitch as tstitch
+
+    label = "stitch"
+    t0 = time.perf_counter()
+    sims, truth, meta = stitch_grid_sims(np, tsi, n, tile, overlap, seed=11)
+    make_s = time.perf_counter() - t0
+    rkw = {"overlap_tolerance": STITCH_TOLERANCE}
+
+    def timed(module, name, spans):
+        fn = getattr(module, name)
+
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spans[name] = time.perf_counter() - t
+            return out
+
+        setattr(module, name, wrapped)
+        return fn
+
+    def run():
+        """One stitch() from an empty device tile cache: (msims, fused sim,
+        wall s, register s, fuse s, the pairwise graph it resolved)."""
+        tcore.clear_device_tile_cache()
+        msims = [tmsi.get_msim_from_sim(s, scale_factors=[]) for s in sims]
+        spans, graphs = {}, []
+        resolve = treg.param_resolution.groupwise_resolution
+
+        def keep_graph(g, **k):
+            graphs.append(g)
+            return resolve(g, **k)
+
+        saved = (timed(tstitch.registration, "register", spans),
+                 timed(tstitch.fusion, "fuse", spans))
+        treg.param_resolution.groupwise_resolution = keep_graph
+        try:
+            t = time.perf_counter()
+            fused = tstitch.stitch(msims, register_kwargs=rkw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            tstitch.registration.register, tstitch.fusion.fuse = saved
+            treg.param_resolution.groupwise_resolution = resolve
+        return msims, fused, wall, spans["register"], spans["fuse"], graphs[0]
+
+    _, cold, cold_s, _, _, _ = run()
+    del cold
+    # the main path's run: counts set to 0 just before, read just after
+    tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+    uploaded = tcore.tile_upload_bytes
+    msims, fused, warm_s, register_s, fuse_s, g_pairs = run()
+    launches = tf.fuse_translation_3d.launches
+    reg_tel = dict(treg.last_telemetry)
+    stream = dict(tstream.last_telemetry)
+    tile_bytes = tcore.tile_upload_bytes - uploaded
+    if launches < 1 or tf.fuse_translation_2d.launches:
+        raise AssertionError(f"{label}: fuse_translation_3d launches {launches}, 2d "
+                             f"{tf.fuse_translation_2d.launches}")
+    if not reg_tel["device_tiles"] or reg_tel["crop_upload_bytes"]:
+        raise AssertionError(f"{label}: the registration did not cut its crops on the card: "
+                             f"{reg_tel}")
+
+    # every pair's registered shift against the true one
+    pert = meta - truth
+    pair_err = max(
+        float(np.abs(np.asarray(d["transform"].data)[:3, 3] - (pert[v] - pert[u])).max())
+        for u, v, d in g_pairs.edges(data=True)
+    )
+    if pair_err > STITCH_PAIR_ATOL:
+        raise AssertionError(f"{label}: a pair's shift is {pair_err:.3f} px off the truth")
+
+    # the resolved offsets against the truth, after removing the global offset
+    def offset_error(mats):
+        reg_origin = np.array([
+            tpu.transform_pts(meta[k][None], np.asarray(mats[k]))[0] for k in range(len(mats))
+        ])
+        err = reg_origin - truth
+        return float(np.abs(err - err.mean(axis=0)).max())
+
+    global_opt_err = offset_error([m.transforms["registered"].data for m in msims])
+    t0 = time.perf_counter()
+    sp_params, _ = tpr.groupwise_resolution(g_pairs, method="shortest_paths")
+    shortest_paths_s = time.perf_counter() - t0
+    offset_err = offset_error([sp_params[k].data for k in range(len(sims))])
+    if offset_err > STITCH_OFFSET_ATOL:
+        raise AssertionError(f"{label}: resolved offsets {offset_err:.3f} px from the truth")
+
+    out = fused.data
+    expect = (tile,) + ((n - 1) * (tile - overlap) + tile,) * 2
+    if out.dtype != np.uint16 or abs(out.shape[1] - expect[1]) > 8 or out.shape[0] > tile + 2:
+        raise AssertionError(f"{label}: output {out.shape} {out.dtype}, about {expect} expected")
+    ref = fuse([tmsi.get_sim_from_msim(m) for m in msims], transform_key="registered").data
+    if ref.shape != out.shape or not np.array_equal(ref, out):
+        raise AssertionError(f"{label}: stitch() differs from fuse() under the resolved key")
+    del ref
+
+    # register() on the card against the CPU on the 4 x 4 corner
+    corner = [sims[iy * n + ix] for iy in range(4) for ix in range(4)]
+    t0 = time.perf_counter()
+    card = treg.register(corner, transform_key=KEY, device_tiles=True, **rkw)
+    corner_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = treg.register(corner, transform_key=KEY, device="cpu", device_tiles=True, **rkw)
+    corner_cpu_s = time.perf_counter() - t0
+    corner_err = max(float(np.abs(np.asarray(a.data) - np.asarray(b.data)).max())
+                     for a, b in zip(card, host))
+    if corner_err > STITCH_CORNER_ATOL:
+        raise AssertionError(f"{label}: the card's 4 x 4 corner differs from the CPU's by "
+                             f"{corner_err:g} px")
+    tcore.clear_device_tile_cache()
+
+    split = {
+        "graph_and_prune_s": reg_tel["graph_s"] + reg_tel["prune_s"],
+        "crop_plan_s": reg_tel["plan_s"],
+        "tile_upload_s": reg_tel["upload_s"],
+        "pairwise_host_s": reg_tel["pairwise_s"],
+        "pairwise_device_ms": reg_tel.get("pairwise_device_ms"),
+        "resolve_s": reg_tel["resolve_s"],
+        "register_s": register_s,
+        "fuse_s": fuse_s,
+    }
+    log(f"{label}: {n} x {n} tiles of {tile}^3 uint16, overlap {overlap}, metadata off by "
+        f"[-1, 1] (z) and [-3, 3] (y, x) px, overlap tolerance {STITCH_TOLERANCE}; grid made in "
+        f"{make_s:.1f} s; output {out.shape} {out.dtype}")
+    log(f"{label}: cold stitch {cold_s:.3f} s, warm stitch {warm_s:.3f} s; edges "
+        f"{reg_tel['edges']}, pruned to {reg_tel['pruned_edges']} pairs in "
+        f"{reg_tel['buckets']} crop-shape buckets, {reg_tel['batches']} batches; tiles uploaded "
+        f"{tile_bytes} bytes by the registration (crops 0), {stream.get('up_bytes')} bytes by the "
+        f"streamed fuse in {stream.get('bands_total')} bands; fuse_translation_3d launches "
+        f"{launches}")
+    log(f"{label}: warm split " + json.dumps(
+        {k: (None if v is None else round(v, 4)) for k, v in split.items()}))
+    log(f"{label}: every pair's shift within {pair_err:.2g} px of the truth; offsets resolved by "
+        f"shortest paths ({shortest_paths_s:.2f} s on the host) within {offset_err:.4f} px of "
+        f"the truth, by the default global optimisation within {global_opt_err:.4f} px (not "
+        f"held: it stops unconverged at 1024 tiles, as the reference's does); output equal to "
+        f"fuse() under the resolved key; 4 x 4 corner: card {corner_card_s:.2f} s, CPU "
+        f"{corner_cpu_s:.2f} s, max difference {corner_err:g} px")
+    return {
+        "launches": int(launches),
+        "cold_stitch_s": cold_s,
+        "warm_stitch_s": warm_s,
+        **split,
+        "edges": reg_tel["edges"],
+        "pairs": reg_tel["pruned_edges"],
+        "buckets": reg_tel["buckets"],
+        "batches": reg_tel["batches"],
+        "tile_upload_bytes": tile_bytes,
+        "stream": stream,
+        "pair_max_err_px": pair_err,
+        "offset_max_err_px": offset_err,
+        "global_opt_offset_max_err_px": global_opt_err,
+        "corner_max_err_px": corner_err,
+        "corner_card_s": corner_card_s,
+        "corner_cpu_s": corner_cpu_s,
+        "grid_make_s": make_s,
     }
 
 
@@ -1497,6 +1765,9 @@ def main() -> int:
         del sims
         torch.cuda.empty_cache()
 
+    # the north star's second half: register -> resolve -> fuse on the card
+    stitched = stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n=32, tile=64, overlap=12)
+
     source = "multiview_stitcher_torch/csrc/translation_fusion.cu"
     exact_source = "multiview_stitcher_torch/csrc/exact_affine.cu"
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1521,6 +1792,7 @@ def main() -> int:
                                   exact_err["sepy"], exact_err["general"])):
         k["max_abs_err"] = max(k["max_abs_err"], worst)
     detail = {"3d": r3, "2d": r2, "zarr": zarr, **{f"affine_{k}": v for k, v in affine.items()},
+              "stitch": stitched,
               "f1_fuse_max_abs_err": f1_err, "build_s": build_s, "small_cases_s": small_s,
               "total_s": time.perf_counter() - t_start}
     log("detail: " + json.dumps(detail))

@@ -2,6 +2,7 @@ from multiview_stitcher_torch.fusion._core import (  # noqa: F401
     calc_fusion_stack_properties,
     calc_stack_properties_from_view_properties_and_params,
     calc_stack_properties_from_volume,
+    clear_device_tile_cache,
     combine_stack_props,
     fuse,
     max_fusion,

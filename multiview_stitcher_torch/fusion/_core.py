@@ -21,6 +21,12 @@ is host-side numpy in float64, as in the reference.
   on-chip memory to a gather tier; the port's kernels have no window limit
   and take every map.
 
+The two tiers that do not stream read their tile stack through the device
+tile cache (:class:`_DeviceTileCache`): a repeat ``fuse()`` over the same
+source arrays, or a ``fuse()`` after ``registration.register(...,
+device_tiles=True)`` has uploaded them, uploads nothing. The streaming tier
+uploads its bands anew, as the reference's does.
+
 ``fuse(output_zarr_url=...)`` writes the output chunk by chunk into a zarr v2
 array (an OME-Zarr level 0 with its pyramid, by default) through
 ``io.zarr_backend``, and returns a sim backed by it.
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import logging
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from itertools import product
 from typing import Callable, Dict, Optional, Sequence, Union
@@ -65,6 +72,8 @@ TILES_MAX_BYTES = 2 << 30
 # on a transient IO error
 _READ_WORKERS = 16
 _READ_RETRIES = 2
+# the device tile cache holds at most this many bytes of tile stacks
+TILE_CACHE_BYTES = 2 << 30
 
 
 def max_fusion(transformed_views):
@@ -445,36 +454,116 @@ def _materialize_tiles(field_sims, out=None) -> np.ndarray:
     return out
 
 
+class _DeviceTileCache:
+    """LRU cache of tile stacks resident on a device, keyed on their source
+    arrays, within :data:`TILE_CACHE_BYTES`.
+
+    In-memory tiles are keyed by the identity of each source numpy array
+    with its address, shape, dtype and a sample of its content (so that an
+    array changed in place misses); lazy zarr tiles by their array's path
+    and selection. An entry dies with any of its in-memory source arrays
+    (the cache holds them weakly), so an id is never reused under a live
+    entry and the cache keeps no tiles of sims that are gone."""
+
+    def __init__(self):
+        self._entries: dict = {}  # key -> (tiles, bytes), least recent first
+
+    @staticmethod
+    def _fingerprint(arr: np.ndarray) -> int:
+        flat = arr.reshape(-1)
+        step = max(1, flat.size // 4096)
+        return hash(flat[::step].tobytes())
+
+    @staticmethod
+    def key_for(field_sims, device):
+        """The cache key of these views' stack on ``device``; None where a
+        source cannot be identified (it is then not cached)."""
+        parts = [str(torch.device(device))]
+        for s in field_sims:
+            data = s.data
+            if isinstance(data, np.ndarray):
+                parts.append(("np", id(data), data.__array_interface__["data"][0],
+                              data.shape, str(data.dtype), _DeviceTileCache._fingerprint(data)))
+            elif isinstance(data, zarr_backend.LazyZarrArray):
+                parts.append(("zarr", str(data._array.path), data._sel, str(data.dtype)))
+            else:
+                return None
+        return tuple(parts)
+
+    def budget(self) -> int:
+        return TILE_CACHE_BYTES
+
+    def get(self, key):
+        if key is None or key not in self._entries:
+            return None
+        self._entries[key] = self._entries.pop(key)
+        return self._entries[key][0]
+
+    def put(self, key, tiles: torch.Tensor, field_sims) -> None:
+        nbytes = tiles.numel() * tiles.element_size()
+        if key is None or nbytes > self.budget():
+            return
+        while self._entries and sum(b for _, b in self._entries.values()) + nbytes > self.budget():
+            self._entries.pop(next(iter(self._entries)))
+        self._entries[key] = (tiles, nbytes)
+        for s in field_sims:
+            if isinstance(s.data, np.ndarray):
+                weakref.finalize(s.data, self._entries.pop, key, None)
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+
+_device_tile_cache = _DeviceTileCache()
+# bytes of tiles that _tiles_to_device copied to a device, over the process
+tile_upload_bytes = 0
+
+
+def clear_device_tile_cache() -> None:
+    """Drop every tile stack the device tile cache holds."""
+    _device_tile_cache.clear()
+
+
 def _tiles_to_device(field_sims, device) -> torch.Tensor:
-    """(V, *tile) stack of the views on ``device`` in their native dtype.
+    """(V, *tile) stack of the views on ``device`` in their native dtype,
+    from the device tile cache when it holds them, else uploaded and cached.
 
     Lazy tiles are read first (:func:`_materialize_tiles`); float tiles get
     ``nan_to_num`` before the upload. Mixed tile shapes are uploaded as they
     are, one group per shape, and edge-padded on the device to the common
     maximum shape; the kernels mask each view by its true extents."""
+    global tile_upload_bytes
+    key = _DeviceTileCache.key_for(field_sims, device)
+    hit = _device_tile_cache.get(key)
+    if hit is not None:
+        return hit
 
     def put(sims):
+        global tile_upload_bytes
         stack = _materialize_tiles(sims)
         if np.issubdtype(stack.dtype, np.floating):
             stack = np.nan_to_num(stack)
+        tile_upload_bytes += stack.nbytes
         return torch.from_numpy(stack).to(device)
 
     shapes = [tuple(int(x) for x in s.data.shape) for s in field_sims]
     if len(set(shapes)) == 1:
-        return put(field_sims)
-    max_shape = tuple(max(s[i] for s in shapes) for i in range(len(shapes[0])))
-    groups: dict = {}
-    for i, shp in enumerate(shapes):
-        groups.setdefault(shp, []).append(i)
-    tiles = None
-    for idxs in groups.values():
-        dev = put([field_sims[i] for i in idxs])
-        if tiles is None:
-            tiles = torch.empty(
-                (len(field_sims),) + max_shape, dtype=dev.dtype, device=dev.device
-            )
-        for slot, i in enumerate(idxs):
-            tiles[i] = _edge_pad(dev[slot], max_shape)
+        tiles = put(field_sims)
+    else:
+        max_shape = tuple(max(s[i] for s in shapes) for i in range(len(shapes[0])))
+        groups: dict = {}
+        for i, shp in enumerate(shapes):
+            groups.setdefault(shp, []).append(i)
+        tiles = None
+        for idxs in groups.values():
+            dev = put([field_sims[i] for i in idxs])
+            if tiles is None:
+                tiles = torch.empty(
+                    (len(field_sims),) + max_shape, dtype=dev.dtype, device=dev.device
+                )
+            for slot, i in enumerate(idxs):
+                tiles[i] = _edge_pad(dev[slot], max_shape)
+    _device_tile_cache.put(key, tiles, field_sims)
     return tiles
 
 

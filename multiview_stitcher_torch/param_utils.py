@@ -84,6 +84,15 @@ class XAffine:
         )
 
 
+def affine_from_translation(translation) -> np.ndarray:
+    """Homogeneous matrix of a translation."""
+    translation = np.asarray(translation, dtype=float)
+    ndim = len(translation)
+    M = np.eye(ndim + 1)
+    M[:ndim, ndim] = translation
+    return M
+
+
 def identity_transform(ndim: int, t_coords=None) -> XAffine:
     return XAffine(np.eye(ndim + 1), t_coords=t_coords)
 
@@ -99,6 +108,40 @@ def to_xaffine(value) -> XAffine:
     if value.ndim == 3:
         return XAffine(value, t_coords=np.arange(len(value)))
     return XAffine(value)
+
+
+def expand_affine_dims(xaffine, dims) -> XAffine:
+    """Expand an affine by the spatial dims ``dims`` it does not act on
+    (2D -> 3D); the added dims are left untransformed."""
+    xaffine = to_xaffine(xaffine)
+    curr_dims = SPATIAL_DIMS[-xaffine.ndim:]
+    expanded_dims = [d for d in SPATIAL_DIMS if d in curr_dims or d in dims]
+    n_out = len(expanded_dims)
+
+    def expand_one(mat):
+        out = np.eye(n_out + 1)
+        idx = [expanded_dims.index(d) for d in curr_dims]
+        for i_old, i_new in enumerate(idx):
+            for j_old, j_new in enumerate(idx):
+                out[i_new, j_new] = mat[i_old, j_old]
+            out[i_new, n_out] = mat[i_old, len(curr_dims)]
+        return out
+
+    if xaffine.has_t:
+        data = np.stack([expand_one(m) for m in xaffine.data])
+        return XAffine(data, t_coords=xaffine.t_coords)
+    return XAffine(expand_one(xaffine.data))
+
+
+def rebase_affine(xaffine, base_affine) -> XAffine:
+    """``xaffine @ base_affine``, for affines without a time axis."""
+    a, b = to_xaffine(xaffine), to_xaffine(base_affine)
+    if a.has_t or b.has_t:
+        raise NotImplementedError(
+            "time-varying affines are not ported yet (ROADMAP.md, queue 1: "
+            "item 23, registration over t)"
+        )
+    return XAffine(a.data @ b.data)
 
 
 def transform_pts(pts, affine) -> np.ndarray:

@@ -1,0 +1,973 @@
+"""Registration: the view graph, batched pairwise phase correlation and the
+groupwise resolution of the views' transforms, on torch.
+
+The port of ``multiview_stitcher_tpu.registration`` for its default path:
+``register`` builds the view adjacency graph, prunes it, registers every
+kept pair by phase correlation and resolves one transform per view
+(``param_resolution``). The pairwise work runs on the device in batches of
+pairs whose overlap windows share a shape: both crops are resampled into the
+fixed view's pixel grid over the overlap, three shift proposals are made
+(phase-normalised and plain phase correlation, masked NCC where NaN is
+present), each expands into its 4^ndim sign and wrap candidates, and the
+candidates are scored by SSIM over the union (or intersection) box, with the
+Spearman correlation of the winner as the link quality. Crops come from the
+host, or are cut on the device from a resident tile stack (the device tile
+cache of ``fusion._core``, which ``fuse`` reads too), so that ``stitch``
+uploads each tile once.
+
+Entry points run on the CUDA device unless the caller passes ``device="cpu"``.
+Inputs this slice does not cover raise ``NotImplementedError`` naming the
+ROADMAP.md item that will cover them.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+import warnings
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from multiview_stitcher_torch import msi_utils, mv_graph, param_resolution, param_utils, si_utils
+from multiview_stitcher_torch.msi_utils import Msim
+from multiview_stitcher_torch.ops import image_metrics as im_metrics
+from multiview_stitcher_torch.ops import phase_correlation as pc_ops
+from multiview_stitcher_torch.ops import resample as resample_ops
+from multiview_stitcher_torch.param_utils import XAffine
+from multiview_stitcher_torch.si_utils import Sim
+from multiview_stitcher_torch.utils import misc as misc_utils
+
+logger = logging.getLogger(__name__)
+
+_ROADMAP = "ROADMAP.md, queue 1"
+# pairs registered in one batch (the reference's MAX_B)
+MAX_B = 512
+# candidate scoring handles (pair, candidate) items in groups whose float32
+# image temporaries hold at most this many bytes each
+SCORE_BYTES = 1 << 30
+
+# what the last register() call did, by stage: host seconds of the graph,
+# the pruning, the crop planning, the tile upload (or host crop reads) and
+# the resolution; the pairwise batches' seconds on the host clock and, on
+# CUDA, their device milliseconds; pairs, edges, buckets and batches; the
+# bytes of tiles and of crops uploaded
+last_telemetry: dict = {}
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet ({_ROADMAP}: {item})")
+
+
+# ---------------------------------------------------------------------------
+# binning and overlap boxes
+# ---------------------------------------------------------------------------
+
+
+def get_optimal_registration_binning(sim1: Sim, sim2: Sim, max_total_pixels_per_stack=400**3,
+                                     overlap_tolerance=None):
+    """Per-dim binning factors that bring a pair's overlap stack under
+    ``max_total_pixels_per_stack`` voxels: the finest effective spacing grows
+    (y and x together, z alone) until the upper bound of the stack fits."""
+    if overlap_tolerance is not None:
+        raise NotImplementedError("overlap_tolerance")
+    spatial_dims = si_utils.get_spatial_dims_from_sim(sim1)
+    spacing = {
+        d: min(si_utils.get_spacing_from_sim(s)[d] for s in (sim1, sim2)) for d in spatial_dims
+    }
+    extent = {d: max(sim1.sizes[d], sim2.sizes[d]) for d in spatial_dims}
+    binning = {d: 1 for d in spatial_dims}
+    while np.prod([extent[d] / binning[d] for d in spatial_dims]) >= max_total_pixels_per_stack:
+        finest = min(spatial_dims, key=lambda d: spacing[d] * binning[d])
+        for d in ["z"] if finest == "z" else ["y", "x"]:
+            binning[d] += 1
+    return binning
+
+
+def _get_overlap_bboxes(sim1: Sim, sim2: Sim, input_transform_key=None,
+                        output_transform_key=None, overlap_tolerance=None, geom_cache=None,
+                        cache_keys=(None, None)):
+    """Overlap box of two sims in world coordinates, projected into each
+    sim's intrinsic frame (or kept in world coordinates). ``geom_cache``
+    keeps each view's geometry across the edges it joins."""
+    tol_key = (
+        tuple(sorted(overlap_tolerance.items()))
+        if isinstance(overlap_tolerance, dict) else overlap_tolerance
+    )
+
+    def view_geometry(sim, key):
+        ck = (key, id(sim.data), input_transform_key, tol_key)
+        if geom_cache is not None and key is not None and ck in geom_cache:
+            return geom_cache[ck]
+        sp = si_utils.get_stack_properties_from_sim(sim, transform_key=input_transform_key)
+        if overlap_tolerance is not None:
+            sp = si_utils.extend_stack_props(sp, overlap_tolerance)
+        aligned = mv_graph._is_axis_aligned(sp)
+        aabb = mv_graph._world_aabb(sp) if aligned else None
+        mat = np.asarray(si_utils.get_affine_from_sim(sim, input_transform_key).squeeze())
+        if mat.ndim == 3:
+            mat = mat[0]
+        entry = (sp, aligned, aabb, np.linalg.inv(mat))
+        if geom_cache is not None and key is not None:
+            geom_cache[ck] = entry
+        return entry
+
+    geoms = [view_geometry(sim, key) for sim, key in zip([sim1, sim2], cache_keys)]
+    if geoms[0][1] and geoms[1][1]:
+        lower = np.maximum(geoms[0][2][0], geoms[1][2][0])
+        upper = np.minimum(geoms[0][2][1], geoms[1][2][1])
+        if np.any(upper < lower):
+            raise mv_graph.NotEnoughOverlapError(
+                "No overlap between views for pairwise registration."
+            )
+        vol = float(np.prod(upper - lower))
+        intersection = mv_graph.BoxIntersection(lower, upper)
+    else:
+        vol, intersection = mv_graph.get_overlap_between_pair_of_stack_props(
+            geoms[0][0], geoms[1][0]
+        )
+        if intersection is None:
+            raise mv_graph.NotEnoughOverlapError(
+                "No overlap between views for pairwise registration."
+            )
+    corners = np.asarray(intersection.intersections)
+    if output_transform_key is None:
+        corners_target_space = [param_utils.transform_pts(corners, g[3]) for g in geoms]
+    elif output_transform_key == input_transform_key:
+        corners_target_space = [corners, corners]
+    else:
+        raise NotImplementedError
+    return {
+        "lowers": [np.min(c, axis=0) for c in corners_target_space],
+        "uppers": [np.max(c, axis=0) for c in corners_target_space],
+        "intersection": intersection,
+        "vol": vol,
+    }
+
+
+def _bin_sim(sim: Sim, binning: Dict[str, int]) -> Sim:
+    if max(binning.values()) <= 1:
+        return sim
+    factors = [binning.get(d, 1) for d in sim.dims]
+    data = msi_utils._coarsen_mean(sim.to_numpy(), factors)
+    spacing = si_utils.get_spacing_from_sim(sim)
+    origin = si_utils.get_origin_from_sim(sim)
+    out = si_utils.to_spatial_image(
+        data,
+        dims=sim.dims,
+        scale={d: spacing[d] * binning.get(d, 1) for d in sim.spatial_dims},
+        translation={
+            d: origin[d] + (binning.get(d, 1) - 1) * spacing[d] / 2 for d in sim.spatial_dims
+        },
+    )
+    out.transforms = {k: v.copy() for k, v in sim.transforms.items()}
+    return out
+
+
+def _spatial_range_slices(sim: Sim, ranges: Dict[str, Tuple[float, float]]) -> Dict[str, slice]:
+    """Index slices selecting the pixel centres within [lo, hi] per dim."""
+    indexers = {}
+    for d, (lo, hi) in ranges.items():
+        i0 = int(np.ceil((lo - sim.origin[d]) / sim.spacing[d] - 1e-12))
+        i1 = int(np.floor((hi - sim.origin[d]) / sim.spacing[d] + 1e-12))
+        indexers[d] = slice(max(0, i0), min(sim.sizes[d] - 1, i1) + 1)
+    return indexers
+
+
+def _select_and_crop_pair(msim1: Msim, msim2: Msim, transform_key, registration_binning=None,
+                          reg_res_level=None, overlap_tolerance=None, bin_cache=None,
+                          geom_cache=None, cache_keys=(None, None)):
+    """Binning selection and the overlap crop of one pair. Returns (sim1,
+    sim2, the binned crops, lowers, uppers, overlap_tolerance, crop_info)
+    with ``crop_info`` holding the crops' index slices and the binned full
+    sims, from which the device path cuts the same windows."""
+    spatial_dims = msi_utils.get_spatial_dims(msim1)
+    if overlap_tolerance is None:
+        overlap_tolerance = {d: 0.0 for d in spatial_dims}
+    elif isinstance(overlap_tolerance, (int, float)):
+        overlap_tolerance = {d: float(overlap_tolerance) for d in spatial_dims}
+    else:
+        overlap_tolerance = {d: float(overlap_tolerance.get(d, 0.0)) for d in spatial_dims}
+    if reg_res_level is not None:
+        raise _not_ported("reg_res_level", "item 16")
+
+    sim1_0 = msi_utils.get_sim_from_msim(msim1, scale="scale0")
+    sim2_0 = msi_utils.get_sim_from_msim(msim2, scale="scale0")
+    if registration_binning is None:
+        registration_binning = get_optimal_registration_binning(sim1_0, sim2_0)
+    scale_key = msi_utils.get_res_level_from_binning_factors(msim1, registration_binning)
+    sim1 = msi_utils.get_sim_from_msim(msim1, scale=scale_key)
+    sim2 = msi_utils.get_sim_from_msim(msim2, scale=scale_key)
+    registration_binning = {d: max(1, registration_binning.get(d, 1)) for d in spatial_dims}
+
+    def bin_cached(sim, key):
+        if bin_cache is None or key is None:
+            return _bin_sim(sim, registration_binning)
+        ck = (key, id(sim.data), tuple(sorted(registration_binning.items())))
+        if ck not in bin_cache:
+            bin_cache[ck] = _bin_sim(sim, registration_binning)
+        return bin_cache[ck]
+
+    reg_sims_b = [bin_cached(sim, key) for sim, key in zip([sim1, sim2], cache_keys)]
+    overlap = _get_overlap_bboxes(
+        reg_sims_b[0], reg_sims_b[1], input_transform_key=transform_key,
+        output_transform_key=None, overlap_tolerance=overlap_tolerance,
+        geom_cache=geom_cache, cache_keys=cache_keys,
+    )
+    lowers, uppers = overlap["lowers"], overlap["uppers"]
+    spacings = [si_utils.get_spacing_from_sim(s) for s in reg_sims_b]
+    tol = 1e-6
+    crop_slices = [
+        _spatial_range_slices(
+            sim,
+            {
+                d: (lowers[k][i] - tol - spacings[k][d], uppers[k][i] + tol + spacings[k][d])
+                for i, d in enumerate(spatial_dims)
+            },
+        )
+        for k, sim in enumerate(reg_sims_b)
+    ]
+    crop_info = {"slices": crop_slices, "full_sims": list(reg_sims_b), "scale_key": scale_key}
+    reg_sims_b = [sim.isel(sl) for sim, sl in zip(reg_sims_b, crop_slices)]
+    return sim1, sim2, reg_sims_b, lowers, uppers, overlap_tolerance, crop_info
+
+
+# ---------------------------------------------------------------------------
+# the pairwise core, batched over pairs
+# ---------------------------------------------------------------------------
+
+
+def _translate(im1_filled, im1_mask, t):
+    """Each item's moving image at a pure shift ``t`` (N, ndim), NaN where
+    the shifted image does not reach."""
+    ndim = t.shape[1]
+    shape = tuple(im1_filled.shape[1:])
+    ones = torch.ones(ndim, dtype=torch.float32, device=t.device)
+    data_t = resample_ops.separable_axis_aligned_resample(im1_filled, ones, t, shape, cval=np.nan)
+    mask_t = resample_ops.separable_axis_aligned_resample(im1_mask, ones, t, shape, cval=0.0)
+    return torch.where(mask_t >= 1.0 - 1e-4, data_t, torch.nan)
+
+
+def _candidate_stats(im1t, im0nm, valid_pixels1, use_intersection, lo0, hi0):
+    """Per item: the joint validity mask, whether it covers at least a tenth
+    of the moving image, the scoring box and the moving image's maximum in
+    it."""
+    ndim = im1t.dim() - 1
+    shape = tuple(im1t.shape[1:])
+    valid1 = ~torch.isnan(im1t)
+    mask = valid1 & ~im0nm
+    mask_sum = mask.reshape(mask.shape[0], -1).sum(-1)
+    frac_ok = (mask_sum > 0) & (
+        mask_sum.to(torch.float32) / torch.clamp_min(valid_pixels1.to(torch.float32), 1.0) >= 0.1
+    )
+    lo1, hi1 = im_metrics._bbox_bounds_from_mask(valid1, ndim)
+    ui = use_intersection[:, None]
+    lo = torch.where(ui, torch.maximum(lo0, lo1), torch.minimum(lo0, lo1))
+    hi = torch.where(ui, torch.minimum(hi0, hi1), torch.maximum(hi0, hi1))
+    box = im_metrics._box_mask(shape, lo, hi)
+    box_max = torch.where(box, torch.nan_to_num(im1t, nan=-torch.inf), -torch.inf)
+    return mask, frac_ok, lo, hi, box_max.reshape(box_max.shape[0], -1).amax(-1)
+
+
+def _pcc_register_core_batch(im0_raw: torch.Tensor, im1_raw: torch.Tensor,
+                             upsample_factor: int, region_mode: Optional[str] = None):
+    """Phase-correlation registration of a batch of pairs (B, *shape) each,
+    NaN outside their data: returns ((B, ndim) shifts, (B,) qualities).
+
+    Per pair: intensity rescale; three proposals (phase-normalised and plain
+    phase correlation, and masked NCC, which counts only where the pair holds
+    NaN); each proposal expands per dim into {c, -c, S - c, -c - S} (only c
+    where c is 0), kept below the largest crop extent; every kept candidate
+    is scored by SSIM (window 7, 5 or 3 as the box admits) over the union of
+    the two images' valid boxes, or their intersection where NaN is present;
+    the first best wins, and its Spearman correlation is the quality.
+    Candidates that cannot count (-inf in the reference) are not scored."""
+    B = im0_raw.shape[0]
+    ndim = im0_raw.dim() - 1
+    shape = tuple(im0_raw.shape[1:])
+    dev = im0_raw.device
+    im0 = pc_ops.rescale_intensity(im0_raw.to(torch.float32), ndim)
+    im1 = pc_ops.rescale_intensity(im1_raw.to(torch.float32), ndim)
+    im0nm = torch.isnan(im0)
+    im1nm = torch.isnan(im1)
+    has_nans = im0nm.reshape(B, -1).any(-1) | im1nm.reshape(B, -1).any(-1)
+    valid_pixels1 = (~im1nm).reshape(B, -1).sum(-1)
+    im0nn = torch.nan_to_num(im0)
+    im1nn = torch.nan_to_num(im1)
+
+    shift_phase, _ = pc_ops.phase_cross_correlation_batch(im0nn, im1nn, upsample_factor, "phase")
+    shift_plain, _ = pc_ops.phase_cross_correlation_batch(im0nn, im1nn, upsample_factor, None)
+    # the masked proposal counts only for pairs that hold NaN: it is made
+    # for those alone
+    shift_masked = torch.zeros_like(shift_phase)
+    sel = torch.nonzero(has_nans).reshape(-1)
+    if len(sel):
+        shift_masked[sel] = pc_ops.masked_phase_cross_correlation_batch(
+            im0nn[sel], im1nn[sel], ~im0nm[sel], ~im1nm[sel]
+        )[0]
+    proposals = torch.stack([shift_phase, shift_plain, shift_masked], 1)  # (B, 3, ndim)
+    proposal_valid = torch.tensor([True, True, False], device=dev)[None, :] | has_nans[:, None]
+
+    shape_arr = torch.tensor(shape, dtype=torch.float32, device=dev)
+    alt_idx = torch.tensor(list(np.ndindex((4,) * ndim)), device=dev)  # (n_alt, ndim)
+    c = proposals
+    alts = torch.stack([c, -c, -(c - shape_arr), -c - shape_arr], 2)  # (B, 3, 4, ndim)
+    cands = alts[:, :, alt_idx, torch.arange(ndim, device=dev)[None, :]]  # (B, 3, n_alt, ndim)
+    oks = ((alt_idx == 0)[None, None] | (c != 0.0)[:, :, None, :]).all(-1)
+    t_candidates = cands.reshape(B, -1, ndim)
+    cand_valid = (oks & proposal_valid[:, :, None]).reshape(B, -1)
+    max_shift_per_dim = float(max(shape))
+    cand_valid &= t_candidates.abs().amax(-1) < max_shift_per_dim
+
+    data_range = torch.fmax(pc_ops.nanmax(im0), pc_ops.nanmax(im1)) - torch.fmin(
+        pc_ops.nanmin(im0), pc_ops.nanmin(im1)
+    )
+    im1_min = pc_ops.nanmin(im1)
+    lo0, hi0 = im_metrics._bbox_bounds_from_mask(~im0nm, ndim)
+    im0f = torch.nan_to_num(im0)
+    if region_mode is None:
+        use_intersection = has_nans
+    else:
+        use_intersection = torch.full((B,), region_mode == "intersection", device=dev)
+    im1_mask = (~im1nm).to(torch.float32)
+    im1_filled = torch.nan_to_num(im1)
+
+    # the kept (pair, candidate) items, scored in groups within SCORE_BYTES
+    pair_idx, cand_idx = torch.nonzero(cand_valid, as_tuple=True)
+    ssim_vals = torch.full((B, t_candidates.shape[1]), -torch.inf, device=dev)
+    fixed_maps: dict = {}
+    group = max(1, SCORE_BYTES // (4 * int(np.prod(shape))))
+    for g0 in range(0, len(pair_idx), group):
+        pi, ci = pair_idx[g0:g0 + group], cand_idx[g0:g0 + group]
+        t = t_candidates[pi, ci]
+        im1t = _translate(im1_filled[pi], im1_mask[pi], t)
+        _, frac_ok, lo, hi, box_max = _candidate_stats(
+            im1t, im0nm[pi], valid_pixels1[pi], use_intersection[pi], lo0[pi], hi0[pi]
+        )
+        min_shape = (hi - lo + 1).amin(-1)
+        win_eff = torch.clamp_max(min_shape - torch.remainder(min_shape - 1, 2), 7)
+        win = torch.where(win_eff >= 7, 7, torch.where(win_eff >= 5, 5, 3))
+        score = torch.full((len(pi),), -1.0, device=dev)
+        im1tf = torch.nan_to_num(im1t)
+        del im1t
+        for w in (3, 5, 7):
+            k = torch.nonzero((win == w) & (win_eff >= 3)).reshape(-1)
+            if not len(k):
+                continue
+            if w not in fixed_maps:
+                fixed_maps[w] = im_metrics.ssim_fixed_maps(im0f, w, ndim)
+            ux, uxx = fixed_maps[w]
+            pk = pi[k]
+            score[k] = im_metrics.ssim_mean_over_box_precomputed(
+                im0f[pk], ux[pk], uxx[pk], im1tf[k], lo[k], hi[k], w, data_range[pk], ndim
+            )
+        score = torch.where((win_eff < 3) | (box_max <= im1_min[pi]), -1.0, score)
+        ssim_vals[pi, ci] = torch.where(frac_ok, score, -torch.inf)
+
+    best = ssim_vals.argmax(-1)
+    any_valid = torch.isfinite(ssim_vals).any(-1)
+    t_best = torch.where(
+        any_valid[:, None], t_candidates[torch.arange(B, device=dev), best], 0.0
+    )
+    # the Spearman link quality of the winner
+    im1t_best = _translate(im1_filled, im1_mask, t_best)
+    mask_b, frac_ok_b, _, _, box_max_b = _candidate_stats(
+        im1t_best, im0nm, valid_pixels1, use_intersection, lo0, hi0
+    )
+    quality = im_metrics.masked_spearman(im0, im1t_best - 1, mask_b, ndim)
+    quality = torch.where((box_max_b <= im1_min) | ~frac_ok_b, -1.0, quality)
+    quality = torch.where(any_valid, quality, torch.nan)
+    return t_best, quality
+
+
+def _resample_and_register_batch(f_crops, m_crops, fmats, foffs, mmats, moffs, out_shape: tuple,
+                                 upsample_factor: int, region_mode: Optional[str] = None):
+    """Both crops of each pair resampled into the fixed view's pixel grid of
+    the overlap (linear, NaN outside), then registered."""
+    im0 = resample_ops.affine_resample_batch(f_crops, fmats, foffs, out_shape, cval=np.nan)
+    im1 = resample_ops.affine_resample_batch(m_crops, mmats, moffs, out_shape, cval=np.nan)
+    return _pcc_register_core_batch(im0, im1, upsample_factor, region_mode)
+
+
+def phase_correlation_registration(fixed_data, moving_data, disambiguate_region_mode=None,
+                                   device=None, **phase_corr_kwargs):
+    """Register one pair of images (arrays or sims on the same pixel grid,
+    NaN outside their data): the affine of the moving image's shift and the
+    link quality."""
+    if not phase_corr_kwargs.pop("use_fused_core", True):
+        raise _not_ported("the step-by-step pairwise path (use_fused_core=False)",
+                          "item 8's rest")
+    if set(phase_corr_kwargs) - {"upsample_factor"}:
+        raise _not_ported(f"phase correlation kwargs {sorted(phase_corr_kwargs)}", "item 8's rest")
+    device = misc_utils.resolve_device(device)
+    im0 = np.asarray(getattr(fixed_data, "data", fixed_data), dtype=np.float32)
+    im1 = np.asarray(getattr(moving_data, "data", moving_data), dtype=np.float32)
+    ndim = im0.ndim
+    upsample_factor = phase_corr_kwargs.get("upsample_factor", 10 if ndim == 2 else 2)
+    t_best, quality = _pcc_register_core_batch(
+        torch.from_numpy(im0)[None].to(device), torch.from_numpy(im1)[None].to(device),
+        upsample_factor, disambiguate_region_mode,
+    )
+    return {
+        "affine_matrix": param_utils.affine_from_translation(
+            t_best[0].cpu().numpy().astype(float)
+        ),
+        "quality": float(quality[0]),
+    }
+
+
+# ---------------------------------------------------------------------------
+# crops from the host and from the resident tile stack
+# ---------------------------------------------------------------------------
+
+
+class _CropRef:
+    """One registration crop: its view, window start and true shape; the
+    host path reads it from ``sim``, the device path cuts the same window
+    from the resident tile stack."""
+
+    __slots__ = ("view", "starts", "shape", "sim", "arr")
+
+    def __init__(self, view, starts, shape, sim):
+        self.view = int(view)
+        self.starts = tuple(int(s) for s in starts)
+        self.shape = tuple(int(s) for s in shape)
+        self.sim = sim
+        self.arr = None
+
+
+def _gather_f32(flat: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``flat[index]`` as float32, for any integer or float dtype (PyTorch
+    has no CUDA gather of uint16: its bits are gathered as int16)."""
+    if flat.dtype == torch.uint16:
+        return (flat.view(torch.int16)[index].to(torch.int32) & 0xFFFF).to(torch.float32)
+    return flat[index].to(torch.float32)
+
+
+def _axis_index(bucket_shape, d: int, device) -> torch.Tensor:
+    """arange along axis ``d`` of a (B, *bucket_shape) batch, broadcastable."""
+    ndim = len(bucket_shape)
+    return torch.arange(bucket_shape[d], device=device).reshape(
+        (1,) + (1,) * d + (-1,) + (1,) * (ndim - d - 1)
+    )
+
+
+def _within_shapes(bucket_shape, shapes: torch.Tensor) -> torch.Tensor:
+    """(B, *bucket_shape) mask of the positions below each item's true
+    shape ``shapes`` (B, ndim)."""
+    ndim = len(bucket_shape)
+    mask = None
+    for d in range(ndim):
+        m = _axis_index(bucket_shape, d, shapes.device) < shapes[:, d].reshape((-1,) + (1,) * ndim)
+        mask = m if mask is None else mask & m
+    return mask
+
+
+def _crops_from_resident(tiles, views, starts, shapes, bucket_shape):
+    """A NaN-padded float32 crop batch (B, *bucket_shape) cut from the
+    resident (V, *tile) stack: item b holds tile ``views[b]`` from
+    ``starts[b]`` over ``shapes[b]``, NaN beyond; equal to the host crop
+    batch for integer tiles."""
+    ndim = len(bucket_shape)
+    dev = tiles.device
+    tdims = tuple(tiles.shape[1:])
+    B = len(views)
+    views = torch.as_tensor(views, dtype=torch.int64, device=dev)
+    starts = torch.as_tensor(starts, dtype=torch.int64, device=dev)
+    shapes = torch.as_tensor(shapes, dtype=torch.int64, device=dev)
+    lin = views.reshape((B,) + (1,) * ndim) * int(np.prod(tdims))
+    for d in range(ndim):
+        pos = starts[:, d].reshape((B,) + (1,) * ndim) + _axis_index(bucket_shape, d, dev)
+        lin = lin + torch.clamp(pos, 0, tdims[d] - 1) * int(np.prod(tdims[d + 1:]))
+    vals = _gather_f32(tiles.reshape(-1), lin)
+    return torch.where(_within_shapes(bucket_shape, shapes), vals, torch.nan)
+
+
+def _renan_crops(vals: torch.Tensor, shapes) -> torch.Tensor:
+    """Float32 crops with NaN at or beyond each item's true shape."""
+    shapes = torch.as_tensor(shapes, dtype=torch.int64, device=vals.device)
+    mask = _within_shapes(tuple(vals.shape[1:]), shapes)
+    return torch.where(mask, vals.to(torch.float32), torch.nan)
+
+
+def _crop_const_flags(f_crops, m_crops):
+    """Per pair: True where either crop's values (NaN aside) are all equal,
+    the reference's guard against constant overlaps."""
+    return (pc_ops.nanmin(f_crops) == pc_ops.nanmax(f_crops)) | (
+        pc_ops.nanmin(m_crops) == pc_ops.nanmax(m_crops)
+    )
+
+
+def _host_crops_to_device(refs, bucket_shape, device):
+    """Upload a batch of host crops: as uint16 where all are integers in its
+    range, with the NaN pad rebuilt on the device, else as NaN-padded
+    float32. Returns (crops, bytes uploaded)."""
+    arrs = [r.arr for r in refs]
+    B = len(arrs)
+    as_uint16 = all(
+        np.issubdtype(a.dtype, np.integer) and int(a.min(initial=0)) >= 0
+        and int(a.max(initial=0)) <= 65535
+        for a in arrs
+    )
+    if as_uint16:
+        host = np.zeros((B,) + tuple(bucket_shape), dtype=np.uint16)
+    else:
+        host = np.full((B,) + tuple(bucket_shape), np.nan, dtype=np.float32)
+    for b, a in enumerate(arrs):
+        host[b][tuple(slice(0, s) for s in a.shape)] = a
+    dev = torch.from_numpy(host).to(device)
+    if as_uint16:
+        dev = _renan_crops(dev, [r.shape for r in refs])
+    return dev, host.nbytes
+
+
+# ---------------------------------------------------------------------------
+# register
+# ---------------------------------------------------------------------------
+
+
+def _get_singleton_spatial_dim(sims):
+    """The spatial dim of extent 1 at one shared coordinate, if there is
+    exactly one (3D views then register as 2D)."""
+    sdims = si_utils.get_spatial_dims_from_sim(sims[0])
+    if len(sdims) != 3:
+        return None
+    singleton_dims = [d for d in sdims if all(s.sizes[d] == 1 for s in sims)]
+    if len(singleton_dims) != 1:
+        return None
+    d = singleton_dims[0]
+    coords = [float(s.origin[d]) for s in sims]
+    if not np.allclose(coords, coords[0]):
+        return None
+    return d
+
+
+def _drop_spatial_dim(msim: Msim, dim: str) -> Msim:
+    """The msim with the singleton spatial dim ``dim`` selected away."""
+    new_sims = [s.isel({dim: 0}) for s in msim.sims]
+    sdims = msim.sims[0].spatial_dims
+    ndim_in = len(sdims)
+    keep = [i for i, d in enumerate(sdims) if d != dim] + [ndim_in]
+    new_transforms = {
+        key: XAffine(xaff.data[np.ix_(keep, keep)]) for key, xaff in msim.transforms.items()
+    }
+    out = Msim(sims=new_sims, transforms=new_transforms, attrs=dict(msim.attrs))
+    for s in out.sims:
+        s.transforms = {}
+    return out
+
+
+def register(
+    msims: Sequence,
+    transform_key: str = None,
+    points_key: str = "beads",
+    prefilter_markers: bool = False,
+    reg_channel_index: Optional[int] = None,
+    reg_channel: Optional[str] = None,
+    new_transform_key: Optional[str] = None,
+    registration_binning: Optional[Dict[str, int]] = None,
+    reg_res_level: Optional[int] = None,
+    overlap_tolerance: Union[float, Dict[str, float]] = 0.0,
+    pairwise_reg_func: Callable = phase_correlation_registration,
+    pairwise_reg_func_kwargs: Optional[dict] = None,
+    groupwise_resolution_method: str = "global_optimization",
+    groupwise_resolution_kwargs: Optional[dict] = None,
+    pre_registration_pruning_method: str = "alternating_pattern",
+    pre_reg_pruning_method_kwargs: Optional[dict] = None,
+    post_registration_do_quality_filter: bool = False,
+    post_registration_quality_threshold: float = 0.2,
+    plot_summary: bool = False,
+    pairs: Optional[List[Tuple[int, int]]] = None,
+    n_parallel_pairwise_regs: Optional[int] = None,
+    pairwise_executor: Optional[Callable] = None,
+    return_dict: bool = False,
+    mesh=None,
+    device_tiles: Optional[bool] = None,
+    scheduler=None,
+    device=None,
+):
+    """Register views (sims or one-level msims) to a common coordinate
+    system: overlap graph, pruning, pairwise registration, optional quality
+    filter, groupwise resolution, and the resolved affines written under
+    ``new_transform_key`` (composed with ``transform_key``'s).
+
+    ``device_tiles``: cut the registration crops on the device from the
+    resident tile stack that ``fuse()`` reads too (the device tile cache):
+    ``True`` uploads the stack here, ``None`` uses it only when it is
+    already resident, ``False`` never. The stack serves views of integer
+    dtype with spatial dims only, unbinned; other views take host crops.
+
+    ``points_key``, ``prefilter_markers``, ``n_parallel_pairwise_regs`` and
+    ``scheduler`` keep the reference's signature; the phase-correlation path
+    does not read them.
+
+    Returns the per-view affines, or with ``return_dict`` the reference's
+    dict, whose graph is this package's :class:`~.mv_graph.Graph` and whose
+    resolution metrics are a dict of numpy columns. Runs on ``device``: the
+    CUDA device by default, or the CPU with ``device="cpu"``."""
+    device = misc_utils.resolve_device(device)
+    pairwise_reg_func_kwargs = pairwise_reg_func_kwargs or {}
+    groupwise_resolution_kwargs = groupwise_resolution_kwargs or {}
+    pre_reg_pruning_method_kwargs = pre_reg_pruning_method_kwargs or {}
+    if scheduler is not None:
+        warnings.warn(
+            "register(..., scheduler=) is deprecated and unused.", DeprecationWarning, stacklevel=2
+        )
+    if mesh is not None:
+        raise _not_ported("registration across a device mesh", "item 12")
+    if pairwise_reg_func is not phase_correlation_registration or pairwise_executor is not None:
+        raise _not_ported(
+            "a pairwise_reg_func other than phase correlation, marker/RANSAC/ICP registration, "
+            "registration_plugins and pairwise_executor", "item 8's rest",
+        )
+    if set(pairwise_reg_func_kwargs) - {"upsample_factor", "disambiguate_region_mode"}:
+        raise _not_ported(
+            f"pairwise_reg_func_kwargs {sorted(pairwise_reg_func_kwargs)}", "item 8's rest"
+        )
+    if plot_summary:
+        raise _not_ported("plot_summary", "item 8's rest")
+    if reg_res_level is not None:
+        raise _not_ported("reg_res_level", "item 16")
+
+    msims = [
+        m if isinstance(m, Msim) else msi_utils.get_msim_from_sim(m, scale_factors=[])
+        for m in msims
+    ]
+    if any(len(m.sims) != 1 for m in msims):
+        raise _not_ported("registering multiscale msims", "item 16")
+    sims = [msi_utils.get_sim_from_msim(m) for m in msims]
+    if "t" in msi_utils.get_dims(msims[0]):
+        raise _not_ported("registering views with a t dim", "item 23, registration over t")
+
+    telemetry = {}
+    t0 = time.perf_counter()
+    if "c" in msi_utils.get_dims(msims[0]):
+        if reg_channel is None:
+            if reg_channel_index is None:
+                raise ValueError("Please choose a registration channel.")
+            reg_channel = np.asarray(sims[0].coords["c"])[reg_channel_index]
+        msims_reg = [
+            msi_utils.multiscale_sel_coords(m, {"c": reg_channel})
+            if "c" in msi_utils.get_dims(m) else m
+            for m in msims
+        ]
+    else:
+        msims_reg = msims
+
+    reduced_dim = _get_singleton_spatial_dim(sims)
+    if reduced_dim is not None:
+        msims_reg = [_drop_spatial_dim(m, reduced_dim) for m in msims_reg]
+        registration_binning, overlap_tolerance = [
+            {d: v for d, v in param.items() if d != reduced_dim}
+            if isinstance(param, dict) else param
+            for param in [registration_binning, overlap_tolerance]
+        ]
+
+    g = mv_graph.build_view_adjacency_graph_from_msims(
+        msims_reg, transform_key=transform_key, pairs=pairs, overlap_tolerance=overlap_tolerance
+    )
+    t1 = time.perf_counter()
+    telemetry["graph_s"] = t1 - t0
+    if pre_registration_pruning_method is not None:
+        g_reg = mv_graph.prune_view_adjacency_graph(
+            g, method=pre_registration_pruning_method,
+            pruning_method_kwargs=pre_reg_pruning_method_kwargs,
+        )
+    else:
+        g_reg = g
+    telemetry["prune_s"] = time.perf_counter() - t1
+    telemetry["edges"] = g.number_of_edges()
+    telemetry["pruned_edges"] = g_reg.number_of_edges()
+
+    g_reg_computed = compute_pairwise_registrations(
+        msims_reg, g_reg, transform_key=transform_key,
+        registration_binning=registration_binning, overlap_tolerance=overlap_tolerance,
+        pairwise_reg_func_kwargs=pairwise_reg_func_kwargs, device_tiles=device_tiles,
+        device=device, telemetry=telemetry,
+    )
+    if post_registration_do_quality_filter:
+        g_reg_computed = mv_graph.filter_edges(
+            g_reg_computed, threshold=post_registration_quality_threshold, weight_key="quality"
+        )
+
+    t2 = time.perf_counter()
+    params_dict, groupwise_resolution_info_dict = param_resolution.groupwise_resolution(
+        g_reg_computed, method=groupwise_resolution_method, **groupwise_resolution_kwargs
+    )
+    params = [params_dict[iview] for iview in sorted(g_reg_computed.nodes())]
+    if reduced_dim is not None:
+        params = [param_utils.expand_affine_dims(p, [reduced_dim]) for p in params]
+    if new_transform_key is not None:
+        for imsim, msim in enumerate(msims):
+            msi_utils.set_affine_transform(
+                msim, params[imsim], transform_key=new_transform_key,
+                base_transform_key=transform_key,
+            )
+    telemetry["resolve_s"] = time.perf_counter() - t2
+    last_telemetry.clear()
+    last_telemetry.update(telemetry)
+
+    if return_dict:
+        return {
+            "params": params,
+            "pairwise_registration": {
+                "graph": g_reg_computed,
+                "metrics": {"qualities": mv_graph.get_edge_attributes(g_reg_computed, "quality")},
+                "summary_plot": None,
+            },
+            "groupwise_resolution": {
+                "metrics": groupwise_resolution_info_dict,
+                "summary_plot": None,
+            },
+        }
+    return params
+
+
+def compute_pairwise_registrations(msims, g_reg, device=None, telemetry=None, **register_kwargs):
+    """Register the pair of every edge of ``g_reg``; returns a copy of the
+    graph with each edge's ``transform``, ``quality`` and ``bbox``."""
+    device = misc_utils.resolve_device(device)
+    g_reg_computed = g_reg.copy()
+    edges = [tuple(sorted([e[0], e[1]])) for e in g_reg.edges]
+    params = _try_batched_phase_correlation(
+        msims, edges, register_kwargs, device=device,
+        telemetry={} if telemetry is None else telemetry,
+    )
+    return _assign_pairwise_registrations(g_reg_computed, edges, params)
+
+
+def _try_batched_phase_correlation(msims, edges, register_kwargs, device, telemetry):
+    """Batched pairwise registration: one device batch per crop-shape bucket
+    (up to :data:`MAX_B` pairs), from host crops or from crops cut out of the
+    resident tile stack. Returns the per-edge results."""
+    from multiview_stitcher_torch.fusion import _core as fusion_core
+
+    kwargs = dict(register_kwargs)
+    reg_func_kwargs = dict(kwargs.pop("pairwise_reg_func_kwargs", None) or {})
+    transform_key = kwargs.pop("transform_key")
+    registration_binning = kwargs.pop("registration_binning", None)
+    overlap_tolerance = kwargs.pop("overlap_tolerance", None)
+    device_tiles = kwargs.pop("device_tiles", None)
+    if kwargs:
+        raise _not_ported(f"register kwargs {sorted(kwargs)}", "item 8's rest")
+    if set(reg_func_kwargs) - {"upsample_factor", "disambiguate_region_mode"}:
+        raise _not_ported(f"pairwise_reg_func_kwargs {sorted(reg_func_kwargs)}", "item 8's rest")
+    if not edges:
+        return []
+    if "t" in msi_utils.get_dims(msims[0]):
+        raise _not_ported("registering views with a t dim", "item 23, registration over t")
+
+    t_plan = time.perf_counter()
+    # the resident tile stack: the one fuse() reads from the device tile
+    # cache. Auto mode (None) takes it only when it is resident already;
+    # True uploads it here (as stitch() asks)
+    field_sims = [msi_utils.get_sim_from_msim(m) for m in msims]
+    use_dev = device_tiles is not False
+    if use_dev:
+        key = fusion_core._DeviceTileCache.key_for(field_sims, device)
+        resident = fusion_core._device_tile_cache.get(key) is not None
+        if device_tiles is None and not resident:
+            use_dev = False
+        elif not resident:
+            total = sum(
+                int(np.prod(s.data.shape)) * np.dtype(s.data.dtype).itemsize for s in field_sims
+            )
+            if key is None or total > fusion_core._device_tile_cache.budget():
+                use_dev = False
+        if use_dev:
+            for s in field_sims:
+                # float tiles may hold NaN, which the stack zeroes; integer
+                # tiles are carried exactly
+                if si_utils.get_nonspatial_dims_from_sim(s) or not np.issubdtype(
+                    np.dtype(s.data.dtype), np.integer
+                ):
+                    use_dev = False
+                    break
+
+    units = []
+    bboxes = {}
+    bin_cache: dict = {}
+    geom_cache: dict = {}
+    for ei, (i, j) in enumerate(edges):
+        sim1, sim2, reg_sims_b, lowers, uppers, otol, crop_info = _select_and_crop_pair(
+            msims[i], msims[j], transform_key, registration_binning=registration_binning,
+            overlap_tolerance=overlap_tolerance, bin_cache=bin_cache, geom_cache=geom_cache,
+            cache_keys=((i, None), (j, None)),
+        )
+        if use_dev and not (
+            crop_info["full_sims"][0].data is field_sims[i].data
+            and crop_info["full_sims"][1].data is field_sims[j].data
+        ):
+            # binning in play: the resident unbinned stack cannot serve the
+            # crops; all pairs take host crops
+            use_dev = False
+        overlap_phys = _get_overlap_bboxes(
+            sim1, sim2, input_transform_key=transform_key, output_transform_key=transform_key,
+            overlap_tolerance=otol, geom_cache=geom_cache,
+            cache_keys=(("u", i, None), ("u", j, None)),
+        )
+        bboxes[ei] = np.array([overlap_phys["lowers"][0], overlap_phys["uppers"][0]])
+        ndim = len(sim1.spatial_dims)
+        refs = [
+            _CropRef(
+                v,
+                [crop_info["slices"][k][d].start for d in reg_sims_b[k].spatial_dims],
+                tuple(reg_sims_b[k].data.shape),
+                reg_sims_b[k],
+            )
+            for k, v in enumerate((i, j))
+        ]
+        # the fixed view's pixel grid over the overlap, and each crop's map
+        # into it
+        spacing = np.max([si_utils.get_spacing_from_sim(s, asarray=True) for s in reg_sims_b],
+                         axis=0)
+        affines = []
+        for s in reg_sims_b:
+            a = np.asarray(si_utils.get_affine_from_sim(s, transform_key).squeeze())
+            affines.append(a[0] if a.ndim == 3 else a)
+        transf_affine = np.linalg.inv(affines[1]) @ affines[0]
+        out_shape = tuple(
+            int(v) for v in np.floor(np.array(uppers[0] - lowers[0]) / spacing + 1).astype(np.int64)
+        )
+        fmat, foff = resample_ops.physical_to_pixel_params(
+            np.eye(ndim + 1),
+            input_spacing=si_utils.get_spacing_from_sim(reg_sims_b[0], asarray=True),
+            input_origin=si_utils.get_origin_from_sim(reg_sims_b[0], asarray=True),
+            output_spacing=spacing, output_origin=lowers[0],
+        )
+        mmat, moff = resample_ops.physical_to_pixel_params(
+            transf_affine,
+            input_spacing=si_utils.get_spacing_from_sim(reg_sims_b[1], asarray=True),
+            input_origin=si_utils.get_origin_from_sim(reg_sims_b[1], asarray=True),
+            output_spacing=spacing, output_origin=lowers[0],
+        )
+        # world conversion of a pixel shift: the pixel grid T = A0 Tr(lo) S
+        T = (
+            affines[0] @ param_utils.affine_from_translation(lowers[0])
+            @ np.diag(list(spacing) + [1])
+        )
+        units.append((ei, refs[0], refs[1], fmat, foff, mmat, moff, out_shape, T))
+
+    unit_results = {}
+    tiles_dev = None
+    tile_bytes_before = fusion_core.tile_upload_bytes
+    telemetry["plan_s"] = time.perf_counter() - t_plan
+    t_upload = time.perf_counter()
+    if use_dev:
+        # one upload, or a hit of the stack a fuse() or register() left; a
+        # failed upload raises
+        tiles_dev = fusion_core._tiles_to_device(field_sims, device)
+    else:
+        # host crops, with the constant guard before batching
+        kept = []
+        for u in units:
+            for ref in (u[1], u[2]):
+                if ref.arr is None:
+                    ref.arr = np.asarray(ref.sim.to_numpy())
+            if np.nanmin(u[1].arr) == np.nanmax(u[1].arr) or np.nanmin(u[2].arr) == np.nanmax(
+                u[2].arr
+            ):
+                warnings.warn(
+                    "An overlap region between tiles/views is all zero or constant. "
+                    "Assuming identity transform.", UserWarning, stacklevel=2,
+                )
+                unit_results[u[0]] = (np.eye(len(u[7]) + 1), np.nan)
+                continue
+            kept.append(u)
+        units = kept
+    telemetry["upload_s"] = time.perf_counter() - t_upload
+    telemetry["device_tiles"] = bool(use_dev)
+    telemetry["tile_upload_bytes"] = fusion_core.tile_upload_bytes - tile_bytes_before
+
+    upsample_factor = reg_func_kwargs.get("upsample_factor")
+    region_mode = reg_func_kwargs.get("disambiguate_region_mode")
+    buckets: dict = {}
+    for unit in units:
+        buckets.setdefault(unit[7], []).append(unit)
+
+    t_pairs = time.perf_counter()
+    timed = device.type == "cuda"
+    if timed:
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+    pending = []
+    crop_bytes = 0
+    for out_shape, bucket in buckets.items():
+        ndim = len(out_shape)
+        uf = upsample_factor or (10 if ndim == 2 else 2)
+        fshape = tuple(max(u[1].shape[d] for u in bucket) for d in range(ndim))
+        mshape = tuple(max(u[2].shape[d] for u in bucket) for d in range(ndim))
+        for cstart in range(0, len(bucket), MAX_B):
+            chunk = bucket[cstart:cstart + MAX_B]
+            tables = torch.from_numpy(np.stack([
+                np.concatenate([u[k].ravel() for k in (3, 4, 5, 6)]) for u in chunk
+            ]).astype(np.float32)).to(device)
+            n2 = ndim * ndim
+            fmats = tables[:, :n2].reshape(-1, ndim, ndim)
+            foffs = tables[:, n2:n2 + ndim]
+            mmats = tables[:, n2 + ndim:2 * n2 + ndim].reshape(-1, ndim, ndim)
+            moffs = tables[:, 2 * n2 + ndim:]
+            const = None
+            if use_dev:
+                def refs_of(slot):
+                    return (
+                        [u[slot].view for u in chunk],
+                        [u[slot].starts for u in chunk],
+                        [u[slot].shape for u in chunk],
+                    )
+
+                f_dev = _crops_from_resident(tiles_dev, *refs_of(1), fshape)
+                m_dev = _crops_from_resident(tiles_dev, *refs_of(2), mshape)
+                const = _crop_const_flags(f_dev, m_dev)
+            else:
+                f_dev, nb_f = _host_crops_to_device([u[1] for u in chunk], fshape, device)
+                m_dev, nb_m = _host_crops_to_device([u[2] for u in chunk], mshape, device)
+                crop_bytes += nb_f + nb_m
+            shifts, qualities = _resample_and_register_batch(
+                f_dev, m_dev, fmats, foffs, mmats, moffs, out_shape, uf, region_mode
+            )
+            pending.append((chunk, shifts, qualities, const))
+    if timed:
+        ev1.record()
+    telemetry["batches"] = len(pending)
+    telemetry["buckets"] = len(buckets)
+    telemetry["pairs"] = len(edges)
+    telemetry["crop_upload_bytes"] = crop_bytes
+
+    for chunk, shifts, qualities, const in pending:
+        shifts = shifts.cpu().numpy()
+        qualities = qualities.cpu().numpy()
+        consts = np.zeros(len(chunk), bool) if const is None else const.cpu().numpy()
+        for u, t_vec, q, is_const in zip(chunk, shifts, qualities, consts):
+            if is_const:
+                warnings.warn(
+                    "An overlap region between tiles/views is all zero or constant. "
+                    "Assuming identity transform.", UserWarning, stacklevel=2,
+                )
+                unit_results[u[0]] = (np.eye(len(u[7]) + 1), np.nan)
+                continue
+            T = u[8]
+            affine_px = param_utils.affine_from_translation(np.asarray(t_vec, dtype=float))
+            unit_results[u[0]] = (T @ affine_px @ np.linalg.inv(T), float(q))
+    telemetry["pairwise_s"] = time.perf_counter() - t_pairs
+    if timed:
+        telemetry["pairwise_device_ms"] = ev0.elapsed_time(ev1)
+
+    return [
+        {
+            "transform": param_utils.affine_to_xaffine(unit_results[ei][0]),
+            "quality": unit_results[ei][1],
+            "bbox": bboxes[ei],
+        }
+        for ei in range(len(edges))
+    ]
+
+
+def _assign_pairwise_registrations(g_reg_computed, edges, params):
+    for i, pair in enumerate(edges):
+        g_reg_computed.edges[pair]["transform"] = params[i]["transform"]
+        g_reg_computed.edges[pair]["quality"] = params[i]["quality"]
+        g_reg_computed.edges[pair]["bbox"] = params[i]["bbox"]
+    return g_reg_computed

@@ -75,6 +75,19 @@ class Sim:
         """The data as a numpy array (reads a lazy handle)."""
         return np.asarray(self.data)
 
+    def copy(self, data=None) -> "Sim":
+        """A sim over the same data (or ``data``) with copied metadata."""
+        return Sim(
+            data=self.data if data is None else data,
+            dims=self.dims,
+            spacing=dict(self.spacing),
+            origin=dict(self.origin),
+            coords={k: np.asarray(v).copy() for k, v in self.coords.items()},
+            transforms={k: v.copy() for k, v in self.transforms.items()},
+            name=self.name,
+            attrs=dict(self.attrs),
+        )
+
     @property
     def sizes(self) -> Dict[str, int]:
         return {d: s for d, s in zip(self.dims, self.shape)}
@@ -194,6 +207,10 @@ def get_nonspatial_dims_from_sim(sim: Sim):
     return sim.nsdims
 
 
+def get_ndim_from_sim(sim: Sim) -> int:
+    return len(sim.spatial_dims)
+
+
 def get_spacing_from_sim(sim: Sim, asarray: bool = False):
     if asarray:
         return np.array([sim.spacing[d] for d in sim.spatial_dims])
@@ -223,6 +240,23 @@ def get_stack_properties_from_sim(sim: Sim, transform_key=None, asarray: bool = 
     if transform_key is not None:
         props["transform"] = get_affine_from_sim(sim, transform_key)
     return props
+
+
+def extend_stack_props(stack_props, extend_by):
+    """Stack properties extended outward by a physical amount on each side."""
+    sdims = [d for d in SPATIAL_DIMS if d in stack_props["spacing"]]
+    if not isinstance(extend_by, dict):
+        extend_by = {d: extend_by for d in sdims}
+    stack_props = {
+        "shape": dict(stack_props["shape"]),
+        "spacing": dict(stack_props["spacing"]),
+        "origin": dict(stack_props["origin"]),
+        **{k: v for k, v in stack_props.items() if k not in ("shape", "spacing", "origin")},
+    }
+    for d, val in extend_by.items():
+        stack_props["shape"][d] += int(np.ceil(2 * val / stack_props["spacing"][d]))
+        stack_props["origin"][d] -= val
+    return stack_props
 
 
 def get_affine_from_sim(sim: Sim, transform_key: str) -> XAffine:

@@ -359,6 +359,12 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import multiview_stitcher_torch.fusion._streaming\n"
         "import multiview_stitcher_torch.io.ngff_utils\n"
         "import multiview_stitcher_torch.io.zarr_backend\n"
+        "import multiview_stitcher_torch.param_resolution\n"
+        "import multiview_stitcher_torch.registration\n"
+        "import multiview_stitcher_torch.stitch\n"
+        "import multiview_stitcher_torch.ops.phase_correlation\n"
+        "import multiview_stitcher_torch.ops.image_metrics\n"
+        "import multiview_stitcher_torch.ops.filters\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
