@@ -76,7 +76,25 @@ Phases, one printed line or block each:
    dropped before the warm call, whose upload stage then measures the
    upload, and a repeat call after it must upload 0 bytes and give the same
    output;
-8. ``stitch()`` of the north star's grid: 32 x 32 tiles of 64^3 uint16,
+8. the general fusion path through ``fusion.fuse``, each case cold and
+   warm, the warm call split into plan, upload, resample (views and
+   blending weights), weights (the weights function), reduce (the builtin
+   blend or the fusion function) and download, with the five kernels'
+   launch counts set to 0 just before it and read just after, and a
+   chunk-aligned window held to the same ``fuse`` with ``device="cpu"``
+   (1 count on uint16, rtol 1e-4 / atol 1e-3 on float32): content-based
+   fusion (``weights.content_based``, a 22 px halo) of the multi-view views
+   of phase 7 through the host tier, 100 chunks of 128^3, a central 128^3
+   window held; ``max_fusion`` of the 2D slide scan of phase 6 through the
+   tiles tier, chunks of 1024^2, its 2048^2 corner held; the affine 3D tile
+   grid of phase 7 as float32 with NaN in each tile's outer 8 voxels and in
+   one inner 24^3 blob, through the gather route of the batched tier, a
+   128^3 window held and no NaN in the output; and small cases
+   (``content_based_dct``, a custom fusion function with fusion weights,
+   ``interpolation_order=0``, ``trim_overlap=False`` with ``max_fusion``
+   and with content-based weights) against ``device="cpu"``. Lines start
+   with ``general:``;
+9. ``stitch()`` of the north star's grid: 32 x 32 tiles of 64^3 uint16,
    overlap 12, cut from one band-limited volume (numpy, seeded) at known
    true positions, their metadata origins off by integers in [-1, 1] (z)
    and [-3, 3] (y, x), registered with an overlap tolerance of 1 / 3 / 3 px
@@ -92,7 +110,7 @@ Phases, one printed line or block each:
    as in the port); the output equal to ``fuse()`` under the resolved key;
    ``register()`` on the card within 1e-3 px of ``register(device="cpu")``
    on the grid's 4 x 4 corner;
-9. a ``kernels`` JSON line: per kernel its launches in the main-path run,
+10. a ``kernels`` JSON line: per kernel its launches in the main-path run,
    its time, the plain version's time, its bound and its error.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -1461,6 +1479,271 @@ def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, ki
     }
 
 
+class GeneralTimer(StageTimer):
+    """Splits one fuse() call of the general fusion path into plan, upload,
+    resample (views and blending weights), weights (the weights function),
+    reduce (the blend of the builtin functions, or the fusion function) and
+    download, by wrapping the stages fusion._core calls (CUDA events, summed
+    over the call); and counts the calls of each, and of the tiers' units of
+    work (host-tier chunks, gather batches). No kernel wrapper is touched."""
+
+    STAGES = {
+        "_tiles_to_device": "upload",
+        "_resample_views": "resample",
+        "_resample_tiles": "resample",
+        "_reduce_views": "reduce",
+        "func_ignore_nan_warning": "reduce",
+        "_download": "download",
+        "_fuse_views": None,
+        "_fuse_chunk_batch_kernel_gather": None,
+        "_execute_fusion_plan_tiles": None,
+    }
+
+    def __init__(self, torch, tcore):
+        super().__init__(torch, tcore, None, None)
+        self.calls = {}
+
+    def _counted(self, name, fn):
+        def before(a, k):
+            self.calls[name] = self.calls.get(name, 0) + 1
+            if self.t_upload_start is None and self.STAGES.get(name):
+                self.t_upload_start = time.perf_counter()
+
+        return self._timed(name, fn, before)
+
+    def weights(self, func):
+        """``func`` timed as the "weights" stage; its signature and halo
+        declaration stay readable (``functools.wraps``)."""
+        import functools
+
+        return functools.wraps(func)(self._counted("weights", func))
+
+    def __enter__(self):
+        self._saved = {n: getattr(self.tcore, n) for n in self.STAGES}
+        for n, fn in self._saved.items():
+            setattr(self.tcore, n, self._counted(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self.tcore, n, fn)
+        return False
+
+    def split_ms(self, t_start, t_end):
+        self.torch.cuda.synchronize()
+        out = {"plan_ms": ((self.t_upload_start or t_end) - t_start) * 1e3}
+        for name, stage in {"weights": "weights", **self.STAGES}.items():
+            if stage and name in self.events:
+                ms = sum(e0.elapsed_time(e1) for e0, e1 in self.events[name])
+                out[f"{stage}_ms"] = out.get(f"{stage}_ms", 0.0) + ms
+        out["other_ms"] = (t_end - t_start) * 1e3 - sum(out.values())
+        return out
+
+
+def window_props(osp, sdims, start, size):
+    """Stack properties of the output window of ``size`` pixels that starts
+    ``start`` pixels into ``osp``: on the same grid, so a fuse of the window
+    plans the same chunks (with their halos) as the whole output's."""
+    return {
+        "shape": {d: size for d in sdims},
+        "spacing": dict(osp["spacing"]),
+        "origin": {d: osp["origin"][d] + start[i] * osp["spacing"][d] for i, d in enumerate(sdims)},
+    }
+
+
+def general_window_err(np, got, ref, label):
+    """Max abs difference of a window against its CPU fuse, within 1 count on
+    integers, rtol 1e-4 / atol 1e-3 on floats."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{label}: window {got.shape} {got.dtype} against the CPU's "
+                             f"{ref.shape} {ref.dtype}")
+    if np.issubdtype(got.dtype, np.integer):
+        err = int(np.abs(got.astype(np.int64) - ref.astype(np.int64)).max())
+        ok = err <= UINT_COUNTS
+    else:
+        err = float(np.abs(got.astype(np.float64) - ref).max())
+        ok = bool(np.all(np.abs(got - ref) <= F32_ATOL + F32_RTOL * np.abs(ref)))
+    if not ok:
+        raise AssertionError(f"{label}: window differs from the CPU's fuse by {err}")
+    return err
+
+
+def general_case(np, torch, tcore, tea, tf, fuse, label, sims, kw, window, cpu_sims=None,
+                 timed_weights=False):
+    """One case of the general phase: a cold and a warm fuse() on the card,
+    the warm one split by stage with the five kernels' launch counts set to 0
+    just before it and read just after, and ``window`` ((start, size) in
+    output pixels, chunk-aligned) held to the same fuse() with
+    device="cpu" (on ``cpu_sims``, the views that reach it, by default all)."""
+    sdims = sims[0].spatial_dims
+    t0 = time.perf_counter()
+    cold = fuse(sims, transform_key=KEY, **kw)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    del cold
+    tcore.clear_device_tile_cache()
+    for n in EXACT_WRAPPERS:
+        getattr(tea, n).launches = 0
+    tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+    with GeneralTimer(torch, tcore) as gt:
+        warm_kw = dict(kw)
+        if timed_weights:
+            warm_kw["weights_func"] = gt.weights(kw["weights_func"])
+        t0 = time.perf_counter()
+        fused = fuse(sims, transform_key=KEY, **warm_kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        warm_s = t1 - t0
+        split = gt.split_ms(t0, t1)
+        calls = dict(gt.calls)
+    launches = {n: getattr(tea, n).launches for n in EXACT_WRAPPERS}
+    launches.update(fuse_translation_2d=tf.fuse_translation_2d.launches,
+                    fuse_translation_3d=tf.fuse_translation_3d.launches)
+    out = fused.data
+    covered = float(np.mean(out > 0))
+    if out.dtype != sims[0].data.dtype or covered < 0.3 or (
+        np.issubdtype(out.dtype, np.floating) and not np.isfinite(out).all()
+    ):
+        raise AssertionError(f"{label}: output {out.dtype}, covered {covered:.2f}, finite: "
+                             f"{np.isfinite(out).all()}")
+    start, size = window
+    osp = {"origin": dict(fused.origin), "spacing": dict(fused.spacing),
+           "shape": dict(zip(sdims, out.shape))}
+    t0 = time.perf_counter()
+    ref = fuse(cpu_sims or sims, transform_key=KEY, device="cpu",
+               output_stack_properties=window_props(osp, sdims, start, size), **kw).data
+    cpu_s = time.perf_counter() - t0
+    got = out[tuple(slice(s, s + size) for s in start)]
+    err = general_window_err(np, got, ref, label)
+    n_out = int(np.prod(out.shape))
+    log(f"general: {label}: output {out.shape} {out.dtype}, covered {covered:.2f}, cold fuse "
+        f"{cold_s:.3f} s, warm fuse {warm_s:.3f} s ({n_out / warm_s / 1e6:.1f} Mvox/s)")
+    log(f"general: {label}: warm split " + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    log(f"general: {label}: tier units {json.dumps(calls)}, kernel launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; window "
+        f"{tuple(start)} + {size} against device='cpu' ({cpu_s:.1f} s): max_abs_err {err:.3g}")
+    return fused, {"cold_fuse_s": cold_s, "warm_fuse_s": warm_s, **split,
+                   "calls": calls, "launches": launches, "window_max_abs_err": err,
+                   "cpu_window_s": cpu_s, "out_shape": list(out.shape), "covered": covered}
+
+
+def nan_affine_grid(np, tsi, tile, overlap, seed):
+    """The affine 3D tile grid (4 x 4 tiles of ``tile``^3, couplings +-[0.005,
+    0.02]) as float32, with NaN in each tile's outer ``tile // 32`` voxels and
+    in one inner blob of ``3 * tile // 32`` voxels a side."""
+    rng = np.random.default_rng(seed)
+
+    def coupling(r):
+        return np.eye(3) + r.uniform(0.005, 0.02, (3, 3)) * r.choice([-1, 1], (3, 3))
+
+    sims = affine_grid_sims(np, tsi, 3, 4, tile, overlap, 5, coupling)
+    edge, blob = tile // 32, 3 * tile // 32
+    for sim in sims:
+        data = sim.data.astype(np.float32)
+        for axis in range(3):
+            lo = [slice(None)] * 3
+            hi = [slice(None)] * 3
+            lo[axis], hi[axis] = slice(0, edge), slice(tile - edge, tile)
+            data[tuple(lo)] = np.nan
+            data[tuple(hi)] = np.nan
+        c = rng.integers(tile // 6, tile - tile // 4, 3)
+        data[c[0]:c[0] + blob, c[1]:c[1] + blob, c[2]:c[2] + blob] = np.nan
+        sim.data = data
+    return sims
+
+
+def general_small_cases(np, torch, tsi, tcore, tweights, fuse):
+    """content_based_dct, a custom fusion function, interpolation_order=0 and
+    trim_overlap=False at small sizes, each on the card against
+    device="cpu"."""
+
+    def custom(transformed_views, params, output_spacing, blending_weights, fusion_weights):
+        w = torch.where(torch.isnan(transformed_views), 0.0, blending_weights * fusion_weights)
+        total = w.sum(0)
+        fused = (torch.nan_to_num(transformed_views) * w).sum(0)
+        return fused / torch.where(total > 0, total, 1.0) + float(len(params))
+
+    views = multiview_sims(np, tsi, (48, 64, 64), (0, 47, 92), seed=12)
+    grid = grid_sims(np, tsi, 2, 4, 96, 24, seed=13)
+    cases = [
+        ("content_based_dct", views, dict(output_chunksize=32, weights_func=tweights.content_based_dct,
+                                          weights_func_kwargs={"dct_size": 16})),
+        ("custom fusion_func with fusion_weights", views,
+         dict(output_chunksize=32, fusion_func=custom, weights_func=tweights.content_based,
+              weights_func_kwargs={"sigma_1": 2, "sigma_2": 4})),
+        ("interpolation_order=0", views, dict(output_chunksize=32, interpolation_order=0)),
+        ("trim_overlap=False, max_fusion", grid,
+         dict(output_chunksize=64, overlap_in_pixels=8, trim_overlap=False,
+              fusion_func=tcore.max_fusion)),
+        ("trim_overlap=False, content_based", grid,
+         dict(output_chunksize=64, trim_overlap=False, weights_func=tweights.content_based,
+              weights_func_kwargs={"sigma_1": 2, "sigma_2": 4})),
+    ]
+    errs = {}
+    for label, sims, kw in cases:
+        got = fuse(sims, transform_key=KEY, **kw)
+        ref = fuse(sims, transform_key=KEY, device="cpu", **kw)
+        if got.origin != ref.origin:
+            raise AssertionError(f"general small case {label}: origin {got.origin} != {ref.origin}")
+        errs[label] = general_window_err(np, got.data, ref.data, f"small case {label}")
+        log(f"general: small case {label}: output {got.data.shape} {got.data.dtype}, "
+            f"max_abs_err against device='cpu' {errs[label]:.3g}")
+    return errs
+
+
+def general_phase(np, torch, tsi, tcore, tweights, tea, tf, fuse, scale=1):
+    """The general fusion path (phase 8): content-based fusion of the rotated
+    multi-view path through the host tier; max_fusion of the 2D slide scan
+    through the tiles tier; the affine 3D tile grid as float32 with NaN
+    through the gather route; small cases. Each full-size case runs cold and
+    warm on the card, and a chunk-aligned window is held to device="cpu".
+    ``scale`` divides every size (a rehearsal on the CPU)."""
+    out = {}
+    c3 = 128 // scale
+    sims = multiview_sims(np, tsi, tuple(n // scale for n in (256, 512, 512)), (0, 47, 92, 137),
+                          seed=4)
+    fused, out["content_based"] = general_case(
+        np, torch, tcore, tea, tf, fuse, "3d multi-view, content-based", sims,
+        dict(output_chunksize=c3, weights_func=tweights.content_based),
+        window=((2 * c3,) * 3, c3), timed_weights=True,
+    )
+    if out["content_based"]["calls"].get("_fuse_views", 0) < 50 or any(
+        out["content_based"]["launches"].values()
+    ):
+        raise AssertionError("general: the multi-view case did not run the host tier alone")
+    del sims, fused
+    torch.cuda.empty_cache()
+
+    tile, c2 = 512 // scale, 1024 // scale
+    sims = grid_sims(np, tsi, 2, n=32, tile=tile, overlap=64 // scale, seed=2)
+    corner = [s for s in sims if s.origin["y"] < 2 * c2 and s.origin["x"] < 2 * c2]
+    fused, out["max_tiles"] = general_case(
+        np, torch, tcore, tea, tf, fuse, "2d slide scan, max_fusion", sims,
+        dict(output_chunksize=c2, fusion_func=tcore.max_fusion),
+        window=((0, 0), 2 * c2), cpu_sims=corner,
+    )
+    top = max(int(s.data.max()) for s in sims)
+    if (not out["max_tiles"]["calls"].get("_resample_tiles") or int(fused.data.max()) > top
+            or any(out["max_tiles"]["launches"].values())):
+        raise AssertionError("general: the slide scan's max_fusion did not run the tiles tier alone")
+    del sims, corner, fused
+    torch.cuda.empty_cache()
+
+    sims = nan_affine_grid(np, tsi, 256 // scale, 32 // scale, seed=7)
+    fused, out["nan_gather"] = general_case(
+        np, torch, tcore, tea, tf, fuse, "3d affine grid, float32 with NaN", sims,
+        dict(output_chunksize=c3), window=((c3, 2 * c3, 2 * c3), c3),
+    )
+    if not out["nan_gather"]["calls"].get("_fuse_chunk_batch_kernel_gather") or any(
+        out["nan_gather"]["launches"].values()
+    ):
+        raise AssertionError("general: the NaN grid did not take the gather route alone")
+    del sims, fused
+    torch.cuda.empty_cache()
+    out["small_max_abs_err"] = general_small_cases(np, torch, tsi, tcore, tweights, fuse)
+    return out
+
+
 # the stitch phase's grid: overlap tolerance (physical units, spacing 1) that
 # covers the metadata's error, so that every pair's crops hold their common
 # content
@@ -1703,6 +1986,7 @@ def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
     from multiview_stitcher_torch import si_utils as tsi
+    from multiview_stitcher_torch import weights as tweights
     from multiview_stitcher_torch.fusion import _core as tcore
     from multiview_stitcher_torch.fusion import _streaming as tstream
     from multiview_stitcher_torch.fusion import fuse
@@ -1765,6 +2049,12 @@ def main() -> int:
         del sims
         torch.cuda.empty_cache()
 
+    # the general fusion path: the host tier, the tiles tier, the gather route
+    t_general = time.perf_counter()
+    general = general_phase(np, torch, tsi, tcore, tweights, tea, tf, fuse)
+    general["phase_s"] = time.perf_counter() - t_general
+    log(f"general: phase {general['phase_s']:.1f} s")
+
     # the north star's second half: register -> resolve -> fuse on the card
     stitched = stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n=32, tile=64, overlap=12)
 
@@ -1792,7 +2082,7 @@ def main() -> int:
                                   exact_err["sepy"], exact_err["general"])):
         k["max_abs_err"] = max(k["max_abs_err"], worst)
     detail = {"3d": r3, "2d": r2, "zarr": zarr, **{f"affine_{k}": v for k, v in affine.items()},
-              "stitch": stitched,
+              "general": general, "stitch": stitched,
               "f1_fuse_max_abs_err": f1_err, "build_s": build_s, "small_cases_s": small_s,
               "total_s": time.perf_counter() - t_start}
     log("detail: " + json.dumps(detail))

@@ -1,8 +1,10 @@
-"""Fusion core: ``fuse`` of views placed by translations or by any affine.
+"""Fusion core: ``fuse`` of views placed by translations or by any affine,
+with any fusion and weights function.
 
-The port of ``multiview_stitcher_tpu.fusion._core`` for two tiers of the
-library. Planning (output geometry, kernel tables, view lists, chunk plans)
-is host-side numpy in float64, as in the reference.
+The port of ``multiview_stitcher_tpu.fusion._core``. Planning (output
+geometry, kernel tables, view lists, chunk plans) is host-side numpy in
+float64, as in the reference; each call takes the reference's tier, in its
+order (:func:`_execute_fusion_plan`):
 
 - **Translation tier**: a grid of translation-placed 2D or 3D tiles fused
   with the default weighted-average blending by the translation kernels
@@ -10,28 +12,45 @@ is host-side numpy in float64, as in the reference.
   (zarr-backed), that exceed :data:`TILES_MAX_BYTES` or that hold more than
   :data:`STREAM_BYTES` stream through banded kernel calls that overlap
   upload, kernel and download (``fusion._streaming``) when their layout
-  bands; other grids run in one kernel call over the whole output.
-- **Exact-affine tier**: views that are rotated, scaled or sheared. The
-  output is cut into chunks; each chunk lists the views that reach it and
-  their source windows (``_build_spatial_fusion_plan``); batches of chunks
-  are resampled view by view with the exact-affine kernels
-  (``ops.exact_affine``) straight from the tile stack on the device, once for
-  the data and once for the 5^ndim blending grids, and blended with torch
-  ops (``_reduce_views``). The reference sends maps whose windows exceed its
-  on-chip memory to a gather tier; the port's kernels have no window limit
-  and take every map.
+  bands; other grids run in one kernel call over the whole output. Lazy
+  tiles above :data:`TILES_MAX_BYTES` that do not band are refused (the
+  reference's host-slab route is not ported); the chunked tiers below read
+  lazy tiles of any size into the device tile stack.
+- **Tiles tier**: the other builtin fusion functions (``max_fusion``,
+  ``simple_average_fusion``), and pixel scales the kernels do not take, on
+  axis-aligned plans of equal-shape tiles: each chunk's views are resampled
+  from the whole tiles on the device by the separable axis-aligned resample
+  and blended with torch ops, chunks in batches under a memory bound.
+- **Batched tier**: builtin fusion functions on views that are rotated,
+  scaled or sheared. The output is cut into chunks; each chunk lists the
+  views that reach it and their source windows
+  (``_build_spatial_fusion_plan``); batches of chunks are resampled view by
+  view with the exact-affine kernels (``ops.exact_affine``) straight from
+  the tile stack on the device, once for the data and once for the 5^ndim
+  blending grids, and blended with torch ops (``_reduce_views``). Float
+  views that may hold NaN take its gather route instead, as in the
+  reference: the gather resample of each view's NaN-padded window
+  (``ops.resample``), so that NaN pixels drop out of a view's contribution.
+- **Host tier**: any other fusion function, any ``weights_func`` (such as
+  ``weights.content_based``) or ``fusion_func_kwargs``: each chunk, with the
+  halo its functions declare, is fused by the computation of the extension
+  API :func:`fuse_np`, which hands the resampled views (a (K, *chunk)
+  tensor on the device) to the user's functions.
 
-The two tiers that do not stream read their tile stack through the device
-tile cache (:class:`_DeviceTileCache`): a repeat ``fuse()`` over the same
-source arrays, or a ``fuse()`` after ``registration.register(...,
-device_tiles=True)`` has uploaded them, uploads nothing. The streaming tier
-uploads its bands anew, as the reference's does.
+``trim_overlap=False`` with a halo keeps each chunk's extended region in the
+output, chunks side by side (the batched and host tiers). Every tier reads
+its tile stack through the device tile cache (:class:`_DeviceTileCache`): a
+repeat ``fuse()`` over the same source arrays, or a ``fuse()`` after
+``registration.register(..., device_tiles=True)`` has uploaded them, uploads
+nothing; float views that the gather route or the host tier read with their
+NaN kept are the one exception, a second stack uploaded once. The streaming
+tier uploads its bands anew, as the reference's does.
 
 ``fuse(output_zarr_url=...)`` writes the output chunk by chunk into a zarr v2
 array (an OME-Zarr level 0 with its pyramid, by default) through
 ``io.zarr_backend``, and returns a sim backed by it.
 
-Any input this slice does not cover raises ``NotImplementedError`` naming
+Any input this port does not cover raises ``NotImplementedError`` naming
 the ROADMAP.md item that will cover it; nothing falls back quietly.
 """
 
@@ -39,6 +58,7 @@ from __future__ import annotations
 
 import logging
 import time
+import warnings
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 from itertools import product
@@ -59,15 +79,18 @@ BoundingBox = Dict[str, Dict[str, Union[float, int]]]
 
 logger = logging.getLogger(__name__)
 
-# where the inputs this slice refuses are queued
+# where the inputs the port refuses are queued
 _ROADMAP = "ROADMAP.md, queue 1"
 
 # the translation tier streams tiles that hold more than STREAM_BYTES, and
 # tiles that are not in memory whatever their size; lazy tiles above
-# TILES_MAX_BYTES that do not band are refused (the reference's host-slab
-# route is not ported)
+# TILES_MAX_BYTES that do not band are refused there (the reference's
+# host-slab route is not ported)
 STREAM_BYTES = 192 << 20
 TILES_MAX_BYTES = 2 << 30
+# the batched and tiles tiers resample at most this many view voxels at once
+# (chunks in a batch x view slots x the largest window)
+MAX_BATCH_ELEMENTS = 2**25
 # lazy tiles are read by this many threads, each read retried this many times
 # on a transient IO error
 _READ_WORKERS = 16
@@ -524,16 +547,23 @@ def clear_device_tile_cache() -> None:
     _device_tile_cache.clear()
 
 
-def _tiles_to_device(field_sims, device) -> torch.Tensor:
+def _tiles_to_device(field_sims, device, keep_nan: bool = False) -> torch.Tensor:
     """(V, *tile) stack of the views on ``device`` in their native dtype,
     from the device tile cache when it holds them, else uploaded and cached.
 
     Lazy tiles are read first (:func:`_materialize_tiles`); float tiles get
-    ``nan_to_num`` before the upload. Mixed tile shapes are uploaded as they
-    are, one group per shape, and edge-padded on the device to the common
-    maximum shape; the kernels mask each view by its true extents."""
+    ``nan_to_num`` before the upload, unless ``keep_nan`` (the gather tiers,
+    where NaN marks invalid pixels; a float stack with NaN kept is cached
+    apart, an integer stack is the same either way). Mixed tile shapes are
+    uploaded as they are, one group per shape, and edge-padded on the device
+    to the common maximum shape; the kernels mask each view by its true
+    extents, the gather tiers read inside each view's own shape."""
     global tile_upload_bytes
     key = _DeviceTileCache.key_for(field_sims, device)
+    floating = any(np.issubdtype(np.dtype(s.data.dtype), np.floating) for s in field_sims)
+    if key is not None and keep_nan and floating:
+        # only float stacks differ with NaN kept; integer ones share the entry
+        key = key + ("keep_nan",)
     hit = _device_tile_cache.get(key)
     if hit is not None:
         return hit
@@ -541,7 +571,7 @@ def _tiles_to_device(field_sims, device) -> torch.Tensor:
     def put(sims):
         global tile_upload_bytes
         stack = _materialize_tiles(sims)
-        if np.issubdtype(stack.dtype, np.floating):
+        if np.issubdtype(stack.dtype, np.floating) and not keep_nan:
             stack = np.nan_to_num(stack)
         tile_upload_bytes += stack.nbytes
         return torch.from_numpy(stack).to(device)
@@ -686,10 +716,7 @@ def _fuse_translation_views(
     monolithic kernel call. A failed streaming run raises."""
     plan = {"sparams": param_mats}
     tiles_in_memory = all(not si_utils._is_lazy(s.data) for s in field_sims)
-    total_tile_bytes = sum(
-        int(np.prod(s.data.shape)) * np.dtype(s.data.dtype).itemsize for s in field_sims
-    )
-    tiles_fit_on_device = tiles_in_memory or total_tile_bytes <= TILES_MAX_BYTES
+    tiles_fit_on_device = _tiles_fit_on_device(field_sims)
     stream_worthy = (
         len({tuple(s.data.shape) for s in field_sims}) == 1
         and scale is not None
@@ -697,7 +724,7 @@ def _fuse_translation_views(
         and (
             not tiles_in_memory
             or not tiles_fit_on_device
-            or total_tile_bytes > STREAM_BYTES
+            or _tile_bytes(field_sims) > STREAM_BYTES
         )
     )
     if stream_worthy:
@@ -718,7 +745,7 @@ def _fuse_translation_views(
             return
     if not tiles_fit_on_device:
         raise NotImplementedError(
-            f"{total_tile_bytes} bytes of lazy tiles that do not band need the "
+            f"{_tile_bytes(field_sims)} bytes of lazy tiles that do not band need the "
             f"host-slab route, which is not ported yet ({_ROADMAP}: item 10)"
         )
     _execute_fusion_plan_translation(
@@ -736,23 +763,28 @@ def _fuse_translation_views(
 
 
 # ---------------------------------------------------------------------------
-# exact-affine tier
+# chunk plans and the batched tier (exact-affine kernels, gather route)
 # ---------------------------------------------------------------------------
+
+
+def _normalized_bw(data_t, bw, dim: int = 0):
+    """The blending weights a reduction uses: cosine-tapered, 0 where a
+    view's data is NaN, normalized over the view axis ``dim``; where every
+    valid view's weight is 0 (the taper hits 0 at the support border), the
+    valid views share equally, so border pixels keep their values."""
+    bw = weights.cosine_weights(bw)
+    valid = ~torch.isnan(data_t)
+    bw = bw * valid
+    wsum = bw.sum(dim=dim, keepdim=True)
+    bw = torch.where(wsum > 0, bw, valid.to(bw.dtype))
+    return weights.normalize_weights(bw, dim=dim)
 
 
 def _reduce_views(data_t, bw, mode: str, use_bw: bool, dim: int = 0):
     """NaN-aware reduction over the view axis ``dim``; returns the fused
     values and the normalized weights (None without ``use_bw``)."""
     if use_bw:
-        bw = weights.cosine_weights(bw)
-        valid = ~torch.isnan(data_t)
-        bw = bw * valid
-        # zero total weight with valid data (the cosine taper hits exactly 0
-        # at the support border): fall back to the unweighted valid average so
-        # border pixels keep their values instead of dropping to 0
-        wsum = bw.sum(dim=dim, keepdim=True)
-        bw = torch.where(wsum > 0, bw, valid.to(bw.dtype))
-        bw = weights.normalize_weights(bw, dim=dim)
+        bw = _normalized_bw(data_t, bw, dim)
     if mode == "weighted_average":
         fused = torch.nansum(data_t * bw, dim=dim)
     elif mode == "max":
@@ -903,12 +935,16 @@ def exact_kernel_params(
     blending grid ``g`` and its map ``wm``, ``wo``.
 
     The kernel grid of an entry is its chunk (with halo) extended to
-    ``O_max``. A window start is clamped so that an ``S_max`` window fits the
-    ``stack_shape`` tile stack (at least ``S_max`` wide), as the reference
-    clamps it for its on-device slice; the map's offset is relative to the
-    clamped start."""
+    ``O_max``. With a ``stack_shape``, a window start is clamped so that an
+    ``S_max`` window fits the tile stack (at least ``S_max`` wide), as the
+    reference clamps it for its on-device slice; without one (the gather
+    route) it is not, as for the reference's host slabs. The map's offset is
+    relative to the start."""
     ndim = len(sdims)
-    clamp_sizes = tuple(max(stack_shape[i], S_max[i]) for i in range(ndim))
+    clamp_sizes = (
+        None if stack_shape is None
+        else tuple(max(stack_shape[i], S_max[i]) for i in range(ndim))
+    )
     views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
     out = []
     for entry in entries:
@@ -929,7 +965,8 @@ def exact_kernel_params(
                 start = int(round((window_bb["origin"][d] - origin[d]) / spacing[d]))
                 start = max(0, start)
                 stop = min(int(sim.sizes[d]), start + int(window_bb["shape"][d]))
-                start = min(start, max(0, clamp_sizes[i] - S_max[i]))
+                if clamp_sizes is not None:
+                    start = min(start, max(0, clamp_sizes[i] - S_max[i]))
                 starts.append(start)
                 extent.append(stop - start)
             slab_origin = {
@@ -1065,7 +1102,221 @@ def _fuse_chunk_batch_kernel_exact_devtiles(
     )
 
 
+def _resample_views(stack, tile_idx, starts, extents, window, mats, offs, wgrids, wmats,
+                    woffs, valid, out_shape, use_bw):
+    """The gather resample of N view windows and their blending grids:
+    item n reads the ``window``-shaped slab of ``stack[tile_idx[n]]`` at
+    ``starts[n]``, NaN beyond ``extents[n]`` (``ops.resample.
+    affine_resample_windows``), at the map ``mats[n]``, ``offs[n]``; its 5^ndim
+    grid is resampled with ``cval`` 0. Items whose ``valid`` is False give NaN
+    data and weight 0. Returns the (N, *out_shape) data and weights (None
+    without ``use_bw``)."""
+    ndim = len(out_shape)
+    dev = stack.device
+    data_t = resample_ops.affine_resample_windows(
+        stack, tile_idx, starts, extents, window, mats, offs, out_shape, cval=float("nan"),
+    )
+    keep = torch.as_tensor(np.asarray(valid), device=dev).reshape((-1,) + (1,) * ndim)
+    data_t = torch.where(keep, data_t, torch.nan)
+    bw = None
+    if use_bw:
+        bw = resample_ops.affine_resample_batch(
+            torch.as_tensor(np.asarray(wgrids, np.float32), device=dev), wmats, woffs,
+            out_shape, cval=0.0,
+        ) * keep
+    return data_t, bw
+
+
+def _fuse_chunk_batch_kernel_gather(stack, t, S_max, out_shape, mode, use_bw, out_dtype):
+    """Fuse a batch of B chunks with up to K views each by the gather
+    resample of their NaN-padded source windows (the reference's
+    ``_fuse_chunk_batch_kernel``): ``stack`` is the float32 tile stack with
+    its NaN kept, ``t`` the tables of :func:`_build_exact_batch` at unclamped
+    starts. Returns (B, *out_shape) in ``out_dtype``."""
+    B, K = t["valid"].shape
+    ndim = len(out_shape)
+    BK = B * K
+    data_t, bw = _resample_views(
+        stack, t["tile_idx"].reshape(BK), t["starts"].reshape(BK, ndim),
+        t["extents"].reshape(BK, ndim).astype(np.int64), S_max,
+        t["mats"].reshape(BK, ndim, ndim), t["offs"].reshape(BK, ndim),
+        t["wgrids"].reshape((BK,) + (5,) * ndim), t["wmats"].reshape(BK, ndim, ndim),
+        t["woffs"].reshape(BK, ndim), t["valid"].reshape(BK), out_shape, use_bw,
+    )
+    split = (B, K) + tuple(out_shape)
+    return _blend_batch(data_t.reshape(split), None if bw is None else bw.reshape(split),
+                        mode, use_bw, out_dtype)
+
+
+def _untrimmed_axis_positions(plan, sdims, overlap_in_pixels):
+    """Per-axis start offsets of each chunk's extended region in the
+    untrimmed (``trim_overlap=False``) output layout, where chunk i occupies
+    ``core_shape_i + 2 * overlap`` pixels side by side."""
+    sizes = [dict() for _ in sdims]
+    for e in plan["per_chunk_entries"]:
+        for i, d in enumerate(sdims):
+            sizes[i][e["block_index"][i]] = int(e["output_bb"]["shape"][d])
+    pos = []
+    for i, d in enumerate(sdims):
+        cum, acc = {}, 0
+        for bi in sorted(sizes[i]):
+            cum[bi] = acc
+            acc += sizes[i][bi] + 2 * overlap_in_pixels[d]
+        pos.append(cum)
+    return pos
+
+
+def _chunk_regions(entry, osp, sdims, untrimmed_pos):
+    """(source, destination) slices of one fused chunk: its core inside its
+    kernel grid (which starts at the chunk's extended origin) and in the
+    output; with ``untrimmed_pos`` the whole extended region and its place in
+    the untrimmed layout."""
+    chunk_bb, chunk_bb_ov = entry["output_bb"], entry["output_bb_overlap"]
+    src, dst = [], []
+    for i, d in enumerate(sdims):
+        if untrimmed_pos is not None:
+            n = int(chunk_bb_ov["shape"][d])
+            c0, o0 = 0, untrimmed_pos[i][entry["block_index"][i]]
+        else:
+            n = int(chunk_bb["shape"][d])
+            c0 = int(round(
+                (chunk_bb["origin"][d] - chunk_bb_ov["origin"][d]) / chunk_bb_ov["spacing"][d]
+            ))
+            o0 = int(round((chunk_bb["origin"][d] - osp["origin"][d]) / osp["spacing"][d]))
+        src.append(slice(c0, c0 + n))
+        dst.append(slice(o0, o0 + n))
+    return tuple(src), tuple(dst)
+
+
+def _untrimmed(trim_overlap, overlap_in_pixels, sdims) -> bool:
+    return (not trim_overlap) and any(overlap_in_pixels[d] > 0 for d in sdims)
+
+
+def _float_views_may_hold_nan(field_sims) -> bool:
+    """The reference's guard between its exact and gather tiers: float views
+    that hold NaN, and lazy float views (which cannot be scanned cheaply)."""
+    if not np.issubdtype(np.dtype(field_sims[0].data.dtype), np.floating):
+        return False
+    return any(
+        si_utils._is_lazy(s.data) or bool(np.isnan(s.data).any()) for s in field_sims
+    )
+
+
 def _execute_fusion_plan_batched(
+    plan,
+    field_sims,
+    output_stack_properties,
+    sdims,
+    *,
+    mode,
+    use_bw,
+    overlap_in_pixels,
+    trim_overlap,
+    blending_widths,
+    shrink_distance,
+    out,
+    device,
+):
+    """Run a chunk plan for a builtin fusion function and write the chunks
+    into ``out``, trimmed or, with ``trim_overlap=False`` and halos, in the
+    untrimmed layout.
+
+    Every chunk's view list is padded to K_max slots and every kernel grid
+    to the plan-wide largest chunk; chunks go in batches of
+    ``MAX_BATCH_ELEMENTS // (K_max * prod(S_max))`` (the reference's rule,
+    S_max being the largest source window), in order. Views are resampled by
+    the exact-affine kernels from the tile stack on the device, or, for float
+    views that may hold NaN (:func:`_float_views_may_hold_nan`), by the
+    gather route, which reads their NaN-padded windows at unclamped starts
+    from the stack with its NaN kept, so that NaN pixels drop out of each
+    view's contribution. The fused chunks are assembled on the device and
+    downloaded once."""
+    ndim = len(sdims)
+    entries = [e for e in plan["per_chunk_entries"] if e["views"]]
+    if not entries:
+        return
+    K_max, S_max, O_max = _plan_window_shapes(entries, sdims)
+    batch_size = max(1, int(MAX_BATCH_ELEMENTS // max(K_max * int(np.prod(S_max)), 1)))
+    gather = _float_views_may_hold_nan(field_sims)
+    stack_shape = None if gather else tuple(
+        max(int(s.data.shape[i]) for s in field_sims) for i in range(ndim)
+    )
+    params = exact_kernel_params(
+        entries, field_sims, plan["sparams"], sdims, S_max, O_max, stack_shape,
+        use_bw, blending_widths, shrink_distance,
+    )
+    if gather:
+        tiles = _tiles_to_device(field_sims, device, keep_nan=True).to(torch.float32)
+    else:
+        kind = _exact_kind(ndim, params, use_bw)
+        tiles = _tiles_to_device(field_sims, device)
+        if tiles.is_cuda:
+            # read as float32 once for all launches where the kernels do not
+            # read the dtype (the wrappers would cast it at every launch)
+            tiles = exact_affine.kernel_input(tiles)
+    out_dtype = _torch_dtype(out.dtype)
+    out_dev = torch.zeros(out.shape, dtype=out_dtype, device=tiles.device)
+    untrimmed_pos = (
+        _untrimmed_axis_positions(plan, sdims, overlap_in_pixels)
+        if _untrimmed(trim_overlap, overlap_in_pixels, sdims) else None
+    )
+    for i0 in range(0, len(entries), batch_size):
+        batch = entries[i0 : i0 + batch_size]
+        t = _build_exact_batch(params[i0 : i0 + batch_size], K_max, ndim, use_bw)
+        if gather:
+            fused = _fuse_chunk_batch_kernel_gather(
+                tiles, t, S_max, O_max, mode, use_bw, out_dtype
+            )
+        else:
+            fused = _fuse_chunk_batch_kernel_exact_devtiles(
+                tiles, t["tile_idx"], t["starts"], t["mats"], t["offs"], t["extents"],
+                t["wgrids"], t["wmats"], t["woffs"], t["valid"],
+                O_max, mode, use_bw, kind, out_dtype,
+            )
+        for bi, entry in enumerate(batch):
+            src, dst = _chunk_regions(entry, output_stack_properties, sdims, untrimmed_pos)
+            out_dev[dst] = fused[bi][src]
+    _download(out_dev, out)
+
+
+# ---------------------------------------------------------------------------
+# tiles tier: axis-aligned plans of builtin fusion functions
+# ---------------------------------------------------------------------------
+
+
+def _plan_is_axis_aligned(sparams, ndim) -> bool:
+    for p in sparams:
+        lin = np.asarray(p)[:ndim, :ndim]
+        if not np.allclose(lin, np.diag(np.diag(lin)), atol=1e-12):
+            return False
+        if np.any(np.diag(lin) <= 0):
+            return False
+    return True
+
+
+def _resample_tiles(tiles, view_idx, diags, offs, wgrids, wdiags, woffs, valid, out_shape,
+                    use_bw):
+    """The separable resample of N whole tiles (``tiles[view_idx[n]]``) and
+    their blending grids at axis-aligned maps; items whose ``valid`` is False
+    give NaN data and weight 0. Returns the (N, *out_shape) data and weights
+    (None without ``use_bw``)."""
+    ndim = len(out_shape)
+    dev = tiles.device
+    keep = torch.as_tensor(valid, device=dev).reshape((-1,) + (1,) * ndim)
+    data_t = resample_ops.separable_axis_aligned_resample(
+        tiles[torch.as_tensor(view_idx, dtype=torch.int64, device=dev)],
+        diags, offs, out_shape, cval=float("nan"),
+    )
+    data_t = torch.where(keep, data_t, torch.nan)
+    bw = None
+    if use_bw:
+        bw = resample_ops.separable_axis_aligned_resample(
+            torch.as_tensor(wgrids, device=dev), wdiags, woffs, out_shape, cval=0.0,
+        ) * keep
+    return data_t, bw
+
+
+def _execute_fusion_plan_tiles(
     plan,
     field_sims,
     output_stack_properties,
@@ -1077,118 +1328,413 @@ def _execute_fusion_plan_batched(
     shrink_distance,
     out,
     device,
-    max_batch_elements=2**25,
 ):
-    """Run a chunk plan through the exact-affine tier and write the trimmed
-    chunks into the host array ``out``.
-
-    Every chunk's view list is padded to K_max slots and every kernel grid
-    to the plan-wide largest chunk; chunks go through the kernels in batches
-    of ``max_batch_elements // (K_max * prod(S_max))`` (the reference's rule,
-    S_max being the largest source window), in order. The fused chunks are
-    assembled on the device and downloaded once."""
+    """The reference's tiles tier for axis-aligned plans of equal-shape
+    tiles: the whole tiles sit on the device once (the device tile cache, as
+    float32), and each chunk's views are resampled from them by the
+    separable axis-aligned resample, blended over the views and cast on the
+    device. Chunks go in batches of ``MAX_BATCH_ELEMENTS // (K_max *
+    prod(O_max))``; the fused chunks are assembled on the device and
+    downloaded once."""
     ndim = len(sdims)
     entries = [e for e in plan["per_chunk_entries"] if e["views"]]
     if not entries:
         return
-    K_max, S_max, O_max = _plan_window_shapes(entries, sdims)
-    batch_size = max(1, int(max_batch_elements // max(K_max * int(np.prod(S_max)), 1)))
-    stack_shape = tuple(
-        max(int(s.data.shape[i]) for s in field_sims) for i in range(ndim)
-    )
-    params = exact_kernel_params(
-        entries, field_sims, plan["sparams"], sdims, S_max, O_max, stack_shape,
-        use_bw, blending_widths, shrink_distance,
-    )
-    kind = _exact_kind(ndim, params, use_bw)
+    views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
+    K_max = max(len(e["views"]) for e in entries)
+    O_max = tuple(max(int(e["output_bb_overlap"]["shape"][d]) for e in entries) for d in sdims)
+    osp_spacing = np.array([output_stack_properties["spacing"][d] for d in sdims])
+    C = len(entries)
+    view_idx = np.zeros((C, K_max), dtype=np.int64)
+    diags = np.ones((C, K_max, ndim), dtype=np.float32)
+    offs = np.zeros((C, K_max, ndim), dtype=np.float32)
+    wgrids = np.zeros((C, K_max) + (5,) * ndim, dtype=np.float32)
+    wdiags = np.ones((C, K_max, ndim), dtype=np.float32)
+    woffs = np.zeros((C, K_max, ndim), dtype=np.float32)
+    valid = np.zeros((C, K_max), dtype=bool)
+    for ci, entry in enumerate(entries):
+        chunk_bb_ov = entry["output_bb_overlap"]
+        kernel_bb = {
+            "origin": dict(chunk_bb_ov["origin"]),
+            "spacing": dict(chunk_bb_ov["spacing"]),
+            "shape": {d: O_max[i] for i, d in enumerate(sdims)},
+        }
+        for vi, (iview, _window) in enumerate(entry["views"]):
+            pm = plan["sparams"][iview]
+            m, o = resample_ops.physical_to_pixel_params(
+                np.linalg.inv(pm),
+                input_spacing=np.array([views_bb[iview]["spacing"][d] for d in sdims]),
+                input_origin=np.array([views_bb[iview]["origin"][d] for d in sdims]),
+                output_spacing=osp_spacing,
+                output_origin=np.array([kernel_bb["origin"][d] for d in sdims]),
+            )
+            view_idx[ci, vi] = iview
+            diags[ci, vi] = np.diag(m)
+            offs[ci, vi] = o
+            valid[ci, vi] = True
+            if use_bw:
+                g, wm, wo = weights.blending_weights_pixel_params(
+                    kernel_bb, views_bb[iview], pm,
+                    blending_widths=blending_widths, shrink_distance=shrink_distance,
+                )
+                wgrids[ci, vi] = g
+                wdiags[ci, vi] = np.diag(wm)
+                woffs[ci, vi] = wo
 
-    tiles = _tiles_to_device(field_sims, device)
-    if tiles.is_cuda:
-        # read as float32 once for all launches where the kernels do not
-        # read the dtype (the wrappers would cast it at every launch)
-        tiles = exact_affine.kernel_input(tiles)
+    tiles = _tiles_to_device(field_sims, device).to(torch.float32)
     out_dtype = _torch_dtype(out.dtype)
     out_dev = torch.zeros(out.shape, dtype=out_dtype, device=tiles.device)
-    osp = output_stack_properties
-    for i0 in range(0, len(entries), batch_size):
-        batch = entries[i0 : i0 + batch_size]
-        t = _build_exact_batch(params[i0 : i0 + batch_size], K_max, ndim, use_bw)
-        fused = _fuse_chunk_batch_kernel_exact_devtiles(
-            tiles, t["tile_idx"], t["starts"], t["mats"], t["offs"], t["extents"],
-            t["wgrids"], t["wmats"], t["woffs"], t["valid"],
-            O_max, mode, use_bw, kind, out_dtype,
+    batch_size = max(1, int(MAX_BATCH_ELEMENTS // max(K_max * int(np.prod(O_max)), 1)))
+    for c0 in range(0, C, batch_size):
+        sl = slice(c0, c0 + batch_size)
+        B = len(entries[sl])
+        N = B * K_max
+        data_t, bw = _resample_tiles(
+            tiles, view_idx[sl].reshape(N), diags[sl].reshape(N, ndim),
+            offs[sl].reshape(N, ndim), wgrids[sl].reshape((N,) + (5,) * ndim),
+            wdiags[sl].reshape(N, ndim), woffs[sl].reshape(N, ndim), valid[sl].reshape(N),
+            O_max, use_bw,
         )
-        for bi, entry in enumerate(batch):
-            chunk_bb, chunk_bb_ov = entry["output_bb"], entry["output_bb_overlap"]
-            # core region of the chunk inside its kernel grid, and in the output
-            core, dst = [], []
-            for d in sdims:
-                n = int(chunk_bb["shape"][d])
-                c0 = int(round(
-                    (chunk_bb["origin"][d] - chunk_bb_ov["origin"][d])
-                    / chunk_bb_ov["spacing"][d]
-                ))
-                o0 = int(round((chunk_bb["origin"][d] - osp["origin"][d]) / osp["spacing"][d]))
-                core.append(slice(c0, c0 + n))
-                dst.append(slice(o0, o0 + n))
-            out_dev[tuple(dst)] = fused[bi][tuple(core)]
+        split = (B, K_max) + O_max
+        fused = _blend_batch(data_t.reshape(split), None if bw is None else bw.reshape(split),
+                             mode, use_bw, out_dtype)
+        for bi, entry in enumerate(entries[sl]):
+            src, dst = _chunk_regions(entry, output_stack_properties, sdims, None)
+            out_dev[dst] = fused[bi][src]
     _download(out_dev, out)
 
 
-def _fuse_affine_views(
+# ---------------------------------------------------------------------------
+# host tier: fuse_np per chunk, for any fusion and weights function
+# ---------------------------------------------------------------------------
+
+
+def _slab_window(sim, window_bb):
+    """The integer pixel window of ``window_bb`` in a tile, cut to the tile:
+    (starts, stops, origin of the window)."""
+    sdims = si_utils.get_spatial_dims_from_sim(sim)
+    origin = si_utils.get_origin_from_sim(sim)
+    spacing = si_utils.get_spacing_from_sim(sim)
+    starts, stops = [], []
+    for d in sdims:
+        start = max(0, int(round((window_bb["origin"][d] - origin[d]) / spacing[d])))
+        starts.append(start)
+        stops.append(min(int(sim.sizes[d]), start + int(window_bb["shape"][d])))
+    slab_origin = {d: origin[d] + starts[i] * spacing[d] for i, d in enumerate(sdims)}
+    return starts, stops, slab_origin
+
+
+def _fuse_views(
+    stack, tile_idx, starts, extents, slab_origins, params, view_bbs, output_properties,
+    sdims, *, fusion_func, fusion_func_kwargs, weights_func, weights_func_kwargs,
+    trim_overlap_in_pixels, blending_widths, shrink_distance, out_dtype,
+):
+    """:func:`fuse_np` of K views on the device: view k is the slab of
+    ``stack[tile_idx[k]]`` (float32, NaN kept) from ``starts[k]`` of shape
+    ``extents[k]``, with its origin ``slab_origins[k]``. Returns the fused,
+    trimmed window in ``out_dtype``, on the stack's device."""
+    ndim = len(sdims)
+    K = len(tile_idx)
+    out_shape = tuple(int(output_properties["shape"][d]) for d in sdims)
+    fusion_func_kwargs = dict(fusion_func_kwargs or {})
+    weights_func_kwargs = dict(weights_func_kwargs or {})
+    needs_bw = misc_utils.has_keyword(fusion_func, "blending_weights") or misc_utils.has_keyword(
+        weights_func, "blending_weights"
+    )
+    param_mats = []
+    for p in params:
+        m = np.asarray(param_utils.to_xaffine(p).squeeze())
+        param_mats.append(m[0] if m.ndim == 3 else m)
+    osp_spacing = np.array([output_properties["spacing"][d] for d in sdims])
+    osp_origin = np.array([output_properties["origin"][d] for d in sdims])
+    mats = np.zeros((K, ndim, ndim), np.float32)
+    offs = np.zeros((K, ndim), np.float32)
+    wgrids = np.zeros((K,) + (5,) * ndim, np.float32)
+    wmats = np.tile(np.eye(ndim, dtype=np.float32), (K, 1, 1))
+    woffs = np.zeros((K, ndim), np.float32)
+    for k in range(K):
+        mats[k], offs[k] = resample_ops.physical_to_pixel_params(
+            np.linalg.inv(param_mats[k]),
+            input_spacing=np.array([view_bbs[k]["spacing"][d] for d in sdims]),
+            input_origin=np.array([slab_origins[k][d] for d in sdims]),
+            output_spacing=osp_spacing,
+            output_origin=osp_origin,
+        )
+        if needs_bw:
+            wgrids[k], wmats[k], woffs[k] = weights.blending_weights_pixel_params(
+                output_properties, view_bbs[k], param_mats[k],
+                blending_widths=blending_widths, shrink_distance=shrink_distance,
+            )
+    extents = np.asarray(extents, dtype=np.int64).reshape(K, ndim)
+    window = tuple(int(x) for x in extents.max(axis=0))
+    data_t, bw = _resample_views(
+        stack, tile_idx, starts, extents, window, mats, offs, wgrids, wmats, woffs,
+        np.ones(K, bool), out_shape, needs_bw,
+    )
+
+    builtin_mode = _BUILTIN_FUSION_MODES.get(fusion_func)
+    if builtin_mode is not None and weights_func is None and not fusion_func_kwargs:
+        fused, _ = _reduce_views(data_t, bw, builtin_mode, needs_bw)
+    else:
+        # the extension path: each function gets the inputs it names
+        if needs_bw:
+            bw = _normalized_bw(data_t, bw)
+        fusion_func_kwargs["transformed_views"] = data_t
+        if misc_utils.has_keyword(fusion_func, "params"):
+            fusion_func_kwargs["params"] = params
+        if needs_bw:
+            fusion_func_kwargs["blending_weights"] = bw
+        if (
+            misc_utils.has_keyword(fusion_func, "output_spacing")
+            and "output_spacing" not in fusion_func_kwargs
+        ):
+            fusion_func_kwargs["output_spacing"] = output_properties["spacing"]
+        if weights_func is not None and misc_utils.has_keyword(fusion_func, "fusion_weights"):
+            weights_func_kwargs["transformed_views"] = data_t
+            if misc_utils.has_keyword(weights_func, "params"):
+                weights_func_kwargs["params"] = params
+            if misc_utils.has_keyword(weights_func, "blending_weights"):
+                weights_func_kwargs["blending_weights"] = bw
+            if (
+                misc_utils.has_keyword(weights_func, "output_chunksize")
+                and "output_chunksize" not in weights_func_kwargs
+            ):
+                weights_func_kwargs["output_chunksize"] = output_properties["shape"]
+            fusion_func_kwargs["fusion_weights"] = weights_func(**weights_func_kwargs)
+        fused = func_ignore_nan_warning(fusion_func, **fusion_func_kwargs)
+        fused = torch.as_tensor(fused, device=data_t.device)
+
+    trim = trim_overlap_in_pixels
+    if not isinstance(trim, dict):
+        trim = {d: trim for d in sdims}
+    fused = fused[tuple(
+        slice(trim[d], -trim[d]) if trim[d] > 0 else slice(None) for d in sdims
+    )]
+    return translation_fusion._cast(fused, out_dtype)
+
+
+def fuse_np(
+    sims: Sequence,
+    params,
+    output_properties: BoundingBox,
+    fusion_func: Callable = weighted_average_fusion,
+    fusion_func_kwargs: Optional[dict] = None,
+    weights_func: Optional[Callable] = None,
+    weights_func_kwargs: Optional[dict] = None,
+    trim_overlap_in_pixels=0,
+    interpolation_order: int = 1,
+    full_view_bbs=None,
+    blending_widths=None,
+    shrink_distance=0,
+    device=None,
+) -> np.ndarray:
+    """Fuse views into one output window: the extension API.
+
+    Each view is resampled onto ``output_properties`` (linear interpolation,
+    NaN outside the view and where it holds NaN; ``interpolation_order``
+    only widens the source windows the fusion plan reads, as in the
+    reference) and the views are fused by ``fusion_func``. A builtin fusion
+    function without ``weights_func`` or ``fusion_func_kwargs`` reduces on
+    the device as the batched tiers do. Any other function is called with
+    the inputs it names among its parameters (a ``**kwargs`` catch-all names
+    none), as tensors on the device: ``transformed_views`` (K, *window)
+    float32, ``blending_weights`` (normalized), ``params``,
+    ``output_spacing``, and ``fusion_weights`` from ``weights_func``, which
+    is called in the same way (with ``output_chunksize`` the window's shape).
+    The result is trimmed by ``trim_overlap_in_pixels`` per side, NaN set to
+    0 and cast (truncating) to the views' dtype, and returned as a numpy
+    array. Runs on ``device``: the CUDA device by default (raising if there
+    is none), or the CPU with ``device="cpu"``."""
+    device = misc_utils.resolve_device(device)
+    sdims = si_utils.get_spatial_dims_from_sim(sims[0])
+    ndim = len(sdims)
+    if full_view_bbs is None:
+        full_view_bbs = [si_utils.get_stack_properties_from_sim(sim) for sim in sims]
+    shapes = np.array([[int(x) for x in sim.data.shape] for sim in sims])
+    window = tuple(int(x) for x in shapes.max(axis=0))
+    slabs = np.full((len(sims),) + window, np.nan, dtype=np.float32)
+    for i, sim in enumerate(sims):
+        slabs[i][tuple(slice(0, s) for s in shapes[i])] = np.asarray(sim.data, dtype=np.float32)
+    fused = _fuse_views(
+        torch.from_numpy(slabs).to(device), np.arange(len(sims)), np.zeros((len(sims), ndim), int),
+        shapes, [si_utils.get_origin_from_sim(sim) for sim in sims], params, full_view_bbs,
+        output_properties, sdims,
+        fusion_func=fusion_func, fusion_func_kwargs=fusion_func_kwargs,
+        weights_func=weights_func, weights_func_kwargs=weights_func_kwargs,
+        trim_overlap_in_pixels=trim_overlap_in_pixels, blending_widths=blending_widths,
+        shrink_distance=shrink_distance, out_dtype=_torch_dtype(sims[0].data.dtype),
+    )
+    return fused.cpu().numpy()
+
+
+def _execute_fusion_plan_host(
+    plan,
+    field_sims,
+    output_stack_properties,
+    sdims,
+    *,
+    fusion_func,
+    fusion_func_kwargs,
+    weights_func,
+    weights_func_kwargs,
+    overlap_in_pixels,
+    trim_overlap,
+    blending_widths,
+    shrink_distance,
+    out,
+    device,
+):
+    """The reference's per-chunk tier: each chunk with views is fused by
+    :func:`fuse_np`'s computation on its extended bounding box, from the
+    views' source windows, and written trimmed, or, with
+    ``trim_overlap=False`` and halos, untrimmed in the untrimmed layout. The
+    reference cuts each window on the host; here the views sit on the device
+    once (float32, NaN kept) and each window is read from there, which gives
+    the same samples. The fused chunks are assembled on the device and
+    downloaded once."""
+    entries = [e for e in plan["per_chunk_entries"] if e["views"]]
+    if not entries:
+        return
+    views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
+    stack = _tiles_to_device(field_sims, device, keep_nan=True).to(torch.float32)
+    out_dtype = _torch_dtype(out.dtype)
+    out_dev = torch.zeros(out.shape, dtype=out_dtype, device=stack.device)
+    untrimmed = _untrimmed(trim_overlap, overlap_in_pixels, sdims)
+    untrimmed_pos = (
+        _untrimmed_axis_positions(plan, sdims, overlap_in_pixels) if untrimmed else None
+    )
+    trim = overlap_in_pixels if trim_overlap else {d: 0 for d in sdims}
+    for entry in entries:
+        iviews = [iview for iview, _ in entry["views"]]
+        windows = [_slab_window(field_sims[iview], bb) for iview, bb in entry["views"]]
+        fused = _fuse_views(
+            stack, np.array(iviews), np.array([w[0] for w in windows]),
+            np.array([np.subtract(w[1], w[0]) for w in windows]), [w[2] for w in windows],
+            [plan["sparams"][i] for i in iviews], [views_bb[i] for i in iviews],
+            entry["output_bb_overlap"], sdims,
+            fusion_func=fusion_func, fusion_func_kwargs=fusion_func_kwargs,
+            weights_func=weights_func, weights_func_kwargs=weights_func_kwargs,
+            trim_overlap_in_pixels=trim, blending_widths=blending_widths,
+            shrink_distance=shrink_distance, out_dtype=out_dtype,
+        )
+        if untrimmed:
+            _, dst = _chunk_regions(entry, output_stack_properties, sdims, untrimmed_pos)
+        else:
+            # the window is trimmed to the chunk already
+            _, dst = _chunk_regions(entry, output_stack_properties, sdims, None)
+        out_dev[dst] = fused
+    _download(out_dev, out)
+
+
+# ---------------------------------------------------------------------------
+# tier choice
+# ---------------------------------------------------------------------------
+
+
+def _execute_fusion_plan(
     param_mats,
     field_sims,
     output_stack_properties,
     sdims,
     *,
     fusion_func,
+    fusion_func_kwargs,
+    weights_func,
+    weights_func_kwargs,
     output_chunksize,
     overlap_in_pixels,
+    trim_overlap,
     interpolation_order,
     blending_widths,
     shrink_distance,
     out,
     device,
 ):
-    """Plan and run the exact-affine tier for views that are not all placed
-    by translations. Float tiles that hold NaN are refused: the kernels read
-    NaN as 0, while the tier that excludes NaN pixels per view is not ported."""
-    if np.issubdtype(np.dtype(field_sims[0].data.dtype), np.floating) and any(
-        bool(np.isnan(s.data).any()) for s in field_sims
+    """Fuse one set of spatial views into ``out`` through the tier the
+    reference takes (its ``_execute_fusion_plan``), in its order: for the
+    default weighted average of translation-placed views whose pixel scales
+    the kernels take, the streaming or the monolithic translation tier; else
+    the output is planned in chunks (``_build_spatial_fusion_plan``) and a
+    builtin fusion function (without ``weights_func`` or
+    ``fusion_func_kwargs``) takes the tiles tier for an axis-aligned plan of
+    equal-shape tiles written trimmed, else the batched tier (the
+    exact-affine kernels, or the gather route for float views that may hold
+    NaN); every other call takes the host tier. The chunked tiers read lazy
+    tiles of any size into the device tile stack; only the translation tier
+    refuses lazy tiles above :data:`TILES_MAX_BYTES` that do not band."""
+    ndim = len(sdims)
+    builtin_mode = _BUILTIN_FUSION_MODES.get(fusion_func)
+    builtin = builtin_mode is not None and weights_func is None and not fusion_func_kwargs
+    untrimmed = _untrimmed(trim_overlap, overlap_in_pixels, sdims)
+    if (
+        builtin_mode == "weighted_average" and builtin and not untrimmed
+        and _plan_is_translation(param_mats, ndim)
     ):
-        raise NotImplementedError(
-            "float views that contain NaN need the gather tier, which is not "
-            f"ported yet ({_ROADMAP}: items 6 and 10)"
+        scale = _views_output_scale(field_sims, output_stack_properties, sdims)
+        scales = (
+            None if scale is not None
+            else _views_output_scales_per_view(field_sims, output_stack_properties, sdims)
         )
+        if scale is not None or scales is not None:
+            _fuse_translation_views(
+                param_mats, field_sims, output_stack_properties, sdims,
+                scale=scale, scales=scales, blending_widths=blending_widths,
+                shrink_distance=shrink_distance, out=out, device=device,
+                output_chunksize=output_chunksize,
+            )
+            return
+
     views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
-    chunk_bbs, block_indices = mv_graph.get_chunk_bbs(
-        output_stack_properties, output_chunksize
-    )
+    chunk_bbs, block_indices = mv_graph.get_chunk_bbs(output_stack_properties, output_chunksize)
     plan = _build_spatial_fusion_plan(
         sparams=param_mats,
         views_bb=views_bb,
         output_stack_properties=output_stack_properties,
         output_chunksize=output_chunksize,
         output_chunk_bbs=chunk_bbs,
-        output_chunk_bbs_with_overlap=[
-            _extend_bb(bb, overlap_in_pixels) for bb in chunk_bbs
-        ],
+        output_chunk_bbs_with_overlap=[_extend_bb(bb, overlap_in_pixels) for bb in chunk_bbs],
         block_indices=block_indices,
         overlap_in_pixels=overlap_in_pixels,
         interpolation_order=interpolation_order,
         sdims=sdims,
     )
+    common = dict(blending_widths=blending_widths, shrink_distance=shrink_distance,
+                  out=out, device=device)
+    if not builtin:
+        _execute_fusion_plan_host(
+            plan, field_sims, output_stack_properties, sdims,
+            fusion_func=fusion_func, fusion_func_kwargs=fusion_func_kwargs,
+            weights_func=weights_func, weights_func_kwargs=weights_func_kwargs,
+            overlap_in_pixels=overlap_in_pixels, trim_overlap=trim_overlap, **common,
+        )
+        return
+    use_bw = misc_utils.has_keyword(fusion_func, "blending_weights")
+    if (
+        not untrimmed
+        and len({tuple(s.data.shape) for s in field_sims}) == 1
+        and _plan_is_axis_aligned(param_mats, ndim)
+    ):
+        _execute_fusion_plan_tiles(
+            plan, field_sims, output_stack_properties, sdims,
+            mode=builtin_mode, use_bw=use_bw, **common,
+        )
+        return
     _execute_fusion_plan_batched(
-        plan,
-        field_sims,
-        output_stack_properties,
-        sdims,
-        mode=_BUILTIN_FUSION_MODES[fusion_func],
-        use_bw=misc_utils.has_keyword(fusion_func, "blending_weights"),
-        blending_widths=blending_widths,
-        shrink_distance=shrink_distance,
-        out=out,
-        device=device,
+        plan, field_sims, output_stack_properties, sdims,
+        mode=builtin_mode, use_bw=use_bw, overlap_in_pixels=overlap_in_pixels,
+        trim_overlap=trim_overlap, **common,
+    )
+
+
+def _tile_bytes(field_sims) -> int:
+    return sum(int(np.prod(s.data.shape)) * np.dtype(s.data.dtype).itemsize for s in field_sims)
+
+
+def _tiles_fit_on_device(field_sims) -> bool:
+    """In-memory tiles always go to the device; lazy ones up to
+    :data:`TILES_MAX_BYTES`."""
+    return all(not si_utils._is_lazy(s.data) for s in field_sims) or (
+        _tile_bytes(field_sims) <= TILES_MAX_BYTES
     )
 
 
@@ -1215,11 +1761,19 @@ def fuse(
 ):
     """Fuse views into a single image.
 
-    Views placed by translations take the translation tier (default
-    weighted average only); views with any other affine take the
-    exact-affine tier, with any builtin fusion function. Views may hold
-    numpy arrays or lazy zarr arrays (``io.zarr_backend``). Returns a Sim in
-    the input dtype with an identity affine under ``transform_key``: in host
+    ``fusion_func`` is a builtin (``weighted_average_fusion``, the default,
+    ``max_fusion``, ``simple_average_fusion``) or any function of the
+    resampled views, and ``weights_func`` (with ``weights_func_kwargs``) any
+    function that gives it ``fusion_weights``; see :func:`fuse_np` for how
+    each is called. The chunks of ``output_chunksize`` are fused with the
+    halo the functions declare (``overlap_in_pixels`` overrides it); with
+    ``trim_overlap=False`` and a halo each chunk's extended region is kept,
+    chunks side by side, and the output's origin is the first chunk's first
+    halo pixel. ``interpolation_order`` only widens the source windows the
+    chunks read, as in the reference: views are resampled linearly. The
+    module docstring says which tier takes which call. Views may hold numpy
+    arrays or lazy zarr arrays (``io.zarr_backend``). Returns a Sim in the
+    input dtype with an identity affine under ``transform_key``: in host
     memory, or, with ``output_zarr_url``, backed by the zarr v2 array written
     there. ``zarr_options``: ``ome_zarr`` (default True: an NGFF 0.4
     OME-Zarr with level 0 at ``{url}/0``, its pyramid and metadata; False: a
@@ -1241,19 +1795,6 @@ def fuse(
     zarr_options = dict(zarr_options or {})
     if output_zarr_url is not None and zarr_options.get("ngff_version", "0.4") != "0.4":
         raise NotImplementedError(zarr_backend._V3)
-    builtin_mode = _BUILTIN_FUSION_MODES.get(fusion_func)
-    if builtin_mode is None or fusion_func_kwargs or weights_func is not None:
-        raise NotImplementedError(
-            "only the builtin fusion functions without weights_func or "
-            f"fusion_func_kwargs are ported ({_ROADMAP}: item 10, the host "
-            "path and fuse_np)"
-        )
-    if interpolation_order != 1:
-        raise NotImplementedError(
-            "the ported tiers interpolate linearly; other orders need the "
-            f"gather tier ({_ROADMAP}: items 6 and 10)"
-        )
-
     sims_in = list(images)
     sdims = si_utils.get_spatial_dims_from_sim(sims_in[0])
     nsdims = si_utils.get_nonspatial_dims_from_sim(sims_in[0])
@@ -1282,20 +1823,24 @@ def fuse(
     }
     output_chunksize = process_output_chunksize(sims_in, output_chunksize)
 
-    if overlap_in_pixels is None:
-        overlap_in_pixels = misc_utils.get_required_overlap(
-            fusion_func, fusion_func_kwargs or {}
+    # the halo: what the fusion and the weights functions declare
+    required_overlap = misc_utils.get_required_overlap(fusion_func, fusion_func_kwargs or {})
+    if weights_func is not None:
+        wreq = misc_utils.get_required_overlap(
+            weights_func, dict(weights_func_kwargs or {}, output_chunksize=output_chunksize)
         )
+        required_overlap = max(
+            np.max(list(wreq.values())) if isinstance(wreq, dict) else wreq,
+            np.max(list(required_overlap.values()))
+            if isinstance(required_overlap, dict) else required_overlap,
+        )
+    if overlap_in_pixels is None:
+        overlap_in_pixels = required_overlap
     if not isinstance(overlap_in_pixels, dict):
         overlap_in_pixels = {d: int(overlap_in_pixels) for d in sdims}
     overlap_in_pixels = {
         d: int(min(overlap_in_pixels[d], output_chunksize[d])) for d in sdims
     }
-    if not trim_overlap and any(overlap_in_pixels[d] > 0 for d in sdims):
-        raise NotImplementedError(
-            "trim_overlap=False with halos (per-chunk extended layout) is "
-            f"not ported yet ({_ROADMAP}: item 10)"
-        )
     shrink_distance = misc_utils.get_required_source_shrinkage(
         fusion_func, fusion_func_kwargs or {}
     )
@@ -1311,7 +1856,30 @@ def fuse(
     ns_combos = (
         list(product(*[ns_coord_lists[nd] for nd in nsdims])) if nsdims else [()]
     )
-    spatial_out_shape = tuple(output_stack_properties["shape"][d] for d in sdims)
+    # trim_overlap=False with halos keeps each chunk's halo: chunk i occupies
+    # its extended region, chunks side by side
+    untrimmed = _untrimmed(trim_overlap, overlap_in_pixels, sdims)
+    if untrimmed:
+        spatial_out_shape = tuple(
+            sum(c + 2 * overlap_in_pixels[d] for c in chunks_d)
+            for d, chunks_d in zip(sdims, mv_graph.normalize_chunks(
+                [output_chunksize[d] for d in sdims],
+                [output_stack_properties["shape"][d] for d in sdims],
+            ))
+        )
+        # the layout's grid: anchored at the first chunk's first halo pixel
+        sink_stack_properties = {
+            "shape": dict(zip(sdims, spatial_out_shape)),
+            "spacing": dict(output_stack_properties["spacing"]),
+            "origin": {
+                d: output_stack_properties["origin"][d]
+                - overlap_in_pixels[d] * output_stack_properties["spacing"][d]
+                for d in sdims
+            },
+        }
+    else:
+        spatial_out_shape = tuple(output_stack_properties["shape"][d] for d in sdims)
+        sink_stack_properties = output_stack_properties
     out_full_shape = tuple(len(ns_coord_lists[nd]) for nd in nsdims) + spatial_out_shape
     out_dtype = np.dtype(sims_in[0].dtype)
     ome_zarr = zarr_options.get("ome_zarr", True)
@@ -1321,8 +1889,12 @@ def fuse(
         # fused regions go straight into the zarr array, nothing is
         # assembled in memory
         level0_url = f"{output_zarr_url}/0" if ome_zarr else str(output_zarr_url)
+        # one zarr chunk a fused chunk (with its halo in the untrimmed layout),
+        # so that region writes stay chunk-aligned
+        halo = overlap_in_pixels if untrimmed else {d: 0 for d in sdims}
         zarr_chunks = tuple(1 for _ in nsdims) + tuple(
-            min(output_chunksize[d], output_stack_properties["shape"][d]) for d in sdims
+            min(output_chunksize[d] + 2 * halo[d], spatial_out_shape[i])
+            for i, d in enumerate(sdims)
         )
         if zarr_options.get("create_output", True):
             output_array = zarr_backend.create_zarr_array(
@@ -1354,57 +1926,30 @@ def fuse(
             output_array[ns_idx] if isinstance(output_array, np.ndarray)
             else _PrefixedSink(output_array, ns_idx)
         )
-        if not _plan_is_translation(param_mats, ndim):
-            _fuse_affine_views(
-                param_mats,
-                field_sims,
-                output_stack_properties,
-                sdims,
-                fusion_func=fusion_func,
-                output_chunksize=output_chunksize,
-                overlap_in_pixels=overlap_in_pixels,
-                interpolation_order=interpolation_order,
-                blending_widths=blending_widths,
-                shrink_distance=shrink_distance,
-                out=out,
-                device=device,
-            )
-            continue
-        if builtin_mode != "weighted_average":
-            raise NotImplementedError(
-                "translation-placed views are ported for the default "
-                f"weighted_average_fusion only ({_ROADMAP}: item 10, the tiles tier)"
-            )
-        scale = _views_output_scale(field_sims, output_stack_properties, sdims)
-        scales = (
-            None
-            if scale is not None
-            else _views_output_scales_per_view(field_sims, output_stack_properties, sdims)
-        )
-        if scale is None and scales is None:
-            raise NotImplementedError(
-                "view -> output pixel scales above 8 need the other fusion "
-                f"tiers ({_ROADMAP}: item 10)"
-            )
-        _fuse_translation_views(
+        _execute_fusion_plan(
             param_mats,
             field_sims,
             output_stack_properties,
             sdims,
-            scale=scale,
-            scales=scales,
+            fusion_func=fusion_func,
+            fusion_func_kwargs=fusion_func_kwargs,
+            weights_func=weights_func,
+            weights_func_kwargs=weights_func_kwargs,
+            output_chunksize=output_chunksize,
+            overlap_in_pixels=overlap_in_pixels,
+            trim_overlap=trim_overlap,
+            interpolation_order=interpolation_order,
             blending_widths=blending_widths,
             shrink_distance=shrink_distance,
             out=out,
             device=device,
-            output_chunksize=output_chunksize,
         )
 
     if output_zarr_url is not None and ome_zarr:
         ngff_utils.finalize_ome_zarr_levels(
             output_zarr_url,
             dims=tuple(nsdims) + tuple(sdims),
-            stack_properties=output_stack_properties,
+            stack_properties=sink_stack_properties,
             c_coords=ns_coord_lists.get("c"),
         )
         out_sim = ngff_utils.read_sim_from_ome_zarr(output_zarr_url)
@@ -1413,8 +1958,8 @@ def fuse(
             output_array if output_zarr_url is None
             else zarr_backend.open_zarr_array(str(output_zarr_url)),
             dims=tuple(nsdims) + tuple(sdims),
-            scale=output_stack_properties["spacing"],
-            translation=dict(output_stack_properties["origin"]),
+            scale=sink_stack_properties["spacing"],
+            translation=dict(sink_stack_properties["origin"]),
             t_coords=ns_coord_lists.get("t"),
             c_coords=ns_coord_lists.get("c"),
         )
@@ -1424,3 +1969,41 @@ def fuse(
         transform_key=transform_key,
     )
     return out_sim
+
+
+def func_ignore_nan_warning(func, *args, **kwargs):
+    """Call ``func`` with numpy's all-NaN and empty-slice warnings silenced."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings(action="ignore", message="All-NaN slice encountered")
+        warnings.filterwarnings(action="ignore", message="Mean of empty slice")
+        return func(*args, **kwargs)
+
+
+def get_interpolated_image(
+    image: np.ndarray,
+    mask: np.ndarray = None,
+    method: str = "nearest",
+    fill_value: int = 0,
+):
+    """Fill the masked (missing) pixels of a 2D image by interpolating from
+    the known ones (scipy's ``griddata``, on the host).
+
+    ``mask``: True marks missing pixels; by default ``isnan(image)``.
+    ``fill_value`` fills outside the convex hull of the known pixels for
+    "linear" and "cubic" (no effect for "nearest")."""
+    from scipy import interpolate
+
+    image = np.asarray(image)
+    if image.ndim != 2:
+        raise ValueError(f"get_interpolated_image takes 2D images, got {image.ndim}D")
+    if mask is None:
+        mask = np.isnan(image)
+    mask = np.asarray(mask, dtype=bool)
+    if mask.min() or not mask.any():
+        return image
+    filled = image.copy()
+    filled[mask] = interpolate.griddata(
+        np.argwhere(~mask), image[~mask], np.argwhere(mask), method=method,
+        fill_value=fill_value,
+    )
+    return filled

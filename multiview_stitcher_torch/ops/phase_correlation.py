@@ -13,24 +13,14 @@ run at full float32 precision (TF32 off for the call).
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import numpy as np
 import torch
 
+from multiview_stitcher_torch.utils.misc import full_f32
+
 EPS32 = float(np.finfo(np.float32).eps)
-
-
-@contextlib.contextmanager
-def full_precision_matmul():
-    """Run complex and float matmuls without TF32 inside the block."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _axes(ndim: int) -> tuple:
@@ -140,7 +130,7 @@ def phase_cross_correlation_batch(reference, moving, upsample_factor: int = 1,
     R = int(math.ceil(upsample_factor * 1.5))
     dftshift = float(np.fix(R / 2.0))
     sample_region_offset = dftshift - shift * upsample_factor
-    with full_precision_matmul():
+    with full_f32():
         cc_up = torch.conj(_upsampled_dft(torch.conj(image_product), R, upsample_factor,
                                           sample_region_offset))
     abs_up = torch.abs(cc_up).reshape(B, -1)

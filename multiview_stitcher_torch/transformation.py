@@ -1,16 +1,16 @@
 """Physical-space image resampling.
 
 The port of ``multiview_stitcher_tpu.transformation``: ``transform_sim``
-resamples a sim onto an output grid with linear interpolation through the
-exact-affine kernels (``ops.exact_affine``). The physical -> pixel conversion
-and the no-op detection follow the reference, so output grids are comparable
-value for value.
-
-The reference routes what its exact tier does not take (other interpolation
-orders, float64 data, float data that holds NaN) to a gather tier, and
-retreats to it when a kernel fails. The gather tier is not ported: those
-inputs raise ``NotImplementedError``, and a kernel that fails to build or
-launch raises.
+resamples a sim onto an output grid. Linear interpolation of data that is
+not float64 and holds no NaN runs through the exact-affine kernels
+(``ops.exact_affine``); nearest-neighbour interpolation (order 0), float64
+data (kept in float64) and float data that holds NaN (which spreads through
+the interpolation stencil) take the gather resample
+(``ops.resample.affine_resample``), as the reference routes them
+(``_try_exact_affine``). Other orders raise ``NotImplementedError``, as in
+the reference, and a kernel that fails to build or launch raises. The
+physical -> pixel conversion and the no-op detection follow the reference,
+so output grids are comparable value for value.
 """
 
 from __future__ import annotations
@@ -23,8 +23,6 @@ from multiview_stitcher_torch.ops import exact_affine
 from multiview_stitcher_torch.ops import resample as resample_ops
 from multiview_stitcher_torch.si_utils import Sim
 from multiview_stitcher_torch.utils import misc as misc_utils
-
-_ROADMAP = "ROADMAP.md, queue 1, item 6"
 
 
 def transform_sim(
@@ -42,18 +40,16 @@ def transform_sim(
 
     ``p`` maps output physical coordinates -> input physical coordinates
     (fusion passes ``inv(view_param)``). Outside the input the output is
-    ``cval``. Integer input gives float32 output; float32 stays float32. The
-    resampling runs on ``device``: the CUDA device by default (raising if
+    ``cval``. Integer input gives float32 output; float input keeps its
+    dtype. ``order`` is 0 (nearest) or 1 (linear). The resampling runs on
+    ``device``: the CUDA device by default (raising if
     there is none), or the CPU with ``device="cpu"``, which takes the
     kernels' plain PyTorch versions. The result holds a numpy array.
     """
     device = misc_utils.resolve_device(device)
     if mode != "constant":
         raise ValueError(f"only mode='constant' is supported, got {mode!r}")
-    if order != 1:
-        raise NotImplementedError(
-            f"interpolation order {order} needs the gather tier ({_ROADMAP})"
-        )
+    resample_ops._check_order(order)
     ndim = len(sim.spatial_dims)
     sdims = si_utils.get_spatial_dims_from_sim(sim)
     if tuple(sim.dims) != tuple(sdims):
@@ -84,8 +80,14 @@ def transform_sim(
     )
     if is_noop:
         out_data = data
-    else:
+    elif order == 1 and _takes_exact_kernels(data):
         out_data = _exact_affine(data, matrix, offset, out_shape, cval, device)
+    else:
+        out_data = resample_ops.affine_resample(
+            torch.from_numpy(np.ascontiguousarray(data)).to(device),
+            np.asarray(matrix, np.float32), np.asarray(offset, np.float32), out_shape,
+            order=order, cval=cval,
+        ).cpu().numpy()
 
     out = si_utils.to_spatial_image(
         out_data,
@@ -98,19 +100,19 @@ def transform_sim(
     return out
 
 
+def _takes_exact_kernels(data: np.ndarray) -> bool:
+    """Whether an order-1 resample of ``data`` runs on the exact kernels:
+    not for float64 (the gather keeps its float64 compute) nor for float
+    data that holds NaN (the kernels read NaN as 0)."""
+    if data.dtype == np.float64:
+        return False
+    return not (np.issubdtype(data.dtype, np.floating) and bool(np.isnan(data).any()))
+
+
 def _exact_affine(data, matrix, offset, out_shape, cval, device) -> np.ndarray:
     """One order-1 resample through the exact-affine kernel its map takes:
     the 2D one, or in 3D the y-decoupled one where the map allows it, else
     the general one."""
-    if data.dtype == np.float64:
-        raise NotImplementedError(
-            f"float64 data keeps the gather tier's float64 compute ({_ROADMAP})"
-        )
-    if np.issubdtype(data.dtype, np.floating) and bool(np.isnan(data).any()):
-        raise NotImplementedError(
-            "float data that contains NaN needs the gather tier, where NaN "
-            f"propagates through the interpolation stencil ({_ROADMAP})"
-        )
     ndim = len(out_shape)
     if ndim not in (2, 3):
         raise ValueError(f"only 2D and 3D sims are supported, got {ndim}D")

@@ -3,11 +3,13 @@ the device an entry point runs on.
 
 Copy of the decorators and readers of ``multiview_stitcher_tpu.utils.misc``:
 a fusion or weights function declares the chunk halo or the source shrinkage
-it needs, and the fusion planner reads the declaration.
+it needs, and the fusion planner reads the declaration. Also the context in
+which matmuls and convolutions run at full float32 precision.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 
 import torch
@@ -63,3 +65,17 @@ def resolve_device(device) -> torch.device:
             "none; pass device='cpu' for the plain PyTorch path"
         )
     return device
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Run float32 matmuls and cuDNN convolutions without TF32 inside the
+    block (the reference computes them in float32), restoring the caller's
+    settings after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

@@ -410,6 +410,10 @@ def test_transform_sim_noop_returns_the_data():
 
 
 def test_transform_sim_refuses_what_needs_the_gather_tier():
+    """What the exact kernels do not take (order 0, float64, NaN data) now
+    takes the port's gather resample and gives the reference's output
+    (tests/test_torch_general_fusion.py holds more cases); orders above 1
+    are refused, as the reference's gather refuses them."""
     data, dims, m, osp = _transform_case("2d")
 
     def run(arr, **kw):
@@ -418,14 +422,19 @@ def test_transform_sim_refuses_what_needs_the_gather_tier():
             output_stack_properties=osp, device="cpu", **kw,
         )
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="order"):
         run(data, order=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(data.astype(np.float64))
     holed = data.copy()
     holed[10:14, 10:18] = np.nan
-    with pytest.raises(NotImplementedError, match="NaN"):
-        run(holed)
+    for arr, kw in ((data, {"order": 0}), (data.astype(np.float64), {}), (holed, {})):
+        got = run(arr, **kw).data
+        ref = np.asarray(transformation.transform_sim(
+            si_utils.get_sim_from_array(arr, dims=dims), np.linalg.inv(m),
+            output_stack_properties=osp, **kw,
+        ).data)
+        assert got.dtype == ref.dtype == arr.dtype
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+        np.testing.assert_allclose(got[~np.isnan(ref)], ref[~np.isnan(ref)], rtol=1e-4, atol=1e-3)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ttransformation.transform_sim(

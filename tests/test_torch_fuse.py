@@ -179,7 +179,9 @@ def test_fuse_without_device_needs_cuda():
         tfuse(sims, transform_key=KEY)
 
 
-def test_fuse_refuses_what_the_slice_does_not_cover():
+def test_fuse_refuses_what_the_slice_does_not_cover(tmp_path, monkeypatch):
+    from multiview_stitcher_torch.io import zarr_backend as tzb
+
     jsims = _case("grid2d_uint16")
     sims = _to_port(jsims)
 
@@ -188,36 +190,30 @@ def test_fuse_refuses_what_the_slice_does_not_cover():
 
     # zarr output is ported for zarr v2 / NGFF 0.4 only (nothing is written)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fuse(output_zarr_url="out.zarr", zarr_options={"ngff_version": "0.5"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fuse(fusion_func=lambda transformed_views: transformed_views)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fuse(weights_func=tweights.cosine_weights)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fuse(overlap_in_pixels=4, trim_overlap=False)
+        fuse(output_zarr_url=str(tmp_path / "out.zarr"), zarr_options={"ngff_version": "0.5"})
     with pytest.raises(NotImplementedError, match="msims"):
         fuse(images=[msi_utils.get_msim_from_sim(s) for s in jsims])
-    # translation-placed views keep the default blending only (tiles tier)
-    with pytest.raises(NotImplementedError, match="tiles tier"):
-        fuse(fusion_func=tcore.max_fusion)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fuse(interpolation_order=3)
-    # rotated views fuse now, but not float views that hold NaN (gather tier)
-    rot = np.eye(3)
-    rot[:2, :2] = [[np.cos(0.1), -np.sin(0.1)], [np.sin(0.1), np.cos(0.1)]]
-
-    def rotated(dtype, hole):
-        out = []
-        for s in sims:
-            data = s.data.astype(dtype)
-            if hole:
-                data[4:8, 4:8] = np.nan
-            out.append(convert.sim_from_numpy(data, s.dims, s.spacing, s.origin, {KEY: rot}))
-        return out
-
-    assert fuse(images=rotated(np.uint16, False)).data.dtype == np.uint16
-    with pytest.raises(NotImplementedError, match="NaN"):
-        fuse(images=rotated(np.float32, True))
+    # lazy tiles above the on-card limit that cannot band (mixed shapes) need
+    # the host-slab route in the translation tier; the chunked tiers read
+    # them into the device stack and fuse them, as the reference does
+    mixed = _case("mixed_shapes_uint16")
+    lazy = []
+    for i, s in enumerate(_to_port(mixed)):
+        url = str(tmp_path / f"tile_{i}.zarr")
+        tzb.create_zarr_array(url, s.data.shape, s.data.shape, s.data.dtype)[...] = s.data
+        lazy.append(tsi.get_sim_from_array(tzb.open_zarr_array(url), dims=s.dims,
+                                           translation=dict(s.origin)))
+    monkeypatch.setattr(tcore, "TILES_MAX_BYTES", 0)
+    with pytest.raises(NotImplementedError, match="host-slab.*ROADMAP"):
+        fuse(images=lazy)
+    for kw, jkw in (
+        ({"fusion_func": tcore.max_fusion}, {"fusion_func": jcore.max_fusion}),
+        ({"weights_func": tweights.content_based}, {"weights_func": weights.content_based}),
+    ):
+        ref = np.asarray(jfuse(mixed, transform_key=KEY, **jkw).data)
+        got = fuse(images=lazy, **kw).data
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert np.abs(got.astype(np.int64) - ref.astype(np.int64)).max() <= 1
 
 
 def _layout_props(rng, ndim):
@@ -365,6 +361,10 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import multiview_stitcher_torch.ops.phase_correlation\n"
         "import multiview_stitcher_torch.ops.image_metrics\n"
         "import multiview_stitcher_torch.ops.filters\n"
+        "import multiview_stitcher_torch.ops.resample\n"
+        "import multiview_stitcher_torch.transformation\n"
+        "import multiview_stitcher_torch.weights\n"
+        "from multiview_stitcher_torch.fusion import fuse_np, func_ignore_nan_warning\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"

@@ -434,19 +434,43 @@ def test_rotated_sim_carries_its_affine_across():
         assert ts.spacing == js.spacing and ts.origin == js.origin
 
 
-def test_fuse_affine_refuses_what_needs_the_gather_tier():
+def test_fuse_affine_refuses_what_needs_the_gather_tier(tmp_path, monkeypatch):
+    """Float views that hold NaN, other interpolation orders and the
+    untrimmed layout now fuse (the gather route, the plan's wider windows
+    and the untrimmed writes; each is held to the reference in
+    tests/test_torch_general_fusion.py): here the NaN view against the
+    reference's gather tier, the CPU default. Lazy tiles above the on-card
+    limit are refused only by the translation tier (the host-slab route is
+    not ported); rotated lazy tiles of any size are read into the device
+    stack and fuse, as they did before the gather route came, held here to
+    the reference on the same tiles in memory."""
+    from multiview_stitcher_torch.io import zarr_backend as tzb
+
+    monkeypatch.delenv("MVS_TPU_EXACT_AFFINE", raising=False)
+    monkeypatch.delenv("MVS_TPU_SHEAR", raising=False)
     sims, cs = _case("roty2", np.float32)
     sims[0].data = sims[0].data.copy()
     sims[0].data[8:12, 20:30] = np.nan
-    with pytest.raises(NotImplementedError, match="NaN.*ROADMAP"):
-        tfuse(_to_port(sims), transform_key=KEY, output_chunksize=cs, device="cpu")
+    ref = np.asarray(jfuse(sims, transform_key=KEY, output_chunksize=cs).data)
+    got = tfuse(_to_port(sims), transform_key=KEY, output_chunksize=cs, device="cpu").data
+    assert not np.isnan(got).any()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
+
     clean, _ = _case("roty2", np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfuse(_to_port(clean), transform_key=KEY, output_chunksize=cs,
-              interpolation_order=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfuse(_to_port(clean), transform_key=KEY, output_chunksize=cs,
-              overlap_in_pixels=4, trim_overlap=False, device="cpu")
+    lazy = []
+    for i, s in enumerate(_to_port(clean)):
+        url = str(tmp_path / f"tile_{i}.zarr")
+        tzb.create_zarr_array(url, s.data.shape, s.data.shape, s.data.dtype)[...] = s.data
+        sim = tsi.get_sim_from_array(tzb.open_zarr_array(url), dims=s.dims,
+                                     translation=dict(s.origin))
+        tsi.set_sim_affine(sim, s.transforms[KEY].data, transform_key=KEY)
+        lazy.append(sim)
+    monkeypatch.setattr(tcore, "TILES_MAX_BYTES", 0)
+    for kw in ({}, {"interpolation_order": 3}, {"overlap_in_pixels": 4, "trim_overlap": False}):
+        ref = np.asarray(jfuse(clean, transform_key=KEY, output_chunksize=cs, **kw).data)
+        got = tfuse(lazy, transform_key=KEY, output_chunksize=cs, device="cpu", **kw).data
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
 
 
 def test_a_failing_kernel_raises_and_nothing_retries(monkeypatch):

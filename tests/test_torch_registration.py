@@ -143,8 +143,13 @@ def test_affine_resample_matches_jax(ndim):
     got_u = tresample.affine_resample(_t(data[0].astype(np.uint16)), _t(mats[0]), _t(offs[0]),
                                       out_shape)
     _assert_maps_close(got_u, ref_u)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tresample.affine_resample_batch(_t(data), _t(mats), _t(offs), out_shape, order=0)
+    # nearest-neighbour resampling is ported too; other orders are refused, as
+    # the reference refuses them
+    ref_n = jresample.affine_resample_batch(data, mats, offs, out_shape, order=0, cval=np.nan)
+    got_n = tresample.affine_resample_batch(_t(data), _t(mats), _t(offs), out_shape, order=0)
+    _assert_maps_close(got_n, ref_n)
+    with pytest.raises(NotImplementedError, match="order"):
+        tresample.affine_resample_batch(_t(data), _t(mats), _t(offs), out_shape, order=2)
 
 
 @pytest.mark.parametrize("ndim", [2, 3])

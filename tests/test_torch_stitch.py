@@ -18,6 +18,7 @@ import torch
 from multiview_stitcher_torch import convert
 from multiview_stitcher_torch import msi_utils as tmsi
 from multiview_stitcher_torch import registration as treg
+from multiview_stitcher_torch import weights as tweights
 from multiview_stitcher_torch.fusion import _core as tcore
 from multiview_stitcher_torch.fusion import fuse as tfuse
 from multiview_stitcher_torch.stitch import stitch as tstitch
@@ -98,6 +99,27 @@ def test_fuse_after_register_with_device_tiles_uploads_nothing():
     third = tfuse(sims, transform_key=KEY, device="cpu")
     assert tcore.tile_upload_bytes - before == uploaded
     np.testing.assert_array_equal(third.data, first.data)
+
+
+@pytest.mark.parametrize("tier", ["host", "tiles"])
+def test_general_fuse_after_register_with_device_tiles_uploads_nothing(tier):
+    """The host tier (a weights function) and the tiles tier (max fusion)
+    read the integer stack the registration uploaded: the host tier's stack
+    with NaN kept is the same entry for integer tiles."""
+    sims = _to_port(_grid(2))
+    treg.register(sims, transform_key=KEY, new_transform_key="reg", device_tiles=True,
+                  device="cpu")
+    kw = (
+        {"weights_func": tweights.content_based} if tier == "host"
+        else {"fusion_func": tcore.max_fusion}
+    )
+    before = tcore.tile_upload_bytes
+    first = tfuse(sims, transform_key=KEY, device="cpu", **kw)
+    assert tcore.tile_upload_bytes == before
+    tcore.clear_device_tile_cache()
+    again = tfuse(sims, transform_key=KEY, device="cpu", **kw)
+    assert tcore.tile_upload_bytes - before == sum(s.data.nbytes for s in sims)
+    np.testing.assert_array_equal(again.data, first.data)
 
 
 def test_register_auto_device_tiles_uses_the_stack_only_when_resident():
