@@ -94,7 +94,34 @@ Phases, one printed line or block each:
    ``interpolation_order=0``, ``trim_overlap=False`` with ``max_fusion``
    and with content-based weights) against ``device="cpu"``. Lines start
    with ``general:``;
-9. ``stitch()`` of the north star's grid: 32 x 32 tiles of 64^3 uint16,
+9. msims and time (lines start ``multiscale:``, each with the card's name
+   and power limit): a light-sheet time-lapse grid, 3 x 3 tiles of
+   (128, 512, 512) uint16 over 3 timepoints, overlap 64, cut from one
+   band-limited volume, each tile's true position at each t its grid
+   position plus an integer drift in [-1, 1] (z) and [-3, 3] (y, x), the
+   metadata holding the grid positions without t. The default pyramid of each
+   view (``get_msim_from_sim``, on the host); ``register()`` by shortest
+   paths three ways (default: level 0; ``registration_binning`` 1 / 2 / 2:
+   level 1; ``reg_res_level=2``), each held to the truth per timepoint (level
+   0 within 0.25 px, a coarser level within one of its pixels) and to the
+   level it must pick, one pair's level-2 registration held to
+   ``device="cpu"`` within 1e-3 px per t; ``fuse()`` of the msims into the
+   output's pyramid (every level over every t), its time per level and the
+   ``fuse_translation_3d`` launches of each (level, t) plan, counted from 0
+   just before, each at least 1, and 128^3 windows of levels 0 and 1 at the
+   last t within 1 count of ``device="cpu"``; an OME-Zarr leg at t = 0 (the
+   nine msims written by ``write_msim_to_ome_zarr`` under ``.bench_large/``,
+   reopened lazily, registered at level 1 reading level-1 arrays only, equal
+   to the in-memory registration, and fused into an OME-Zarr returned as an
+   msim whose level 0 equals the in-memory t = 0 bit for bit; removed after);
+   one ``stitch()`` of the time-lapse, within 1 count of ``fuse()``'s level
+   0; then the README's Quickstart as written, in 2D: 2 x 2 (c, y, x) tiles
+   of (2, 1024, 1024) uint16, drifting by up to 3 px, through the default
+   pyramids, ``register()`` by channel 0 and ``fuse()`` of the msims, every
+   (level, channel) plan launching ``fuse_translation_2d``, a window held to
+   ``device="cpu"``. The content is band-limited noise made on the card from
+   a seed. Under 60 s;
+10. ``stitch()`` of the north star's grid: 32 x 32 tiles of 64^3 uint16,
    overlap 12, cut from one band-limited volume (numpy, seeded) at known
    true positions, their metadata origins off by integers in [-1, 1] (z)
    and [-3, 3] (y, x), registered with an overlap tolerance of 1 / 3 / 3 px
@@ -110,7 +137,7 @@ Phases, one printed line or block each:
    as in the port); the output equal to ``fuse()`` under the resolved key;
    ``register()`` on the card within 1e-3 px of ``register(device="cpu")``
    on the grid's 4 x 4 corner;
-10. a ``kernels`` JSON line: per kernel its launches in the main-path run,
+11. a ``kernels`` JSON line: per kernel its launches in the main-path run,
    its time, the plain version's time, its bound and its error.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -123,6 +150,7 @@ w*a/w, which f32 may round just below a).
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1744,6 +1772,404 @@ def general_phase(np, torch, tsi, tcore, tweights, tea, tf, fuse, scale=1):
     return out
 
 
+# the multiscale phase's drift of each tile at each timepoint, in px (z, y, x)
+MS_DRIFT = (1, 3, 3)
+# resolved offsets against the truth, after removing the global offset: at
+# level 0 within MS_LEVEL0_ATOL px, at a coarser level within one of its
+# pixels (its factor in level-0 px, per dim)
+MS_LEVEL0_ATOL = 0.25
+# the card's register(reg_res_level=2) against the CPU's, per timepoint, px
+MS_CPU_ATOL = 1e-3
+
+
+def smooth_noise(torch, shape, seed, device):
+    """White noise from a torch generator seeded with ``seed`` under a
+    1.5 px gaussian (radius 6, reflected at the edges) along every axis of
+    13 or more, scaled to [0, 1000] as uint16 numpy; made on ``device``."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    vol = torch.rand(shape, generator=gen, device=device)
+    x = torch.arange(-6, 7, device=device, dtype=torch.float32)
+    kernel = torch.exp(-x * x / (2 * 1.5 ** 2))
+    kernel = (kernel / kernel.sum()).reshape(1, 1, -1)
+    for axis in range(len(shape)):
+        if shape[axis] < 13:
+            continue
+        v = vol.movedim(axis, -1)
+        lead = v.shape
+        v = F.conv1d(F.pad(v.reshape(-1, 1, lead[-1]), (6, 6), mode="reflect"), kernel)
+        vol = v.reshape(lead).movedim(-1, axis)
+    vol = (vol - vol.min()) * (1000.0 / (vol.max() - vol.min()))
+    return vol.to(torch.int32).to(torch.uint16).cpu().numpy()
+
+
+def multiscale_grid_sims(np, torch, tsi, n, nt, tile, overlap, seed, device):
+    """n x n tiles of ``tile`` (z, y, x) uint16 over ``nt`` timepoints, cut
+    from one band-limited volume (:func:`smooth_noise`): each tile's true
+    position at each t is its grid position (step ``tile - overlap`` in y and
+    x) plus an integer drift in [-1, 1] (z) and [-3, 3] (y, x). The metadata
+    holds the grid positions, without t. Returns the sims (dims t, z, y, x),
+    the true positions (n*n, nt, 3) and the grid positions (n*n, 3)."""
+    rng = np.random.default_rng(seed)
+    step = tile[1] - overlap
+    margin = np.array(MS_DRIFT)
+    shape = (tile[0] + 2 * margin[0],) + tuple(
+        (n - 1) * step + tile[k] + 2 * margin[k] for k in (1, 2)
+    )
+    vol = smooth_noise(torch, shape, seed, device)
+    sims, truth, grid = [], [], []
+    for iy in range(n):
+        for ix in range(n):
+            g = np.array([0.0, iy * step, ix * step])
+            drift = rng.integers(-margin, margin + 1, (nt, 3))
+            data = np.empty((nt,) + tuple(tile), np.uint16)
+            for t in range(nt):
+                lo = (g + drift[t] + margin).astype(int)
+                data[t] = vol[tuple(slice(lo[k], lo[k] + tile[k]) for k in range(3))]
+            sims.append(tsi.get_sim_from_array(data, dims=["t", "z", "y", "x"],
+                                               translation=dict(zip("zyx", g))))
+            truth.append(g + drift)
+            grid.append(g)
+    return sims, np.array(truth), np.array(grid)
+
+
+def quickstart_2d(np, torch, tsi, tcore, tf, fuse, say, device, n=2, tile=1024, overlap=128):
+    """The README's Quickstart as written, in 2D: n x n (c, y, x) uint16
+    tiles of two channels, spacing 0.5, cut from one band-limited image at
+    their grid positions plus an integer drift in [-3, 3] px; the default
+    pyramids, register() by channel 0 (the default resolution), fuse() of
+    the msims, every (level, channel) plan launching ``fuse_translation_2d``
+    (counted from 0 just before), a 512^2 window of level 0 against
+    device="cpu"."""
+    from multiview_stitcher_torch import msi_utils as tmsi
+    from multiview_stitcher_torch import param_utils as tpu
+    from multiview_stitcher_torch import registration as treg
+
+    rng = np.random.default_rng(13)
+    step, margin = tile - overlap, 3
+    extent = (n - 1) * step + tile + 2 * margin
+    image = smooth_noise(torch, (2, extent, extent), 13, device)
+    sims, truth, grid = [], [], []
+    for iy in range(n):
+        for ix in range(n):
+            g = np.array([iy * step, ix * step], float)
+            lo = (g + rng.integers(-margin, margin + 1, 2) + margin).astype(int)
+            sims.append(tsi.get_sim_from_array(
+                np.ascontiguousarray(image[:, lo[0]:lo[0] + tile, lo[1]:lo[1] + tile]),
+                dims=("c", "y", "x"), scale={"y": 0.5, "x": 0.5},
+                translation={"y": 0.5 * g[0], "x": 0.5 * g[1]}, c_coords=["a", "b"],
+            ))
+            truth.append((lo - margin) * 0.5)
+            grid.append(g * 0.5)
+    truth, grid = np.array(truth), np.array(grid)
+    t0 = time.perf_counter()
+    msims = [tmsi.get_msim_from_sim(s) for s in sims]
+    params = treg.register(msims, transform_key=KEY, new_transform_key="registered",
+                           reg_channel_index=0)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    reg = np.array([tpu.transform_pts(grid[k][None], np.asarray(p.data))[0]
+                    for k, p in enumerate(params)])
+    err = reg - truth
+    off_err = float(np.abs(err - err.mean(axis=0)).max()) / 0.5
+    if off_err > MS_LEVEL0_ATOL:
+        raise AssertionError(f"quickstart 2d: offsets {off_err:.3f} px from the truth")
+    plans = []
+    execute = tcore._execute_fusion_plan
+
+    def counted_plan(*a, **k):
+        before = tf.fuse_translation_2d.launches
+        execute(*a, **k)
+        plans.append(tf.fuse_translation_2d.launches - before)
+
+    tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+    tcore._execute_fusion_plan = counted_plan
+    try:
+        t0 = time.perf_counter()
+        fused = fuse(msims, transform_key="registered")
+        torch.cuda.synchronize()
+        fuse_s = time.perf_counter() - t0
+    finally:
+        tcore._execute_fusion_plan = execute
+    launches = tf.fuse_translation_2d.launches
+    n_levels = len(tmsi.calc_resolution_levels(tsi.get_shape_from_sim(fused.sims[0]))[0])
+    if (len(fused.sims) != n_levels or len(plans) != 2 * n_levels or min(plans) < 1
+            or tf.fuse_translation_3d.launches):
+        raise AssertionError(f"quickstart 2d: {len(fused.sims)} levels, fuse_translation_2d "
+                             f"launches per (level, c) {plans}")
+    lvl = fused.sims[0]
+    win = 512
+    start = [(lvl.sizes[d] // 2 // win) * win for d in ("y", "x")]
+    inputs = [tmsi.get_sim_from_msim(tmsi.multiscale_sel_coords(m, {"c": "b"})) for m in msims]
+    ref = fuse(inputs, transform_key="registered", device="cpu",
+               output_stack_properties=window_props(
+                   {"spacing": lvl.spacing, "origin": lvl.origin}, ["y", "x"], start, win)).data
+    got = lvl.data[1][tuple(slice(s0, s0 + win) for s0 in start)]
+    win_err = max_err(got, ref, np) if got.shape == ref.shape else float("inf")
+    if win_err > UINT_COUNTS:
+        raise AssertionError(f"quickstart 2d: level 0's window differs from the CPU's by "
+                             f"{win_err:g}")
+    say(f"the README's Quickstart in 2D: {n} x {n} (c, y, x) tiles of (2, {tile}, {tile}) "
+        f"uint16, overlap {overlap}; pyramids and register(reg_channel_index=0) in "
+        f"{reg_s:.3f} s, offsets within {off_err:.4f} px of the truth; fuse(msims) in "
+        f"{fuse_s:.3f} s: {len(fused.sims)} levels {[tuple(x.data.shape) for x in fused.sims]}, "
+        f"fuse_translation_2d launches {launches}, per (level, c) {plans}; a {win}^2 window of "
+        f"level 0 within {win_err:g} counts of device='cpu'")
+    return {"register_s": reg_s, "offset_max_err_px": off_err, "fuse_s": fuse_s,
+            "launches": launches, "launches_per_level_c": plans, "window_err": win_err}
+
+
+def multiscale_phase(np, torch, tsi, tcore, tf, fuse, work, n=3, nt=3, tile=(128, 512, 512),
+                     overlap=64):
+    """The multiscale phase: a light-sheet time-lapse tile grid through the
+    README's pattern on the card: the default pyramid of each view,
+    register() at three levels over t, fuse() of the msims into a pyramid, an
+    OME-Zarr leg at t = 0 and one stitch() of the time-lapse; every time
+    printed beside the card. The 3D grid's content is made on the card when
+    there is one (the CPU rehearses it)."""
+    import shutil
+
+    from multiview_stitcher_torch import msi_utils as tmsi
+    from multiview_stitcher_torch import param_utils as tpu
+    from multiview_stitcher_torch import registration as treg
+    from multiview_stitcher_torch import stitch as tstitch
+    from multiview_stitcher_torch.io import ngff_utils as tngff
+    from multiview_stitcher_torch.io import zarr_backend as tzb
+
+    label = "multiscale"
+    card = card_line()
+    t_phase = time.perf_counter()
+    out = {}
+
+    def say(msg):
+        log(f"{label}: {msg} [{card}]")
+
+    t0 = time.perf_counter()
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    sims, truth, grid = multiscale_grid_sims(np, torch, tsi, n, nt, tile, overlap, seed=12,
+                                             device=device)
+    out["grid_make_s"] = time.perf_counter() - t0
+    tile_bytes = sum(s.data.nbytes for s in sims)
+
+    # 1. the default pyramid of each view
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(sims)) as ex:
+        msims = list(ex.map(tmsi.get_msim_from_sim, sims))
+    out["pyramid_s"] = time.perf_counter() - t0
+    shapes = [tuple(s.data.shape) for s in msims[0].sims]
+    if len(shapes) != 3:
+        raise AssertionError(f"{label}: the default pyramid has levels {shapes}, 3 expected")
+    say(f"{n} x {n} tiles of {tile} uint16 over {nt} timepoints, overlap {overlap}, drift within "
+        f"{MS_DRIFT} px, {tile_bytes} bytes of tiles (made in {out['grid_make_s']:.1f} s); "
+        f"get_msim_from_sim of the {len(sims)} views on the host in {out['pyramid_s']:.3f} s: "
+        f"levels {shapes}")
+
+    # 2. register at three levels over t; offsets resolved by shortest paths
+    def offsets_error(params, factor):
+        worst = np.zeros(3)
+        for it in range(nt):
+            reg = np.array([tpu.transform_pts(grid[k][None], np.asarray(p.data[it]))[0]
+                            for k, p in enumerate(params)])
+            err = reg - truth[:, it]
+            worst = np.maximum(worst, np.abs(err - err.mean(axis=0)).max(axis=0))
+        if any(p.data.shape[0] != nt for p in params):
+            raise AssertionError(f"{label}: params over {params[0].data.shape[0]} timepoints")
+        return worst, bool(np.all(worst <= factor))
+
+    regs = {}
+    for name, kw, level, factor in (
+        ("default", {}, "scale0", np.full(3, MS_LEVEL0_ATOL)),
+        ("binning 1/2/2", {"registration_binning": {"z": 1, "y": 2, "x": 2}}, "scale1",
+         np.array([1.0, 2.0, 2.0])),
+        ("reg_res_level=2", {"reg_res_level": 2}, "scale2", np.array([1.0, 4.0, 4.0])),
+    ):
+        t0 = time.perf_counter()
+        params = treg.register(msims, transform_key=KEY,
+                               groupwise_resolution_method="shortest_paths",
+                               new_transform_key="registered" if name == "default" else None,
+                               **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tel = dict(treg.last_telemetry)
+        if tel["levels"] != [level]:
+            raise AssertionError(f"{label}: register({name}) ran at {tel['levels']}, not {level}")
+        worst, ok = offsets_error(params, factor)
+        if not ok:
+            raise AssertionError(f"{label}: register({name}) offsets {worst.tolist()} px from the "
+                                 f"truth, allowed {factor.tolist()}")
+        regs[name] = params
+        out[f"register_{level}"] = {"s": wall, "pairs": tel["pairs"], "units": tel["units"],
+                                    "buckets": tel["buckets"], "batches": tel["batches"],
+                                    "crop_upload_bytes": tel["crop_upload_bytes"],
+                                    "pairwise_device_ms": tel.get("pairwise_device_ms"),
+                                    "offset_max_err_px": worst.tolist()}
+        say(f"register({name}): level {level}, {tel['pairs']} pairs x {nt} timepoints = "
+            f"{tel['units']} units in {tel['buckets']} buckets, {tel['batches']} batches, crops "
+            f"uploaded {tel['crop_upload_bytes']} bytes, {wall:.3f} s (pairwise on the card "
+            f"{tel.get('pairwise_device_ms', float('nan')):.1f} ms); offsets per t within "
+            f"{np.round(worst, 4).tolist()} px (z, y, x) of the truth (allowed {factor.tolist()})")
+    # the card's level-2 registration against the CPU's, on the first row's
+    # first pair over every timepoint (the CPU's candidate scoring is slow)
+    pair = [msims[0], msims[1]]
+    t0 = time.perf_counter()
+    host = treg.register(pair, transform_key=KEY, reg_res_level=2, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card_pair = treg.register(pair, transform_key=KEY, reg_res_level=2)
+    cpu_err = max(float(np.abs(np.asarray(a.data) - np.asarray(b.data)).max())
+                  for a, b in zip(card_pair, host))
+    if cpu_err > MS_CPU_ATOL:
+        raise AssertionError(f"{label}: the card's register(reg_res_level=2) differs from the "
+                             f"CPU's by {cpu_err:g} px")
+    out["cpu_pair_err_px"], out["cpu_pair_s"] = cpu_err, cpu_s
+    say(f"register(reg_res_level=2) of one pair over {nt} timepoints: card within {cpu_err:g} px "
+        f"of device='cpu' per t (CPU {cpu_s:.2f} s)")
+
+    # 3. fuse the msims into a pyramid: each level's time and the
+    # fuse_translation_3d launches of each (level, timepoint) plan
+    plans, level_s = [], []
+    execute, fuse_fn = tcore._execute_fusion_plan, tcore.fuse
+
+    def counted_plan(*a, **k):
+        before = tf.fuse_translation_3d.launches
+        execute(*a, **k)
+        plans.append(tf.fuse_translation_3d.launches - before)
+
+    def timed_fuse(images, **k):
+        t = time.perf_counter()
+        res = fuse_fn(images, **k)
+        torch.cuda.synchronize()
+        level_s.append(time.perf_counter() - t)
+        return res
+
+    tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+    tcore._execute_fusion_plan, tcore.fuse = counted_plan, timed_fuse
+    try:
+        t0 = time.perf_counter()
+        fused = fuse(msims, transform_key="registered")
+        torch.cuda.synchronize()
+        fuse_s = time.perf_counter() - t0
+    finally:
+        tcore._execute_fusion_plan, tcore.fuse = execute, fuse_fn
+    launches = tf.fuse_translation_3d.launches
+    # the output pyramid is the plan of the output's own shape
+    n_levels = len(tmsi.calc_resolution_levels(
+        tsi.get_shape_from_sim(fused.sims[0]) if tmsi.is_msim(fused) else {})[0])
+    if not tmsi.is_msim(fused) or len(fused.sims) != n_levels or any(
+            s.sizes["t"] != nt for s in fused.sims):
+        raise AssertionError(f"{label}: fuse() gave {type(fused).__name__} of "
+                             f"{[s.data.shape for s in getattr(fused, 'sims', [])]}")
+    if len(plans) != n_levels * nt or min(plans) < 1 or tf.fuse_translation_2d.launches:
+        raise AssertionError(f"{label}: fuse_translation_3d launches per (level, t) {plans}")
+    # a window of levels 0 and 1 at the last t against device="cpu"
+    t_last = fused.sims[0].coords["t"][-1]
+    win_err = 0.0
+    win = min(128, tile[0])
+    for level in (0, 1):
+        lvl = fused.sims[level]
+        osp = {"spacing": lvl.spacing, "origin": lvl.origin}
+        start = [0] + [(lvl.sizes[d] // 2 // win) * win for d in ("y", "x")]
+        inputs = [tmsi.get_sim_from_msim(tmsi.multiscale_sel_coords(m, {"t": t_last}),
+                                         scale=tmsi.get_res_level_from_spacing(m, lvl.spacing))
+                  for m in msims]
+        ref = fuse(inputs, transform_key="registered", device="cpu",
+                   output_stack_properties=window_props(osp, ["z", "y", "x"], start, win)).data
+        got = lvl.data[-1][tuple(slice(s, s + win) for s in start)]
+        err = max_err(got, ref, np) if got.shape == ref.shape else float("inf")
+        if err > UINT_COUNTS:
+            raise AssertionError(f"{label}: level {level}'s window differs from the CPU's by "
+                                 f"{err:g} ({got.shape} / {ref.shape})")
+        win_err = max(win_err, err)
+    out.update(fuse_s=fuse_s, fuse_level_s=level_s, fuse_launches=launches,
+               fuse_launches_per_level_t=plans, fuse_window_err=win_err)
+    say(f"fuse(msims): {len(fused.sims)} levels "
+        f"{[tuple(s.data.shape) for s in fused.sims]} uint16 in {fuse_s:.3f} s, per level "
+        f"{[round(x, 3) for x in level_s]} s; fuse_translation_3d launches {launches}, per "
+        f"(level, t) {plans}; {win}^3 windows of levels 0 and 1 at t = {t_last} within "
+        f"{win_err:g} counts of device='cpu'")
+
+    # 4. the OME-Zarr leg at t = 0
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0_coord = fused.sims[0].coords["t"][0]
+        at0 = [tmsi.multiscale_sel_coords(m, {"t": t0_coord}) for m in msims]
+        urls = [str(work / f"tile{k}.ome.zarr") for k in range(len(at0))]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(at0)) as ex:
+            list(ex.map(lambda a: tngff.write_msim_to_ome_zarr(*a, overwrite=True),
+                        zip(at0, urls)))
+        write_s = time.perf_counter() - t0
+        zmsims = [tngff.read_msim_from_ome_zarr(u) for u in urls]
+        # which arrays the registration reads
+        read_paths = set()
+        zread = tzb.ZarrV2.read
+
+        def spy(self, box):
+            read_paths.add(os.path.basename(self.path))
+            return zread(self, box)
+
+        tzb.ZarrV2.read = spy
+        try:
+            t0 = time.perf_counter()
+            zparams = treg.register(zmsims, transform_key=KEY,
+                                    groupwise_resolution_method="shortest_paths",
+                                    registration_binning={"z": 1, "y": 2, "x": 2})
+            torch.cuda.synchronize()
+            zreg_s = time.perf_counter() - t0
+        finally:
+            tzb.ZarrV2.read = zread
+        zlevels = treg.last_telemetry["levels"]
+        if zlevels != ["scale1"] or read_paths != {"1"}:
+            raise AssertionError(f"{label}: the OME-Zarr registration ran at {zlevels} and read "
+                                 f"arrays {sorted(read_paths)}")
+        zreg_err = max(float(np.abs(np.asarray(z.data) - np.asarray(m.data[0])).max())
+                       for z, m in zip(zparams, regs["binning 1/2/2"]))
+        if zreg_err > MS_CPU_ATOL:
+            raise AssertionError(f"{label}: the OME-Zarr registration differs from the in-memory "
+                                 f"one at t = 0 by {zreg_err:g} px")
+        t0 = time.perf_counter()
+        zfused = fuse(zmsims, transform_key="registered", output_zarr_url=str(work / "fused.zarr"),
+                      zarr_options={"ome_zarr": True})
+        zfuse_s = time.perf_counter() - t0
+        if not tmsi.is_msim(zfused) or len(zfused.sims) != n_levels:
+            raise AssertionError(f"{label}: the OME-Zarr fuse returned {type(zfused).__name__}")
+        z0 = zfused.sims[0].to_numpy()
+        if z0.shape != fused.sims[0].data.shape[1:] or not np.array_equal(
+                z0, fused.sims[0].data[0]):
+            raise AssertionError(f"{label}: the OME-Zarr level 0 differs from the in-memory t = 0")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out.update(zarr_write_s=write_s, zarr_register_s=zreg_s, zarr_fuse_s=zfuse_s,
+               zarr_register_err_px=zreg_err)
+    say(f"OME-Zarr at t = 0: {len(urls)} msims written in {write_s:.3f} s, reopened lazily; "
+        f"register(binning 1/2/2) at {zlevels[0]} reading arrays {sorted(read_paths)} only in "
+        f"{zreg_s:.3f} s, within {zreg_err:g} px of the in-memory one; fuse to OME-Zarr in "
+        f"{zfuse_s:.3f} s: an msim of {len(zfused.sims)} levels, level 0 equal to the in-memory "
+        f"t = 0 bit for bit; store removed")
+
+    # 5. one stitch() of the time-lapse
+    t0 = time.perf_counter()
+    stitched = tstitch.stitch(msims)
+    torch.cuda.synchronize()
+    stitch_s = time.perf_counter() - t0
+    st_err = (max_err(stitched.data, fused.sims[0].data, np)
+              if stitched.data.shape == fused.sims[0].data.shape else float("inf"))
+    if st_err > UINT_COUNTS:
+        raise AssertionError(f"{label}: stitch() differs from fuse()'s level 0 by {st_err:g}")
+    out.update(stitch_s=stitch_s, stitch_err=st_err)
+    del fused, stitched, msims, sims
+    say(f"stitch(msims) over t in {stitch_s:.3f} s ({treg.last_telemetry['units']} units), level "
+        f"0 within {st_err:g} counts of fuse()")
+
+    # 6. the README's Quickstart as written, in 2D
+    out["quickstart_2d"] = quickstart_2d(np, torch, tsi, tcore, tf, fuse, say, device)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase {out['phase_s']:.1f} s")
+    return out
+
+
 # the stitch phase's grid: overlap tolerance (physical units, spacing 1) that
 # covers the metadata's error, so that every pair's crops hold their common
 # content
@@ -1805,7 +2231,7 @@ def stitch_grid_sims(np, tsi, n, tile, overlap, seed):
 
 
 def stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n, tile, overlap):
-    """Phase 8: stitch() of the north-star grid on the card, cold then warm,
+    """The stitch phase: stitch() of the north-star grid on the card, cold then warm,
     split into its stages; the resolved offsets against the truth; the output
     against fuse() under the resolved key; register() on the card against
     register(device="cpu") on the grid's 4 x 4 corner."""
@@ -2055,6 +2481,11 @@ def main() -> int:
     general["phase_s"] = time.perf_counter() - t_general
     log(f"general: phase {general['phase_s']:.1f} s")
 
+    # msims and time: pyramids, register over levels and t, fuse to a pyramid
+    multiscale = multiscale_phase(np, torch, tsi, tcore, tf, fuse,
+                                  REPO / ".bench_large" / "chip_smoke_multiscale")
+    torch.cuda.empty_cache()
+
     # the north star's second half: register -> resolve -> fuse on the card
     stitched = stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n=32, tile=64, overlap=12)
 
@@ -2082,7 +2513,7 @@ def main() -> int:
                                   exact_err["sepy"], exact_err["general"])):
         k["max_abs_err"] = max(k["max_abs_err"], worst)
     detail = {"3d": r3, "2d": r2, "zarr": zarr, **{f"affine_{k}": v for k, v in affine.items()},
-              "general": general, "stitch": stitched,
+              "general": general, "multiscale": multiscale, "stitch": stitched,
               "f1_fuse_max_abs_err": f1_err, "build_s": build_s, "small_cases_s": small_s,
               "total_s": time.perf_counter() - t_start}
     log("detail: " + json.dumps(detail))

@@ -6,15 +6,17 @@ kernels for NVIDIA Hopper (sm_90a) on the device. It imports neither JAX nor
 the JAX package: the host helpers it needs are copied here under the same
 module names.
 
-Ported so far: ``fusion.fuse`` of translation-placed 2D and 3D tile grids with
-the default weighted-average blending, ``fusion.fuse`` of views under any
-other affine (rotated multi-view stacks, affine-registered tile grids) with
-the builtin fusion functions, and ``transformation.transform_sim`` with linear
-interpolation. Entry points run on the CUDA device unless the caller passes
-``device="cpu"``, which takes the plain PyTorch version of every kernel.
+Ported so far: ``fusion.fuse`` of sims and of multiscale msims (any fusion
+and weights function, in memory or into OME-Zarr), ``registration.register``
+(the view graph, batched phase correlation, groupwise resolution; over
+pyramid levels and over ``t``), ``stitch.stitch`` and
+``transformation.transform_sim`` with linear interpolation. Entry points run
+on the CUDA device unless the caller passes ``device="cpu"``, which takes the
+plain PyTorch version of every kernel.
 
-- ``si_utils`` / ``msi_utils`` / ``param_utils`` — data model
-- ``fusion`` — ``fuse``
+- ``si_utils`` / ``msi_utils`` / ``param_utils`` / ``zarr_utils`` — data model
+- ``fusion`` — ``fuse``; ``registration`` — ``register``; ``stitch`` — ``stitch``
+- ``io.zarr_backend`` / ``io.ngff_utils`` — zarr v2 and OME-Zarr (NGFF 0.4)
 - ``transformation`` — ``transform_sim``, ``transform_pts``
 - ``ops.translation_fusion`` — the two translation-fusion kernels
 - ``ops.exact_affine`` — the three exact-affine resampling kernels

@@ -1775,7 +1775,10 @@ def fuse(
     arrays or lazy zarr arrays (``io.zarr_backend``). Returns a Sim in the
     input dtype with an identity affine under ``transform_key``: in host
     memory, or, with ``output_zarr_url``, backed by the zarr v2 array written
-    there. ``zarr_options``: ``ome_zarr`` (default True: an NGFF 0.4
+    there. Given msims (:class:`~.msi_utils.Msim`), it returns an msim (see
+    :func:`_fuse_msims`; ``output_origin``, ``output_shape`` and
+    ``output_stack_properties`` are not read then, as in the reference).
+    ``zarr_options``: ``ome_zarr`` (default True: an NGFF 0.4
     OME-Zarr with level 0 at ``{url}/0``, its pyramid and metadata; False: a
     plain array at ``url``), ``ngff_version`` ("0.4"), ``create_output``
     (default True; False writes into the array already there),
@@ -1790,8 +1793,28 @@ def fuse(
     device = misc_utils.resolve_device(device)
     if images is None or not len(images):
         raise ValueError("images must contain at least one image.")
-    if any(msi_utils.is_msim(im) for im in images):
-        raise NotImplementedError(f"fusing msims is not ported yet ({_ROADMAP}: msims)")
+    input_is_msim = [msi_utils.is_msim(im) for im in images]
+    if any(input_is_msim) and not all(input_is_msim):
+        raise ValueError("All input images must be of the same kind (all sims or all msims).")
+    if all(input_is_msim):
+        return _fuse_msims(
+            images,
+            transform_key=transform_key,
+            fusion_func=fusion_func,
+            fusion_func_kwargs=fusion_func_kwargs,
+            weights_func=weights_func,
+            weights_func_kwargs=weights_func_kwargs,
+            output_spacing=output_spacing,
+            output_stack_mode=output_stack_mode,
+            output_chunksize=output_chunksize,
+            overlap_in_pixels=overlap_in_pixels,
+            trim_overlap=trim_overlap,
+            interpolation_order=interpolation_order,
+            blending_widths=blending_widths,
+            output_zarr_url=output_zarr_url,
+            zarr_options=zarr_options,
+            device=device,
+        )
     zarr_options = dict(zarr_options or {})
     if output_zarr_url is not None and zarr_options.get("ngff_version", "0.4") != "0.4":
         raise NotImplementedError(zarr_backend._V3)
@@ -1969,6 +1992,83 @@ def fuse(
         transform_key=transform_key,
     )
     return out_sim
+
+
+def _fuse_msims(msims, output_spacing=None, output_stack_mode="union", output_zarr_url=None,
+                zarr_options=None, **kwargs):
+    """Multiscale fusion. The output's level 0 has the geometry of the
+    union (or ``output_stack_mode``) of the views at ``output_spacing`` (by
+    default level 0's spacing); its pyramid is :func:`calc_resolution_levels`'
+    plan of that shape, each level's origin moved by ``(factor - 1) / 2 *
+    spacing``. Each output level is fused by :func:`fuse` from the input
+    level that ``get_res_level_from_spacing`` picks for its spacing, through
+    the tier that level takes. Returns an msim in memory; with
+    ``output_zarr_url``, only level 0 is fused, into the store (an OME-Zarr
+    with its pyramid unless ``zarr_options["ome_zarr"]`` is False), and the
+    result is the store read back as a lazy msim of every level where
+    ``zarr_options["ome_zarr"]`` is set, as the reference does, else a
+    one-level msim over the fused level 0."""
+    transform_key = kwargs.get("transform_key")
+    sims0 = [msi_utils.get_sim_from_msim(m, scale="scale0") for m in msims]
+    sdims = si_utils.get_spatial_dims_from_sim(sims0[0])
+    if output_spacing is None:
+        output_spacing = si_utils.get_spacing_from_sim(sims0[0])
+    props0 = process_output_stack_properties(
+        [
+            si_utils.sim_sel_coords(s, {nd: s.coords[nd][0] for nd in s.nsdims}) if s.nsdims
+            else s
+            for s in sims0
+        ],
+        output_spacing=output_spacing,
+        output_stack_mode=output_stack_mode,
+        transform_key=transform_key,
+    )
+    if output_zarr_url is not None:
+        selected = [
+            msi_utils.get_sim_from_msim(
+                m, scale=msi_utils.get_res_level_from_spacing(m, props0["spacing"])
+            )
+            for m in msims
+        ]
+        fused = fuse(
+            selected,
+            output_stack_properties={k: dict(props0[k]) for k in ("shape", "spacing", "origin")},
+            output_zarr_url=output_zarr_url,
+            zarr_options=zarr_options,
+            **kwargs,
+        )
+        if (zarr_options or {}).get("ome_zarr", False):
+            return ngff_utils.read_msim_from_ome_zarr(
+                output_zarr_url,
+                transform_key=(
+                    transform_key if transform_key is not None else si_utils.DEFAULT_TRANSFORM_KEY
+                ),
+            )
+        return msi_utils.get_msim_from_sim(fused, scale_factors=[])
+
+    shapes, _, abs_factors = msi_utils.calc_resolution_levels(
+        {d: int(props0["shape"][d]) for d in sdims}
+    )
+    out_sims = []
+    for level, abs_factor in enumerate(abs_factors):
+        level_spacing = {d: float(props0["spacing"][d]) * abs_factor[d] for d in sdims}
+        level_props = {
+            "shape": shapes[level],
+            "spacing": level_spacing,
+            "origin": {
+                d: float(props0["origin"][d])
+                + (abs_factor[d] - 1) / 2 * float(props0["spacing"][d])
+                for d in sdims
+            },
+        }
+        level_inputs = [
+            msi_utils.get_sim_from_msim(
+                m, scale=msi_utils.get_res_level_from_spacing(m, level_spacing)
+            )
+            for m in msims
+        ]
+        out_sims.append(fuse(level_inputs, output_stack_properties=level_props, **kwargs))
+    return msi_utils.Msim(sims=out_sims)
 
 
 def func_ignore_nan_warning(func, *args, **kwargs):

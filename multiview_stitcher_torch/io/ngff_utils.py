@@ -1,25 +1,35 @@
 """OME-Zarr (NGFF 0.4) levels and metadata, on the port's zarr v2 IO.
 
 A subset of ``multiview_stitcher_tpu.io.ngff_utils`` under the same names:
-what ``fuse(output_zarr_url=...)`` writes through (the per-level
-coordinate transformations, the block-wise pyramid from a level 0 written
-chunk by chunk, the multiscales and omero metadata) and reads its result back
-with. The writers for in-memory sims and msims and the virtual NGFF server
-wait for ROADMAP.md items 10 and 16. NGFF stores no affines: a sim read back
-carries an identity transform.
+the per-level coordinate transformations, the block-wise pyramid from a
+level 0 written chunk by chunk (what ``fuse(output_zarr_url=...)`` writes
+through), the writers of sims and msims, and the readers of one level as a
+sim and of all levels as an msim. NGFF stores no affines: a sim read back
+carries an identity transform, and an msim's named transforms are kept in
+the group's attributes under :data:`TRANSFORMS_ATTR_KEY`, as the reference
+package keeps them, so that a store written by either package carries its
+transforms into the other. The virtual NGFF server waits for ROADMAP.md
+item 10.
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+import shutil
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from multiview_stitcher_torch import msi_utils, si_utils
 from multiview_stitcher_torch.io import zarr_backend
+from multiview_stitcher_torch.msi_utils import Msim
+from multiview_stitcher_torch.param_utils import XAffine
 from multiview_stitcher_torch.si_utils import Sim
+
+# the group attribute that holds an msim's named transforms: the reference
+# package's key, so that stores interoperate
+TRANSFORMS_ATTR_KEY = "multiview_stitcher_tpu:transforms"
 
 DEFAULT_NGFF_TIME_TRANSFORM = {"scale": 1.0, "translation": 0.0, "unit": None}
 
@@ -78,10 +88,14 @@ def finalize_ome_zarr_levels(
     c_coords=None,
     downscale_factors_per_spatial_dim: Optional[Dict[str, int]] = None,
     block_size: int = 512,
+    time_transform: Optional[dict] = None,
+    channel_windows: Optional[List[tuple]] = None,
 ):
     """Complete an OME-Zarr whose level 0 was written chunk by chunk: build
     each pyramid level block by block from the one before (never a whole
-    level in memory) and write the multiscales and omero metadata."""
+    level in memory) and write the multiscales and omero metadata.
+    ``channel_windows``: per channel, the (start, end) of its omero window
+    (by default (0, 65535))."""
     if ngff_version != "0.4":
         raise NotImplementedError(zarr_backend._V3)
     dims = tuple(dims)
@@ -132,6 +146,7 @@ def finalize_ome_zarr_levels(
         {"spacing": spacing, "origin": origin, "shape": spatial_shape},
         res_abs_factors,
         nsdims=nsdims,
+        time_transform=time_transform,
     )
     multiscales = [
         {
@@ -145,18 +160,86 @@ def finalize_ome_zarr_levels(
     ]
     attrs = {"multiscales": multiscales}
     if c_coords is not None:
+        c_coords = np.asarray(c_coords)
+        windows = channel_windows or [(0, 65535)] * len(c_coords)
         attrs["omero"] = {
             "channels": [
                 {
                     "color": "ffffff",
                     "label": f"{ch}",
                     "active": True,
-                    "window": {"end": 65535, "max": 65535, "min": 0, "start": 0},
+                    "window": {"end": int(hi), "max": int(hi), "min": 0, "start": int(lo)},
                 }
-                for ch in np.asarray(c_coords)
+                for ch, (lo, hi) in zip(c_coords, windows)
             ]
         }
     zarr_backend.write_group_metadata(str(output_zarr_url), attrs)
+
+
+def _default_chunks(sim: Sim) -> List[int]:
+    spatial_cs = si_utils.get_default_spatial_chunksizes(len(sim.spatial_dims))
+    return [1 if d in ("t", "c") else min(spatial_cs[d], sim.sizes[d]) for d in sim.dims]
+
+
+def _first_transform_key(sim: Sim) -> str:
+    keys = list(sim.transforms.keys())
+    return keys[0] if keys else si_utils.DEFAULT_TRANSFORM_KEY
+
+
+def write_sim_to_ome_zarr(
+    sim: Sim,
+    output_zarr_url: str,
+    downscale_factors_per_spatial_dim: Optional[Dict[str, int]] = None,
+    overwrite: bool = False,
+    ngff_version: str = "0.4",
+    chunks: Optional[List[int]] = None,
+    shards: Optional[List[int]] = None,
+) -> Sim:
+    """Write a sim as a multiscale OME-Zarr (NGFF 0.4, zarr v2) and return
+    it read back lazily, with the sim's transforms. Level 0 holds the data
+    in ``chunks`` (by default 1 on t and c, 256 (3D) or 2048 (2D) pixels on
+    each spatial dim); :func:`finalize_ome_zarr_levels` builds the pyramid
+    from it and writes the metadata, with the sim's NGFF time calibration
+    and, for a ``c`` dim, each channel's value range as its omero window.
+    Without ``overwrite``, a level 0 of the same shape already in the store
+    is kept (the store is the checkpoint)."""
+    if ngff_version != "0.4" or shards is not None:
+        raise NotImplementedError(zarr_backend._V3)
+    if overwrite and os.path.exists(output_zarr_url):
+        shutil.rmtree(output_zarr_url)
+    data = sim.to_numpy()
+    level0_url = f"{output_zarr_url}/0"
+    try:
+        keep = tuple(zarr_backend.open_zarr_array(level0_url).shape) == data.shape
+    except FileNotFoundError:
+        keep = False
+    if not keep:
+        chunks = _default_chunks(sim) if chunks is None else chunks
+        arr = zarr_backend.create_zarr_array(
+            level0_url,
+            shape=data.shape,
+            chunks=[min(c, s) for c, s in zip(chunks, data.shape)],
+            dtype=data.dtype,
+            overwrite=True,
+        )
+        arr[...] = data
+    windows = None
+    if "c" in sim.dims:
+        other_axes = tuple(i for i, d in enumerate(sim.dims) if d != "c")
+        windows = list(zip(data.min(axis=other_axes), data.max(axis=other_axes)))
+    finalize_ome_zarr_levels(
+        output_zarr_url,
+        dims=sim.dims,
+        stack_properties=si_utils.get_stack_properties_from_sim(sim),
+        ngff_version=ngff_version,
+        c_coords=sim.coords.get("c"),
+        downscale_factors_per_spatial_dim=downscale_factors_per_spatial_dim,
+        time_transform=sim.attrs.get("ngff_time_transform"),
+        channel_windows=windows,
+    )
+    return read_sim_from_ome_zarr(
+        output_zarr_url, transform_key=_first_transform_key(sim), prior_sim=sim
+    )
 
 
 def _parse_multiscales(attrs: dict):
@@ -216,3 +299,99 @@ def read_sim_from_ome_zarr(
         for key, xaff in prior_sim.transforms.items():
             sim.transforms[key] = xaff.copy()
     return sim
+
+
+def update_ome_zarr_multiscales_metadata(zarr_path, msim, transform_key):
+    """Rewrite the store's per-level scale and translation from an msim's
+    levels, every other attribute kept. With ``transform_key``, the
+    translation of that key's affine is added to each level's origin; with
+    None, the origins alone are written. Raises when the level counts
+    differ."""
+    zarr_path = str(zarr_path)
+    attrs, zarr_format = zarr_backend.read_group_metadata(zarr_path)
+    ms, _ = _parse_multiscales(attrs)
+    datasets = ms["datasets"]
+    scale_keys = msi_utils.get_sorted_scale_keys(msim)
+    if len(datasets) != len(scale_keys):
+        raise ValueError(
+            f"On-disk OME-Zarr has {len(datasets)} resolution levels, msim has "
+            f"{len(scale_keys)}."
+        )
+    axes = [a["name"] for a in ms["axes"]]
+    sdims = [a for a in axes if a in si_utils.SPATIAL_DIMS]
+    for ds, skey in zip(datasets, scale_keys):
+        sim = msim.get_scale(skey)
+        origin = dict(sim.origin)
+        if transform_key is not None:
+            aff = np.asarray(si_utils.get_affine_from_sim(sim, transform_key).squeeze())
+            if aff.ndim == 3:
+                aff = aff[0]
+            for i, d in enumerate(sdims):
+                origin[d] = origin[d] + float(aff[:-1, -1][i])
+        for tf in ds.get("coordinateTransformations", []):
+            if tf["type"] == "scale":
+                tf["scale"] = [
+                    float(sim.spacing[a]) if a in sdims else v for a, v in zip(axes, tf["scale"])
+                ]
+            elif tf["type"] == "translation":
+                tf["translation"] = [
+                    float(origin[a]) if a in sdims else v
+                    for a, v in zip(axes, tf["translation"])
+                ]
+    zarr_backend.write_group_metadata(zarr_path, attrs, zarr_format)
+
+
+def _transforms_to_json(transforms: dict) -> dict:
+    return {
+        key: {
+            "data": np.asarray(xaff.data).tolist(),
+            "t_coords": None if xaff.t_coords is None else np.asarray(xaff.t_coords).tolist(),
+        }
+        for key, xaff in transforms.items()
+    }
+
+
+def _transforms_from_json(payload: dict) -> dict:
+    return {
+        key: XAffine(
+            np.asarray(entry["data"], dtype=float),
+            t_coords=None if entry.get("t_coords") is None else np.asarray(entry["t_coords"]),
+        )
+        for key, entry in payload.items()
+    }
+
+
+def update_msim_transforms_zarr(msim_or_transforms, zarr_path):
+    """Store an msim's named transforms (or a dict of them) in the store's
+    group attributes, under :data:`TRANSFORMS_ATTR_KEY`."""
+    transforms = getattr(msim_or_transforms, "transforms", msim_or_transforms)
+    attrs, zarr_format = zarr_backend.read_group_metadata(str(zarr_path))
+    attrs[TRANSFORMS_ATTR_KEY] = _transforms_to_json(transforms)
+    zarr_backend.write_group_metadata(str(zarr_path), attrs, zarr_format=zarr_format)
+
+
+def read_msim_from_ome_zarr(
+    zarr_path, transform_key: str = si_utils.DEFAULT_TRANSFORM_KEY
+) -> Msim:
+    """Every level of an OME-Zarr as a lazy msim: an identity transform under
+    ``transform_key``, and the named transforms stored in the group's
+    attributes where there are any."""
+    attrs, _ = zarr_backend.read_group_metadata(str(zarr_path))
+    ms, _ = _parse_multiscales(attrs)
+    msim = Msim(sims=[
+        read_sim_from_ome_zarr(zarr_path, resolution_level=level, transform_key=transform_key)
+        for level in range(len(ms["datasets"]))
+    ])
+    if TRANSFORMS_ATTR_KEY in attrs:
+        msim.transforms.update(_transforms_from_json(attrs[TRANSFORMS_ATTR_KEY]))
+    return msim
+
+
+def write_msim_to_ome_zarr(msim: Msim, output_zarr_url: str, **kwargs) -> Msim:
+    """Write an msim's level 0 with :func:`write_sim_to_ome_zarr` (the
+    pyramid is built anew), store its named transforms, and return the store
+    read back lazily."""
+    write_sim_to_ome_zarr(msi_utils.get_sim_from_msim(msim, scale="scale0"), output_zarr_url,
+                          **kwargs)
+    update_msim_transforms_zarr(msim, output_zarr_url)
+    return read_msim_from_ome_zarr(output_zarr_url)

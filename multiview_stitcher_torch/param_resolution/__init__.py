@@ -1,10 +1,11 @@
 """Groupwise parameter resolution: the method registry and the resolution of
 one transform per view from a pairwise registration graph.
 
-The port of ``multiview_stitcher_tpu.param_resolution`` for graphs of one
-timepoint, on this package's :class:`~multiview_stitcher_torch.mv_graph.Graph`
-and without pandas: ``info["metrics"]`` is a dict of numpy columns with the
-reference DataFrame's column names. Each connected component is resolved on
+The port of ``multiview_stitcher_tpu.param_resolution``, on this package's
+:class:`~multiview_stitcher_torch.mv_graph.Graph` and without pandas:
+``info["metrics"]`` is a dict of numpy columns with the reference
+DataFrame's column names. A graph whose edge transforms vary over ``t`` is
+resolved one timepoint at a time; each connected component is resolved on
 its own, in the order of its first node.
 
 Resolver contract: ``resolver(g_component, **kwargs) -> (params_by_node,
@@ -26,7 +27,9 @@ from multiview_stitcher_torch.param_resolution.utils import (
     compute_edge_residuals,
     get_graph_ndim,
     get_graph_timepoints,
+    get_reg_graph_with_single_tp_transforms,
 )
+from multiview_stitcher_torch.param_utils import XAffine
 
 _RESOLVER_REGISTRY: dict = {}
 
@@ -102,25 +105,48 @@ def groupwise_resolution(g_reg, method="global_optimization", **kwargs):
 
     ``method`` is a registry name ('global_optimization', 'shortest_paths')
     or a resolver callable; the other kwargs go to it. Returns
-    ``(params_by_node, info)``, info holding the per-edge residuals and used
-    edges under timepoint index 0 and the resolvers' metrics."""
+    ``(params_by_node, info)``: params stacked over t (``XAffine`` with
+    ``t_coords``) when the edge transforms carry timepoints; info holding the
+    per-edge residuals and used edges keyed by timepoint index (0 without t)
+    and the resolvers' metrics, with a ``t`` column when resolved over t."""
     if g_reg.number_of_edges() == 0:
         raise mv_graph.NotEnoughOverlapError("Not enough overlap between views for stitching.")
     resolver = _lookup_resolver(method)
-    if get_graph_timepoints(g_reg):
-        raise NotImplementedError(
-            "resolving time-varying transforms is not ported yet (ROADMAP.md, queue 1: "
-            "item 23, registration over t)"
-        )
     # a two-view graph follows the [fixed, moving] convention: anchor the
     # lower-indexed view unless the caller chose a reference
     if len(g_reg.nodes) == 2:
         kwargs.setdefault("reference_view", min(g_reg.nodes))
-    params, frames, used, residuals = _resolve_one_timepoint(g_reg, resolver, kwargs)
+
+    t_coords = get_graph_timepoints(g_reg)
+    per_t_params = []
+    all_frames = []
+    edge_residuals: dict = {}
+    used_edges: dict = {}
+    for it, t in enumerate(t_coords or [None]):
+        g_t = g_reg if t is None else get_reg_graph_with_single_tp_transforms(g_reg, t)
+        params_t, frames, used, residuals = _resolve_one_timepoint(g_t, resolver, kwargs)
+        if t is not None:
+            for df in frames:
+                df["t"] = np.full(len(df["icc"]), t)
+        per_t_params.append(params_t)
+        all_frames.extend(frames)
+        edge_residuals[it] = residuals
+        used_edges[it] = sorted(used)
+
+    if t_coords:
+        params = {
+            node: XAffine(
+                np.stack([np.asarray(p[node].squeeze()) for p in per_t_params]),
+                t_coords=np.asarray(t_coords),
+            )
+            for node in g_reg.nodes
+        }
+    else:
+        params = per_t_params[0]
     info = {
-        "metrics": _concat_metrics(frames),
-        "edge_residuals": {0: residuals},
-        "used_edges": {0: sorted(used)},
+        "metrics": _concat_metrics(all_frames),
+        "edge_residuals": edge_residuals,
+        "used_edges": used_edges,
     }
     return params, info
 

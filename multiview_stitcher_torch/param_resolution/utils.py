@@ -47,6 +47,23 @@ def get_graph_timepoints(g_reg) -> list:
     return sorted(ts)
 
 
+def get_reg_graph_with_single_tp_transforms(g_reg, t):
+    """A copy of ``g_reg`` with every time-varying edge attribute narrowed
+    to timepoint ``t``: its affines, and a per-t quality array aligned with
+    the edge transform's t axis."""
+    out = g_reg.copy()
+    for _u, _v, data in out.edges(data=True):
+        tf = data.get("transform")
+        t_axis = np.asarray(tf.t_coords) if isinstance(tf, XAffine) and tf.has_t else None
+        for key in list(data):
+            val = data[key]
+            if isinstance(val, XAffine) and val.has_t:
+                data[key] = val.sel_t(t)
+            elif key == "quality" and np.ndim(val) > 0 and t_axis is not None:
+                data[key] = np.asarray(val).ravel()[int(np.flatnonzero(t_axis == t)[0])]
+    return out
+
+
 @dataclass
 class EdgeBeads:
     """Virtual beads of one registration edge: the overlap-box corners in

@@ -133,15 +133,42 @@ def expand_affine_dims(xaffine, dims) -> XAffine:
     return XAffine(expand_one(xaffine.data))
 
 
+def _align_t(a: XAffine, b: XAffine, join: str = "inner"):
+    """The data of two affines aligned along t: ``(data_a, data_b, t_coords)``.
+
+    An affine without t is broadcast over the other's timepoints. Between two
+    time-varying affines, ``join="inner"`` keeps the common timepoints in
+    ``a``'s order, ``"outer"`` the sorted union, where a timepoint one of
+    them lacks takes the identity."""
+    if not a.has_t and not b.has_t:
+        return a.data, b.data, None
+    if a.has_t and not b.has_t:
+        return a.data, np.broadcast_to(b.data, a.data.shape), a.t_coords
+    if b.has_t and not a.has_t:
+        return np.broadcast_to(a.data, b.data.shape), b.data, b.t_coords
+    if join == "inner":
+        common = [t for t in a.t_coords if t in set(b.t_coords.tolist())]
+    elif join == "outer":
+        common = sorted(set(a.t_coords.tolist()) | set(b.t_coords.tolist()))
+    else:
+        raise ValueError(join)
+    common = np.asarray(common)
+
+    def take(x: XAffine):
+        pos = {t: i for i, t in enumerate(x.t_coords.tolist())}
+        return np.stack([
+            x.data[pos[t]] if t in pos else np.eye(x.ndim + 1) for t in common.tolist()
+        ])
+
+    return take(a), take(b), common
+
+
 def rebase_affine(xaffine, base_affine) -> XAffine:
-    """``xaffine @ base_affine``, for affines without a time axis."""
+    """``xaffine @ base_affine``, over the outer join of their timepoints
+    (a timepoint one of them lacks takes the identity)."""
     a, b = to_xaffine(xaffine), to_xaffine(base_affine)
-    if a.has_t or b.has_t:
-        raise NotImplementedError(
-            "time-varying affines are not ported yet (ROADMAP.md, queue 1: "
-            "item 23, registration over t)"
-        )
-    return XAffine(a.data @ b.data)
+    d1, d2, t = _align_t(a, b, join="outer")
+    return XAffine(np.matmul(d1, d2), t_coords=t)
 
 
 def transform_pts(pts, affine) -> np.ndarray:
@@ -150,3 +177,9 @@ def transform_pts(pts, affine) -> np.ndarray:
     affine = np.asarray(affine, dtype=float)
     ndim = affine.shape[-1] - 1
     return pts @ affine[:ndim, :ndim].T + affine[:ndim, ndim]
+
+
+def get_non_spatial_dims_from_params(xparams) -> list:
+    """The leading dims of a params object: ``["t"]`` for a time-varying
+    affine, else none."""
+    return ["t"] if to_xaffine(xparams).has_t else []

@@ -16,7 +16,7 @@ A "sim" is a :class:`Sim` carrying:
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
@@ -99,6 +99,35 @@ class Sim:
     @property
     def nsdims(self) -> list:
         return [d for d in self.dims if d not in SPATIAL_DIMS]
+
+    def dim_index(self, dim: str) -> int:
+        return self.dims.index(dim)
+
+    def expand_dims(self, dim: str, coords=None) -> "Sim":
+        """The sim with a new non-spatial dim of length 1 at its place in
+        ('t', 'c', 'z', 'y', 'x'); lazy data stays lazy
+        (``zarr_utils.expand_dims``)."""
+        assert dim not in self.dims
+        order = [d for d in ALL_DIMS if d == dim or d in self.dims]
+        axis = order.index(dim)
+        if _is_lazy(self.data):
+            from multiview_stitcher_torch import zarr_utils
+
+            data = zarr_utils.expand_dims(self.data, axis=axis)
+        else:
+            data = np.expand_dims(self.data, axis=axis)
+        new_coords = {k: np.asarray(v).copy() for k, v in self.coords.items()}
+        new_coords[dim] = np.asarray(coords) if coords is not None else np.arange(1)
+        return Sim(
+            data=data,
+            dims=tuple(order),
+            spacing=dict(self.spacing),
+            origin=dict(self.origin),
+            coords=new_coords,
+            transforms={k: v.copy() for k, v in self.transforms.items()},
+            name=self.name,
+            attrs=dict(self.attrs),
+        )
 
     def isel(self, indexers: Dict[str, Any]) -> "Sim":
         """Integer-index along named dims (scalars drop the dim)."""
@@ -306,3 +335,83 @@ def get_default_spatial_chunksizes(ndim: int):
     return dict(
         DEFAULT_SPATIAL_CHUNKSIZES_2D if ndim == 2 else DEFAULT_SPATIAL_CHUNKSIZES_3D
     )
+
+
+def ensure_time_dim(sim: Sim) -> Sim:
+    """The sim with a ``t`` dim (of length 1 when it had none); its affines
+    gain that timepoint."""
+    if "t" in sim.dims:
+        return sim
+    out = sim.expand_dims("t")
+    for key, xaff in list(out.transforms.items()):
+        if not xaff.has_t:
+            out.transforms[key] = XAffine(xaff.data[None], t_coords=out.coords["t"])
+    return out
+
+
+def ensure_dim(sim: Sim, dim: str) -> Sim:
+    """The sim with ``dim`` (of length 1 when it had none)."""
+    if dim in sim.dims:
+        return sim
+    if dim == "t":
+        return ensure_time_dim(sim)
+    return sim.expand_dims(dim)
+
+
+def _merge_transforms(sims: Sequence[Sim], dim: str, coords) -> Dict[str, XAffine]:
+    """The transforms of a combine: the union of the inputs' keys (a key
+    only some inputs carry keeps its first carrier's affine); a key every
+    input carries is concatenated over ``t`` when ``dim`` is t (an affine
+    without t repeated over its sim's timepoints), else the first input's."""
+    out = {}
+    keys: list = []
+    for s in sims:
+        for k in s.transforms:
+            if k not in keys:
+                keys.append(k)
+    for key in keys:
+        carriers = [s for s in sims if key in s.transforms]
+        if len(carriers) < len(sims) or dim != "t":
+            out[key] = carriers[0].transforms[key].copy()
+            continue
+        datas = []
+        for s in sims:
+            x = s.transforms[key]
+            if x.has_t:
+                datas.append(x.data)
+            else:
+                nt = len(np.asarray(s.coords.get("t", np.arange(1))))
+                datas.append(np.broadcast_to(x.data, (nt,) + x.data.shape))
+        out[key] = XAffine(np.concatenate(datas), t_coords=np.asarray(coords))
+    return out
+
+
+def concat(sims: Sequence[Sim], dim: str) -> Sim:
+    """Concatenate sims along an existing or new non-spatial dim. When every
+    input is lazy the result stays lazy (``zarr_utils.concatenate``)."""
+    sims = [ensure_dim(s, dim) for s in sims]
+    axis = sims[0].dim_index(dim)
+    if all(_is_lazy(s.data) for s in sims):
+        from multiview_stitcher_torch import zarr_utils
+
+        data = zarr_utils.concatenate([s.data for s in sims], axis=axis)
+    else:
+        data = np.concatenate([s.to_numpy() for s in sims], axis=axis)
+    coords = np.concatenate([np.asarray(s.coords[dim]) for s in sims])
+    out = sims[0].copy(data=data)
+    out.coords[dim] = coords
+    out.transforms = _merge_transforms(sims, dim, coords)
+    return out
+
+
+def stack(sims: Sequence[Sim], dim: str, coords=None) -> Sim:
+    """Stack sims along a new non-spatial dim (coordinates ``coords``, by
+    default 0, 1, ...)."""
+    if dim in sims[0].dims:
+        raise ValueError(
+            f"stack dim {dim!r} already exists; use concat to join along an existing dim."
+        )
+    out = concat([s.expand_dims(dim, coords=[i]) for i, s in enumerate(sims)], dim)
+    if coords is not None:
+        out.coords[dim] = np.asarray(coords)
+    return out

@@ -6,7 +6,10 @@ device tile cache and cuts the registration crops from it on the device;
 ``fuse`` then reads the same stack from the cache where its tier does (the
 tiers that do not stream). The resolved transforms are written onto the
 msims under ``new_transform_key``, as ``register(new_transform_key=...)``
-does.
+does, and level 0 of the msims is fused. Msims with a pyramid or a ``t`` dim
+are taken as ``register`` takes them: with ``t``, or at a level other than
+level 0, the registration reads host crops, as the reference does, and
+``fuse`` uploads level 0 itself.
 """
 
 from __future__ import annotations

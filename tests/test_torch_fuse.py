@@ -21,13 +21,14 @@ import pytest
 import torch
 
 from multiview_stitcher_torch import convert
+from multiview_stitcher_torch import msi_utils as tmsi
 from multiview_stitcher_torch import mv_graph as tmv
 from multiview_stitcher_torch import si_utils as tsi
 from multiview_stitcher_torch import weights as tweights
 from multiview_stitcher_torch.fusion import _core as tcore
 from multiview_stitcher_torch.fusion import fuse as tfuse
 from multiview_stitcher_torch.ops import resample as tresample
-from multiview_stitcher_tpu import msi_utils, mv_graph, si_utils, weights
+from multiview_stitcher_tpu import mv_graph, si_utils, weights
 from multiview_stitcher_tpu.fusion import _core as jcore
 from multiview_stitcher_tpu.fusion import fuse as jfuse
 from multiview_stitcher_tpu.ops import resample
@@ -191,8 +192,10 @@ def test_fuse_refuses_what_the_slice_does_not_cover(tmp_path, monkeypatch):
     # zarr output is ported for zarr v2 / NGFF 0.4 only (nothing is written)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fuse(output_zarr_url=str(tmp_path / "out.zarr"), zarr_options={"ngff_version": "0.5"})
-    with pytest.raises(NotImplementedError, match="msims"):
-        fuse(images=[msi_utils.get_msim_from_sim(s) for s in jsims])
+    # msims are fused level by level (an msim of this grid's one level)
+    fused_msim = fuse(images=[tmsi.get_msim_from_sim(s) for s in sims])
+    assert tmsi.is_msim(fused_msim) and len(fused_msim.sims) == 1
+    np.testing.assert_array_equal(fused_msim.sims[0].data, fuse().data)
     # lazy tiles above the on-card limit that cannot band (mixed shapes) need
     # the host-slab route in the translation tier; the chunked tiers read
     # them into the device stack and fuse them, as the reference does
@@ -364,6 +367,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import multiview_stitcher_torch.ops.resample\n"
         "import multiview_stitcher_torch.transformation\n"
         "import multiview_stitcher_torch.weights\n"
+        "import multiview_stitcher_torch.zarr_utils\n"
         "from multiview_stitcher_torch.fusion import fuse_np, func_ignore_nan_warning\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"

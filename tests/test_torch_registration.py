@@ -677,17 +677,22 @@ def test_register_refuses_what_the_slice_does_not_cover(grids):
         (dict(pairwise_reg_func_kwargs={"use_fused_core": False}), "item 8"),
         (dict(groupwise_resolution_method="linear_two_pass"), "item 8"),
         (dict(plot_summary=True), "item 8"),
-        (dict(reg_res_level=1), "item 16"),
     ]
     for extra, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             treg.register(sims, **kw, **extra)
+    # what items 16 and 23 covered is no longer refused: a resolution level
+    # (of a one-level msim, level 0 alone), a t dim, the default pyramid
+    level0 = treg.register(sims, reg_res_level=0, **kw)
+    for p, r in zip(level0, treg.register(sims, **kw)):
+        np.testing.assert_array_equal(p.data, r.data)
+    with pytest.raises(ValueError, match="does not exist"):
+        treg.register(sims, reg_res_level=1, **kw)
     tsims = sample_data.generate_tiled_dataset(ndim=2, N_c=1, N_t=2, tiles_x=2, tiles_y=1,
                                                tile_size=20, overlap=6)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        treg.register([s.isel({"c": 0}) for s in _to_port(tsims)], **kw)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tmsi.get_msim_from_sim(sims[0])
+    over_t = treg.register([s.isel({"c": 0}) for s in _to_port(tsims)], **kw)
+    assert all(p.has_t and list(p.t_coords) == [0, 1] for p in over_t)
+    assert len(tmsi.get_msim_from_sim(sims[0]).sims) == 1
 
 
 def test_global_optimization_matches_jax_on_a_large_grid():
