@@ -121,7 +121,27 @@ Phases, one printed line or block each:
    (level, channel) plan launching ``fuse_translation_2d``, a window held to
    ``device="cpu"``. The content is band-limited noise made on the card from
    a seed. Under 60 s;
-10. ``stitch()`` of the north star's grid: 32 x 32 tiles of 64^3 uint16,
+10. bead-based multi-view registration (lines start ``beads:``, each with
+   the card's name and power limit): four (256, 512, 512) uint16 views of
+   one volume of 3000 beads (seeded, at least 12 px inside and 6 px apart,
+   gaussian blobs of sigma 1.2 px, amplitude 2000 +- 20 %, background 100,
+   noise sigma 10), rotated about y by 0, 47, 92 and 137 degrees about the
+   centre and rendered on the card by splatting the beads and
+   ``gaussian_filter``; views 1-3 carry a rigid metadata error of 1-2
+   degrees and 2-5 px. ``detect_beads`` of each view on the card (recall of
+   the beads 4 px inside within half a voxel diagonal at least 98 %; the
+   split of upload, filters, mask download and labelling), one view again
+   with ``device="cpu"`` (counts within 0.2 %, matched centroids within 1e-3
+   px); ``register()`` of the 6 pairs by ``registration_marker_based``
+   (rigid, RANSAC within 2 px, ICP), resolved by global optimisation and by
+   ``linear_two_pass``, each view's true beads within 0.25 px RMS and 0.5 px
+   at most of view 0's; ``fuse()`` of the registered views through the
+   exact-affine kernels (launches counted from 0 just before, routes) and a
+   central 128^3 window within 1 count of ``device="cpu"``; a 2 x 2 grid of
+   64^3 tiles registered with ``use_fused_core=False`` and through a
+   thread-pool ``pairwise_executor``, their pair shifts within 1e-3 px of the
+   default path's. Under 60 s;
+11. ``stitch()`` of the north star's grid: 32 x 32 tiles of 64^3 uint16,
    overlap 12, cut from one band-limited volume (numpy, seeded) at known
    true positions, their metadata origins off by integers in [-1, 1] (z)
    and [-3, 3] (y, x), registered with an overlap tolerance of 1 / 3 / 3 px
@@ -137,8 +157,9 @@ Phases, one printed line or block each:
    as in the port); the output equal to ``fuse()`` under the resolved key;
    ``register()`` on the card within 1e-3 px of ``register(device="cpu")``
    on the grid's 4 x 4 corner;
-11. a ``kernels`` JSON line: per kernel its launches in the main-path run,
-   its time, the plain version's time, its bound and its error.
+12. a ``kernels`` JSON line: per kernel its launches in the main-path run,
+   its time, the plain version's time, its bound and its error, and its
+   launches in the beads phase's fuse (``beads_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 the script exits non-zero without that line; without a CUDA device it exits
@@ -2173,6 +2194,359 @@ def multiscale_phase(np, torch, tsi, tcore, tf, fuse, work, n=3, nt=3, tile=(128
 # the stitch phase's grid: overlap tolerance (physical units, spacing 1) that
 # covers the metadata's error, so that every pair's crops hold their common
 # content
+# ---------------------------------------------------------------------------
+# the beads phase: bead-based multi-view registration
+# ---------------------------------------------------------------------------
+
+BEADS_ANGLES = (0, 47, 92, 137)
+BEADS_SIGMA = 1.2
+# a true bead counts as found where a detection lies within this many px of
+# it, for the beads at least BEADS_INSIDE px inside. The detections are the
+# voxels of LoG maxima (a label's centroid is its voxel), so a found bead
+# lies up to half a voxel off along each axis: sqrt(3) / 2 px. The share
+# within 0.5 px along every axis (the bead's nearest voxel; noise moves a
+# bead halfway between two voxels to the other one) is printed beside it
+BEADS_MATCH_PX = float(3 ** 0.5 / 2)
+BEADS_INSIDE = 4
+BEADS_RECALL = 0.98
+# one view's detection on the card against device="cpu": bead count and
+# matched centroids
+BEADS_COUNT_REL = 0.002
+BEADS_CPU_ATOL = 1e-3
+# each resolved view's true beads in the world against view 0's, px
+BEADS_RMS = 0.25
+BEADS_MAX = 0.5
+# pairwise shifts of the step-by-step phase correlation against the default
+BEADS_SHIFT_ATOL = 1e-3
+BEADS_REG_KW = {"transform_type": "rigid", "ransac_max_error": 2.0, "icp": True}
+
+
+def bead_positions(np, rng, shape, n, margin=12, min_dist=6.0):
+    """``n`` bead centres in the box ``shape``, at least ``margin`` px
+    inside and ``min_dist`` px apart: candidates drawn uniformly and kept
+    when no kept centre lies within ``min_dist`` (a hash of cells of that
+    size)."""
+    import itertools
+
+    lo = np.full(3, float(margin))
+    hi = np.asarray(shape, dtype=float) - 1 - margin
+    cells, out = {}, []
+    offsets = list(itertools.product((-1, 0, 1), repeat=3))
+    while len(out) < n:
+        for p in rng.uniform(lo, hi, (4096, 3)):
+            key = tuple(int(v) for v in p // min_dist)
+            near = (q for dk in offsets
+                    for q in cells.get((key[0] + dk[0], key[1] + dk[1], key[2] + dk[2]), ()))
+            if any(float(np.sum((p - q) ** 2)) < min_dist * min_dist for q in near):
+                continue
+            cells.setdefault(key, []).append(p)
+            out.append(p)
+            if len(out) == n:
+                break
+    return np.array(out)
+
+
+def render_bead_view(np, torch, tfilters, beads, amps, view_affine, shape, seed, device):
+    """One view's uint16 image: the beads (world positions) placed in the
+    view's pixel grid through the inverse of its true affine, splatted
+    trilinearly with masses that give each bead's amplitude as the peak of a
+    centred blob, blurred by ``gaussian_filter`` (sigma BEADS_SIGMA) through
+    the port, on a background of 100 with gaussian noise of sigma 10 (a torch
+    generator seeded with ``seed``); made on ``device``."""
+    import itertools
+
+    k1 = tfilters.gaussian_kernel_1d(BEADS_SIGMA)
+    mass = 1.0 / float(k1.max()) ** 3
+    q = (beads - view_affine[:3, 3]) @ np.linalg.inv(view_affine[:3, :3]).T
+    keep = np.all((q >= -4) & (q <= np.asarray(shape) + 3), axis=1)
+    q, a = q[keep], amps[keep] * mass
+    base = np.floor(q).astype(np.int64)
+    frac = q - base
+    vol = torch.zeros(shape, dtype=torch.float32, device=device)
+    for corner in itertools.product((0, 1), repeat=3):
+        idx = base + np.asarray(corner)
+        w = np.prod(np.where(np.asarray(corner, bool), frac, 1 - frac), axis=1) * a
+        ok = np.all((idx >= 0) & (idx < np.asarray(shape)), axis=1)
+        index = tuple(torch.from_numpy(idx[ok, d]).to(device) for d in range(3))
+        vol.index_put_(index, torch.from_numpy(w[ok].astype(np.float32)).to(device),
+                       accumulate=True)
+    vol = tfilters.gaussian_filter(vol, BEADS_SIGMA)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    vol += torch.randn(shape, generator=gen, device=device) * 10.0 + 100.0
+    vol = vol.round_().clamp_(0, 65535).to(torch.int32).to(torch.uint16)
+    return vol.cpu().numpy()
+
+
+def rigid_error(np, rng, centre, deg_range=(1.0, 2.0), shift_range=(2.0, 5.0)):
+    """A rigid map through ``centre``: a rotation by an angle in
+    ``deg_range`` about a random axis, then a shift of a length in
+    ``shift_range`` in a random direction."""
+    from scipy.spatial.transform import Rotation
+
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    rot = Rotation.from_rotvec(axis * np.deg2rad(rng.uniform(*deg_range))).as_matrix()
+    direction = rng.normal(size=3)
+    shift = direction / np.linalg.norm(direction) * rng.uniform(*shift_range)
+    m = about_centre(np, rot, centre)
+    m[:3, 3] += shift
+    return m
+
+
+def bead_recall(np, truth_px, found_px, shape):
+    """The share of the true beads at least BEADS_INSIDE px inside the view
+    with a detection within BEADS_MATCH_PX px, the share with one within
+    0.5 px along every axis, their count, and the median distance to the
+    nearest detection."""
+    from scipy.spatial import cKDTree
+
+    inside = np.all((truth_px >= BEADS_INSIDE)
+                    & (truth_px <= np.asarray(shape) - 1 - BEADS_INSIDE), axis=1)
+    if not len(found_px):
+        return 0.0, 0.0, int(inside.sum()), float("inf")
+    tree = cKDTree(found_px)
+    d_2, _ = tree.query(truth_px[inside])
+    d_inf, _ = tree.query(truth_px[inside], p=np.inf)
+    return (float(np.mean(d_2 <= BEADS_MATCH_PX)), float(np.mean(d_inf <= 0.5)),
+            int(inside.sum()), float(np.median(d_2)))
+
+
+def edge_inliers(np, tpu, edge_mat, fixed_world, moving_world, max_error):
+    """Fixed points whose nearest moving point lies within ``max_error`` of
+    them under an edge's transform (the inliers of the final fit)."""
+    from scipy.spatial import cKDTree
+
+    d, _ = cKDTree(moving_world).query(tpu.transform_pts(fixed_world, edge_mat))
+    return int(np.sum(d <= max_error))
+
+
+def beads_phase(np, torch, tsi, tcore, tea, tf, fuse, shape=(256, 512, 512), n_beads=3000,
+                small_tile=64):
+    """The beads phase: a multi-view light-sheet acquisition with fiducial
+    beads, four views of ``shape`` uint16 rotated about y by BEADS_ANGLES
+    about the centre, rendered on the card from ``n_beads`` beads; views
+    1-3's metadata off by a rigid error of 1-2 degrees and 2-5 px. Bead
+    detection on the card (and one view on the CPU), marker registration of
+    the 6 pairs resolved by global optimisation and by the linear two-pass
+    method, fuse() of the registered views through the exact-affine kernels,
+    and the small cases of the per-pair path: the step-by-step phase
+    correlation and a thread-pool executor on a 2 x 2 grid."""
+    from multiview_stitcher_torch import detection as tdet
+    from multiview_stitcher_torch import msi_utils as tmsi
+    from multiview_stitcher_torch import param_utils as tpu
+    from multiview_stitcher_torch import registration as treg
+    from multiview_stitcher_torch.ops import filters as tfilters
+
+    label = "beads"
+    card = card_line()
+    t_phase = time.perf_counter()
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    out = {}
+
+    def say(msg):
+        log(f"{label}: {msg} [{card}]")
+
+    def synced():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # the data: one bead volume seen by four views, rendered on the card
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    beads = bead_positions(np, rng, shape, n_beads)
+    amps = 2000.0 * rng.uniform(0.8, 1.2, len(beads))
+    centre = [(n - 1) / 2 for n in shape]
+    true_affines = [about_centre(np, roty(np, np.deg2rad(a)), centre) for a in BEADS_ANGLES]
+    errors = [np.eye(4)] + [rigid_error(np, rng, centre) for _ in BEADS_ANGLES[1:]]
+    views, msims = [], []
+    for iv, (a_true, err) in enumerate(zip(true_affines, errors)):
+        data = render_bead_view(np, torch, tfilters, beads, amps, a_true, shape, 100 + iv, device)
+        sim = tsi.get_sim_from_array(data, dims=["z", "y", "x"])
+        tsi.set_sim_affine(sim, err @ a_true, transform_key=KEY)
+        views.append(data)
+        msims.append(tmsi.get_msim_from_sim(sim, scale_factors=[]))
+    out["make_s"] = synced() - t0
+    truth_px = [tpu.transform_pts(beads, np.linalg.inv(a)) for a in true_affines]
+    say(f"{len(BEADS_ANGLES)} views of {shape} uint16 ({sum(v.nbytes for v in views)} bytes) "
+        f"rotated about y by {BEADS_ANGLES} deg, {len(beads)} beads (sigma {BEADS_SIGMA} px, "
+        f"amplitude 2000 +- 20 %, background 100, noise sigma 10), rendered on the card in "
+        f"{out['make_s']:.1f} s; metadata errors of views 1-3: "
+        + ", ".join(
+            f"{np.rad2deg(np.arccos(np.clip((np.trace(e[:3, :3]) - 1) / 2, -1, 1))):.2f} deg / "
+            f"{np.linalg.norm(e[:3, 3] - (centre - e[:3, :3] @ centre)):.2f} px"
+            for e in errors[1:]
+        ))
+
+    # 1. detection on the card, each view's points set on its msim
+    det_kw = {"target_size_physical": 3.0}
+    found, det = [], []
+    for iv, m in enumerate(msims):
+        t0 = time.perf_counter()
+        pts = tdet.detect_beads(m, detection_func_kwargs=det_kw, device=device)
+        wall = time.perf_counter() - t0
+        tmsi.set_point_set(m, pts)
+        recall, nearest, n_inside, med = bead_recall(np, truth_px[iv], pts, shape)
+        tel = dict(tdet.last_telemetry)
+        det.append({"found": len(pts), "recall": recall, "nearest_voxel_share": nearest,
+                    "beads_inside": n_inside, "median_px": med, "wall_s": wall, **tel})
+        found.append(pts)
+        say(f"detect_beads view {iv}: {len(pts)} beads found, recall {recall:.4f} of "
+            f"{n_inside} beads {BEADS_INSIDE} px inside (within {BEADS_MATCH_PX:.3f} px; "
+            f"{nearest:.4f} within 0.5 px per axis; median distance {med:.3f} px), "
+            f"{wall:.2f} s: {tel['windows']} windows, upload "
+            f"{tel['upload_s']:.3f} s, filters on the card {tel['filters_s']:.3f} s, mask "
+            f"download {tel['download_s']:.3f} s, labelling {tel['label_s']:.3f} s")
+        if recall < BEADS_RECALL:
+            raise AssertionError(f"{label}: view {iv} recall {recall:.4f} < {BEADS_RECALL}")
+    out["detect"] = det
+
+    # 2. one view again on the CPU
+    t0 = time.perf_counter()
+    cpu_pts = tdet.detect_beads(msims[1], detection_func_kwargs=det_kw, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    from scipy.spatial import cKDTree
+
+    d, _ = cKDTree(cpu_pts).query(found[1]) if len(cpu_pts) else (np.array([np.inf]), None)
+    matched = d <= BEADS_MATCH_PX
+    count_rel = abs(len(cpu_pts) - len(found[1])) / max(len(cpu_pts), 1)
+    cpu_err = float(d[matched].max(initial=0.0))
+    out["cpu_check"] = {"cpu_found": len(cpu_pts), "count_rel": count_rel,
+                        "matched": int(matched.sum()), "max_px": cpu_err, "cpu_s": cpu_s}
+    say(f"view 1 on the CPU: {len(cpu_pts)} beads against {len(found[1])} on the card "
+        f"({count_rel:.2%}), {int(matched.sum())} matched within {cpu_err:.2e} px, {cpu_s:.1f} s")
+    if count_rel > BEADS_COUNT_REL or cpu_err > BEADS_CPU_ATOL:
+        raise AssertionError(f"{label}: card and CPU detections differ: {out['cpu_check']}")
+
+    # 3-4. marker registration of the 6 pairs, two resolutions
+    def view_errors(key):
+        """Each view's true beads (inside it) in the world under its
+        resolved transform, against view 0's transform of the same beads:
+        (rms, max) per view."""
+        f0 = np.asarray(msims[0].transforms[key].data)
+        res = []
+        for iv, m in enumerate(msims):
+            inside = np.all((truth_px[iv] >= 0) & (truth_px[iv] <= np.asarray(shape) - 1), axis=1)
+            fi = np.asarray(m.transforms[key].data)
+            e = np.linalg.norm(tpu.transform_pts(truth_px[iv][inside], fi)
+                               - tpu.transform_pts(truth_px[0][inside], f0), axis=1)
+            res.append((float(np.sqrt(np.mean(e ** 2))), float(e.max())))
+        return res
+
+    regs = {}
+    for method in ("global_optimization", "linear_two_pass"):
+        new_key = f"beads_{method}"
+        t0 = time.perf_counter()
+        rd = treg.register(
+            msims, transform_key=KEY, new_transform_key=new_key,
+            pairwise_reg_func=treg.registration_marker_based,
+            pairwise_reg_func_kwargs=dict(BEADS_REG_KW), pre_registration_pruning_method=None,
+            groupwise_resolution_method=method, groupwise_resolution_kwargs={"transform": "rigid"},
+            return_dict=True, device=device,
+        )
+        reg_s = time.perf_counter() - t0
+        g = rd["pairwise_registration"]["graph"]
+        pairs = {}
+        for u, v, attrs in g.edges(data=True):
+            fw = tpu.transform_pts(found[u], np.asarray(msims[u].transforms[KEY].data))
+            mw = tpu.transform_pts(found[v], np.asarray(msims[v].transforms[KEY].data))
+            pairs[f"{u}-{v}"] = {
+                "quality": float(attrs["quality"]),
+                "inliers": edge_inliers(np, tpu, np.asarray(attrs["transform"].data), fw, mw,
+                                        BEADS_REG_KW["ransac_max_error"]),
+            }
+        errs = view_errors(new_key)
+        regs[method] = {"register_s": reg_s, "pairs": pairs, "view_rms_max_px": errs,
+                        "route": treg.last_telemetry.get("route")}
+        say(f"register ({method}): {len(pairs)} pairs through the "
+            f"{treg.last_telemetry.get('route')} path in {reg_s:.2f} s; pairs "
+            + json.dumps({k: (round(p["quality"], 4), p["inliers"]) for k, p in pairs.items()})
+            + " (quality, inliers within 2 px); views' error against view 0 (rms, max px) "
+            + json.dumps([(round(a, 4), round(b, 4)) for a, b in errs]))
+        if len(pairs) != 6 or any(a > BEADS_RMS or b > BEADS_MAX for a, b in errs):
+            raise AssertionError(f"{label}: {method}: pairs {len(pairs)}, errors {errs}")
+    out["register"] = regs
+
+    # 5. fuse() of the registered views on the card, counts from 0 just before
+    key = "beads_global_optimization"
+    sims = [m.get_scale("scale0") for m in msims]
+    tcore.clear_device_tile_cache()
+    for n in EXACT_WRAPPERS:
+        getattr(tea, n).launches = 0
+    tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+    tea.record_routes(device)
+    t0 = time.perf_counter()
+    fused = fuse(sims, transform_key=key, output_chunksize=128, device=device)
+    fuse_s = synced() - t0
+    routes = tea.read_routes()
+    launches = {n: getattr(tea, n).launches for n in EXACT_WRAPPERS}
+    launches.update(fuse_translation_2d=tf.fuse_translation_2d.launches,
+                    fuse_translation_3d=tf.fuse_translation_3d.launches)
+    fo = fused.data
+    if fo.dtype != np.uint16 or fo.ndim != 3 or not any(launches[n] for n in EXACT_WRAPPERS):
+        raise AssertionError(f"{label}: fuse output {fo.shape} {fo.dtype}, launches {launches}")
+    sdims = ["z", "y", "x"]
+    size = 128
+    start = [max(0, ((n - size) // 2) // 128 * 128) for n in fo.shape]
+    osp = {"origin": dict(fused.origin), "spacing": dict(fused.spacing),
+           "shape": dict(zip(sdims, fo.shape))}
+    t0 = time.perf_counter()
+    ref = fuse(sims, transform_key=key, output_chunksize=128, device="cpu",
+               output_stack_properties=window_props(osp, sdims, start, size)).data
+    cpu_fuse_s = time.perf_counter() - t0
+    got = fo[tuple(slice(s, s + size) for s in start)]
+    window_err = general_window_err(np, got, ref, f"{label}: fuse window")
+    out["fuse"] = {"fuse_s": fuse_s, "out_shape": list(fo.shape), "launches": launches,
+                   "routes": routes, "window_start": start, "window_max_abs_err": window_err,
+                   "cpu_window_s": cpu_fuse_s}
+    say(f"fuse of the registered views: output {fo.shape} uint16 in {fuse_s:.2f} s, kernel "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}, routes "
+        f"{json.dumps(routes)}; central window {tuple(start)} + {size}^3 against device='cpu' "
+        f"({cpu_fuse_s:.1f} s): max_abs_err {window_err}")
+    del fused, fo, got, ref
+
+    # 6. small cases: the step-by-step phase correlation and an executor
+    grid, _, _ = stitch_grid_sims(np, tsi, 2, small_tile, small_tile // 4, seed=23)
+    grid_kw = dict(transform_key=KEY, overlap_tolerance={"z": 1.0, "y": 3.0, "x": 3.0},
+                   return_dict=True, device=device)
+    t0 = time.perf_counter()
+    default = treg.register(grid, **grid_kw)
+    t1 = time.perf_counter()
+    stepwise = treg.register(grid, pairwise_reg_func_kwargs={"use_fused_core": False}, **grid_kw)
+    t2 = time.perf_counter()
+    if treg.last_telemetry.get("route") != "per_pair":
+        raise AssertionError(f"{label}: use_fused_core=False took {treg.last_telemetry}")
+
+    def pool_executor(ms, edges, kwargs):
+        with ThreadPoolExecutor(max_workers=4) as ex:
+            return list(ex.map(
+                lambda e: treg.register_pair_of_msims(ms[e[0]], ms[e[1]], **kwargs), edges))
+
+    executor = treg.register(grid, pairwise_executor=pool_executor, **grid_kw)
+    t3 = time.perf_counter()
+    g_d = default["pairwise_registration"]["graph"]
+    shift_err = {}
+    for name, rd in (("use_fused_core=False", stepwise), ("executor", executor)):
+        g_o = rd["pairwise_registration"]["graph"]
+        shift_err[name] = max(
+            float(np.abs(np.asarray(g_o.edges[e]["transform"].data)[:3, 3]
+                         - np.asarray(g_d.edges[e]["transform"].data)[:3, 3]).max())
+            for e in g_d.edges
+        )
+    out["small"] = {"default_s": t1 - t0, "stepwise_s": t2 - t1, "executor_s": t3 - t2,
+                    "pairs": g_d.number_of_edges(), "shift_max_px": shift_err}
+    say(f"2 x 2 grid of {small_tile}^3: {g_d.number_of_edges()} pairs, register default "
+        f"{t1 - t0:.2f} s, use_fused_core=False {t2 - t1:.2f} s, thread-pool executor "
+        f"{t3 - t2:.2f} s; pair shifts against the default (px): {json.dumps(shift_err)}")
+    if any(v > BEADS_SHIFT_ATOL for v in shift_err.values()):
+        raise AssertionError(f"{label}: per-pair shifts differ from the default: {shift_err}")
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase {out['phase_s']:.1f} s")
+    return out
+
+
 STITCH_TOLERANCE = {"z": 1.0, "y": 3.0, "x": 3.0}
 # each pair's registered shift against the true one, in px
 STITCH_PAIR_ATOL = 1e-3
@@ -2486,6 +2860,10 @@ def main() -> int:
                                   REPO / ".bench_large" / "chip_smoke_multiscale")
     torch.cuda.empty_cache()
 
+    # bead-based multi-view registration: detect -> markers -> resolve -> fuse
+    beads = beads_phase(np, torch, tsi, tcore, tea, tf, fuse)
+    torch.cuda.empty_cache()
+
     # the north star's second half: register -> resolve -> fuse on the card
     stitched = stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n=32, tile=64, overlap=12)
 
@@ -2512,8 +2890,9 @@ def main() -> int:
     for k, worst in zip(kernels, (small_err[3], small_err[2], exact_err["2d"],
                                   exact_err["sepy"], exact_err["general"])):
         k["max_abs_err"] = max(k["max_abs_err"], worst)
+        k["beads_launches"] = beads["fuse"]["launches"][k["name"]]
     detail = {"3d": r3, "2d": r2, "zarr": zarr, **{f"affine_{k}": v for k, v in affine.items()},
-              "general": general, "multiscale": multiscale, "stitch": stitched,
+              "general": general, "multiscale": multiscale, "beads": beads, "stitch": stitched,
               "f1_fuse_max_abs_err": f1_err, "build_s": build_s, "small_cases_s": small_s,
               "total_s": time.perf_counter() - t_start}
     log("detail: " + json.dumps(detail))

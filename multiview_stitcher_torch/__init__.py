@@ -9,13 +9,16 @@ module names.
 Ported so far: ``fusion.fuse`` of sims and of multiscale msims (any fusion
 and weights function, in memory or into OME-Zarr), ``registration.register``
 (the view graph, batched phase correlation, groupwise resolution; over
-pyramid levels and over ``t``), ``stitch.stitch`` and
+pyramid levels and over ``t``; any other pairwise function pair by pair,
+marker-based registration of bead point sets, the linear two-pass
+resolution), ``detection.detect_beads``, ``stitch.stitch`` and
 ``transformation.transform_sim`` with linear interpolation. Entry points run
 on the CUDA device unless the caller passes ``device="cpu"``, which takes the
 plain PyTorch version of every kernel.
 
 - ``si_utils`` / ``msi_utils`` / ``param_utils`` / ``zarr_utils`` — data model
 - ``fusion`` — ``fuse``; ``registration`` — ``register``; ``stitch`` — ``stitch``
+- ``detection`` — ``detect_beads``; ``registration_plugins`` — ANTsPy, ITK-Elastix
 - ``io.zarr_backend`` / ``io.ngff_utils`` — zarr v2 and OME-Zarr (NGFF 0.4)
 - ``transformation`` — ``transform_sim``, ``transform_pts``
 - ``ops.translation_fusion`` — the two translation-fusion kernels

@@ -330,6 +330,19 @@ def msim_map_blocks(msim: Msim, func, *args, dtype=None, **kwargs) -> Msim:
     )
 
 
+def set_point_set(msim: Msim, points, points_key: str = "beads"):
+    """Attach a named point set ((N, ndim) intrinsic physical coordinates)
+    to the msim and to each of its levels."""
+    msim.attrs.setdefault("point_sets", {})[points_key] = np.asarray(points, dtype=float)
+    for sim in msim.sims:
+        si_utils.set_point_set(sim, points, points_key=points_key)
+    return msim
+
+
+def get_point_set(msim: Msim, points_key: str = "beads"):
+    return msim.attrs["point_sets"][points_key]
+
+
 def get_res_level_from_spacing(msim: Msim, output_spacing: Dict[str, float]) -> str:
     """The coarsest level whose spacing is at most ``output_spacing`` in
     every dim (relative tolerance 1e-6)."""

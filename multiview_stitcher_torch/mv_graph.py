@@ -7,9 +7,9 @@ networkx (which the card's machine does not have). The graph keeps
 networkx's dict-of-dicts layout and iteration orders (nodes and each node's
 neighbours in insertion order, ``copy`` re-inserting edges as networkx
 does), and the algorithms registration calls (connected components, edge
-betweenness, greedy colouring, degree centrality, Dijkstra paths, the
-in-place relabelling) follow networkx's traversal orders, so that ties break
-as they do in the reference.
+betweenness, greedy colouring, degree centrality, Dijkstra paths, Kruskal's
+spanning forest, the edge subgraph, the in-place relabelling) follow
+networkx's traversal orders, so that ties break as they do in the reference.
 """
 
 from __future__ import annotations
@@ -190,6 +190,58 @@ class Graph:
             g._node[n] = self._node[n]
             g._adj[n] = {m: self._adj[n][m] for m in order(self._adj[n])}
         return g
+
+
+def edge_subgraph_copy(g: Graph, edges) -> Graph:
+    """networkx's ``nx.Graph(g.edge_subgraph(edges))``: a graph of copied
+    attribute dicts holding ``edges`` and their end nodes, in the view's
+    order (nodes as :meth:`Graph.subgraph` orders them, each node's
+    neighbours in this graph's order)."""
+    edges = set(tuple(e[:2]) for e in edges)
+    keep = set(n for e in edges for n in e)
+
+    def edge_ok(u, v):
+        return (u, v) in edges or (v, u) in edges
+
+    if 2 * len(keep) < len(g._node):
+        nodes = [n for n in keep if n in g._node]
+    else:
+        nodes = [n for n in g._node if n in keep]
+    out = Graph()
+    out.add_nodes_from(nodes)
+    out.add_edges_from(
+        (u, v, g._adj[u][v]) for u in nodes for v in g._adj[u] if v in keep and edge_ok(u, v)
+    )
+    for n in nodes:
+        out._node[n].update(g._node[n])
+    return out
+
+
+def minimum_spanning_edges(g: Graph, weight="weight") -> list:
+    """The edges of networkx's Kruskal minimum spanning forest: edges taken
+    in a stable sort by weight (missing weights count 1) when they join two
+    trees. Raises on a NaN weight, as networkx does."""
+    weighted = []
+    for u, v, d in g.edges(data=True):
+        wt = d.get(weight, 1)
+        if np.isnan(wt):
+            raise ValueError(f"NaN found as an edge weight. Edge {(u, v, d)}")
+        weighted.append((wt, u, v))
+    parent = {n: n for n in g.nodes}
+
+    def root(n):
+        while parent[n] != n:
+            parent[n] = parent[parent[n]]
+            n = parent[n]
+        return n
+
+    out = []
+    for _wt, u, v in sorted(weighted, key=lambda e: e[0]):
+        ru, rv = root(u), root(v)
+        if ru != rv:
+            out.append((u, v))
+            parent[ru] = rv
+    return out
 
 
 def get_edge_attributes(g: Graph, name) -> dict:
@@ -682,6 +734,36 @@ def prune_to_shortest_weighted_paths(g: Graph) -> Graph:
     return g_reg
 
 
+def prune_to_axis_aligned_edges(g: Graph, max_angle=0.05) -> Graph:
+    """Keep the edges whose direction (centre to centre) lies within
+    ``max_angle`` radians of an axis of the first view's stack; every node
+    stays."""
+    edges_to_keep = []
+    for edge in g.edges:
+        verts1 = get_vertices_from_stack_props(g.nodes[edge[0]]["stack_props"])
+        verts2 = get_vertices_from_stack_props(g.nodes[edge[1]]["stack_props"])
+        ndim = len(verts1[0])
+        edge_vec = np.mean(verts2, 0) - np.mean(verts1, 0)
+        edge_vec = edge_vec / np.linalg.norm(edge_vec)
+        vert_grid_inds = np.array(list(np.ndindex(tuple([2] * ndim))))
+        ax_vecs = []
+        for ind in range(len(vert_grid_inds)):
+            if np.sum(vert_grid_inds[ind]) != 1:
+                continue
+            ax_vec = verts1[ind] - verts1[0]
+            ax_vecs.append(ax_vec / np.linalg.norm(ax_vec))
+        for ax_vec in ax_vecs:
+            angle = np.arccos(np.clip(np.abs(np.dot(edge_vec, ax_vec)), 0, 1))
+            if angle < max_angle:
+                edges_to_keep.append(edge)
+                break
+    g_pruned = edge_subgraph_copy(g, edges_to_keep)
+    for node in g.nodes:
+        if node not in g_pruned.nodes:
+            g_pruned.add_node(node, **g.nodes[node])
+    return g_pruned
+
+
 def threshold_otsu(values: np.ndarray, nbins: int = 256) -> float:
     """Otsu threshold of a 1-D sample."""
     values = np.asarray(values, dtype=float).ravel()
@@ -736,10 +818,7 @@ def prune_view_adjacency_graph(g: Graph, method=None, pruning_method_kwargs=None
     if method == "otsu_threshold_on_overlap":
         return filter_edges(g, **pruning_method_kwargs)
     if method == "keep_axis_aligned":
-        raise NotImplementedError(
-            "the keep_axis_aligned pruning is not ported yet (ROADMAP.md, queue 1: "
-            "item 8's rest)"
-        )
+        return prune_to_axis_aligned_edges(g, **pruning_method_kwargs)
     raise ValueError(f"Unknown graph pruning method: {method}")
 
 
@@ -850,3 +929,35 @@ def get_overlap_for_bbs(
             {"origin": ov_origin, "shape": ov_shape, "spacing": dict(sp)}
         )
     return overlap_bbs
+
+
+# ---------------------------------------------------------------------------
+# label connectivity (pair discovery from sample masks)
+# ---------------------------------------------------------------------------
+
+
+def unique_along_axis(a, axis=0):
+    at = np.ascontiguousarray(a.swapaxes(0, axis))
+    dt = np.dtype([("values", at.dtype, at.shape[1:])])
+    atv = at.view(dt)
+    return np.unique(atv)["values"].swapaxes(0, axis)
+
+
+def get_connected_labels(labels, structure=None):
+    """Pairs of label values that touch under the full 3^ndim structure.
+    Labels are offset by +1 (0 is background); the pairs are 0-based."""
+    ndim = labels.ndim
+    structure = np.ones((3,) * ndim)
+    chunks = []
+    for pos in np.array(np.where(structure)).T:
+        if not (min(pos) < 1 or max(pos) < 2):
+            continue
+        sl_a = tuple(slice(1 if p > 1 else 0, None) for p in pos)
+        sl_b = tuple(slice(0, -1 if p > 1 else None) for p in pos)
+        pair = np.array([labels[sl_a], labels[sl_b]]).reshape((2, -1))
+        keep = pair.all(axis=0) & (np.diff(pair, axis=0)[0] != 0)
+        chunks.append(pair[:, keep])
+    pairs = np.concatenate(chunks, axis=1)
+    pairs = unique_along_axis(pairs, axis=1).T
+    pairs -= 1
+    return pairs

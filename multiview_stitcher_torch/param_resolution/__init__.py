@@ -20,6 +20,9 @@ from multiview_stitcher_torch import mv_graph, param_utils
 from multiview_stitcher_torch.param_resolution.global_optimization import (
     groupwise_resolution_global_optimization,
 )
+from multiview_stitcher_torch.param_resolution.linear_two_pass import (
+    groupwise_resolution_linear_two_pass,
+)
 from multiview_stitcher_torch.param_resolution.shortest_paths import (
     groupwise_resolution_shortest_paths,
 )
@@ -52,11 +55,6 @@ def register_groupwise_resolution_method(name, resolver=None):
 def _lookup_resolver(method):
     if callable(method):
         return method
-    if method == "linear_two_pass":
-        raise NotImplementedError(
-            "the linear_two_pass resolution is not ported yet (ROADMAP.md, queue 1: "
-            "item 8's rest)"
-        )
     try:
         return _RESOLVER_REGISTRY[method]
     except KeyError:
@@ -103,7 +101,8 @@ def _resolve_one_timepoint(g_t, resolver, resolver_kwargs):
 def groupwise_resolution(g_reg, method="global_optimization", **kwargs):
     """Resolve global per-view params from a pairwise registration graph.
 
-    ``method`` is a registry name ('global_optimization', 'shortest_paths')
+    ``method`` is a registry name ('global_optimization', 'shortest_paths',
+    'linear_two_pass')
     or a resolver callable; the other kwargs go to it. Returns
     ``(params_by_node, info)``: params stacked over t (``XAffine`` with
     ``t_coords``) when the edge transforms carry timepoints; info holding the
@@ -155,10 +154,12 @@ register_groupwise_resolution_method(
     "global_optimization", groupwise_resolution_global_optimization
 )
 register_groupwise_resolution_method("shortest_paths", groupwise_resolution_shortest_paths)
+register_groupwise_resolution_method("linear_two_pass", groupwise_resolution_linear_two_pass)
 
 __all__ = [
     "groupwise_resolution",
     "groupwise_resolution_global_optimization",
+    "groupwise_resolution_linear_two_pass",
     "groupwise_resolution_shortest_paths",
     "register_groupwise_resolution_method",
 ]

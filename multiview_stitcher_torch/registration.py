@@ -20,14 +20,25 @@ cache of ``fusion._core``, which ``fuse`` reads too), so that ``stitch``
 uploads each tile once: that serves views without ``t`` registered at level
 0.
 
+Any other pairwise function or kwargs registers pair by pair
+(``register_pair_of_msims``), in the space the function's signature asks
+for: marker point sets in world coordinates (``registration_marker_based``:
+descriptor matching, RANSAC and ICP on the host), the overlap crops in
+physical space (``registration_plugins``), or both crops resampled onto the
+fixed view's pixel grid (``phase_correlation_registration`` with
+``use_fused_core=False``, its step-by-step path on the device); or through
+the caller's ``pairwise_executor``.
+
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``.
-Inputs this slice does not cover raise ``NotImplementedError`` naming the
-ROADMAP.md item that will cover them.
+Inputs this slice does not cover (a device mesh, ``plot_summary``) raise
+``NotImplementedError`` naming the ROADMAP.md item that will cover them.
 """
 
 from __future__ import annotations
 
+import itertools as it
 import logging
+import math
 import time
 import warnings
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -35,7 +46,15 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, 
 import numpy as np
 import torch
 
-from multiview_stitcher_torch import msi_utils, mv_graph, param_resolution, param_utils, si_utils
+from multiview_stitcher_torch import (
+    msi_utils,
+    mv_graph,
+    param_resolution,
+    param_utils,
+    si_utils,
+    transformation,
+    transforms,
+)
 from multiview_stitcher_torch.msi_utils import Msim
 from multiview_stitcher_torch.ops import image_metrics as im_metrics
 from multiview_stitcher_torch.ops import phase_correlation as pc_ops
@@ -154,11 +173,18 @@ def _get_overlap_bboxes(sim1: Sim, sim2: Sim, input_transform_key=None,
     }
 
 
-def _bin_sim(sim: Sim, binning: Dict[str, int]) -> Sim:
+def _bin_sim(sim: Sim, binning: Dict[str, int], with_data: bool = True) -> Sim:
+    """The sim binned by block means; ``with_data=False`` gives the binned
+    sim's metadata over a zero-stride array of its shape (for callers that
+    read no pixel of it)."""
     if max(binning.values()) <= 1:
         return sim
     factors = [binning.get(d, 1) for d in sim.dims]
-    data = msi_utils._coarsen_mean(sim.to_numpy(), factors)
+    if with_data:
+        data = msi_utils._coarsen_mean(sim.to_numpy(), factors)
+    else:
+        shape = tuple(s // f for s, f in zip(sim.data.shape, factors))
+        data = np.broadcast_to(np.zeros((), dtype=sim.data.dtype), shape)
     spacing = si_utils.get_spacing_from_sim(sim)
     origin = si_utils.get_origin_from_sim(sim)
     out = si_utils.to_spatial_image(
@@ -185,7 +211,7 @@ def _spatial_range_slices(sim: Sim, ranges: Dict[str, Tuple[float, float]]) -> D
 
 def _select_and_crop_pair(msim1: Msim, msim2: Msim, transform_key, registration_binning=None,
                           reg_res_level=None, overlap_tolerance=None, bin_cache=None,
-                          geom_cache=None, cache_keys=(None, None)):
+                          geom_cache=None, cache_keys=(None, None), with_data=True):
     """Level and binning choice and the overlap crop of one pair. The level
     is ``reg_res_level``, or the coarsest that ``registration_binning`` (by
     default :func:`get_optimal_registration_binning` of level 0) allows; the
@@ -194,7 +220,8 @@ def _select_and_crop_pair(msim1: Msim, msim2: Msim, transform_key, registration_
     crop_info) with ``crop_info`` holding the crops' index slices, the binned
     full sims and the level, from which the device path cuts the same
     windows. ``cache_keys`` name the two views (and timepoint) for
-    ``bin_cache`` and ``geom_cache``."""
+    ``bin_cache`` and ``geom_cache``. With ``with_data=False`` the binned
+    crops carry metadata only (see :func:`_bin_sim`)."""
     spatial_dims = msi_utils.get_spatial_dims(msim1)
     if overlap_tolerance is None:
         overlap_tolerance = {d: 0.0 for d in spatial_dims}
@@ -239,9 +266,9 @@ def _select_and_crop_pair(msim1: Msim, msim2: Msim, transform_key, registration_
 
     def bin_cached(sim, key):
         if bin_cache is None or key is None:
-            return _bin_sim(sim, registration_binning)
+            return _bin_sim(sim, registration_binning, with_data)
         if key not in bin_cache:
-            bin_cache[key] = _bin_sim(sim, registration_binning)
+            bin_cache[key] = _bin_sim(sim, registration_binning, with_data)
         return bin_cache[key]
 
     reg_sims_b = [bin_cached(sim, key) for sim, key in zip([sim1, sim2], cache_keys)]
@@ -429,17 +456,19 @@ def phase_correlation_registration(fixed_data, moving_data, disambiguate_region_
                                    device=None, **phase_corr_kwargs):
     """Register one pair of images (arrays or sims on the same pixel grid,
     NaN outside their data): the affine of the moving image's shift and the
-    link quality."""
-    if not phase_corr_kwargs.pop("use_fused_core", True):
-        raise _not_ported("the step-by-step pairwise path (use_fused_core=False)",
-                          "item 8's rest")
-    if set(phase_corr_kwargs) - {"upsample_factor"}:
-        raise _not_ported(f"phase correlation kwargs {sorted(phase_corr_kwargs)}", "item 8's rest")
+    link quality. ``upsample_factor`` (10 in 2D, 2 in 3D by default) sets
+    the subpixel precision; ``use_fused_core=False`` takes the step-by-step
+    path (:func:`_phase_correlation_stepwise`) instead of the batched core;
+    other kwargs are not read, as in the reference. Runs on ``device``."""
     device = misc_utils.resolve_device(device)
     im0 = np.asarray(getattr(fixed_data, "data", fixed_data), dtype=np.float32)
     im1 = np.asarray(getattr(moving_data, "data", moving_data), dtype=np.float32)
     ndim = im0.ndim
-    upsample_factor = phase_corr_kwargs.get("upsample_factor", 10 if ndim == 2 else 2)
+    upsample_factor = phase_corr_kwargs.pop("upsample_factor", 10 if ndim == 2 else 2)
+    if not phase_corr_kwargs.pop("use_fused_core", True):
+        return _phase_correlation_stepwise(
+            im0, im1, upsample_factor, disambiguate_region_mode, device
+        )
     t_best, quality = _pcc_register_core_batch(
         torch.from_numpy(im0)[None].to(device), torch.from_numpy(im1)[None].to(device),
         upsample_factor, disambiguate_region_mode,
@@ -449,6 +478,365 @@ def phase_correlation_registration(fixed_data, moving_data, disambiguate_region_
             t_best[0].cpu().numpy().astype(float)
         ),
         "quality": float(quality[0]),
+    }
+
+
+def _phase_correlation_stepwise(im0_np, im1_np, upsample_factor: int, region_mode, device):
+    """The reference's step-by-step pairwise path, in torch ops on
+    ``device``: the shift proposals one by one (the masked one only where
+    NaN is present), the sign and wrap candidates expanded on the host, and
+    every candidate scored (SSIM over the union or intersection box, the
+    Spearman quality of each) by :func:`_evaluate_candidates`; the first
+    best SSIM wins."""
+    ndim = im0_np.ndim
+    im0 = pc_ops.rescale_intensity(torch.from_numpy(im0_np)[None].to(device), ndim)
+    im1 = pc_ops.rescale_intensity(torch.from_numpy(im1_np)[None].to(device), ndim)
+    im0nm = torch.isnan(im0)
+    im1nm = torch.isnan(im1)
+    has_nans = bool(im0nm.any() or im1nm.any())
+    if region_mode is None:
+        region_mode = "intersection" if has_nans else "union"
+    valid_pixels1 = int((~im1nm).sum())
+    im0nn = torch.nan_to_num(im0) if has_nans else im0
+    im1nn = torch.nan_to_num(im1) if has_nans else im1
+
+    shift_candidates = [
+        pc_ops.phase_cross_correlation_batch(im0nn, im1nn, upsample_factor, norm)[0][0]
+        for norm in ("phase", None)
+    ]
+    if has_nans:
+        shift_candidates.append(
+            pc_ops.masked_phase_cross_correlation_batch(im0nn, im1nn, ~im0nm, ~im1nm)[0][0]
+        )
+    # the sign and wrap candidates of each proposal
+    shape = im1_np.shape
+    max_shift_per_dim = np.max([im0_np.shape, im1_np.shape])
+    t_candidates = []
+    for shift_candidate in shift_candidates:
+        shift_candidate = shift_candidate.cpu().numpy()
+        ranges = [1 if shift_candidate[d] == 0 else 4 for d in range(ndim)]
+        for sel in np.ndindex(tuple(ranges)):
+            t_candidate = []
+            for d in range(ndim):
+                c = shift_candidate[d]
+                t_candidate.append(
+                    (c, -c, -(c - shape[d]), -c - shape[d])[sel[d]]
+                )
+            if np.max(np.abs(t_candidate)) < max_shift_per_dim:
+                t_candidates.append(t_candidate)
+    if not t_candidates:
+        return {"affine_matrix": param_utils.affine_from_translation(np.zeros(ndim)),
+                "quality": np.nan}
+
+    t_candidates = np.array(t_candidates, dtype=np.float32)
+    # float32 extremes, as the reference takes them from float32 arrays
+    highs = torch.cat([pc_ops.nanmax(im0), pc_ops.nanmax(im1)]).cpu().numpy()
+    lows = torch.cat([pc_ops.nanmin(im0), pc_ops.nanmin(im1)]).cpu().numpy()
+    data_range = float(np.nanmax(highs) - np.nanmin(lows))
+    im1_min = float(lows[1])
+    ssim_vals, quality_vals = _evaluate_candidates(
+        im0[0], im1[0], t_candidates, im0nm[0], valid_pixels1, data_range, im1_min, region_mode
+    )
+    argmax_index = int(np.nanargmax(ssim_vals))
+    return {
+        "affine_matrix": param_utils.affine_from_translation(list(t_candidates[argmax_index])),
+        "quality": float(quality_vals[argmax_index]),
+    }
+
+
+def _evaluate_candidates(im0, im1, t_candidates, im0nm, valid_pixels1: int, data_range: float,
+                         im1_min: float, region_mode: str):
+    """SSIM (window 7, 5 or 3 as the box admits; -1 where none does or the
+    moving image holds nothing above its minimum in the box) and Spearman
+    quality of every candidate shift of ``im1`` against ``im0``, over the
+    union or intersection of their valid boxes; -1 both where the candidate
+    keeps under a tenth of the moving image's valid pixels. Candidates are
+    scored in groups within :data:`SCORE_BYTES`. Returns numpy arrays."""
+    ndim = im0.dim()
+    shape = tuple(im0.shape)
+    dev = im0.device
+    lo0, hi0 = im_metrics._bbox_bounds_from_mask(~im0nm, ndim)
+    im0f = torch.nan_to_num(im0)
+    fixed_maps = {w: im_metrics.ssim_fixed_maps(im0f, w, ndim) for w in (3, 5, 7)}
+    group = max(1, SCORE_BYTES // (16 * int(np.prod(shape))))
+    ssim_out, quality_out = [], []
+    for g0 in range(0, len(t_candidates), group):
+        t = torch.from_numpy(t_candidates[g0:g0 + group]).to(dev)
+        im1t = resample_ops.translate_resample_batch(im1, t, order=1, cval=np.nan)
+        valid1 = ~torch.isnan(im1t)
+        mask = valid1 & ~im0nm
+        mask_sum = mask.reshape(len(t), -1).sum(-1)
+        frac_ok = (mask_sum > 0) & (mask_sum.to(torch.float32) / max(valid_pixels1, 1) >= 0.1)
+        lo1, hi1 = im_metrics._bbox_bounds_from_mask(valid1, ndim)
+        if region_mode == "union":
+            lo, hi = torch.minimum(lo0, lo1), torch.maximum(hi0, hi1)
+        else:
+            lo, hi = torch.maximum(lo0, lo1), torch.minimum(hi0, hi1)
+        box = im_metrics._box_mask(shape, lo, hi)
+        box_max = torch.where(box, torch.nan_to_num(im1t, nan=-torch.inf), -torch.inf)
+        box_max = box_max.reshape(len(t), -1).amax(-1)
+        min_shape = (hi - lo + 1).amin(-1)
+        win_eff = torch.clamp_max(min_shape - torch.remainder(min_shape - 1, 2), 7)
+        im1tf = torch.nan_to_num(im1t)
+        ssims = [
+            im_metrics.ssim_mean_over_box_precomputed(
+                im0f, *fixed_maps[w], im1tf, lo, hi, w, data_range, ndim
+            )
+            for w in (3, 5, 7)
+        ]
+        ssim = torch.where(win_eff >= 7, ssims[2], torch.where(win_eff >= 5, ssims[1], ssims[0]))
+        ssim = torch.where((win_eff < 3) | (box_max <= im1_min), -1.0, ssim)
+        quality = im_metrics.masked_spearman(im0.expand_as(im1t), im1t - 1, mask, ndim)
+        quality = torch.where(box_max <= im1_min, -1.0, quality)
+        ssim_out.append(torch.where(frac_ok, ssim, -1.0).cpu().numpy())
+        quality_out.append(torch.where(frac_ok, quality, -1.0).cpu().numpy())
+    return np.concatenate(ssim_out), np.concatenate(quality_out)
+
+
+# ---------------------------------------------------------------------------
+# the per-pair path
+# ---------------------------------------------------------------------------
+
+
+def sims_to_intrinsic_coord_system(sim1: Sim, sim2: Sim, transform_key, overlap_bboxes,
+                                   device=None):
+    """Both sims resampled (as float32, NaN outside) onto the fixed sim's
+    pixel grid over the overlap, each carrying the fixed sim's affine under
+    ``transform_key``. The resampling is ``transform_sim``'s on ``device``:
+    the exact-affine kernels on the card, the gather for NaN data."""
+    spatial_dims = si_utils.get_spatial_dims_from_sim(sim1)
+    lowers, uppers = overlap_bboxes
+    spacing = np.max([si_utils.get_spacing_from_sim(s, asarray=True) for s in [sim1, sim2]], axis=0)
+    affines = []
+    for sim in [sim1, sim2]:
+        m = np.asarray(si_utils.get_affine_from_sim(sim, transform_key).squeeze())
+        affines.append(m[0] if m.ndim == 3 else m)
+    transf_affine = np.linalg.inv(affines[1]) @ affines[0]
+    shape = np.floor(np.array(uppers[0] - lowers[0]) / spacing + 1).astype(np.int64)
+    out_props = {
+        "origin": {d: lowers[0][i] for i, d in enumerate(spatial_dims)},
+        "spacing": {d: spacing[i] for i, d in enumerate(spatial_dims)},
+        "shape": {d: int(shape[i]) for i, d in enumerate(spatial_dims)},
+    }
+    out = []
+    for isim, sim in enumerate([sim1, sim2]):
+        res = transformation.transform_sim(
+            sim.copy(data=np.asarray(sim.data, dtype=np.float32)),
+            [None, transf_affine][isim],
+            output_stack_properties=out_props,
+            cval=np.nan,
+            device=device,
+        )
+        si_utils.set_sim_affine(
+            res, si_utils.get_affine_from_sim(sim1, transform_key), transform_key=transform_key
+        )
+        out.append(res)
+    return out[0], out[1]
+
+
+def get_affine_from_intrinsic_affine(data_affine, sim_fixed: Sim, sim_moving: Sim,
+                                     transform_key_fixed=None, transform_key_moving=None):
+    """A pixel-space result as a world transform:
+    ``D_to_W_f @ M_D @ inv(D_to_W_c)``. Both frames read the moving key's
+    affine, as in the reference."""
+    data_affine = np.asarray(data_affine, dtype=float)
+
+    def phys2world(sim, key):
+        if key is None:
+            return np.eye(data_affine.shape[0])
+        m = np.asarray(si_utils.get_affine_from_sim(sim, key).squeeze())
+        return m[0] if m.ndim == 3 else m
+
+    def d_to_p(sim):
+        return param_utils.affine_from_translation(
+            si_utils.get_origin_from_sim(sim, asarray=True)
+        ) @ np.diag(list(si_utils.get_spacing_from_sim(sim, asarray=True)) + [1])
+
+    D_to_W_f = phys2world(sim_moving, transform_key_moving) @ d_to_p(sim_moving)
+    D_to_W_c = phys2world(sim_fixed, transform_key_moving) @ d_to_p(sim_fixed)
+    return D_to_W_f @ data_affine @ np.linalg.inv(D_to_W_c)
+
+
+def dispatch_pairwise_reg_func(pairwise_reg_func, fixed_data=None, moving_data=None,
+                               skip_constant_check=False, **pairwise_reg_func_kwargs):
+    """Call ``pairwise_reg_func`` with the data (when given) and kwargs,
+    unless either image is constant (NaN aside): then warn and return the
+    identity with quality NaN."""
+    has_image_data = fixed_data is not None and moving_data is not None
+    if has_image_data and not skip_constant_check:
+        for data in (fixed_data, moving_data):
+            arr = np.asarray(getattr(data, "data", data))
+            if np.nanmin(arr) == np.nanmax(arr):
+                warnings.warn(
+                    "An overlap region between tiles/views is all zero or constant. "
+                    "Assuming identity transform.", UserWarning, stacklevel=2,
+                )
+                return {"affine_matrix": np.eye(arr.ndim + 1), "quality": np.nan}
+    if has_image_data:
+        pairwise_reg_func_kwargs["fixed_data"] = fixed_data
+        pairwise_reg_func_kwargs["moving_data"] = moving_data
+    return pairwise_reg_func(**pairwise_reg_func_kwargs)
+
+
+_PHYS_KEYWORDS = ("fixed_origin", "moving_origin", "fixed_spacing", "moving_spacing",
+                  "initial_affine")
+
+
+def register_pair_of_msims(
+    msim1,
+    msim2,
+    transform_key,
+    points_key: str = "beads",
+    prefilter_markers: bool = False,
+    registration_binning=None,
+    reg_res_level=None,
+    overlap_tolerance=None,
+    pairwise_reg_func: Callable = phase_correlation_registration,
+    pairwise_reg_func_kwargs: Optional[dict] = None,
+    device=None,
+):
+    """Register two purely spatial views with ``pairwise_reg_func``, which
+    is called in the space its signature asks for:
+
+    - points (it names ``fixed_points`` and ``moving_points``): each view's
+      point set ``points_key`` in world coordinates (with
+      ``prefilter_markers``, only the points of its overlap crop), plus the
+      crops and ``initial_affine`` where it names them;
+    - physical space (it names all of ``fixed_origin``, ``moving_origin``,
+      ``fixed_spacing``, ``moving_spacing`` and ``initial_affine``): the
+      overlap crops with their origins and spacings;
+    - pixel space (it names only the data): both crops resampled onto the
+      fixed view's pixel grid of the overlap
+      (:func:`sims_to_intrinsic_coord_system`).
+
+    Returns ``transform`` (fixed world -> moving world), ``quality`` and
+    ``bbox`` (the overlap box in world coordinates). Runs on ``device``, which
+    a function that names ``device`` gets too."""
+    device = misc_utils.resolve_device(device)
+    pairwise_reg_func_kwargs = dict(pairwise_reg_func_kwargs or {})
+    if misc_utils.has_keyword(pairwise_reg_func, "device"):
+        pairwise_reg_func_kwargs.setdefault("device", device)
+    msim1 = msim1 if isinstance(msim1, Msim) else msi_utils.get_msim_from_sim(msim1, scale_factors=[])
+    msim2 = msim2 if isinstance(msim2, Msim) else msi_utils.get_msim_from_sim(msim2, scale_factors=[])
+    spatial_dims = msi_utils.get_spatial_dims(msim1)
+
+    has_phys = {k: misc_utils.has_keyword(pairwise_reg_func, k) for k in _PHYS_KEYWORDS}
+    has_data = all(misc_utils.has_keyword(pairwise_reg_func, k) for k in ["fixed_data", "moving_data"])
+    has_points = all(
+        misc_utils.has_keyword(pairwise_reg_func, k) for k in ["fixed_points", "moving_points"]
+    )
+    # a function that takes no data reads no pixel of the crops: their
+    # binned levels are made as metadata alone
+    sim1, sim2, reg_sims_b, lowers, uppers, overlap_tolerance, _ = _select_and_crop_pair(
+        msim1, msim2, transform_key, registration_binning=registration_binning,
+        reg_res_level=reg_res_level, overlap_tolerance=overlap_tolerance, with_data=has_data,
+    )
+    affines = [np.asarray(si_utils.get_affine_from_sim(s, transform_key).squeeze())
+               for s in reg_sims_b]
+    affines = [a[0] if a.ndim == 3 else a for a in affines]
+    fixed_data = moving_data = sims_pixel_space = None
+
+    if has_points:
+        space = "transform_key_space"
+        point_sets = [s.attrs.get("point_sets", {}).get(points_key) for s in [sim1, sim2]]
+        if point_sets[0] is None or point_sets[1] is None:
+            raise ValueError(f"Point set {points_key!r} missing for marker registration.")
+        if prefilter_markers:
+            # each view's markers within its overlap crop, with the crop's
+            # margin of one pixel
+            filtered = []
+            for isim, pts in enumerate(point_sets):
+                pts = np.atleast_2d(np.asarray(pts, dtype=float))
+                spacing = si_utils.get_spacing_from_sim(reg_sims_b[isim])
+                margin = np.array([spacing[d] for d in spatial_dims])
+                lo = np.asarray(lowers[isim], dtype=float) - 1e-6 - margin
+                hi = np.asarray(uppers[isim], dtype=float) + 1e-6 + margin
+                filtered.append(pts[np.all((pts >= lo) & (pts <= hi), axis=1)])
+            point_sets = filtered
+        pairwise_reg_func_kwargs["fixed_points"] = param_utils.transform_pts(point_sets[0],
+                                                                             affines[0])
+        pairwise_reg_func_kwargs["moving_points"] = param_utils.transform_pts(point_sets[1],
+                                                                              affines[1])
+        if has_phys["initial_affine"]:
+            pairwise_reg_func_kwargs["initial_affine"] = param_utils.affine_to_xaffine(
+                np.linalg.inv(affines[1]) @ affines[0]
+            )
+        if has_data:
+            fixed_data, moving_data = reg_sims_b
+    elif not any(has_phys.values()):
+        if has_data:
+            space = "pixel_space"
+            sims_pixel_space = sims_to_intrinsic_coord_system(
+                reg_sims_b[0], reg_sims_b[1], transform_key=transform_key,
+                overlap_bboxes=(lowers, uppers), device=device,
+            )
+            fixed_data, moving_data = sims_pixel_space
+        else:
+            space = "transform_key_space"
+    elif all(has_phys.values()):
+        space = "physical_space"
+        for isim, sim in enumerate(reg_sims_b):
+            prefix = ["fixed", "moving"][isim]
+            pairwise_reg_func_kwargs[f"{prefix}_origin"] = si_utils.get_origin_from_sim(sim)
+            pairwise_reg_func_kwargs[f"{prefix}_spacing"] = si_utils.get_spacing_from_sim(sim)
+        pairwise_reg_func_kwargs["initial_affine"] = param_utils.affine_to_xaffine(
+            np.linalg.inv(affines[1]) @ affines[0]
+        )
+        if has_data:
+            fixed_data, moving_data = reg_sims_b
+    else:
+        raise ValueError("Unknown registration function signature")
+
+    reg_result = dispatch_pairwise_reg_func(
+        pairwise_reg_func, fixed_data=fixed_data, moving_data=moving_data,
+        skip_constant_check=not has_data or space == "transform_key_space",
+        **pairwise_reg_func_kwargs,
+    )
+    affine = np.asarray(param_utils.to_xaffine(reg_result["affine_matrix"]).squeeze())
+    if affine.ndim == 3:
+        affine = affine[0]
+    if space == "pixel_space":
+        affine_phys = get_affine_from_intrinsic_affine(
+            data_affine=affine, sim_fixed=sims_pixel_space[0], sim_moving=sims_pixel_space[1],
+            transform_key_fixed=transform_key, transform_key_moving=transform_key,
+        )
+    elif space == "physical_space":
+        affine_phys = affines[1] @ affine @ np.linalg.inv(affines[0])
+    else:
+        affine_phys = affine
+
+    overlap_phys = _get_overlap_bboxes(
+        sim1, sim2, input_transform_key=transform_key, output_transform_key=transform_key,
+        overlap_tolerance=overlap_tolerance,
+    )
+    return {
+        "transform": param_utils.affine_to_xaffine(affine_phys),
+        "quality": reg_result["quality"],
+        "bbox": np.array([overlap_phys["lowers"][0], overlap_phys["uppers"][0]]),
+    }
+
+
+def register_pair_of_msims_over_time(msim1, msim2, **register_kwargs):
+    """:func:`register_pair_of_msims` at each timepoint of the views (a view
+    without ``t`` counts as one timepoint): the transforms stacked over
+    ``t``, the qualities as an array, the first timepoint's box."""
+    msim1 = msi_utils.ensure_dim(msim1, "t")
+    msim2 = msi_utils.ensure_dim(msim2, "t")
+    t_coords = np.asarray(msi_utils.get_sim_from_msim(msim1).coords["t"])
+    results = [
+        register_pair_of_msims(
+            msi_utils.multiscale_sel_coords(msim1, {"t": t}),
+            msi_utils.multiscale_sel_coords(msim2, {"t": t}),
+            **register_kwargs,
+        )
+        for t in t_coords
+    ]
+    return {
+        "transform": XAffine(
+            np.stack([np.asarray(r["transform"].squeeze()) for r in results]), t_coords=t_coords
+        ),
+        "quality": np.array([r["quality"] for r in results]),
+        "bbox": results[0]["bbox"],
     }
 
 
@@ -640,9 +1028,14 @@ def register(
     dtype with spatial dims only, registered unbinned at level 0; other
     views take host crops.
 
-    ``points_key``, ``prefilter_markers``, ``n_parallel_pairwise_regs`` and
-    ``scheduler`` keep the reference's signature; the phase-correlation path
-    does not read them.
+    The default phase correlation with no kwargs but ``upsample_factor``
+    and ``disambiguate_region_mode`` runs batched on the device; any other
+    ``pairwise_reg_func`` (marker-based registration of the point sets
+    ``points_key``, ``registration_plugins``, a user's function) or kwargs
+    (``use_fused_core=False``) register pair by pair
+    (:func:`register_pair_of_msims`), or through ``pairwise_executor(msims,
+    edges, kwargs)`` when given. ``n_parallel_pairwise_regs`` and
+    ``scheduler`` keep the reference's signature and are not read.
 
     Returns the per-view affines, or with ``return_dict`` the reference's
     dict, whose graph is this package's :class:`~.mv_graph.Graph` and whose
@@ -658,17 +1051,8 @@ def register(
         )
     if mesh is not None:
         raise _not_ported("registration across a device mesh", "item 12")
-    if pairwise_reg_func is not phase_correlation_registration or pairwise_executor is not None:
-        raise _not_ported(
-            "a pairwise_reg_func other than phase correlation, marker/RANSAC/ICP registration, "
-            "registration_plugins and pairwise_executor", "item 8's rest",
-        )
-    if set(pairwise_reg_func_kwargs) - {"upsample_factor", "disambiguate_region_mode"}:
-        raise _not_ported(
-            f"pairwise_reg_func_kwargs {sorted(pairwise_reg_func_kwargs)}", "item 8's rest"
-        )
     if plot_summary:
-        raise _not_ported("plot_summary", "item 8's rest")
+        raise _not_ported("plot_summary (matplotlib)", "item 27")
 
     msims = [
         m if isinstance(m, Msim) else msi_utils.get_msim_from_sim(m, scale_factors=[])
@@ -717,11 +1101,13 @@ def register(
     telemetry["pruned_edges"] = g_reg.number_of_edges()
 
     g_reg_computed = compute_pairwise_registrations(
-        msims_reg, g_reg, transform_key=transform_key,
+        msims_reg, g_reg, transform_key=transform_key, points_key=points_key,
+        prefilter_markers=prefilter_markers,
         registration_binning=registration_binning, reg_res_level=reg_res_level,
-        overlap_tolerance=overlap_tolerance,
-        pairwise_reg_func_kwargs=pairwise_reg_func_kwargs, device_tiles=device_tiles,
-        device=device, telemetry=telemetry,
+        overlap_tolerance=overlap_tolerance, pairwise_reg_func=pairwise_reg_func,
+        pairwise_reg_func_kwargs=pairwise_reg_func_kwargs,
+        n_parallel_pairwise_regs=n_parallel_pairwise_regs, pairwise_executor=pairwise_executor,
+        device_tiles=device_tiles, device=device, telemetry=telemetry,
     )
     if post_registration_do_quality_filter:
         g_reg_computed = mv_graph.filter_edges(
@@ -761,17 +1147,49 @@ def register(
     return params
 
 
-def compute_pairwise_registrations(msims, g_reg, device=None, telemetry=None, **register_kwargs):
+def compute_pairwise_registrations(msims, g_reg, n_parallel_pairwise_regs=None,
+                                   pairwise_executor=None, device=None, telemetry=None,
+                                   **register_kwargs):
     """Register the pair of every edge of ``g_reg``; returns a copy of the
     graph with each edge's ``transform``, ``quality`` and ``bbox`` (transform
-    and quality over ``t`` for views with a ``t`` dim)."""
+    and quality over ``t`` for views with a ``t`` dim).
+
+    ``pairwise_executor(msims, edges, kwargs)`` runs the edges instead (the
+    register kwargs but ``device_tiles``, with the resolved ``device``) and
+    returns one result dict an edge. Otherwise the default phase correlation
+    runs batched on the device and any other pairwise function or kwargs
+    pair by pair (:func:`register_pair_of_msims`, over ``t`` for views with
+    a ``t`` dim)."""
     device = misc_utils.resolve_device(device)
+    telemetry = {} if telemetry is None else telemetry
     g_reg_computed = g_reg.copy()
     edges = [tuple(sorted([e[0], e[1]])) for e in g_reg.edges]
+    pair_kwargs = {k: v for k, v in register_kwargs.items() if k != "device_tiles"}
+    pair_kwargs["device"] = device
+    t0 = time.perf_counter()
+    if pairwise_executor is not None:
+        params = pairwise_executor(msims, edges, pair_kwargs)
+        if len(params) != len(edges):
+            raise ValueError(
+                f"pairwise_executor returned {len(params)} results for "
+                f"{len(edges)} registration pairs."
+            )
+        telemetry.update(route="executor", pairs=len(edges), pairwise_s=time.perf_counter() - t0)
+        return _assign_pairwise_registrations(g_reg_computed, edges, params)
+
     params = _try_batched_phase_correlation(
-        msims, edges, register_kwargs, device=device,
-        telemetry={} if telemetry is None else telemetry,
+        msims, edges, register_kwargs, device=device, telemetry=telemetry
     )
+    if params is None:
+        params = [
+            register_pair_of_msims_over_time(msims[i], msims[j], **pair_kwargs)
+            if "t" in msi_utils.get_dims(msims[i])
+            else register_pair_of_msims(msims[i], msims[j], **pair_kwargs)
+            for i, j in edges
+        ]
+        telemetry.update(route="per_pair", pairs=len(edges), pairwise_s=time.perf_counter() - t0)
+    else:
+        telemetry["route"] = "batched"
     return _assign_pairwise_registrations(g_reg_computed, edges, params)
 
 
@@ -795,20 +1213,27 @@ def _try_batched_phase_correlation(msims, edges, register_kwargs, device, teleme
     """Batched pairwise registration of every (edge, timepoint) unit: one
     device batch per crop-shape bucket (up to :data:`MAX_B` units), from host
     crops or from crops cut out of the resident tile stack. Returns the
-    per-edge results, stacked over ``t`` for views with a ``t`` dim."""
+    per-edge results, stacked over ``t`` for views with a ``t`` dim, or None
+    where the call is not the default phase correlation with its plain
+    kwargs (the per-pair path takes it)."""
     from multiview_stitcher_torch.fusion import _core as fusion_core
 
     kwargs = dict(register_kwargs)
+    pairwise_reg_func = kwargs.pop("pairwise_reg_func", phase_correlation_registration)
     reg_func_kwargs = dict(kwargs.pop("pairwise_reg_func_kwargs", None) or {})
+    kwargs.pop("points_key", None)
+    kwargs.pop("prefilter_markers", None)
     transform_key = kwargs.pop("transform_key")
     registration_binning = kwargs.pop("registration_binning", None)
     reg_res_level = kwargs.pop("reg_res_level", None)
     overlap_tolerance = kwargs.pop("overlap_tolerance", None)
     device_tiles = kwargs.pop("device_tiles", None)
-    if kwargs:
-        raise _not_ported(f"register kwargs {sorted(kwargs)}", "item 8's rest")
-    if set(reg_func_kwargs) - {"upsample_factor", "disambiguate_region_mode"}:
-        raise _not_ported(f"pairwise_reg_func_kwargs {sorted(reg_func_kwargs)}", "item 8's rest")
+    if (
+        pairwise_reg_func is not phase_correlation_registration
+        or set(reg_func_kwargs) - {"upsample_factor", "disambiguate_region_mode"}
+        or kwargs
+    ):
+        return None
     if not edges:
         return []
     has_t = "t" in msi_utils.get_dims(msims[0])
@@ -1051,3 +1476,365 @@ def _assign_pairwise_registrations(g_reg_computed, edges, params):
         g_reg_computed.edges[pair]["quality"] = params[i]["quality"]
         g_reg_computed.edges[pair]["bbox"] = params[i]["bbox"]
     return g_reg_computed
+
+
+# ---------------------------------------------------------------------------
+# crops to references and pairs from sample masks
+# ---------------------------------------------------------------------------
+
+
+def _sel_spatial_range(sim: Sim, ranges: Dict[str, Tuple[float, float]]) -> Sim:
+    """The pixel centres within [lo, hi] per spatial dim."""
+    return sim.isel(_spatial_range_slices(sim, ranges))
+
+
+def crop_sim_to_references(sim_input_to_crop: Sim, reference_sims: Sequence[Sim],
+                           transform_key_input: str, transform_keys_reference: Sequence[str],
+                           input_time_index: int = 0) -> Sim:
+    """The smallest crop of ``sim_input_to_crop`` that covers the reference
+    sims (their corners mapped into its frame)."""
+    ref_corners_world = []
+    for iref, ref_sim in enumerate(reference_sims):
+        props = si_utils.get_stack_properties_from_sim(
+            ref_sim, transform_key=transform_keys_reference[iref]
+        )
+        ref_corners_world += list(mv_graph.get_vertices_from_stack_props(props))
+    mat = np.asarray(
+        si_utils.get_affine_from_sim(sim_input_to_crop, transform_key=transform_key_input).squeeze()
+    )
+    if mat.ndim == 3:
+        mat = mat[input_time_index]
+    corners_input = param_utils.transform_pts(np.asarray(ref_corners_world), np.linalg.inv(mat))
+    lower = corners_input.min(axis=0)
+    upper = corners_input.max(axis=0)
+    sdims = si_utils.get_spatial_dims_from_sim(sim_input_to_crop)
+    return _sel_spatial_range(
+        sim_input_to_crop, {d: (lower[i], upper[i]) for i, d in enumerate(sdims)}
+    )
+
+
+def _nanmin_label_fusion(transformed_views):
+    """The smallest label (1-based) over the views at each voxel, 0 where
+    no view holds one."""
+    stacked = torch.where(
+        torch.isnan(transformed_views) | (transformed_views == 0), torch.inf, transformed_views
+    )
+    out = stacked.amin(0)
+    return torch.where(torch.isinf(out), 0.0, out)
+
+
+def get_pairs_from_sample_masks(mask_sims, transform_key: str = si_utils.DEFAULT_TRANSFORM_KEY,
+                                fused_mask_spacing=None, device=None):
+    """Pairs of views whose sample masks touch: each mask becomes a label
+    image (view index + 1), the labels are fused by their smallest value
+    (the host tier of ``fuse`` on ``device``) and adjacent labels paired.
+    Returns (sorted pairs, the fused label sim)."""
+    from multiview_stitcher_torch.fusion import fuse
+
+    label_sims = [
+        si_utils.get_sim_from_array(
+            (np.asarray(m.data) > 0).astype(np.float32) * (i + 1),
+            dims=m.dims,
+            scale=si_utils.get_spacing_from_sim(m),
+            translation=si_utils.get_origin_from_sim(m),
+            affine=si_utils.get_affine_from_sim(m, transform_key),
+            transform_key=transform_key,
+        )
+        for i, m in enumerate(mask_sims)
+    ]
+    if fused_mask_spacing is None:
+        fused_mask_spacing = si_utils.get_spacing_from_sim(mask_sims[0])
+    fused = fuse(
+        label_sims, transform_key=transform_key, fusion_func=_nanmin_label_fusion,
+        output_spacing=fused_mask_spacing, device=device,
+    )
+    labels = np.asarray(fused.to_numpy()).astype(int)
+    pairs = mv_graph.get_connected_labels(labels)
+    return [tuple(sorted(p)) for p in pairs.tolist()], fused
+
+
+def apply_recursive_dict(func, d):
+    """``func`` applied to every leaf of a nested dict."""
+    if isinstance(d, dict):
+        return {k: apply_recursive_dict(func, v) for k, v in d.items()}
+    return func(d)
+
+
+# ---------------------------------------------------------------------------
+# marker-based registration (RGLDM descriptors, RANSAC, ICP), on the host
+# ---------------------------------------------------------------------------
+
+
+def _marker_min_matches(transform_type: str, ndim: int) -> int:
+    transform_type = transform_type.lower()
+    if transform_type == "translation":
+        return 1
+    if transform_type == "rigid":
+        return ndim
+    if transform_type == "affine":
+        return ndim + 1
+    raise ValueError(f"Unsupported marker transform_type {transform_type!r}")
+
+
+def _marker_descriptors(points, num_neighbors, redundancy):
+    """Local descriptors: for each point and each ``num_neighbors``-subset
+    of its ``num_neighbors + redundancy`` nearest neighbours, the sorted
+    pairwise distances of the group, in point then subset order. Returns
+    (descriptors, their point indices)."""
+    from scipy.spatial import cKDTree
+
+    points = np.asarray(points, dtype=float)
+    required = num_neighbors + redundancy
+    if len(points) < required + 1:
+        raise ValueError(
+            f"Not enough points for marker descriptors: need {required + 1}, got {len(points)}."
+        )
+    n = len(points)
+    _, neigh = cKDTree(points).query(points, k=min(n, required + 2))
+    neigh = np.atleast_2d(neigh)
+    # each point's nearest neighbours but itself, in query order
+    others = neigh != np.arange(n)[:, None]
+    first = np.argsort(~others, axis=1, kind="stable")[:, :required]
+    complete = others.sum(1) >= required
+    nb = np.take_along_axis(neigh, first, axis=1)[complete]
+    centre = np.flatnonzero(complete)
+    if not len(centre):
+        raise ValueError("No marker descriptors could be built.")
+    subsets = np.array(list(it.combinations(range(required), num_neighbors)), dtype=np.int64)
+    groups = np.concatenate(
+        [np.broadcast_to(centre[:, None, None], (len(centre), len(subsets), 1)),
+         nb[:, subsets]], axis=2,
+    )
+    a, b = np.array(list(it.combinations(range(num_neighbors + 1), 2))).T
+    diffs = points[groups[..., a]] - points[groups[..., b]]
+    dists = np.sqrt(np.einsum("...i,...i->...", diffs, diffs))
+    vectors = np.sort(dists, axis=-1).reshape(-1, len(a))
+    return vectors, np.repeat(centre, len(subsets))
+
+
+def _marker_auto_threshold(fixed_points, moving_points, num_neighbors, scale):
+    """Descriptor distance threshold: the median nearest-neighbour distance
+    of both sets times the square root of the descriptor length, scaled."""
+    from scipy.spatial import cKDTree
+
+    nearest = []
+    for pts in (fixed_points, moving_points):
+        pts = np.asarray(pts, dtype=float)
+        if len(pts) < 2:
+            continue
+        d, _ = cKDTree(pts).query(pts, k=2)
+        nearest.extend(d[:, 1])
+    nearest = np.asarray(nearest)
+    nearest = nearest[np.isfinite(nearest)]
+    if nearest.size == 0:
+        return 0.0
+    vec_len = math.comb(num_neighbors + 1, 2)
+    return float(np.median(nearest) * np.sqrt(vec_len) * scale)
+
+
+def _match_descriptors(fixed_vectors, fixed_idx, moving_vectors, moving_idx,
+                       descriptor_ratio, distance_threshold):
+    """Candidate point pairs: each fixed descriptor's nearest moving
+    descriptor, under the threshold and ``descriptor_ratio`` times nearer
+    than the nearest descriptor of another moving point; a pair found
+    several times counts once, in the order first found."""
+    from scipy.spatial import cKDTree
+
+    if not len(fixed_vectors) or not len(moving_vectors):
+        return np.empty((0, 2), dtype=int)
+    _, counts = np.unique(moving_idx, return_counts=True)
+    k = min(len(moving_vectors), int(np.max(counts)) + 1)
+    dists, inds = cKDTree(moving_vectors).query(fixed_vectors, k=k)
+    dists = np.atleast_2d(dists)
+    inds = np.atleast_2d(inds)
+    candidates = {}
+    for fi, row_d, row_i in zip(fixed_idx, dists, inds):
+        best = float(row_d[0])
+        best_mi = moving_idx[row_i[0]]
+        if best >= distance_threshold:
+            continue
+        other = moving_idx[row_i] != best_mi
+        second = float(row_d[np.flatnonzero(other)[0]]) if other.any() else np.inf
+        if best * descriptor_ratio < second:
+            pair = (int(fi), int(best_mi))
+            if pair not in candidates or best < candidates[pair]:
+                candidates[pair] = best
+    return np.asarray(list(candidates.keys()), dtype=int).reshape(-1, 2)
+
+
+def _fit_marker_transform(fixed_points, moving_points, transform_type):
+    transform_type = transform_type.lower()
+    if transform_type == "translation":
+        return transforms.estimate_translation(fixed_points, moving_points)
+    if transform_type == "rigid":
+        M = transforms.estimate_rigid(fixed_points, moving_points)
+    elif transform_type == "affine":
+        M = transforms.estimate_affine(fixed_points, moving_points)
+    else:
+        raise ValueError(f"Unsupported marker transform_type {transform_type!r}")
+    if not np.all(np.isfinite(M)):
+        raise ValueError("Marker registration points are degenerate.")
+    return M
+
+
+def _marker_quality(n_inliers: int, n: int, mean_res: float, max_error: float) -> float:
+    return (n_inliers / n) * max(0.0, 1.0 - mean_res / max_error)
+
+
+def _run_marker_ransac(fixed_points, moving_points, candidate_pairs, transform_type,
+                       ransac_max_error, ransac_min_inlier_ratio, ransac_min_inlier_factor,
+                       ransac_num_iterations, random_state):
+    """RANSAC over the candidate pairs: every minimal sample when there are
+    at most ``ransac_num_iterations`` of them, else that many draws of
+    ``np.random.default_rng(random_state)``; the model of the best
+    (quality, inliers, -mean residual) key is refit on its inliers. Returns
+    (affine, quality)."""
+    ndim = fixed_points.shape[1]
+    min_matches = _marker_min_matches(transform_type, ndim)
+    min_inliers = max(min_matches, int(np.round(min_matches * ransac_min_inlier_factor)))
+    if len(candidate_pairs) < min_inliers:
+        raise ValueError(
+            f"Not enough marker correspondences for RANSAC: need {min_inliers}, "
+            f"got {len(candidate_pairs)}."
+        )
+    fixed_c = fixed_points[candidate_pairs[:, 0]]
+    moving_c = moving_points[candidate_pairs[:, 1]]
+    rng = np.random.default_rng(random_state)
+    n = len(candidate_pairs)
+    samples = (
+        it.combinations(range(n), min_matches)
+        if math.comb(n, min_matches) <= ransac_num_iterations
+        else (rng.choice(n, size=min_matches, replace=False) for _ in range(ransac_num_iterations))
+    )
+    best = None
+    for sample in samples:
+        sample = np.asarray(sample, dtype=int)
+        try:
+            M = _fit_marker_transform(fixed_c[sample], moving_c[sample], transform_type)
+        except ValueError:
+            continue
+        res = np.linalg.norm(param_utils.transform_pts(fixed_c, M) - moving_c, axis=1)
+        inliers = res <= ransac_max_error
+        ni = int(inliers.sum())
+        if ni == 0:
+            key = (0.0, 0, -np.inf)
+        else:
+            mean_res = float(res[inliers].mean())
+            key = (_marker_quality(ni, n, mean_res, ransac_max_error), ni, -mean_res)
+        if best is None or key > best[0]:
+            best = (key, inliers)
+    if best is None:
+        raise ValueError("No marker transform model could be estimated.")
+
+    inliers = best[1]
+    ni = int(inliers.sum())
+    if ni < min_inliers or ni / n < ransac_min_inlier_ratio:
+        raise ValueError(f"Marker RANSAC did not find enough inliers ({ni}/{n}).")
+    M = _fit_marker_transform(fixed_c[inliers], moving_c[inliers], transform_type)
+    res = np.linalg.norm(param_utils.transform_pts(fixed_c, M) - moving_c, axis=1)
+    inliers = res <= ransac_max_error
+    ni = int(inliers.sum())
+    if ni < min_inliers:
+        raise ValueError(f"Refit marker transform lost inliers ({ni}/{n}).")
+    return M, _marker_quality(ni, n, float(res[inliers].mean()), ransac_max_error)
+
+
+def _run_marker_icp(fixed_points, moving_points, initial_affine, initial_quality,
+                    transform_type, icp_max_error, icp_num_iterations, icp_tolerance):
+    """Iterative closest points from ``initial_affine``: refit on the
+    fixed points whose nearest moving point lies within ``icp_max_error``,
+    until the affine moves by at most ``icp_tolerance``."""
+    from scipy.spatial import cKDTree
+
+    affine = np.asarray(initial_affine, dtype=float)
+    quality = float(initial_quality)
+    min_matches = _marker_min_matches(transform_type, fixed_points.shape[1])
+    tree = cKDTree(moving_points)
+    for _ in range(icp_num_iterations):
+        d, idx = tree.query(param_utils.transform_pts(fixed_points, affine), k=1)
+        inliers = d <= icp_max_error
+        if int(inliers.sum()) < min_matches:
+            break
+        try:
+            next_affine = _fit_marker_transform(
+                fixed_points[inliers], moving_points[idx[inliers]], transform_type
+            )
+        except ValueError:
+            break
+        quality = _marker_quality(int(inliers.sum()), len(fixed_points),
+                                  float(np.mean(d[inliers])), icp_max_error)
+        delta = float(np.linalg.norm(next_affine - affine))
+        affine = next_affine
+        if delta <= icp_tolerance:
+            break
+    return affine, quality
+
+
+def registration_marker_based(
+    fixed_points,
+    moving_points,
+    transform_type: str = "rigid",
+    num_neighbors: int = 3,
+    redundancy: int = 1,
+    descriptor_ratio: float = 3.0,
+    descriptor_distance_threshold: Optional[float] = None,
+    descriptor_threshold_scale: float = 1.0,
+    ransac_max_error: float = 5.0,
+    ransac_min_inlier_ratio: float = 0.1,
+    ransac_min_inlier_factor: float = 3.0,
+    ransac_num_iterations: int = 1000,
+    icp: bool = False,
+    icp_max_error: Optional[float] = None,
+    icp_num_iterations: int = 50,
+    icp_tolerance: float = 1e-6,
+    random_state: int = 0,
+    fail_on_error: bool = True,
+):
+    """Marker-based registration of two point sets in world coordinates
+    (BigStitcher's RGLDM bead matching): local sorted-distance descriptors
+    matched between the sets, RANSAC over the matches, optionally ICP.
+    Returns ``affine_matrix`` (fixed -> moving world) and ``quality``; with
+    ``fail_on_error=False`` a failure warns and returns the identity with
+    quality NaN. Host numpy and scipy, as in the reference."""
+    fixed_points = np.asarray(fixed_points, dtype=float)
+    moving_points = np.asarray(moving_points, dtype=float)
+    ndim = fixed_points.shape[1] if fixed_points.ndim == 2 else 2
+    try:
+        if fixed_points.ndim != 2 or moving_points.ndim != 2:
+            raise ValueError("Marker point arrays must be two-dimensional.")
+        if fixed_points.shape[1] != moving_points.shape[1]:
+            raise ValueError("Point sets must share dimensionality.")
+        if not len(fixed_points) or not len(moving_points):
+            raise ValueError("Marker point arrays must not be empty.")
+        fv, fi = _marker_descriptors(fixed_points, num_neighbors, redundancy)
+        mv, mi = _marker_descriptors(moving_points, num_neighbors, redundancy)
+        if descriptor_distance_threshold is None:
+            descriptor_distance_threshold = _marker_auto_threshold(
+                fixed_points, moving_points, num_neighbors, descriptor_threshold_scale
+            )
+        pairs = _match_descriptors(fv, fi, mv, mi, descriptor_ratio,
+                                   descriptor_distance_threshold)
+        affine, quality = _run_marker_ransac(
+            fixed_points, moving_points, pairs, transform_type, ransac_max_error,
+            ransac_min_inlier_ratio, ransac_min_inlier_factor, ransac_num_iterations,
+            random_state,
+        )
+        if icp:
+            affine, quality = _run_marker_icp(
+                fixed_points, moving_points, affine, quality, transform_type,
+                ransac_max_error if icp_max_error is None else icp_max_error,
+                icp_num_iterations, icp_tolerance,
+            )
+        return {"affine_matrix": affine, "quality": quality}
+    except ValueError as e:
+        if fail_on_error:
+            raise
+        warnings.warn(str(e), UserWarning, stacklevel=2)
+        return {"affine_matrix": np.eye(ndim + 1), "quality": np.nan}
+
+
+# the optional ANTsPy and ITK-Elastix backends, as the reference exports them
+from multiview_stitcher_torch.registration_plugins import (  # noqa: E402,F401
+    registration_ANTsPy,
+    registration_ITKElastix,
+)

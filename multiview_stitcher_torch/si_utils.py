@@ -304,9 +304,11 @@ def sim_sel_coords(sim: Sim, sel_dict: Dict[str, Any]) -> Sim:
     """Select by coordinate value.
 
     Non-spatial dims select by exact coord value; spatial dims accept
-    world-coordinate slices (inclusive bounds, like xarray label slicing).
+    world-coordinate slices (inclusive bounds, like xarray label slicing),
+    which crop the sim's point sets too.
     """
     indexers = {}
+    spatial_window = {}
     for dim, value in sel_dict.items():
         if dim in sim.spatial_dims and isinstance(value, slice):
             o, sp = sim.origin[dim], sim.spacing[dim]
@@ -315,6 +317,7 @@ def sim_sel_coords(sim: Sim, sel_dict: Dict[str, Any]) -> Sim:
             i0 = max(0, int(np.ceil((lo - o) / sp - 1e-9)))
             i1 = min(sim.sizes[dim] - 1, int(np.floor((hi - o) / sp + 1e-9)))
             indexers[dim] = slice(i0, i1 + 1)
+            spatial_window[dim] = (o + i0 * sp, o + i1 * sp)
             continue
         coords = np.asarray(sim.coords.get(dim, np.arange(sim.sizes[dim])))
         if np.isscalar(value) or np.asarray(value).ndim == 0:
@@ -326,7 +329,60 @@ def sim_sel_coords(sim: Sim, sel_dict: Dict[str, Any]) -> Sim:
             indexers[dim] = np.array(
                 [int(np.where(coords == v)[0][0]) for v in np.asarray(value)]
             )
-    return sim.isel(indexers)
+    out = sim.isel(indexers)
+    if spatial_window and "point_sets" in out.attrs:
+        # a spatial crop crops the point sets to the pixel centres it keeps
+        out.attrs = dict(out.attrs)
+        out.attrs["point_sets"] = {
+            key: point_set_sel_coords(
+                pts, {d: slice(*spatial_window[d]) for d in spatial_window},
+                sdims=sim.spatial_dims,
+            )
+            for key, pts in out.attrs["point_sets"].items()
+        }
+    return out
+
+
+def point_set_sel_coords(point_set, sel_dict, sdims=("z", "y", "x")):
+    """The points of an (N, ndim) set within world-coordinate bounds:
+    ``sel_dict`` maps spatial dims to slices (inclusive bounds) or values
+    (matched within 1e-9); the columns follow the last ndim of ``sdims``."""
+    pts = np.asarray(point_set, dtype=float)
+    if pts.ndim != 2:
+        raise ValueError(f"point set must be (N, ndim), got {pts.shape}")
+    dims = list(sdims)[-pts.shape[1]:]
+    keep = np.ones(len(pts), dtype=bool)
+    for i, d in enumerate(dims):
+        if d not in sel_dict:
+            continue
+        v = sel_dict[d]
+        if isinstance(v, slice):
+            lo = v.start if v.start is not None else -np.inf
+            hi = v.stop if v.stop is not None else np.inf
+            keep &= (pts[:, i] >= lo - 1e-9) & (pts[:, i] <= hi + 1e-9)
+        else:
+            keep &= np.abs(pts[:, i] - float(v)) <= 1e-9
+    return pts[keep]
+
+
+def set_point_set(sim: Sim, points, points_key: str = "beads"):
+    """Attach a named point set: (N, ndim) intrinsic physical coordinates."""
+    sim.attrs.setdefault("point_sets", {})[points_key] = np.asarray(points, dtype=float)
+    return sim
+
+
+def get_point_set(sim: Sim, points_key: str = "beads") -> np.ndarray:
+    return sim.attrs["point_sets"][points_key]
+
+
+def normalize_to_spatial_dict(value, sdims, name="value"):
+    """A number for every spatial dim, from one number or a dict per dim."""
+    if isinstance(value, dict):
+        missing = [d for d in sdims if d not in value]
+        if missing:
+            raise ValueError(f"{name} is missing values for spatial dimensions {missing}.")
+        return {d: float(value[d]) for d in sdims}
+    return {d: float(value) for d in sdims}
 
 
 def get_default_spatial_chunksizes(ndim: int):

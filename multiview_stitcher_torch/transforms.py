@@ -1,8 +1,10 @@
 """Point-set transform estimators (numpy): least-squares fits between
-corresponding point sets, as groupwise resolution uses them.
+corresponding point sets, as groupwise resolution and marker registration
+use them.
 
 Copy of ``multiview_stitcher_tpu.transforms``'s estimators: translation
-(mean displacement), rigid and similarity (Umeyama) and affine (lstsq).
+(mean displacement), rigid and similarity (Umeyama) and affine (lstsq), and
+``Affine_Fit``, the reference's fit object over the same affine solve.
 """
 
 from __future__ import annotations
@@ -54,6 +56,14 @@ def _umeyama(src: np.ndarray, dst: np.ndarray, estimate_scale: bool) -> np.ndarr
     return T
 
 
+def estimate_rigid(src, dst) -> np.ndarray:
+    return _umeyama(src, dst, estimate_scale=False)
+
+
+def estimate_similarity(src, dst) -> np.ndarray:
+    return _umeyama(src, dst, estimate_scale=True)
+
+
 def estimate_affine(src, dst) -> np.ndarray:
     """Full affine by linear least squares."""
     src = np.asarray(src, dtype=float)
@@ -69,11 +79,36 @@ def estimate_affine(src, dst) -> np.ndarray:
 
 _ESTIMATORS = {
     "translation": estimate_translation,
-    "rigid": lambda src, dst: _umeyama(src, dst, estimate_scale=False),
-    "similarity": lambda src, dst: _umeyama(src, dst, estimate_scale=True),
+    "rigid": estimate_rigid,
+    "similarity": estimate_similarity,
     "affine": estimate_affine,
 }
 
 
 def estimate_transform(kind: str, src, dst) -> np.ndarray:
     return _ESTIMATORS[kind](src, dst)
+
+
+def Affine_Fit(from_pts, to_pts):  # noqa: N802 (the reference's name)
+    """Least-squares affine fit ``p ~ A q + t`` of ``to_pts`` on
+    ``from_pts``, through :func:`estimate_affine`. Returns an object with
+    ``Matrix()`` (the flat ``[A.ravel(), t]``) and ``Transform(pt)``."""
+    q = np.asarray(from_pts, dtype=float)
+    p = np.asarray(to_pts, dtype=float)
+    if q.shape != p.shape or len(q) < 1:
+        raise ValueError("from_pts and to_pts must be of same size.")
+    dim = q.shape[1]
+    if len(q) < dim:
+        raise ValueError("Too few points => under-determined system.")
+    homogeneous = estimate_affine(q, p)
+    A = homogeneous[:dim, :dim]
+    t = homogeneous[:dim, dim]
+
+    class Transformation:
+        def Matrix(self):  # noqa: N802
+            return np.concatenate([A.flatten(), t])
+
+        def Transform(self, pt):  # noqa: N802
+            return list(A @ np.asarray(pt, dtype=float) + t)
+
+    return Transformation()

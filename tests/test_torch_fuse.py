@@ -359,7 +359,10 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import multiview_stitcher_torch.io.ngff_utils\n"
         "import multiview_stitcher_torch.io.zarr_backend\n"
         "import multiview_stitcher_torch.param_resolution\n"
+        "import multiview_stitcher_torch.param_resolution.linear_two_pass\n"
         "import multiview_stitcher_torch.registration\n"
+        "import multiview_stitcher_torch.registration_plugins\n"
+        "import multiview_stitcher_torch.detection\n"
         "import multiview_stitcher_torch.stitch\n"
         "import multiview_stitcher_torch.ops.phase_correlation\n"
         "import multiview_stitcher_torch.ops.image_metrics\n"
@@ -374,7 +377,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('jax', 'jaxlib', 'multiview_stitcher_tpu', 'networkx', 'pandas', 'tensorstore',\n"
-        "     'triton', 'zarr', 'numcodecs', 'blosc'))\n"
+        "     'triton', 'zarr', 'numcodecs', 'blosc', 'ants', 'itk', 'matplotlib'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

@@ -518,9 +518,13 @@ def test_groupwise_resolution_of_two_components_matches_jax():
 
 
 def test_linear_two_pass_is_refused():
-    _, tg = _reg_graphs(5, bad_edge=False)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpr.groupwise_resolution(tg, method="linear_two_pass")
+    """No longer refused: the port's linear two-pass resolution gives the
+    JAX package's params on the same graph (within 1e-6)."""
+    g, tg = _reg_graphs(5, bad_edge=False)
+    ref, _ = param_resolution.groupwise_resolution(g, method="linear_two_pass")
+    got, _ = tpr.groupwise_resolution(tg, method="linear_two_pass")
+    for n in ref:
+        np.testing.assert_allclose(got[n].data, ref[n].data, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -672,15 +676,24 @@ def test_register_refuses_what_the_slice_does_not_cover(grids):
     kw = dict(transform_key=KEY, device="cpu")
     cases = [
         (dict(mesh=object()), "item 12"),
-        (dict(pairwise_reg_func=lambda **k: None), "item 8"),
-        (dict(pairwise_executor=lambda *a: None), "item 8"),
-        (dict(pairwise_reg_func_kwargs={"use_fused_core": False}), "item 8"),
-        (dict(groupwise_resolution_method="linear_two_pass"), "item 8"),
-        (dict(plot_summary=True), "item 8"),
+        (dict(plot_summary=True), "item 27"),
     ]
     for extra, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             treg.register(sims, **kw, **extra)
+    # what item 8's rest covered is no longer refused: the per-pair path, an
+    # executor and the linear two-pass resolution run
+    default = treg.register(sims, **kw)
+    for extra in (
+        dict(pairwise_reg_func_kwargs={"use_fused_core": False}),
+        dict(pairwise_executor=lambda m, edges, k: [
+            treg.register_pair_of_msims(m[i], m[j], **k) for i, j in edges
+        ]),
+    ):
+        for p, r in zip(treg.register(sims, **kw, **extra), default):
+            np.testing.assert_allclose(p.data, r.data, atol=PARAM_ATOL)
+    linear = treg.register(sims, groupwise_resolution_method="linear_two_pass", **kw)
+    assert all(np.isfinite(p.data).all() for p in linear)
     # what items 16 and 23 covered is no longer refused: a resolution level
     # (of a one-level msim, level 0 alone), a t dim, the default pyramid
     level0 = treg.register(sims, reg_res_level=0, **kw)
