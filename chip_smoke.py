@@ -36,10 +36,12 @@ Phases, one printed line or block each:
    inf, a steep shear, a stack cut by every face, invalid items, and the 5^3
    weight grids. Each exact-affine line prints how many blocks or runs
    staged their box in shared memory, took the large-footprint route, or
-   were filled with ``cval``. Both translation kernels also take int16 and
-   float64 tiles and outputs, and the exact-affine kernels int16 and float64
-   sources (cast to float32 on the card); ``fuse`` keeps int16 and float64
-   views in their dtype on both tiers, against ``fuse(device="cpu")``;
+   were filled with ``cval``. Both translation kernels also take int16,
+   float64 and boolean tiles and outputs (boolean: equal voxel for voxel),
+   and the exact-affine kernels int16 and float64 sources (cast to float32
+   on the card); ``fuse`` keeps int16 and float64 views in their dtype on
+   both tiers, and boolean views boolean on the translation tier, against
+   ``fuse(device="cpu")``;
 4. the 3D main path through ``fusion.fuse``: 32 x 32 tiles of 64^3 uint16,
    overlap 12, output (64, 1676, 1676) uint16; a cold and a warm call, both
    streamed through banded kernel calls on three CUDA streams (its 537 MB of
@@ -141,7 +143,26 @@ Phases, one printed line or block each:
    64^3 tiles registered with ``use_fused_core=False`` and through a
    thread-pool ``pairwise_executor``, their pair shifts within 1e-3 px of the
    default path's. Under 60 s;
-11. ``stitch()`` of the north star's grid: 32 x 32 tiles of 64^3 uint16,
+11. multi-view deconvolution (lines start with the card's name and power
+   limit, then ``deconv:``): the four registered views of phase 10 fused by
+   ``fuse(..., fusion_func=mv_deconv.multi_view_deconvolution)`` with a
+   Gaussian PSF of sigma 1.2 px (9^3) for each view that reaches a chunk,
+   10 iterations of the efficient Bayesian kernels, chunks of 128^3 with the
+   PSF's 4 px halo, through the host tier; cold and warm, the warm call
+   split into plan, upload, resample, RL (``reduce``) and download, the five
+   kernels' launches counted from 0 just before it (none expected), the
+   central chunk-aligned 128^3 window within 1 count of ``device="cpu"``;
+   the 99.9th and 99.99th percentiles against the weighted-average
+   ``fuse()`` of the same views (the 99.99th held higher: the beads fill
+   under 0.1 % of the output); the fullest chunk's RL timed alone with its
+   convolutions' share, beside cuDNN's single-channel conv3d of one; small
+   cases on 64^3 windows held to ``device="cpu"`` within 1 count
+   (INDEPENDENT kernels; INDEPENDENT kernels with ``lambda_reg=1e-3``,
+   where 8 ulps of the reference's float32 Tikhonov square root are allowed
+   besides, 2^-23 M / lambda each for the window's largest value M;
+   ``sample_boundary_erosion_px=2`` at the output's y = 0 face, whose first
+   two rows must be 0);
+12. ``stitch()`` of the north star's grid: 32 x 32 tiles of 64^3 uint16,
    overlap 12, cut from one band-limited volume (numpy, seeded) at known
    true positions, their metadata origins off by integers in [-1, 1] (z)
    and [-3, 3] (y, x), registered with an overlap tolerance of 1 / 3 / 3 px
@@ -157,9 +178,22 @@ Phases, one printed line or block each:
    as in the port); the output equal to ``fuse()`` under the resolved key;
    ``register()`` on the card within 1e-3 px of ``register(device="cpu")``
    on the grid's 4 x 4 corner;
-12. a ``kernels`` JSON line: per kernel its launches in the main-path run,
+13. registration quality (lines start with the card's name and power limit,
+   then ``metrics:``): ``tile_pair_image_metrics`` of phase 12's grid after
+   its warm ``stitch()``, pairs from the overlaps under the metadata key,
+   scored under the true positions, the metadata, the default ``register()``
+   key and the shortest-paths resolution; the batched NCC on the card, the
+   five kernels' launches counted from 0 just before it (none expected),
+   split into graph and edge geometry, grids, source windows and slabs
+   (host) and device time, with the shape buckets and the summary NCC by
+   key. Held: the truth's NCC at least 0.999 and above the metadata's; the
+   4 x 4 corner within 1e-4 of ``device="cpu"`` per pair, by the batched
+   NCC and by the host loop with NCC and SSIM;
+14. a ``kernels`` JSON line: per kernel its launches in the main-path run,
    its time, the plain version's time, its bound and its error, and its
-   launches in the beads phase's fuse (``beads_launches``).
+   launches in the beads phase's fuse (``beads_launches``), the
+   deconvolution's warm fuse (``deconv_launches``) and the metrics' batched
+   call (``metrics_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 the script exits non-zero without that line; without a CUDA device it exits
@@ -292,7 +326,9 @@ def compare_translation(np, torch, fn, plain, label, args, kw):
     assert got.dtype == kw["out_dtype"], (got.dtype, kw["out_dtype"])
     g = got.cpu().numpy().astype(np.float64 if kw["out_dtype"].is_floating_point else np.int64)
     r = ref.cpu().numpy().astype(g.dtype)
-    err, ok = max_err(g, r, np), within_tol(g, r, np)
+    err = max_err(g, r, np)
+    # boolean outputs (F2) must agree voxel for voxel
+    ok = err == 0 if kw["out_dtype"] == torch.bool else within_tol(g, r, np)
     log(f"  {label}: max_abs_err={err:.3g} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: kernel != plain")
@@ -329,14 +365,21 @@ def check_small_cases(np, torch, tsi, tcore, tf):
                     # write: cast on the card (F1)
                     variants += [(n, t, None, out_shape, view_idx)
                                  for n, t in (("int16", torch.int16), ("f64", torch.float64))]
+                    # boolean tiles and output (F2): read as float32, written
+                    # as "not zero"
+                    variants.append(("bool", torch.bool, None, out_shape, view_idx))
                 if case == "unit" and view_idx.shape[0] > 1:
                     origin = np.zeros(ndim, np.int32)
                     origin[0] = tile_shape[0]
                     band_shape = (min(tile_shape[0], out_shape[0] - origin[0]),) + out_shape[1:]
                     variants.append(("origin", torch.float32, origin, band_shape, view_idx[1:2]))
                 for label, out_dtype, origin, shape, vidx in variants:
-                    src = tiles if out_dtype not in (torch.int16, torch.float64) else (
-                        tiles.astype(np.int16 if out_dtype == torch.int16 else np.float64))
+                    if out_dtype == torch.bool:
+                        src = tiles > np.median(tiles)
+                    elif out_dtype in (torch.int16, torch.float64):
+                        src = tiles.astype(np.int16 if out_dtype == torch.int16 else np.float64)
+                    else:
+                        src = tiles
                     args = (
                         torch.from_numpy(src).cuda(), vidx, *tables,
                     )
@@ -766,20 +809,23 @@ def translation_bound(np, ndim, tiles, tables, offs, extents, scale_arr, out_sha
 
 
 def check_f1_fuse(np, torch, tsi, tf, tea, fuse):
-    """Phase 3, fault F1: fuse() on the card keeps int16 and float64 views in
-    their dtype on both tiers (the kernels read and write them as float32),
-    against fuse(device="cpu"), which takes the plain versions. Inputs: a
-    2 x 2 grid of 40^2 tiles at offsets 0 and 30, values 0-999, placed by
-    translations or each turned a little about its centre."""
+    """Phase 3, faults F1 and F2: fuse() on the card keeps int16 and float64
+    views in their dtype on both tiers (the kernels read and write them as
+    float32), and boolean views boolean on the translation tier, against
+    fuse(device="cpu"), which takes the plain versions. Inputs: a 2 x 2 grid
+    of 40^2 tiles at offsets 0 and 30, values 0-999 (boolean: above 499),
+    placed by translations or each turned a little about its centre."""
     worst = {}
     counters = {"translation": tf.fuse_translation_2d, "affine": tea.exact_affine_batch_2d}
     for tier, counter in counters.items():
-        for dtype in (np.int16, np.float64):
+        for dtype in (np.int16, np.float64) + ((np.bool_,) if tier == "translation" else ()):
             rng = np.random.default_rng(17)
             sims = []
             for iy in range(2):
                 for ix in range(2):
-                    sim = tsi.get_sim_from_array((rng.random((40, 40)) * 999).astype(dtype),
+                    data = rng.random((40, 40)) * 999
+                    data = data > 499 if dtype == np.bool_ else data.astype(dtype)
+                    sim = tsi.get_sim_from_array(data,
                                                  translation={"y": 30.0 * iy, "x": 30.0 * ix})
                     if tier == "affine":
                         lin = rot2(np, 0.05 * (2 * iy + ix - 1.5))
@@ -792,7 +838,9 @@ def check_f1_fuse(np, torch, tsi, tf, tea, fuse):
             launched = counter.launches - before
             ref = fuse(sims, transform_key=KEY, output_chunksize=32, device="cpu").data
             err = max_err(got, ref, np)
-            if dtype == np.int16:
+            if dtype == np.bool_:
+                ok = err == 0
+            elif dtype == np.int16:
                 ok = err <= UINT_COUNTS
             elif tier == "translation":
                 ok = within_tol(got, ref, np)
@@ -1618,15 +1666,19 @@ def general_window_err(np, got, ref, label):
 
 
 def general_case(np, torch, tcore, tea, tf, fuse, label, sims, kw, window, cpu_sims=None,
-                 timed_weights=False):
+                 timed_weights=False, key=KEY, say=None):
     """One case of the general phase: a cold and a warm fuse() on the card,
     the warm one split by stage with the five kernels' launch counts set to 0
     just before it and read just after, and ``window`` ((start, size) in
     output pixels, chunk-aligned) held to the same fuse() with
-    device="cpu" (on ``cpu_sims``, the views that reach it, by default all)."""
+    device="cpu" (on ``cpu_sims``, the views that reach it, by default all;
+    ``window`` may be a function of the output's shape). Views are placed by
+    ``key``; ``say`` writes a line (default: ``general:``
+    lines)."""
+    say = say or (lambda msg: log(f"general: {msg}"))
     sdims = sims[0].spatial_dims
     t0 = time.perf_counter()
-    cold = fuse(sims, transform_key=KEY, **kw)
+    cold = fuse(sims, transform_key=key, **kw)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     del cold
@@ -1639,7 +1691,7 @@ def general_case(np, torch, tcore, tea, tf, fuse, label, sims, kw, window, cpu_s
         if timed_weights:
             warm_kw["weights_func"] = gt.weights(kw["weights_func"])
         t0 = time.perf_counter()
-        fused = fuse(sims, transform_key=KEY, **warm_kw)
+        fused = fuse(sims, transform_key=key, **warm_kw)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         warm_s = t1 - t0
@@ -1655,21 +1707,21 @@ def general_case(np, torch, tcore, tea, tf, fuse, label, sims, kw, window, cpu_s
     ):
         raise AssertionError(f"{label}: output {out.dtype}, covered {covered:.2f}, finite: "
                              f"{np.isfinite(out).all()}")
-    start, size = window
+    start, size = window(out.shape) if callable(window) else window
     osp = {"origin": dict(fused.origin), "spacing": dict(fused.spacing),
            "shape": dict(zip(sdims, out.shape))}
     t0 = time.perf_counter()
-    ref = fuse(cpu_sims or sims, transform_key=KEY, device="cpu",
+    ref = fuse(cpu_sims or sims, transform_key=key, device="cpu",
                output_stack_properties=window_props(osp, sdims, start, size), **kw).data
     cpu_s = time.perf_counter() - t0
     got = out[tuple(slice(s, s + size) for s in start)]
     err = general_window_err(np, got, ref, label)
     n_out = int(np.prod(out.shape))
-    log(f"general: {label}: output {out.shape} {out.dtype}, covered {covered:.2f}, cold fuse "
+    say(f"{label}: output {out.shape} {out.dtype}, covered {covered:.2f}, cold fuse "
         f"{cold_s:.3f} s, warm fuse {warm_s:.3f} s ({n_out / warm_s / 1e6:.1f} Mvox/s)")
-    log(f"general: {label}: warm split " + json.dumps({k: round(v, 3) for k, v in split.items()}))
-    log(f"general: {label}: tier units {json.dumps(calls)}, kernel launches "
-        f"{json.dumps({k: v for k, v in launches.items() if v})}; window "
+    say(f"{label}: warm split " + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    say(f"{label}: tier units {json.dumps(calls)}, kernel launches "
+        f"{json.dumps(launches)}; window "
         f"{tuple(start)} + {size} against device='cpu' ({cpu_s:.1f} s): max_abs_err {err:.3g}")
     return fused, {"cold_fuse_s": cold_s, "warm_fuse_s": warm_s, **split,
                    "calls": calls, "launches": launches, "window_max_abs_err": err,
@@ -2544,6 +2596,189 @@ def beads_phase(np, torch, tsi, tcore, tea, tf, fuse, shape=(256, 512, 512), n_b
 
     out["phase_s"] = time.perf_counter() - t_phase
     say(f"phase {out['phase_s']:.1f} s")
+    return out, sims
+
+
+# the deconvolution phase: the views' Gaussian PSF (sigma in px; 9^3), RL
+# iterations, output chunks, and the windows of its small cases
+DECONV_SIGMA = 1.2
+DECONV_ITERATIONS = 10
+DECONV_CHUNK = 128
+DECONV_SMALL = 64
+# the Tikhonov case's tolerance against the CPU, in ulps of the reference's
+# float32 square root (see deconv_phase), beside the usual 1 count
+DECONV_TIKHONOV_FLIPS = 8
+
+
+def central_window(shape, size):
+    """The chunk-aligned window of ``size`` nearest the centre of ``shape``."""
+    return [max(0, ((n - size) // 2) // size * size) for n in shape]
+
+
+def deconv_phase(np, torch, tcore, tea, tf, fuse, sims, key, chunk=DECONV_CHUNK,
+                 small=DECONV_SMALL):
+    """The deconvolution phase: multi-view Richardson-Lucy deconvolution
+    (Preibisch 2014, efficient Bayesian kernels) of the beads phase's four
+    registered views, placed by ``key``, as fuse()'s ``fusion_func``
+    through the host tier: a cold and a warm call, the warm one split by
+    stage, the five kernels' launches counted from 0 just before it, a
+    central chunk-aligned window held to device="cpu"; the beads sharper
+    than the weighted-average fuse() of the same views; one chunk's RL timed
+    alone with its convolutions' share, beside cuDNN's conv3d of the same
+    convolution; small cases (INDEPENDENT kernels, alone and with Tikhonov
+    regularisation; the sample boundary eroded by 2 px) held to
+    device="cpu" on ``small``^3 windows."""
+    import functools
+
+    from multiview_stitcher_torch.fusion import mv_deconv as tdeconv
+    from multiview_stitcher_torch.utils.misc import full_f32
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    out = {}
+
+    def say(msg):
+        log(f"[{card}] deconv: {msg}")
+
+    def synced():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    psf = tdeconv.make_gaussian_psf(DECONV_SIGMA, ndim=3)
+    fkw = {"n_iterations": DECONV_ITERATIONS}
+    fullest = {}
+
+    @functools.wraps(tdeconv.multi_view_deconvolution)
+    def deconvolve(**k):
+        """The fusion function with the views' PSF, one for each view that
+        reaches the chunk (the function refuses a list of another length,
+        as the reference's does), keeping the inputs of the chunk with the
+        most views (the largest of those) for the timing below."""
+        tv = k["transformed_views"]
+        rank = (tv.shape[0], tv.numel())
+        if rank > fullest.get("rank", (0, 0)):
+            fullest.update(rank=rank, views=tv, weights=k["blending_weights"])
+        return tdeconv.multi_view_deconvolution(psfs=[psf] * tv.shape[0], **k)
+
+    # 1. fuse() with the deconvolution as fusion function, cold and warm
+    fused, out["fuse"] = general_case(
+        np, torch, tcore, tea, tf, fuse, f"{len(sims)} views, RL x {DECONV_ITERATIONS}", sims,
+        dict(output_chunksize=chunk, fusion_func=deconvolve, fusion_func_kwargs=fkw),
+        window=lambda shape: (central_window(shape, chunk), chunk), key=key, say=say,
+    )
+    res = out["fuse"]
+    chunks = res["calls"].get("_fuse_views", 0)
+    if chunks < 50 or any(res["launches"].values()):
+        raise AssertionError(f"deconv: {chunks} host-tier chunks, launches {res['launches']}")
+    rl_chunk_ms = res.get("reduce_ms", 0.0) / chunks
+
+    # 2. sharper than the weighted average of the same views: the beads
+    # fill about 0.06 % of the output, so the 99.9th percentile (the
+    # example's measure) reads their flanks, which deconvolution narrows;
+    # the 99.99th reads their peaks and is the one held
+    avg = fuse(sims, transform_key=key, output_chunksize=chunk).data
+    pct = {q: {"deconvolved": float(np.percentile(fused.data, q)),
+               "weighted_average": float(np.percentile(avg, q))} for q in (99.9, 99.99)}
+    out["percentiles"] = pct
+    say("percentiles, deconvolved against the weighted-average fuse: " + "; ".join(
+        f"{q}th {v['deconvolved']:.1f} against {v['weighted_average']:.1f}"
+        for q, v in pct.items()))
+    if not pct[99.99]["deconvolved"] > pct[99.99]["weighted_average"]:
+        raise AssertionError(f"deconv: the beads are not sharper than the weighted average's: "
+                             f"{pct}")
+    del fused, avg
+
+    # 3. the fullest chunk's RL alone, and its convolutions
+    views, weights = fullest["views"], fullest["weights"]
+    n_views = views.shape[0]
+
+    def events_ms(fn, reps):
+        fn()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    rl_ms = events_ms(lambda: deconvolve(transformed_views=views, blending_weights=weights,
+                                         **fkw), 3)
+    psi = views[0].clone()
+    k1 = torch.from_numpy(psf).to(device)
+    k2 = torch.from_numpy(tdeconv._compute_compound_kernel(0, [psf] * n_views,
+                                                           tdeconv.PSFType.EFFICIENT_BAYESIAN))
+    k2 = k2.to(device)
+    n_convs = 2 * n_views * DECONV_ITERATIONS
+
+    def convolutions():
+        for _ in range(n_views * DECONV_ITERATIONS):
+            tdeconv._jconvolve(psi, k1, "mirror")
+            tdeconv._jconvolve(psi, k2, "constant", 1.0)
+
+    conv_ms = events_ms(convolutions, 1)
+    padded = torch.nn.functional.pad(psi, (4,) * 6)[None, None]
+    kern = torch.flip(k1, (0, 1, 2))[None, None]
+    with full_f32():
+        conv3d_ms = events_ms(lambda: torch.nn.functional.conv3d(padded, kern), 5)
+    out["rl"] = {"chunks": chunks, "rl_ms_a_chunk_in_fuse": rl_chunk_ms,
+                 "chunk_views": n_views, "chunk_shape": list(views.shape[1:]),
+                 "rl_ms": rl_ms, "convolutions": n_convs, "conv_ms": conv_ms,
+                 "conv_share": conv_ms / rl_ms, "conv3d_ms_a_conv": conv3d_ms}
+    say(f"RL: {chunks} chunks, {rl_chunk_ms:.1f} ms a chunk in the warm fuse; the fullest chunk "
+        f"({n_views} views of {tuple(views.shape[1:])}) alone {rl_ms:.1f} ms, of which its "
+        f"{n_convs} convolutions {conv_ms:.1f} ms ({conv_ms / rl_ms:.0%}; "
+        f"{conv_ms / n_convs:.3f} ms a convolution, cuDNN's conv3d of one "
+        f"{conv3d_ms:.3f} ms)")
+    del views, weights, psi, padded
+    fullest.clear()
+
+    # 4. small cases against device="cpu"
+    sdims = ["z", "y", "x"]
+    osp = tcore.process_output_stack_properties(sims, transform_key=key)
+    shape = [int(osp["shape"][d]) for d in sdims]
+    mid = central_window(shape, small)
+    out["small"] = {}
+    for label, extra, start in (
+        ("INDEPENDENT", {"psf_type": "INDEPENDENT"}, mid),
+        ("INDEPENDENT, lambda_reg 1e-3", {"psf_type": "INDEPENDENT", "lambda_reg": 1e-3}, mid),
+        ("sample_boundary_erosion_px 2", {"sample_boundary_erosion_px": 2},
+         [mid[0], 0, mid[2]]),
+    ):
+        kw = dict(transform_key=key, output_chunksize=small,
+                  output_stack_properties=window_props(osp, sdims, start, small),
+                  fusion_func=deconvolve, fusion_func_kwargs={**fkw, **extra})
+        t0 = time.perf_counter()
+        got = fuse(sims, **kw).data
+        card_s = synced() - t0
+        t0 = time.perf_counter()
+        ref = fuse(sims, device="cpu", **kw).data
+        cpu_s = time.perf_counter() - t0
+        lam = extra.get("lambda_reg", 0.0)
+        # one ulp of the reference's float32 square root in its Tikhonov
+        # step (sqrt(1 + 2 lam x) - 1) / lam * M moves a voxel by
+        # 2^-23 M / lam; the convolutions' summation order on the card and
+        # on the CPU flips some of them
+        tol = UINT_COUNTS + (DECONV_TIKHONOV_FLIPS * 2.0**-23 * float(ref.max()) / lam
+                             if lam else 0.0)
+        err = int(np.abs(got.astype(np.int64) - ref.astype(np.int64)).max())
+        if got.dtype != ref.dtype or got.shape != ref.shape or err > tol:
+            raise AssertionError(f"deconv: {label}: {got.dtype} {got.shape} against the CPU's "
+                                 f"{ref.dtype} {ref.shape}, max_abs_err {err} > {tol:.2f}")
+        zero_rows = int(np.all(got == 0, axis=(0, 2)).sum())
+        if "sample_boundary_erosion_px" in extra and zero_rows < 2:
+            raise AssertionError(f"deconv: {label}: the boundary was not eroded")
+        out["small"][label] = {"start": start, "max_abs_err": err, "tolerance": tol,
+                               "card_s": card_s, "cpu_s": cpu_s, "zero_y_rows": zero_rows}
+        say(f"{label}: window {tuple(start)} + {small}^3, card {card_s:.2f} s, CPU "
+            f"{cpu_s:.1f} s, max_abs_err {err} (tolerance {tol:.2f}), y rows all 0: "
+            f"{zero_rows}")
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -2770,7 +3005,118 @@ def stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n, tile, overlap):
         "corner_card_s": corner_card_s,
         "corner_cpu_s": corner_cpu_s,
         "grid_make_s": make_s,
-    }
+    }, {"msims": msims, "truth": truth, "meta": meta, "sp_params": sp_params}
+
+
+# the metrics phase: the summary NCC under the true positions, at least; the
+# card's pair values against device="cpu" on the grid's 4 x 4 corner
+METRICS_TRUTH_MIN = 0.999
+METRICS_CORNER_ATOL = 1e-4
+
+
+def metrics_phase(np, torch, tea, tf, msims, truth, meta, sp_params, n):
+    """The metrics phase: tile_pair_image_metrics of the stitch phase's n x n
+    grid after its warm stitch(), the pairs from the overlaps under the
+    metadata key, scored under four keys: the true positions, the metadata,
+    the default register() key and the shortest-paths resolution of the same
+    pairwise graph; the batched NCC on the card (the five kernels' launches
+    counted from 0 just before it), split into the host's graph and
+    geometry, grids, source windows and the device time. Held: the truth's
+    summary NCC at least METRICS_TRUTH_MIN and above the metadata's; the
+    4 x 4 corner's pairs within METRICS_CORNER_ATOL of device="cpu", by the
+    batched NCC and by the host loop with NCC and SSIM."""
+    from multiview_stitcher_torch import metrics as tmetrics
+    from multiview_stitcher_torch import msi_utils as tmsi
+    from multiview_stitcher_torch import param_utils as tpu
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    out = {}
+
+    def say(msg):
+        log(f"[{card}] metrics: {msg}")
+
+    def synced():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def launch_counts():
+        counts = {k: getattr(tea, k).launches for k in EXACT_WRAPPERS}
+        counts.update(fuse_translation_2d=tf.fuse_translation_2d.launches,
+                      fuse_translation_3d=tf.fuse_translation_3d.launches)
+        return counts
+
+    def zero_counts():
+        for k in EXACT_WRAPPERS:
+            getattr(tea, k).launches = 0
+        tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+
+    for k, m in enumerate(msims):
+        tmsi.set_affine_transform(
+            m, tpu.affine_to_xaffine(tpu.affine_from_translation(truth[k] - meta[k])),
+            transform_key="truth")
+        tmsi.set_affine_transform(m, sp_params[k], transform_key="shortest_paths")
+    keys = ["truth", KEY, "registered", "shortest_paths"]
+    kw = dict(base_transform_key=KEY, query_transform_keys=keys)
+
+    # 1. the whole grid, batched NCC on the card
+    zero_counts()
+    t0 = time.perf_counter()
+    res = tmetrics.tile_pair_image_metrics(msims, **kw)
+    wall = synced() - t0
+    launches = launch_counts()
+    tel = dict(tmetrics.last_telemetry)
+    summary = {q: res["summary"][q]["ncc"] for q in keys}
+    out.update(wall_s=wall, launches=launches, summary_ncc=summary, pairs=len(res["pairs"]),
+               **{k: tel[k] for k in ("graph_s", "plan_s", "prepare_s", "device_ms",
+                                      "buckets", "units", "edges")})
+    device_ms = "not measured" if tel["device_ms"] is None else f"{tel['device_ms']:.1f} ms"
+    say(f"{n} x {n} grid: {len(res['pairs'])} pairs x {len(keys)} keys = {tel['units']} units "
+        f"in {tel['buckets']} shape buckets, {wall:.2f} s: graph and edge geometry "
+        f"{tel['graph_s']:.2f} s, grids {tel['plan_s']:.2f} s, source windows and slabs "
+        f"{tel['prepare_s']:.2f} s (host), device {device_ms}; kernel launches "
+        f"{json.dumps(launches)}")
+    say("summary NCC by key: " + json.dumps({q: round(v, 6) for q, v in summary.items()}))
+    if any(launches.values()):
+        raise AssertionError(f"metrics: the batched NCC launched {launches}")
+    if not (summary["truth"] >= METRICS_TRUTH_MIN and summary["truth"] > summary[KEY]):
+        raise AssertionError(f"metrics: summary NCC {summary}")
+    del res
+
+    # 2. the 4 x 4 corner on the card against device="cpu", both paths
+    corner = [msims[iy * n + ix] for iy in range(4) for ix in range(4)]
+    funcs = {"batched NCC": None,
+             "host loop, NCC and SSIM": {"ncc": tmetrics.normalized_cross_correlation,
+                                         "ssim": tmetrics.structural_similarity}}
+    out["corner"] = {}
+    for label, metric_funcs in funcs.items():
+        mkw = dict(kw, metric_funcs=metric_funcs)
+        zero_counts()
+        t0 = time.perf_counter()
+        got = tmetrics.tile_pair_image_metrics(corner, **mkw)
+        card_s = synced() - t0
+        corner_launches = launch_counts()
+        t0 = time.perf_counter()
+        ref = tmetrics.tile_pair_image_metrics(corner, device="cpu", **mkw)
+        cpu_s = time.perf_counter() - t0
+        if list(got["pairs"]) != list(ref["pairs"]):
+            raise AssertionError(f"metrics: corner ({label}): pairs differ from the CPU's")
+        err = max(abs(v - ref["pairs"][e][q][m])
+                  for e, per_key in got["pairs"].items() for q, vals in per_key.items()
+                  for m, v in vals.items())
+        out["corner"][label] = {"pairs": len(got["pairs"]), "max_abs_err": err, "card_s": card_s,
+                                "cpu_s": cpu_s, "launches": corner_launches}
+        say(f"4 x 4 corner, {label}: {len(got['pairs'])} pairs, card {card_s:.2f} s, CPU "
+            f"{cpu_s:.2f} s, max_abs_err {err:.3g}; kernel launches on the card "
+            f"{json.dumps({k: v for k, v in corner_launches.items() if v})}")
+        if not err <= METRICS_CORNER_ATOL:
+            raise AssertionError(f"metrics: corner ({label}) differs from the CPU by {err}")
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase {out['phase_s']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2861,11 +3207,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # bead-based multi-view registration: detect -> markers -> resolve -> fuse
-    beads = beads_phase(np, torch, tsi, tcore, tea, tf, fuse)
+    beads, bead_sims = beads_phase(np, torch, tsi, tcore, tea, tf, fuse)
+    torch.cuda.empty_cache()
+
+    # multi-view deconvolution of the registered bead views
+    deconv = deconv_phase(np, torch, tcore, tea, tf, fuse, bead_sims,
+                          "beads_global_optimization")
+    del bead_sims
     torch.cuda.empty_cache()
 
     # the north star's second half: register -> resolve -> fuse on the card
-    stitched = stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n=32, tile=64, overlap=12)
+    stitched, grid = stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n=32, tile=64,
+                                  overlap=12)
+
+    # the registration's quality over the whole mosaic
+    quality = metrics_phase(np, torch, tea, tf, n=32, **grid)
+    del grid
 
     source = "multiview_stitcher_torch/csrc/translation_fusion.cu"
     exact_source = "multiview_stitcher_torch/csrc/exact_affine.cu"
@@ -2891,11 +3248,15 @@ def main() -> int:
                                   exact_err["sepy"], exact_err["general"])):
         k["max_abs_err"] = max(k["max_abs_err"], worst)
         k["beads_launches"] = beads["fuse"]["launches"][k["name"]]
+        k["deconv_launches"] = deconv["fuse"]["launches"][k["name"]]
+        k["metrics_launches"] = quality["launches"][k["name"]]
     detail = {"3d": r3, "2d": r2, "zarr": zarr, **{f"affine_{k}": v for k, v in affine.items()},
-              "general": general, "multiscale": multiscale, "beads": beads, "stitch": stitched,
+              "general": general, "multiscale": multiscale, "beads": beads, "deconv": deconv,
+              "stitch": stitched, "metrics": quality,
               "f1_fuse_max_abs_err": f1_err, "build_s": build_s, "small_cases_s": small_s,
               "total_s": time.perf_counter() - t_start}
     log("detail: " + json.dumps(detail))
+    log(f"chip_smoke: every phase ran and held, {detail['total_s']:.1f} s in all")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

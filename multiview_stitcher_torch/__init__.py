@@ -11,14 +11,18 @@ and weights function, in memory or into OME-Zarr), ``registration.register``
 (the view graph, batched phase correlation, groupwise resolution; over
 pyramid levels and over ``t``; any other pairwise function pair by pair,
 marker-based registration of bead point sets, the linear two-pass
-resolution), ``detection.detect_beads``, ``stitch.stitch`` and
-``transformation.transform_sim`` with linear interpolation. Entry points run
+resolution), ``detection.detect_beads``, ``stitch.stitch``,
+``transformation.transform_sim`` with linear interpolation, multi-view
+deconvolution (``fusion.mv_deconv``) and registration-quality metrics
+(``metrics.tile_pair_image_metrics``). Entry points run
 on the CUDA device unless the caller passes ``device="cpu"``, which takes the
 plain PyTorch version of every kernel.
 
 - ``si_utils`` / ``msi_utils`` / ``param_utils`` / ``zarr_utils`` — data model
 - ``fusion`` — ``fuse``; ``registration`` — ``register``; ``stitch`` — ``stitch``
 - ``detection`` — ``detect_beads``; ``registration_plugins`` — ANTsPy, ITK-Elastix
+- ``fusion.mv_deconv`` — ``multi_view_deconvolution``, a fusion function
+- ``metrics`` — ``tile_pair_image_metrics``, NCC and SSIM of view overlaps
 - ``io.zarr_backend`` / ``io.ngff_utils`` — zarr v2 and OME-Zarr (NGFF 0.4)
 - ``transformation`` — ``transform_sim``, ``transform_pts``
 - ``ops.translation_fusion`` — the two translation-fusion kernels
@@ -27,3 +31,12 @@ plain PyTorch version of every kernel.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """``metrics``, imported at first use (as the JAX package exposes it)."""
+    if name == "metrics":
+        import importlib
+
+        return importlib.import_module(f"{__name__}.metrics")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -14,3 +14,4 @@ from multiview_stitcher_torch.fusion._core import (  # noqa: F401
     simple_average_fusion,
     weighted_average_fusion,
 )
+from multiview_stitcher_torch.fusion import mv_deconv  # noqa: F401

@@ -593,6 +593,35 @@ def get_overlap_between_pair_of_stack_props(stack_props1, stack_props2):
     return ConvexHull(intersection.intersections).volume, intersection
 
 
+def expand_halfspace(halfspace, distance):
+    """The intersection with every boundary plane moved outward by
+    ``distance``. A box intersection stays a box, ``[lower - distance, upper
+    + distance]``, whose ``halfspaces`` are bit for bit those of the
+    reference's expanded equations; any other intersection is rebuilt by
+    scipy from its shifted equations."""
+    if isinstance(halfspace, BoxIntersection):
+        return BoxIntersection(halfspace.lower - distance, halfspace.upper + distance)
+    equations = np.array(halfspace.halfspaces, dtype=float)
+    equations[:, -1] -= distance
+    try:
+        return HalfspaceIntersection(equations, halfspace.interior_point)
+    except QhullError as e:
+        raise ValueError("Cannot expand halfspace by the given distance; result infeasible.") from e
+
+
+def get_mask_from_halfspace(sim, halfspace_eqs) -> np.ndarray:
+    """Boolean mask of the sim's pixels (at their physical coordinates)
+    inside every halfspace ``eq[:-1] . x + eq[-1] <= 0``."""
+    sdims = si_utils.get_spatial_dims_from_sim(sim)
+    axes = [sim.origin[d] + sim.spacing[d] * np.arange(sim.sizes[d], dtype=float) for d in sdims]
+    grids = np.meshgrid(*axes, indexing="ij")
+    mask = np.ones(grids[0].shape, dtype=bool)
+    for eq in halfspace_eqs:
+        val = sum(eq[i] * grids[i] for i in range(len(sdims))) + eq[-1]
+        mask &= val <= 0
+    return mask
+
+
 # ---------------------------------------------------------------------------
 # the view adjacency graph and its pruning
 # ---------------------------------------------------------------------------

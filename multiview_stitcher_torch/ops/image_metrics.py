@@ -1,12 +1,12 @@
-"""Image-quality metrics on torch tensors: SSIM over a box, masked Spearman
-correlation, NaN-aware NCC.
+"""Image-quality metrics on torch tensors: SSIM maps, SSIM over a box and
+over a whole image, masked Spearman correlation, NaN-aware NCC.
 
-The port of ``multiview_stitcher_tpu.ops.image_metrics`` for what pairwise
-registration runs. Every function takes images with leading batch axes and
-``ndim`` spatial axes last. As in the reference, SSIM (skimage's, with
-uniform windows) is computed over the whole image and averaged over the
-interior of a box, so that boxes of any extent keep static shapes: windows
-wholly inside the box read the pixels that slicing the box first would.
+The port of ``multiview_stitcher_tpu.ops.image_metrics``. Every function
+takes images with leading batch axes and ``ndim`` spatial axes last. As in
+the reference, SSIM (skimage's, with uniform windows) is computed over the
+whole image and averaged over the interior of a box, so that boxes of any
+extent keep static shapes: windows wholly inside the box read the pixels
+that slicing the box first would.
 """
 
 from __future__ import annotations
@@ -104,17 +104,52 @@ def ssim_map_precomputed(im0, ux, uxx, im1, win_size: int, data_range, ndim: int
     return (A1 * A2) / (B1 * B2)
 
 
-def ssim_mean_over_box_precomputed(im0, ux, uxx, im1, los, his, win_size: int, data_range, ndim):
-    """Mean SSIM over the interior of the boxes [lo, hi] (the window's
-    half-width in from each side); -1 where the interior is empty."""
+def ssim_map(im0, im1, win_size: int, data_range, ndim: int = None):
+    """Per-pixel SSIM of two images (skimage's, uniform windows and the
+    sample covariance ``NP / (NP - 1)``), in float32."""
+    ndim = im0.dim() if ndim is None else ndim
+    im0 = im0.to(torch.float32)
+    im1 = im1.to(torch.float32)
+    ux, uxx = ssim_fixed_maps(im0, win_size, ndim)
+    return ssim_map_precomputed(im0, ux, uxx, im1, win_size, data_range, ndim)
+
+
+def _mean_over_box_interior(smap, los, his, win_size: int, ndim: int):
     pad = (win_size - 1) // 2
-    smap = ssim_map_precomputed(im0, ux, uxx, im1, win_size, data_range, ndim)
-    shape = tuple(im0.shape[im0.dim() - ndim:])
+    shape = tuple(smap.shape[smap.dim() - ndim:])
     interior = _box_mask(shape, los + pad, his - pad)
     axes = _spatial(smap, ndim)
     n = interior.sum(axes)
     total = torch.where(interior, smap, 0.0).sum(axes)
     return torch.where(n > 0, total / torch.clamp_min(n, 1), -1.0)
+
+
+def ssim_mean_over_box(im0, im1, los, his, win_size: int, data_range, ndim: int = None):
+    """Mean SSIM over the interior of the boxes [lo, hi]; equal to the SSIM
+    of the images cut to the box wherever the box admits the window."""
+    ndim = im0.dim() if ndim is None else ndim
+    smap = ssim_map(im0, im1, win_size, data_range, ndim)
+    return _mean_over_box_interior(smap, los, his, win_size, ndim)
+
+
+def ssim_mean_over_box_precomputed(im0, ux, uxx, im1, los, his, win_size: int, data_range, ndim):
+    """Mean SSIM over the interior of the boxes [lo, hi] (the window's
+    half-width in from each side); -1 where the interior is empty."""
+    smap = ssim_map_precomputed(im0, ux, uxx, im1, win_size, data_range, ndim)
+    return _mean_over_box_interior(smap, los, his, win_size, ndim)
+
+
+def structural_similarity(im0: torch.Tensor, im1: torch.Tensor, win_size: int = 7,
+                          data_range=None) -> torch.Tensor:
+    """Mean SSIM of two whole images, over the pixels a full window covers
+    (skimage's mean); ``data_range`` defaults to the joint range."""
+    if data_range is None:
+        data_range = float(
+            torch.maximum(im0.max(), im1.max()) - torch.minimum(im0.min(), im1.min())
+        )
+    pad = (win_size - 1) // 2
+    smap = ssim_map(im0, im1, win_size, data_range)
+    return smap[tuple(slice(pad, s - pad) for s in im0.shape)].mean()
 
 
 def _average_ranks_sorted(v_sorted: torch.Tensor) -> torch.Tensor:

@@ -130,10 +130,12 @@ def _z_stride(scale) -> int:
 
 def _cast(res: torch.Tensor, out_dtype) -> torch.Tensor:
     """nan_to_num, then jnp's ``astype``: integer types truncate toward zero
-    and saturate at their range, float types round."""
+    and saturate at their range, float types round, bool is "not zero"."""
     res = torch.nan_to_num(res)
     if out_dtype.is_floating_point:
         return res.to(out_dtype)
+    if out_dtype == torch.bool:
+        return res != 0
     info = torch.iinfo(out_dtype)
     if info.bits < 32:
         return res.clamp(info.min, info.max).to(out_dtype)

@@ -356,6 +356,9 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import multiview_stitcher_torch as p\n"
         "import multiview_stitcher_torch.fusion\n"
         "import multiview_stitcher_torch.fusion._streaming\n"
+        "import multiview_stitcher_torch.fusion.mv_deconv\n"
+        "import multiview_stitcher_torch.metrics\n"
+        "assert p.metrics.tile_pair_image_metrics and p.fusion.mv_deconv.PSFType\n"
         "import multiview_stitcher_torch.io.ngff_utils\n"
         "import multiview_stitcher_torch.io.zarr_backend\n"
         "import multiview_stitcher_torch.param_resolution\n"
