@@ -59,7 +59,22 @@ Phases, one printed line or block each:
    bands, views a band, batches, bytes each way, the streams' busy times,
    wall time and output Mvox/s; level 0 read back and held against the
    monolithic output of phase 4, the multiscales metadata and every pyramid
-   level checked; about 1 GB of disk, removed at the end;
+   level checked; about 1 GB of disk, removed after the API phase, which
+   follows (lines start with the card's name and power limit, then
+   ``api:``): ``prepare_block_fusion`` of the lazy zarr tiles into one zarr
+   v2 array with ``output_chunksize=512`` (nblocks [1, 4, 4]), the 16 blocks
+   split between a creating and an attaching callable and run by
+   ``process_batch_using_threads`` on two threads, held within 1 count of
+   phase 4's monolithic output, with the blocks' wall time, output Mvox/s
+   and ``fuse_translation_3d`` launches; ``fuse(sims=...,
+   output_on_backend=True)`` of the in-memory tiles cold and warm (a CUDA
+   tensor bit-equal to the default output, the ``DeprecationWarning``
+   raised) and through the monolithic tier (its download stage, now a copy
+   on the card, beside phase 4's); ``get_greedy_colors`` (2 colours, grid
+   neighbours apart) and ``sims_are_far_apart`` of the 1024 tiles,
+   ``max_project_sim`` of the device output along z (equal to ``amax``), and
+   one zarr tile through ``serialize_zarr_backed_sim`` and back, byte for
+   byte;
 6. the same as 4 for a 2D slide-scan mosaic: 32 x 32 tiles of 512^2 uint16,
    overlap 64;
 7. three affine main paths through ``fusion.fuse``, one per exact-affine
@@ -192,8 +207,9 @@ Phases, one printed line or block each:
 14. a ``kernels`` JSON line: per kernel its launches in the main-path run,
    its time, the plain version's time, its bound and its error, and its
    launches in the beads phase's fuse (``beads_launches``), the
-   deconvolution's warm fuse (``deconv_launches``) and the metrics' batched
-   call (``metrics_launches``).
+   deconvolution's warm fuse (``deconv_launches``), the metrics' batched
+   call (``metrics_launches``) and the API phase's block-wise fusion
+   (``api_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 the script exits non-zero without that line; without a CUDA device it exits
@@ -206,6 +222,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -865,8 +882,9 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
     against the monolithic output of the same tiles (itself held against the
     plain version in phase 4); the multiscales metadata and every pyramid
     level must exist, and level 1 must be the block mean of level 0. The
-    files live under ``work``, removed at the end."""
-    import shutil
+    files live under ``work``: the fused store is removed at the end, the
+    tiles are kept for the API phase and returned as lazy sims beside the
+    results (all of ``work`` is removed when this phase fails)."""
 
     from multiview_stitcher_torch import msi_utils
     from multiview_stitcher_torch.fusion import _core as tcore
@@ -874,6 +892,7 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
 
     label = "3d zarr->zarr"
     shutil.rmtree(work, ignore_errors=True)
+    out_url = str(work / "fused.ome.zarr")
     finalize = tcore.ngff_utils.finalize_ome_zarr_levels
     pyramid_s = []
 
@@ -900,7 +919,6 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
             lazy.append(tsi.get_sim_from_array(zarr_backend.open_zarr_array(url), dims=s.dims,
                                                translation=dict(s.origin)))
         write_s = time.perf_counter() - t0
-        out_url = str(work / "fused.ome.zarr")
         runs = {}
         tcore.ngff_utils = types.SimpleNamespace(
             finalize_ome_zarr_levels=timed_finalize,
@@ -945,9 +963,12 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
         if not np.array_equal(level1, msi_utils._coarsen_mean(level0, (1, 2, 2))):
             raise AssertionError(f"{label}: level 1 is not the block mean of level 0")
         disk = sum(f.stat().st_size for f in work.rglob("*") if f.is_file())
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
     finally:
         tcore.ngff_utils = sys.modules["multiview_stitcher_torch.io.ngff_utils"]
-        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(out_url, ignore_errors=True)
     mvox = level0.size / 1e6
     for run, r in runs.items():
         log(f"{label} {run}: wall {r['wall_s'] * 1e3:.1f} ms, {mvox / r['wall_s']:.1f} Mvox/s out, "
@@ -965,7 +986,198 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
     return {"launches": int(launches), "max_abs_err": err, "voxels_differ": n_diff,
             "tiles_write_s": write_s, "disk_write_mb_s": disk_mb_s,
             "levels": [list(x) for x in levels], "disk_bytes": disk,
-            "out_mvox": mvox, **{run: r for run, r in runs.items()}}
+            "out_mvox": mvox, **{run: r for run, r in runs.items()}}, lazy
+
+
+def api_phase(np, torch, tsi, tcore, tf, tea, fuse, sims, mono, lazy, mono_download_ms, work,
+              chunk=512):
+    """The API phase (after phase 5, lines start ``api:``): the public API
+    slice at the north star's size. 1. ``prepare_block_fusion`` of phase 5's
+    lazily opened zarr tiles into a zarr v2 array under ``work`` with
+    ``output_chunksize=512`` (16 blocks), the blocks split between a creating
+    and an attaching callable and run by ``utils.misc.process_batch_using_threads``
+    (two workers), the array read back within 1 count of phase 4's
+    monolithic output (a block's float origin can flip an integer rounding),
+    ``fuse_translation_3d`` launched in the run. 2. ``fuse(sims=...,
+    output_on_backend=True)`` of phase 4's in-memory tiles, cold and warm:
+    a CUDA tensor bit-equal to the default call's numpy output (streamed:
+    the host output uploaded once), the ``DeprecationWarning`` of ``sims=``;
+    then the monolithic tier the same way, its download stage (a copy on the
+    card) beside phase 4's. 3. ``mv_graph.get_greedy_colors`` and
+    ``sims_are_far_apart`` on the 1024 tiles, ``si_utils.max_project_sim``
+    of the device output along z held to ``amax`` of the tensor and to
+    numpy's, and one zarr tile through ``serialize_zarr_backed_sim`` /
+    ``deserialize_zarr_backed_sim``, read back byte for byte."""
+    import itertools
+    import warnings
+
+    from multiview_stitcher_torch import mv_graph
+    from multiview_stitcher_torch.fusion import _streaming, prepare_block_fusion
+    from multiview_stitcher_torch.io import zarr_backend
+    from multiview_stitcher_torch.utils import misc as misc_utils
+
+    card = card_line()
+    say = lambda msg: log(f"{card}: api: {msg}")  # noqa: E731
+    t_phase = time.perf_counter()
+    out = {}
+
+    # 1. block-wise fusion into one shared zarr array
+    url = str(work / "blocks.zarr")
+    kwargs = {"images": lazy, "transform_key": KEY, "output_chunksize": chunk}
+    t0 = time.perf_counter()
+    creator = prepare_block_fusion(url, dict(kwargs))
+    attacher = prepare_block_fusion(url, dict(kwargs), create_output=False)
+    prepare_s = time.perf_counter() - t0
+    nblocks = creator["nblocks"]
+    ids = list(itertools.product(*(range(n) for n in nblocks)))
+    work_items = [(creator["func"], b) for b in ids[::2]] + [(attacher["func"], b)
+                                                             for b in ids[1::2]]
+    # the block path's run: the five kernels' counts set to 0 just before
+    for k in EXACT_WRAPPERS:
+        getattr(tea, k).launches = 0
+    tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+    t0 = time.perf_counter()
+    done = misc_utils.process_batch_using_threads(lambda it: it[0](it[1]), work_items,
+                                                  n_workers=2)
+    torch.cuda.synchronize()
+    blocks_s = time.perf_counter() - t0
+    counts = {k: getattr(tea, k).launches for k in EXACT_WRAPPERS}
+    counts.update(fuse_translation_2d=tf.fuse_translation_2d.launches,
+                  fuse_translation_3d=tf.fuse_translation_3d.launches)
+    launches = counts["fuse_translation_3d"]
+    if sorted(done) != ids or launches < len(ids) or sum(counts.values()) != launches:
+        raise AssertionError(f"api: blocks {done} of {ids}, launches {counts}")
+    blocks = np.asarray(zarr_backend.open_zarr_array(url))
+    if blocks.shape != mono.shape or blocks.dtype != mono.dtype:
+        raise AssertionError(f"api: blocks {blocks.shape} {blocks.dtype}, expected {mono.shape}")
+    diff = np.abs(blocks.astype(np.int32) - mono.astype(np.int32))
+    block_err, block_diff = int(diff.max()), int(np.count_nonzero(diff))
+    del diff, blocks
+    if block_err > UINT_COUNTS:
+        raise AssertionError(f"api: the blocks differ from the monolithic output by {block_err}")
+    # one block alone, split into the streaming pipeline and the rest (the
+    # host plan over every view, the block's write)
+    _streaming.last_telemetry = {}
+    t0 = time.perf_counter()
+    creator["func"](ids[len(ids) // 2])
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one = dict(_streaming.last_telemetry)
+    mvox = mono.size / 1e6
+    out["blocks"] = {"nblocks": nblocks, "blocks": len(ids), "prepare_s": prepare_s,
+                     "one_block_s": one_s, "one_block_stream": one,
+                     "wall_s": blocks_s, "mvox_s": mvox / blocks_s, "launches": int(launches),
+                     "max_abs_err": block_err, "voxels_differ": block_diff,
+                     "launch_counts": counts}
+    say(f"prepare_block_fusion of {len(lazy)} zarr tiles, output {mono.shape}, chunks of {chunk}: "
+        f"nblocks {nblocks} ({len(ids)} blocks, two callables, 2 threads), prepared in "
+        f"{prepare_s:.2f} s, fused in {blocks_s:.2f} s ({mvox / blocks_s:.1f} Mvox/s out), "
+        f"fuse_translation_3d launches {launches}; against the monolithic output "
+        f"{block_diff} voxels differ (max {block_err} counts)")
+    stream_part = (
+        f"the streaming pipeline {one['elapsed_s']:.3f} s ({one['bands_total']} bands, NV "
+        f"{one['nv']}, {one['up_bytes'] / 1e6:.1f} MB of tiles read and uploaded)"
+        if one else "no streaming (one kernel call)"
+    )
+    say(f"block {ids[len(ids) // 2]} alone: {one_s:.3f} s, of which {stream_part}; the rest is "
+        "the host plan over every view and the block's write")
+
+    # 2. the output kept on the card, streamed and monolithic
+    def timed(label, **kw):
+        runs = {}
+        for run in ("cold", "warm"):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                res = fuse(transform_key=KEY, **kw)
+                torch.cuda.synchronize()
+                runs[run] = time.perf_counter() - t0
+            if "sims" in kw and not any(issubclass(w.category, DeprecationWarning)
+                                        for w in caught):
+                raise AssertionError(f"api: {label}: fuse(sims=...) raised no DeprecationWarning")
+        return res, runs
+
+    tier = "streamed" if tcore._tile_bytes(sims) > tcore.STREAM_BYTES else "monolithic"
+    default, default_s = timed("default", images=sims)
+    on_dev, dev_s = timed("output_on_backend", sims=sims, output_on_backend=True)
+    if not (isinstance(on_dev.data, torch.Tensor) and on_dev.data.is_cuda):
+        raise AssertionError(f"api: output_on_backend gave {type(on_dev.data)}")
+    if not np.array_equal(on_dev.data.cpu().numpy(), default.data):
+        raise AssertionError("api: output_on_backend differs from the default output")
+    del default
+    saved = tcore.STREAM_BYTES
+    tcore.STREAM_BYTES = 1 << 62
+    try:
+        with StageTimer(torch, tcore, tf, tea) as st:
+            t0 = time.perf_counter()
+            mono_dev = fuse(images=sims, transform_key=KEY, output_on_backend=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mono_split = st.split_ms(t0, t1)
+    finally:
+        tcore.STREAM_BYTES = saved
+    if not (mono_dev.data.is_cuda and np.array_equal(mono_dev.data.cpu().numpy(), mono)):
+        raise AssertionError("api: the monolithic output_on_backend differs from phase 4's")
+    del mono_dev
+    out["output_on_backend"] = {"streamed_cold_s": dev_s["cold"], "streamed_warm_s": dev_s["warm"],
+                                "default_cold_s": default_s["cold"],
+                                "default_warm_s": default_s["warm"],
+                                "mono_wall_s": (t1 - t0), **{f"mono_{k}": v
+                                                             for k, v in mono_split.items()},
+                                "phase4_download_ms": mono_download_ms}
+    say(f"fuse(sims=..., output_on_backend=True), {tier}: cold {dev_s['cold']:.3f} s, warm "
+        f"{dev_s['warm']:.3f} s, against the default call's {default_s['cold']:.3f} / "
+        f"{default_s['warm']:.3f} s; a CUDA tensor bit-equal to the default output, "
+        "DeprecationWarning raised")
+    say(f"monolithic tier with output_on_backend: wall {t1 - t0:.3f} s, split "
+        + json.dumps({k: round(v, 3) for k, v in mono_split.items()})
+        + f"; its download stage (a copy on the card) {mono_split.get('download_ms', 0):.3f} ms "
+        f"against phase 4's {mono_download_ms:.3f} ms; bit-equal to phase 4's output")
+
+    # 3. the new host names at this size
+    t0 = time.perf_counter()
+    colors = mv_graph.get_greedy_colors(sims, transform_key=KEY)
+    colors_s = time.perf_counter() - t0
+    n = int(round(len(sims) ** 0.5))
+    bad = [(i, i + 1) for i in range(len(sims) - 1) if (i + 1) % n and colors[i] == colors[i + 1]]
+    bad += [(i, i + n) for i in range(len(sims) - n) if colors[i] == colors[i + n]]
+    if len(set(colors.values())) != 2 or bad:
+        raise AssertionError(f"api: greedy colours {sorted(set(colors.values()))}, "
+                             f"equal neighbours {bad[:5]}")
+    t0 = time.perf_counter()
+    far = [mv_graph.sims_are_far_apart(sims[0], s, KEY) for s in sims[1:]]
+    far_s = time.perf_counter() - t0
+    if far[0] or far[n - 1] or not far[-1]:
+        raise AssertionError("api: sims_are_far_apart of tile 0 and its neighbours or its "
+                             "opposite corner")
+    t0 = time.perf_counter()
+    proj = tsi.max_project_sim(on_dev, "z")
+    torch.cuda.synchronize()
+    proj_s = time.perf_counter() - t0
+    ref = on_dev.data.to(torch.int32).amax(dim=0)
+    if not (proj.data.is_cuda and proj.dims == ("y", "x")
+            and torch.equal(proj.data.to(torch.int32), ref)
+            and np.array_equal(proj.data.cpu().numpy(), mono.max(axis=0))):
+        raise AssertionError("api: max_project_sim differs from amax of the device output")
+    del on_dev, proj, ref
+    t0 = time.perf_counter()
+    payload = json.loads(json.dumps(tsi.serialize_zarr_backed_sim(lazy[37])))
+    back = tsi.deserialize_zarr_backed_sim(payload)
+    serial_s = time.perf_counter() - t0
+    if (back.to_numpy().tobytes() != sims[37].data.tobytes() or back.origin != lazy[37].origin
+            or back.dims != lazy[37].dims):
+        raise AssertionError("api: a zarr tile read back through its serialized payload differs")
+    out["host"] = {"greedy_colors_s": colors_s, "far_apart_s": far_s,
+                   "far_apart": int(sum(far)), "max_project_s": proj_s,
+                   "serialize_roundtrip_s": serial_s}
+    say(f"get_greedy_colors of {len(sims)} tiles {colors_s:.2f} s (2 colours, no equal grid "
+        f"neighbours); sims_are_far_apart of tile 0 and the other {len(far)} {far_s:.3f} s "
+        f"({sum(far)} far apart); max_project_sim of the device output along z "
+        f"{proj_s * 1e3:.1f} ms on the card (equal to amax and to numpy's); a zarr tile "
+        f"serialized and read back in {serial_s * 1e3:.1f} ms, byte for byte")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase {out['phase_s']:.1f} s")
+    return out
 
 
 def rot2(np, theta, scale=1.0):
@@ -3166,9 +3378,17 @@ def main() -> int:
 
     r3, sims3, mono3 = main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, 3, n=32, tile=64,
                                  overlap=12, band_tiles=2)
-    zarr = zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims3, mono3,
-                           REPO / ".bench_large" / "chip_smoke_zarr")
-    del sims3, mono3
+    work = REPO / ".bench_large" / "chip_smoke_zarr"
+    zarr, lazy3 = zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims3, mono3, work)
+    try:
+        # the public API slice on the same tiles: block-wise fusion, the
+        # output kept on the card, the host names at this size
+        api = api_phase(np, torch, tsi, tcore, tf, tea, fuse, sims3, mono3, lazy3,
+                        r3["download_ms"], work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del sims3, mono3, lazy3
+    torch.cuda.empty_cache()
     # 2D bands of 16 view-list tiles of 64 rows: about 1024 output rows each
     r2, _, _ = main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, 2, n=32, tile=512,
                          overlap=64, band_tiles=16)
@@ -3250,7 +3470,8 @@ def main() -> int:
         k["beads_launches"] = beads["fuse"]["launches"][k["name"]]
         k["deconv_launches"] = deconv["fuse"]["launches"][k["name"]]
         k["metrics_launches"] = quality["launches"][k["name"]]
-    detail = {"3d": r3, "2d": r2, "zarr": zarr, **{f"affine_{k}": v for k, v in affine.items()},
+        k["api_launches"] = api["blocks"]["launch_counts"][k["name"]]
+    detail = {"3d": r3, "2d": r2, "zarr": zarr, "api": api, **{f"affine_{k}": v for k, v in affine.items()},
               "general": general, "multiscale": multiscale, "beads": beads, "deconv": deconv,
               "stitch": stitched, "metrics": quality,
               "f1_fuse_max_abs_err": f1_err, "build_s": build_s, "small_cases_s": small_s,

@@ -14,9 +14,11 @@ marker-based registration of bead point sets, the linear two-pass
 resolution), ``detection.detect_beads``, ``stitch.stitch``,
 ``transformation.transform_sim`` with linear interpolation, multi-view
 deconvolution (``fusion.mv_deconv``) and registration-quality metrics
-(``metrics.tile_pair_image_metrics``). Entry points run
-on the CUDA device unless the caller passes ``device="cpu"``, which takes the
-plain PyTorch version of every kernel.
+(``metrics.tile_pair_image_metrics``), block-wise fusion into a shared zarr
+array (``fusion.prepare_block_fusion``), and the public names of the JAX
+package's modules listed below, with the JAX package's parameters. Entry
+points run on the CUDA device unless the caller passes ``device="cpu"``,
+which takes the plain PyTorch version of every kernel.
 
 - ``si_utils`` / ``msi_utils`` / ``param_utils`` / ``zarr_utils`` — data model
 - ``fusion`` — ``fuse``; ``registration`` — ``register``; ``stitch`` — ``stitch``
@@ -27,16 +29,58 @@ plain PyTorch version of every kernel.
 - ``transformation`` — ``transform_sim``, ``transform_pts``
 - ``ops.translation_fusion`` — the two translation-fusion kernels
 - ``ops.exact_affine`` — the three exact-affine resampling kernels
+- ``sample_data`` — synthetic tile grids with known shifts
 - ``convert`` — builds this package's sims from the JAX package's fields
+
+The reference's module names ``spatial_image_utils``, ``ngff_utils`` and
+``misc_utils`` are aliases of ``si_utils``, ``io.ngff_utils`` and
+``utils.misc``; ``tif_utils``, ``czi_utils`` and ``imaris_utils`` raise
+``ImportError`` until the readers are ported (ROADMAP.md item 29).
 """
+
+import importlib
 
 __version__ = "0.1.0"
 
+# the JAX package's __all__, less the modules not ported yet (vis_utils,
+# neuroglancer: item 30; parallel: item 12)
+__all__ = [
+    "si_utils",
+    "msi_utils",
+    "param_utils",
+    "transforms",
+    "transformation",
+    "mv_graph",
+    "registration",
+    "param_resolution",
+    "fusion",
+    "weights",
+    "detection",
+    "metrics",
+    "sample_data",
+    "io",
+    "zarr_utils",
+    "stitch",
+    "ops",
+]
+
+_ALIASES = {
+    "spatial_image_utils": "multiview_stitcher_torch.si_utils",
+    "ngff_utils": "multiview_stitcher_torch.io.ngff_utils",
+    "misc_utils": "multiview_stitcher_torch.utils.misc",
+}
+_READERS = ("tif_utils", "czi_utils", "imaris_utils")
+
 
 def __getattr__(name):
-    """``metrics``, imported at first use (as the JAX package exposes it)."""
+    """The reference-layout aliases, and ``metrics``, imported at first
+    use."""
+    if name in _ALIASES:
+        return importlib.import_module(_ALIASES[name])
     if name == "metrics":
-        import importlib
-
         return importlib.import_module(f"{__name__}.metrics")
+    if name in _READERS:
+        raise ImportError(
+            f"{__name__}.{name}: the readers are not ported yet (ROADMAP.md, queue 1: item 29)"
+        )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

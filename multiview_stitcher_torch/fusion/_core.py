@@ -48,7 +48,11 @@ tier uploads its bands anew, as the reference's does.
 
 ``fuse(output_zarr_url=...)`` writes the output chunk by chunk into a zarr v2
 array (an OME-Zarr level 0 with its pyramid, by default) through
-``io.zarr_backend``, and returns a sim backed by it.
+``io.zarr_backend``, and returns a sim backed by it. With
+``output_on_backend=True`` the output stays a torch tensor on the call's
+device: the tiers that fuse on the device write into it there (the streaming
+tier uploads its host output once). :func:`prepare_block_fusion` fuses a
+zarr array block by block, the blocks spread over workers at will.
 
 Any input this port does not cover raises ``NotImplementedError`` naming
 the ROADMAP.md item that will cover it; nothing falls back quietly.
@@ -598,6 +602,8 @@ def _tiles_to_device(field_sims, device, keep_nan: bool = False) -> torch.Tensor
 
 
 def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
     return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
@@ -624,9 +630,12 @@ class _PrefixedSink:
 
 
 def _download(fused: torch.Tensor, out) -> None:
-    """Copy the fused output into ``out``: a host array, or a sink written
-    by regions (:class:`_PrefixedSink`)."""
-    if not isinstance(out, np.ndarray):
+    """Copy the fused output into ``out``: a host array, a sink written by
+    regions (:class:`_PrefixedSink`), or a tensor on the device (which takes
+    a copy on the device, no download)."""
+    if isinstance(out, torch.Tensor):
+        out.copy_(fused)
+    elif not isinstance(out, np.ndarray):
         out[(slice(None),) * fused.dim()] = fused.cpu().numpy()
     elif out.flags.c_contiguous:
         torch.from_numpy(out).copy_(fused)
@@ -728,6 +737,12 @@ def _fuse_translation_views(
         )
     )
     if stream_worthy:
+        # the streaming tier writes host bands: a device output takes them
+        # from one host array, uploaded once
+        sink = (
+            np.empty(tuple(out.shape), dtype=torch.empty(0, dtype=out.dtype).numpy().dtype)
+            if isinstance(out, torch.Tensor) else out
+        )
         res = _streaming.execute_streaming(
             plan,
             field_sims,
@@ -735,13 +750,15 @@ def _fuse_translation_views(
             sdims,
             blending_widths=blending_widths,
             shrink_distance=shrink_distance,
-            out_dtype=out.dtype,
+            out_dtype=sink.dtype,
             device=device,
-            out_sink=out,
+            out_sink=sink,
             output_chunksize=output_chunksize,
-            is_zarr_sink=not isinstance(out, np.ndarray),
+            is_zarr_sink=not isinstance(sink, np.ndarray),
         )
         if res is not None:
+            if sink is not out:
+                out.copy_(torch.from_numpy(sink))
             return
     if not tiles_fit_on_device:
         raise NotImplementedError(
@@ -1757,6 +1774,11 @@ def fuse(
     blending_widths: Optional[Dict[str, float]] = None,
     output_zarr_url: Optional[str] = None,
     zarr_options: Optional[dict] = None,
+    batch_options: Optional[dict] = None,
+    backend: Optional[str] = None,
+    output_on_backend: bool = False,
+    sims: Optional[Sequence] = None,
+    mesh=None,
     device=None,
 ):
     """Fuse views into a single image.
@@ -1788,10 +1810,36 @@ def fuse(
 
     The fusion runs on ``device``: the CUDA device by default (raising if
     there is none), or the CPU with ``device="cpu"``, which takes the
-    kernels' plain PyTorch versions.
+    kernels' plain PyTorch versions. ``backend`` is the reference's array
+    library: None, "numpy" or "torch" (the computation is torch's either
+    way). With ``output_on_backend=True`` an in-memory output is a torch
+    tensor on ``device`` (msims and zarr outputs are not affected, as in the
+    reference). ``sims`` is the deprecated name of ``images``;
+    ``batch_options`` is accepted and not read, as in the reference. A device
+    ``mesh`` is not ported yet.
     """
+    if backend not in (None, "numpy", "torch"):
+        raise ValueError(
+            f"Unsupported backend {backend!r}: this package computes on torch; "
+            "use backend=None and output_on_backend to control the result placement."
+        )
+    if images is None:
+        if sims is None:
+            raise TypeError("fuse() missing required argument 'images'")
+        warnings.warn(
+            "The fuse(..., sims=...) parameter is deprecated; use images=... instead.",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        images = sims
+    elif sims is not None:
+        raise TypeError("fuse() got both 'images' and deprecated 'sims'. Use only 'images'.")
+    if mesh is not None:
+        raise NotImplementedError(
+            f"fusion across a device mesh is not ported yet ({_ROADMAP}: item 12)"
+        )
     device = misc_utils.resolve_device(device)
-    if images is None or not len(images):
+    if not len(images):
         raise ValueError("images must contain at least one image.")
     input_is_msim = [msi_utils.is_msim(im) for im in images]
     if any(input_is_msim) and not all(input_is_msim):
@@ -1906,7 +1954,9 @@ def fuse(
     out_full_shape = tuple(len(ns_coord_lists[nd]) for nd in nsdims) + spatial_out_shape
     out_dtype = np.dtype(sims_in[0].dtype)
     ome_zarr = zarr_options.get("ome_zarr", True)
-    if output_zarr_url is None:
+    if output_zarr_url is None and output_on_backend:
+        output_array = torch.zeros(out_full_shape, dtype=_torch_dtype(out_dtype), device=device)
+    elif output_zarr_url is None:
         output_array = np.zeros(out_full_shape, dtype=out_dtype)
     else:
         # fused regions go straight into the zarr array, nothing is
@@ -1946,7 +1996,7 @@ def fuse(
             int(np.where(ns_coord_lists[nd] == c)[0][0]) for nd, c in zip(nsdims, combo)
         )
         out = (
-            output_array[ns_idx] if isinstance(output_array, np.ndarray)
+            output_array[ns_idx] if isinstance(output_array, (np.ndarray, torch.Tensor))
             else _PrefixedSink(output_array, ns_idx)
         )
         _execute_fusion_plan(
@@ -2069,6 +2119,140 @@ def _fuse_msims(msims, output_spacing=None, output_stack_mode="union", output_za
         ]
         out_sims.append(fuse(level_inputs, output_stack_properties=level_props, **kwargs))
     return msi_utils.Msim(sims=out_sims)
+
+
+def prepare_block_fusion(
+    output_zarr_url: str,
+    fuse_kwargs: dict,
+    zarr_array_creation_kwargs: dict = None,
+    create_output: bool = True,
+    overwrite: bool = True,
+    verbose: bool = False,
+):
+    """Prepare the fusion of one zarr v2 array block by block, for workers
+    that each fuse a disjoint set of blocks into the shared array.
+
+    ``fuse_kwargs`` are :func:`fuse`'s, with the views under ``images`` (or
+    ``sims``). The array's blocks are the output chunks
+    (``output_chunksize``), one a non-spatial coordinate. With
+    ``create_output=False`` the array already at ``output_zarr_url`` is
+    attached to (a second worker's call). Returns ``{"func":
+    fuse_block(block_id), "nblocks": [...], "output_stack_properties":
+    ...}``: ``block_id`` indexes the non-spatial dims, then the spatial block
+    grid; ``fuse_block`` fuses that block's box with :func:`fuse` (on the
+    device ``fuse_kwargs`` name, the CUDA device by default), writes it and
+    returns the block id.
+    """
+    fuse_kwargs = dict(fuse_kwargs)
+    sims = fuse_kwargs.pop("images", None)
+    if sims is None:
+        sims = fuse_kwargs.pop("sims", None)
+    if sims is None:
+        raise ValueError("fuse_kwargs must carry 'images' (or 'sims')")
+    transform_key = fuse_kwargs.get("transform_key")
+    sdims = si_utils.get_spatial_dims_from_sim(sims[0])
+    nsdims = [d for d in sims[0].dims if d not in sdims]
+    ns_coord_lists = {nd: np.asarray(sims[0].coords[nd]) for nd in nsdims}
+
+    osp = process_output_stack_properties(
+        [si_utils.get_sim_field(s) for s in sims],
+        output_stack_properties=fuse_kwargs.pop("output_stack_properties", None),
+        output_spacing=fuse_kwargs.pop("output_spacing", None),
+        output_origin=fuse_kwargs.pop("output_origin", None),
+        output_shape=fuse_kwargs.pop("output_shape", None),
+        output_stack_mode=fuse_kwargs.pop("output_stack_mode", "union"),
+        transform_key=transform_key,
+    )
+    osp = {
+        k: {d: (int(v[d]) if k == "shape" else float(v[d])) for d in sdims}
+        for k, v in osp.items()
+    }
+    output_chunksize = process_output_chunksize(sims, fuse_kwargs.pop("output_chunksize", None))
+
+    full_shape = [len(ns_coord_lists[d]) for d in nsdims] + [osp["shape"][d] for d in sdims]
+    full_chunks = [1] * len(nsdims) + [
+        min(int(output_chunksize[d]), osp["shape"][d]) for d in sdims
+    ]
+    normalized = mv_graph.normalize_chunks(full_chunks, full_shape)
+    nblocks = [len(nc) for nc in normalized]
+    block_offsets = [np.cumsum((0,) + tuple(nc[:-1])) for nc in normalized]
+    if verbose:
+        print(
+            f"Fusing into an output stack: shape={full_shape} spacing={osp['spacing']} "
+            f"origin={osp['origin']} nblocks={nblocks}"
+        )
+
+    if create_output:
+        output_array = zarr_backend.create_zarr_array(
+            str(output_zarr_url),
+            shape=tuple(full_shape),
+            chunks=tuple(full_chunks),
+            dtype=np.dtype(sims[0].dtype),
+            zarr_format=2,
+            overwrite=overwrite,
+            **(zarr_array_creation_kwargs or {}),
+        )
+    else:
+        output_array = zarr_backend.attach_zarr_array(str(output_zarr_url))
+
+    def fuse_block(block_id):
+        block_id = tuple(int(b) for b in block_id)
+        if len(block_id) != len(nblocks):
+            raise ValueError(
+                f"block_id {block_id} must index {len(nblocks)} dims (nblocks={nblocks})"
+            )
+        sel = {nd: ns_coord_lists[nd][block_id[i]] for i, nd in enumerate(nsdims)}
+        block_sims = [si_utils.sim_sel_coords(s, sel) if sel else s for s in sims]
+        spatial_ids = block_id[len(nsdims):]
+        starts = [int(block_offsets[len(nsdims) + j][b]) for j, b in enumerate(spatial_ids)]
+        sizes = [int(normalized[len(nsdims) + j][b]) for j, b in enumerate(spatial_ids)]
+        block_props = {
+            "origin": {
+                d: osp["origin"][d] + osp["spacing"][d] * starts[j] for j, d in enumerate(sdims)
+            },
+            "spacing": dict(osp["spacing"]),
+            "shape": {d: sizes[j] for j, d in enumerate(sdims)},
+        }
+        fused = fuse(
+            block_sims,
+            output_stack_properties=block_props,
+            output_chunksize=output_chunksize,
+            **fuse_kwargs,
+        )
+        region = tuple(slice(b, b + 1) for b in block_id[: len(nsdims)]) + tuple(
+            slice(s, s + z) for s, z in zip(starts, sizes)
+        )
+        output_array[region] = fused.to_numpy().reshape([1] * len(nsdims) + sizes)
+        return block_id
+
+    return {"func": fuse_block, "nblocks": nblocks, "output_stack_properties": osp}
+
+
+def fuse_to_zarr(*args, **kwargs):
+    """Deprecated: use ``fuse(..., output_zarr_url=<path>)``."""
+    warnings.warn(
+        "fuse_to_zarr() is deprecated. Use fuse(..., output_zarr_url=<path>) instead.",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    raise RuntimeError(
+        "fuse_to_zarr() is deprecated. Please call fuse(..., output_zarr_url=<path>) instead."
+    )
+
+
+def fuse_to_multiscale_ome_zarr(*args, **kwargs):
+    """Deprecated: use ``fuse(..., output_zarr_url=...,
+    zarr_options={'ome_zarr': True})``."""
+    warnings.warn(
+        "fuse_to_multiscale_ome_zarr() is deprecated. Use "
+        "fuse(..., output_zarr_url=<path>, zarr_options={'ome_zarr': True}) instead.",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    raise RuntimeError(
+        "fuse_to_multiscale_ome_zarr() is deprecated. Please call "
+        "fuse(..., output_zarr_url=<path>, zarr_options={'ome_zarr': True}) instead."
+    )
 
 
 def func_ignore_nan_warning(func, *args, **kwargs):

@@ -8,8 +8,11 @@ sim and of all levels as an msim. NGFF stores no affines: a sim read back
 carries an identity transform, and an msim's named transforms are kept in
 the group's attributes under :data:`TRANSFORMS_ATTR_KEY`, as the reference
 package keeps them, so that a store written by either package carries its
-transforms into the other. The virtual NGFF server waits for ROADMAP.md
-item 10.
+transforms into the other. Also the NGFF time calibration of sims and
+msims, and the reference's in-memory NGFF containers (:class:`NgffImage`,
+:class:`NgffMultiscales`) with their conversions. The virtual NGFF server
+(``serve_virtual_ome_zarrs``, ``VirtualOMEZarr*``) waits for ROADMAP.md item
+30, and NGFF 0.5 for item 21: both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,11 +20,12 @@ from __future__ import annotations
 import itertools
 import os
 import shutil
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from multiview_stitcher_torch import msi_utils, si_utils
+from multiview_stitcher_torch import msi_utils, param_utils, si_utils
 from multiview_stitcher_torch.io import zarr_backend
 from multiview_stitcher_torch.msi_utils import Msim
 from multiview_stitcher_torch.param_utils import XAffine
@@ -395,3 +399,175 @@ def write_msim_to_ome_zarr(msim: Msim, output_zarr_url: str, **kwargs) -> Msim:
                           **kwargs)
     update_msim_transforms_zarr(msim, output_zarr_url)
     return read_msim_from_ome_zarr(output_zarr_url)
+
+
+def get_ngff_time_transform(image) -> dict:
+    """The NGFF time calibration (scale, translation, unit) of a sim or msim;
+    the identity where none is stored."""
+    sims = image.sims if msi_utils.is_msim(image) else [image]
+    stored = sims[0].attrs.get("ngff_time_transform") if sims else None
+    return {**DEFAULT_NGFF_TIME_TRANSFORM, **(stored or {})}
+
+
+def set_ngff_time_transform(image, time_transform):
+    """Attach an NGFF time calibration to a sim or to every level of an
+    msim. The identity is stored as the absence of the attribute, so that
+    an image never calibrated stays as it was."""
+    time_transform = {**DEFAULT_NGFF_TIME_TRANSFORM, **(time_transform or {})}
+    sims = image.sims if msi_utils.is_msim(image) else [image]
+    for s in sims:
+        if time_transform == DEFAULT_NGFF_TIME_TRANSFORM:
+            s.attrs.pop("ngff_time_transform", None)
+        else:
+            s.attrs["ngff_time_transform"] = dict(time_transform)
+    return image
+
+
+def copy_ngff_time_transform(source, target):
+    """Give ``target`` the time calibration of ``source``."""
+    return set_ngff_time_transform(target, get_ngff_time_transform(source))
+
+
+def mean_dtype(arr, **kwargs):
+    """``np.mean`` cast back to the input's dtype (for coarsening integer
+    levels)."""
+    return np.mean(arr, **kwargs).astype(arr.dtype)
+
+
+@dataclass
+class NgffImage:
+    """An NGFF 0.4 image in memory (the field names of ngff-zarr's
+    ``NgffImage``)."""
+
+    data: object
+    dims: list
+    scale: dict
+    translation: dict
+    name: str = "image"
+
+
+@dataclass
+class NgffMultiscales:
+    """A pyramid of :class:`NgffImage` and its NGFF multiscales metadata (the
+    field names of ngff-zarr's ``Multiscales``)."""
+
+    images: list
+    metadata: dict = field(default_factory=dict)
+    scale_factors: list = field(default_factory=list)
+
+
+def sim_to_ngff_image(sim: Sim, transform_key: Optional[str]) -> NgffImage:
+    """A sim as an NGFF image; the translation of ``transform_key``'s affine
+    (its first timepoint) is added to the origin."""
+    sdims = si_utils.get_spatial_dims_from_sim(sim)
+    origin = dict(si_utils.get_origin_from_sim(sim))
+    if transform_key is not None:
+        mat = np.asarray(si_utils.get_affine_from_sim(sim, transform_key).squeeze())
+        if mat.ndim == 3:
+            mat = mat[0]
+        shift = param_utils.translation_from_affine(mat)
+        for i, d in enumerate(sdims):
+            origin[d] = float(origin[d] + shift[i])
+    return NgffImage(
+        data=sim.data,
+        dims=list(sim.dims),
+        scale={d: float(v) for d, v in si_utils.get_spacing_from_sim(sim).items()},
+        translation=origin,
+    )
+
+
+def msim_to_ngff_multiscales(msim, transform_key: Optional[str]) -> NgffMultiscales:
+    """An msim as NGFF multiscales, a dataset a level at ``scale{i}/image``."""
+    ngff_ims = [
+        sim_to_ngff_image(msi_utils.get_sim_from_msim(msim, scale=sk), transform_key)
+        for sk in msi_utils.get_sorted_scale_keys(msim)
+    ]
+    sim0 = msi_utils.get_sim_from_msim(msim)
+    sdims = si_utils.get_spatial_dims_from_sim(sim0)
+    nsdims = [d for d in sim0.dims if d not in sdims]
+    abs_factors = [{d: im.scale[d] / ngff_ims[0].scale[d] for d in sdims} for im in ngff_ims]
+    coordtfs, axes = calc_ngff_coordinate_transformations_and_axes(
+        {
+            "spacing": ngff_ims[0].scale,
+            "origin": ngff_ims[0].translation,
+            "shape": {
+                d: int(np.shape(ngff_ims[0].data)[ngff_ims[0].dims.index(d)]) for d in sdims
+            },
+        },
+        abs_factors,
+        nsdims=nsdims,
+        time_transform=sim0.attrs.get("ngff_time_transform"),
+    )
+    metadata = {
+        "axes": axes,
+        "datasets": [
+            {"path": f"scale{i}/image", "coordinateTransformations": coordtfs[i]}
+            for i in range(len(ngff_ims))
+        ],
+        "version": "0.4",
+    }
+    return NgffMultiscales(
+        images=ngff_ims,
+        metadata=metadata,
+        scale_factors=[{d: int(round(f[d])) for d in sdims} for f in abs_factors[1:]],
+    )
+
+
+def ngff_image_to_sim(ngff_im, transform_key: str, data=None) -> Sim:
+    """An NGFF image (any object with data, dims, scale and translation) as a
+    sim with an identity affine under ``transform_key``; ``data`` replaces
+    the image's array."""
+    sdims = [d for d in ngff_im.dims if d in si_utils.SPATIAL_DIMS]
+    return si_utils.get_sim_from_array(
+        ngff_im.data if data is None else data,
+        dims=list(ngff_im.dims),
+        scale={d: float(ngff_im.scale[d]) for d in sdims},
+        translation={d: float(ngff_im.translation[d]) for d in sdims},
+        transform_key=transform_key,
+    )
+
+
+def ngff_multiscales_to_msim(ngff_multiscales, transform_key: str, data_arrays=None) -> Msim:
+    """NGFF multiscales as an msim; ``data_arrays`` replace the levels'
+    arrays."""
+    if data_arrays is None:
+        data_arrays = [None] * len(ngff_multiscales.images)
+    return Msim(sims=[
+        ngff_image_to_sim(im, transform_key=transform_key, data=da)
+        for im, da in zip(ngff_multiscales.images, data_arrays)
+    ])
+
+
+def read_ngff_multiscales(zarr_path) -> NgffMultiscales:
+    """An OME-Zarr's multiscales as NGFF multiscales over lazy zarr arrays."""
+    attrs, _ = zarr_backend.read_group_metadata(str(zarr_path))
+    ms, _ = _parse_multiscales(attrs)
+    images = [
+        sim_to_ngff_image(read_sim_from_ome_zarr(zarr_path, resolution_level=level), None)
+        for level in range(len(ms["datasets"]))
+    ]
+    return NgffMultiscales(images=images, metadata=ms)
+
+
+def write_multiscales_metadata(path, axes, datasets, ngff_version: str = "0.4"):
+    """Write only the NGFF multiscales metadata of a store whose arrays are
+    written apart (block by block, possibly by several workers). NGFF 0.5
+    (zarr v3) raises ``NotImplementedError``."""
+    if ngff_version != "0.4":
+        raise NotImplementedError(zarr_backend._V3)
+    multiscale = {"axes": list(axes), "datasets": list(datasets), "version": "0.4"}
+    zarr_backend.write_group_metadata(str(path), {"multiscales": [multiscale]}, zarr_format=2)
+
+
+_VIRTUAL_SERVING = (
+    "serve_virtual_ome_zarrs", "VirtualOMEZarr", "VirtualOMEZarrPlate",
+    "VirtualOMEZarrHCSPlate", "VirtualOMEZarrServer",
+)
+
+
+def __getattr__(name):
+    if name in _VIRTUAL_SERVING:
+        raise NotImplementedError(
+            f"{name}: serving virtual OME-Zarrs is not ported yet (ROADMAP.md, queue 1: item 30)"
+        )
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

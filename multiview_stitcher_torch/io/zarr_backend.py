@@ -271,6 +271,23 @@ class LazyZarrArray:
     def __repr__(self) -> str:
         return f"LazyZarrArray({self._array.path!r}, shape={self.shape}, dtype={self.dtype})"
 
+    def spec(self) -> dict:
+        """A JSON-able description from which :meth:`from_spec` reopens the
+        view: the array's path and the view's selection per dim of the
+        array (an index, or start, stop and step)."""
+        return {
+            "path": self._array.path,
+            "sel": [s if isinstance(s, int) else list(s) for s in self._sel],
+        }
+
+    @classmethod
+    def from_spec(cls, spec: dict) -> "LazyZarrArray":
+        array = open_zarr_array(spec["path"])._array
+        sel = [s if isinstance(s, int) else tuple(s) for s in spec["sel"]]
+        if len(sel) != len(array.shape):
+            raise ValueError(f"selection {spec['sel']} does not match {array.path}'s {array.shape}")
+        return cls(array, sel)
+
     def _compose(self, idx) -> tuple:
         idx = idx if isinstance(idx, tuple) else (idx,)
         if any(i is Ellipsis for i in idx):

@@ -185,6 +185,19 @@ def get_transform_from_msim(msim: Msim, transform_key: str) -> XAffine:
     return msim.transforms[transform_key]
 
 
+def get_transforms_from_dataset_as_dict(dataset):
+    """A copy of the named transforms of an msim, a sim or a transform dict
+    (the reference reads them off a scale's xarray Dataset)."""
+    transforms = dataset.transforms if isinstance(dataset, Msim) else getattr(
+        dataset, "transforms", dataset
+    )
+    if not isinstance(transforms, dict):
+        raise TypeError(
+            f"expected an Msim, Sim, or transform dict, got {type(dataset).__name__}"
+        )
+    return {k: v.copy() for k, v in transforms.items()}
+
+
 def set_affine_transform(msim: Msim, xaffine=None, transform_key=None, base_transform_key=None):
     """Attach ``xaffine`` (composed with ``base_transform_key``'s) under
     ``transform_key``."""

@@ -26,6 +26,7 @@ from scipy.optimize import linprog
 from scipy.spatial import ConvexHull, HalfspaceIntersection, QhullError, cKDTree
 
 from multiview_stitcher_torch import msi_utils, param_utils, si_utils
+from multiview_stitcher_torch.utils.misc import threshold_otsu
 
 BoundingBox = Dict[str, Dict[str, Union[float, int]]]
 
@@ -436,6 +437,10 @@ def get_spatial_dims_from_stack_properties(stack_props):
     return [d for d in si_utils.SPATIAL_DIMS if d in stack_props["origin"]]
 
 
+def get_ndim_from_stack_props(stack_props) -> int:
+    return len(stack_props["origin"])
+
+
 def _props_arrays(stack_props):
     sdims = get_spatial_dims_from_stack_properties(stack_props)
     shape = np.array([stack_props["shape"][d] for d in sdims], dtype=float)
@@ -609,6 +614,29 @@ def expand_halfspace(halfspace, distance):
         raise ValueError("Cannot expand halfspace by the given distance; result infeasible.") from e
 
 
+def transform_halfspace(halfspace, affine):
+    """The intersection mapped through ``affine``, as scipy's
+    ``HalfspaceIntersection`` (a box intersection too)."""
+    affine = np.asarray(affine, dtype=float)
+    eqs_transformed = np.asarray(halfspace.halfspaces) @ np.linalg.inv(affine)
+    interior_transformed = param_utils.transform_pts(
+        np.asarray(halfspace.interior_point)[None], affine
+    )[0]
+    return HalfspaceIntersection(eqs_transformed, interior_transformed)
+
+
+def points_inside_sim(pts, sim, transform_key) -> np.ndarray:
+    """Which of the (N, ndim) world points lie inside the sim's box placed by
+    ``transform_key``."""
+    stack_props = si_utils.get_stack_properties_from_sim(sim, transform_key=transform_key)
+    eqs = get_halfspace_equations_from_stack_props(stack_props)
+    pts = np.asarray(pts, dtype=float)
+    inside = np.ones(len(pts), dtype=bool)
+    for eq in eqs:
+        inside &= pts @ eq[:-1] + eq[-1] <= 0
+    return inside
+
+
 def get_mask_from_halfspace(sim, halfspace_eqs) -> np.ndarray:
     """Boolean mask of the sim's pixels (at their physical coordinates)
     inside every halfspace ``eq[:-1] . x + eq[-1] <= 0``."""
@@ -738,6 +766,20 @@ def prune_graph_to_alternating_colors(g: Graph, n_colors=2, return_colors=True):
     return (pruned, colors) if return_colors else pruned
 
 
+def get_greedy_colors(sims, n_colors=2, transform_key=None):
+    """A colouring of the views (node -> colour) in which overlapping views
+    differ, from the view graph thinned to ``n_colors`` alternating colours
+    (for display)."""
+    sdims = si_utils.get_spatial_dims_from_sim(sims[0])
+    g = build_view_adjacency_graph_from_msims(
+        [msi_utils.get_msim_from_sim(sim, scale_factors=[]) for sim in sims],
+        overlap_tolerance={d: 1e-5 for d in sdims},
+        transform_key=transform_key,
+    )
+    _, greedy_colors = prune_graph_to_alternating_colors(g, n_colors=n_colors)
+    return greedy_colors
+
+
 def prune_to_shortest_weighted_paths(g: Graph) -> Graph:
     """Keep the edges on overlap-weighted shortest paths from each
     component's best-connected view (weight ``1 / (overlap + 1)``)."""
@@ -791,26 +833,6 @@ def prune_to_axis_aligned_edges(g: Graph, max_angle=0.05) -> Graph:
         if node not in g_pruned.nodes:
             g_pruned.add_node(node, **g.nodes[node])
     return g_pruned
-
-
-def threshold_otsu(values: np.ndarray, nbins: int = 256) -> float:
-    """Otsu threshold of a 1-D sample."""
-    values = np.asarray(values, dtype=float).ravel()
-    values = values[np.isfinite(values)]
-    if values.size == 0:
-        return 0.0
-    vmin, vmax = float(values.min()), float(values.max())
-    if vmin == vmax:
-        return vmin
-    hist, bin_edges = np.histogram(values, bins=nbins, range=(vmin, vmax))
-    hist = hist.astype(float)
-    bin_centers = (bin_edges[:-1] + bin_edges[1:]) / 2
-    weight1 = np.cumsum(hist)
-    weight2 = np.cumsum(hist[::-1])[::-1]
-    mean1 = np.cumsum(hist * bin_centers) / np.maximum(weight1, 1e-32)
-    mean2 = (np.cumsum((hist * bin_centers)[::-1]) / np.maximum(weight2[::-1], 1e-32))[::-1]
-    variance12 = weight1[:-1] * weight2[1:] * (mean1[:-1] - mean2[1:]) ** 2
-    return float(bin_centers[int(np.argmax(variance12))])
 
 
 def filter_edges(g: Graph, weight_key="overlap", threshold=None) -> Graph:
@@ -965,6 +987,11 @@ def get_overlap_for_bbs(
 # ---------------------------------------------------------------------------
 
 
+def project_bb_along_dim(bb: BoundingBox, dim: str) -> BoundingBox:
+    """The bounding box without ``dim``."""
+    return {key: {d: bb[key][d] for d in bb[key] if d != dim} for key in bb}
+
+
 def unique_along_axis(a, axis=0):
     at = np.ascontiguousarray(a.swapaxes(0, axis))
     dt = np.dtype([("values", at.dtype, at.shape[1:])])
@@ -990,3 +1017,50 @@ def get_connected_labels(labels, structure=None):
     pairs = unique_along_axis(pairs, axis=1).T
     pairs -= 1
     return pairs
+
+
+# ---------------------------------------------------------------------------
+# graph attributes and distance pre-filters
+# ---------------------------------------------------------------------------
+
+
+def compute_graph_edges(input_g: Graph, weight_name: str = "transform") -> Graph:
+    """A copy of the graph whose ``weight_name`` edge attributes are host
+    arrays (the reference computes lazy ones here)."""
+    g = input_g.copy()
+    for e in g.edges:
+        if weight_name not in g.edges[e]:
+            continue
+        w = g.edges[e][weight_name]
+        if isinstance(w, param_utils.XAffine):
+            g.edges[e][weight_name] = param_utils.XAffine(np.asarray(w.data), t_coords=w.t_coords)
+        elif hasattr(w, "__array__"):
+            g.edges[e][weight_name] = np.asarray(w)
+    return g
+
+
+def strack_props_are_far_apart(stack_props_1, stack_props_2) -> bool:
+    """True when the bounding spheres of two stacks cannot intersect: their
+    centres lie further apart than the sum of their half-diagonals (a
+    cheap pre-filter before an exact overlap)."""
+    verts = [get_vertices_from_stack_props(sp) for sp in (stack_props_1, stack_props_2)]
+    centers = [np.mean(v, axis=0) for v in verts]
+    center_dist = float(np.linalg.norm(centers[1] - centers[0]))
+    half_diags = [float(np.max(np.linalg.norm(v - c, axis=1))) for v, c in zip(verts, centers)]
+    return center_dist > sum(half_diags)
+
+
+def sims_are_far_apart(sim1, sim2, transform_key) -> bool:
+    """:func:`strack_props_are_far_apart` of two views placed by
+    ``transform_key``."""
+    sps = [
+        si_utils.get_stack_properties_from_sim(sim, transform_key=transform_key)
+        for sim in (sim1, sim2)
+    ]
+    return strack_props_are_far_apart(*sps)
+
+
+def get_nodes_dataset_from_graph(g: Graph, node_attribute: str) -> dict:
+    """{node: attribute} of the nodes that carry ``node_attribute`` (the
+    reference returns an xarray Dataset)."""
+    return {n: g.nodes[n][node_attribute] for n in g.nodes if node_attribute in g.nodes[n]}

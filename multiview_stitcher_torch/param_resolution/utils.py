@@ -116,9 +116,10 @@ def get_beads_graph_from_reg_graph(g_reg_subgraph, ndim: int) -> mv_graph.Graph:
     return g
 
 
-def compute_edge_residuals(g_reg, params) -> dict:
+def compute_edge_residuals(g_reg, params, ndim=None) -> dict:
     """Per-edge RMS distance between the two bead sets under the global
-    params, for all edges in one batch."""
+    params, for all edges in one batch. ``ndim`` is not read: the points
+    give it."""
     edge_beads = list(iter_edge_beads(g_reg))
     if not edge_beads:
         return {}

@@ -93,6 +93,103 @@ def affine_from_translation(translation) -> np.ndarray:
     return M
 
 
+def affine_from_linear_affine(linear_affine) -> np.ndarray:
+    """Homogeneous matrix from a flat ``[linear.ravel(), translation]``
+    vector of ndim^2 + ndim entries (12 in 3D, 6 in 2D)."""
+    linear_affine = np.asarray(linear_affine, dtype=float)
+    ndim = 3 if len(linear_affine) == 12 else 2
+    M = np.eye(ndim + 1)
+    M[:ndim, :ndim] = linear_affine[: ndim**2].reshape((ndim, ndim))
+    M[:ndim, ndim] = linear_affine[-ndim:]
+    return M
+
+
+def linear_affine_from_affine(affine) -> np.ndarray:
+    """The flat ``[linear.ravel(), translation]`` vector of a homogeneous
+    matrix."""
+    affine = np.asarray(affine)
+    ndim = affine.shape[-1] - 1
+    out = np.zeros(ndim**2 + ndim, dtype=float)
+    out[: ndim**2] = affine[:ndim, :ndim].flatten()
+    out[-ndim:] = affine[:ndim, ndim]
+    return out
+
+
+def translation_from_affine(affine) -> np.ndarray:
+    affine = np.asarray(affine)
+    ndim = affine.shape[-1] - 1
+    return affine[:ndim, ndim]
+
+
+def affine_from_rotation(angle, direction, point=None) -> np.ndarray:
+    """3D rotation by ``angle`` about the axis along ``direction`` through
+    ``point`` (the origin by default)."""
+    from scipy.spatial.transform import Rotation
+
+    R = Rotation.from_rotvec(angle * np.asarray(direction, dtype=float)).as_matrix()
+    M = np.identity(4)
+    M[:3, :3] = R
+    if point is not None:
+        point = np.asarray(point[:3], dtype=np.float64)
+        M[:3, 3] = point - np.dot(R, point)
+    return M
+
+
+def invert_coordinate_order(affine) -> np.ndarray:
+    """The same affine on coordinates in the reverse order ((z, y, x) <->
+    (x, y, z))."""
+    affine = np.asarray(affine)
+    ndim = affine.shape[-1] - 1
+    M = np.eye(ndim + 1)
+    M[:ndim, :ndim] = affine[:ndim, :ndim][::-1, ::-1]
+    M[:ndim, ndim] = affine[:ndim, ndim][::-1]
+    return M
+
+
+def _rotation_matrix_2d(angle: float) -> np.ndarray:
+    c, s = np.cos(angle), np.sin(angle)
+    return np.array([[c, -s], [s, c]])
+
+
+# the random_* helpers draw from numpy's global generator, in the reference's
+# order, so that a seed gives the reference's values
+
+
+def random_scale(ndim, scale=0.1):
+    return 1 + np.random.random(ndim) * scale - scale / 2
+
+
+def random_translation(ndim=2, scale=10):
+    return np.random.random(ndim) * scale - scale / 2
+
+
+def random_rotation(ndim=2, scale=0.1):
+    rot = np.random.random(ndim - 1) * scale - scale / 2
+    return rot[0] if ndim == 2 else rot
+
+
+def random_affine(ndim=2, translation_scale=10, rotation_scale=0.1, scale_scale=0.1):
+    """A random rigid transform after a random scaling, for tests."""
+    if ndim == 2:
+        M = np.eye(3)
+        M[:2, :2] = _rotation_matrix_2d(random_rotation(2, rotation_scale)) @ np.diag(
+            random_scale(2, scale_scale)
+        )
+        M[:2, 2] = random_translation(2, translation_scale)
+        return M
+    if ndim == 3:
+        from scipy.spatial.transform import Rotation
+
+        R = Rotation.from_euler(
+            "zyx", np.random.random(3) * rotation_scale - rotation_scale / 2
+        ).as_matrix()
+        rigid = np.eye(4)
+        rigid[:3, :3] = R
+        rigid[:3, 3] = random_translation(3, translation_scale)
+        return rigid @ np.diag(list(random_scale(3, scale_scale)) + [1])
+    raise NotImplementedError("Only 2D and 3D supported.")
+
+
 def identity_transform(ndim: int, t_coords=None) -> XAffine:
     return XAffine(np.eye(ndim + 1), t_coords=t_coords)
 
@@ -163,6 +260,18 @@ def _align_t(a: XAffine, b: XAffine, join: str = "inner"):
     return take(a), take(b), common
 
 
+def matmul_xparams(p1, p2) -> XAffine:
+    """``p1 @ p2`` of two (possibly time-varying) affines, over their common
+    timepoints."""
+    d1, d2, t = _align_t(to_xaffine(p1), to_xaffine(p2), join="inner")
+    return XAffine(np.matmul(d1, d2), t_coords=t)
+
+
+def invert_xparams(p) -> XAffine:
+    p = to_xaffine(p)
+    return XAffine(np.linalg.inv(p.data), t_coords=p.t_coords)
+
+
 def rebase_affine(xaffine, base_affine) -> XAffine:
     """``xaffine @ base_affine``, over the outer join of their timepoints
     (a timepoint one of them lacks takes the identity)."""
@@ -177,6 +286,13 @@ def transform_pts(pts, affine) -> np.ndarray:
     affine = np.asarray(affine, dtype=float)
     ndim = affine.shape[-1] - 1
     return pts @ affine[:ndim, :ndim].T + affine[:ndim, ndim]
+
+
+def get_spatial_dims_from_params(xparams) -> list:
+    """The matrix dims of a params object: the reference labels them
+    ``x_in`` and ``x_out``; an :class:`XAffine` holds the matrix in its
+    last two axes."""
+    return ["x_in", "x_out"]
 
 
 def get_non_spatial_dims_from_params(xparams) -> list:

@@ -300,6 +300,16 @@ def _select_and_crop_pair(msim1: Msim, msim2: Msim, transform_key, registration_
 # ---------------------------------------------------------------------------
 
 
+def link_quality_metric_func(im0, im1t, device=None):
+    """Spearman's correlation of two overlap samples of equal shape (every
+    pixel counts), in float32 on ``device``."""
+    device = misc_utils.resolve_device(device)
+    a = torch.as_tensor(np.asarray(im0, dtype=np.float32).reshape(-1), device=device)
+    b = torch.as_tensor(np.asarray(im1t, dtype=np.float32).reshape(-1), device=device)
+    mask = torch.ones(a.shape, dtype=torch.bool, device=device)
+    return float(im_metrics.masked_spearman(a, b, mask, 1))
+
+
 def _translate(im1_filled, im1_mask, t):
     """Each item's moving image at a pure shift ``t`` (N, ndim), NaN where
     the shifted image does not reach."""
@@ -1148,8 +1158,8 @@ def register(
 
 
 def compute_pairwise_registrations(msims, g_reg, n_parallel_pairwise_regs=None,
-                                   pairwise_executor=None, device=None, telemetry=None,
-                                   **register_kwargs):
+                                   pairwise_executor=None, mesh=None, device=None,
+                                   telemetry=None, **register_kwargs):
     """Register the pair of every edge of ``g_reg``; returns a copy of the
     graph with each edge's ``transform``, ``quality`` and ``bbox`` (transform
     and quality over ``t`` for views with a ``t`` dim).
@@ -1159,7 +1169,9 @@ def compute_pairwise_registrations(msims, g_reg, n_parallel_pairwise_regs=None,
     returns one result dict an edge. Otherwise the default phase correlation
     runs batched on the device and any other pairwise function or kwargs
     pair by pair (:func:`register_pair_of_msims`, over ``t`` for views with
-    a ``t`` dim)."""
+    a ``t`` dim). A device ``mesh`` is not ported yet."""
+    if mesh is not None:
+        raise _not_ported("registration across a device mesh", "item 12")
     device = misc_utils.resolve_device(device)
     telemetry = {} if telemetry is None else telemetry
     g_reg_computed = g_reg.copy()

@@ -5,6 +5,8 @@ A "sim" is a :class:`Sim` carrying:
 - ``data``: a numpy array, or a lazy array handle exposing ``shape``,
   ``dtype``, ``__getitem__`` and ``__array__`` (a zarr-backed
   ``io.zarr_backend.LazyZarrArray``); slicing a sim keeps a lazy handle lazy;
+  ``fuse(..., output_on_backend=True)`` returns a sim over a torch tensor on
+  the device;
 - ``dims``: tuple of dim names, ordered subset of ('t','c','z','y','x');
 - ``spacing``/``origin``: physical pixel spacing and origin per spatial dim
   (pixel-center convention: coord = origin + spacing * index);
@@ -19,6 +21,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 from multiview_stitcher_torch import param_utils
 from multiview_stitcher_torch.param_utils import XAffine
@@ -72,7 +75,10 @@ class Sim:
         return self.data.dtype
 
     def to_numpy(self) -> np.ndarray:
-        """The data as a numpy array (reads a lazy handle)."""
+        """The data as a numpy array (reads a lazy handle, downloads a
+        device tensor)."""
+        if isinstance(self.data, torch.Tensor):
+            return self.data.cpu().numpy()
         return np.asarray(self.data)
 
     def copy(self, data=None) -> "Sim":
@@ -240,6 +246,10 @@ def get_ndim_from_sim(sim: Sim) -> int:
     return len(sim.spatial_dims)
 
 
+def get_dims_from_sim(sim: Sim):
+    return list(sim.dims)
+
+
 def get_spacing_from_sim(sim: Sim, asarray: bool = False):
     if asarray:
         return np.array([sim.spacing[d] for d in sim.spatial_dims])
@@ -271,6 +281,13 @@ def get_stack_properties_from_sim(sim: Sim, transform_key=None, asarray: bool = 
     return props
 
 
+def get_extent_from_sim(sim: Sim):
+    """Physical extent per spatial dim, between the first and last pixel
+    centres."""
+    sp = get_stack_properties_from_sim(sim)
+    return {d: (sp["shape"][d] - 1) * sp["spacing"][d] for d in sp["shape"]}
+
+
 def extend_stack_props(stack_props, extend_by):
     """Stack properties extended outward by a physical amount on each side."""
     sdims = [d for d in SPATIAL_DIMS if d in stack_props["spacing"]]
@@ -288,15 +305,40 @@ def extend_stack_props(stack_props, extend_by):
     return stack_props
 
 
+def get_center_of_sim(sim: Sim, transform_key=None) -> np.ndarray:
+    """Physical centre of the sim, mapped through ``transform_key``'s affine
+    (its first timepoint) when a key is given."""
+    center = np.array([
+        sim.origin[d] + sim.spacing[d] * (sim.sizes[d] - 1) / 2 for d in sim.spatial_dims
+    ])
+    if transform_key is not None:
+        aff = get_affine_from_sim(sim, transform_key).squeeze()
+        if aff.ndim == 3:
+            aff = aff[0]
+        center = param_utils.transform_pts([center], aff)[0]
+    return center
+
+
 def get_affine_from_sim(sim: Sim, transform_key: str) -> XAffine:
     if transform_key not in sim.transforms:
         raise KeyError(f"Transform key {transform_key} not found in sim")
     return sim.transforms[transform_key]
 
 
-def set_sim_affine(sim: Sim, xaffine, transform_key: str = DEFAULT_TRANSFORM_KEY):
-    """Attach an affine under ``transform_key``."""
-    sim.transforms[transform_key] = param_utils.to_xaffine(xaffine)
+def get_tranform_keys_from_sim(sim: Sim):
+    """The sim's transform keys (the reference's spelling)."""
+    return list(sim.transforms.keys())
+
+
+def set_sim_affine(sim: Sim, xaffine, transform_key: str = DEFAULT_TRANSFORM_KEY,
+                   base_transform_key: Optional[str] = None):
+    """Attach an affine under ``transform_key``; with ``base_transform_key``,
+    the affine chained after that key's (``xaffine @ base``, over the outer
+    join of their timepoints)."""
+    xaffine = param_utils.to_xaffine(xaffine)
+    if base_transform_key is not None:
+        xaffine = param_utils.rebase_affine(xaffine, get_affine_from_sim(sim, base_transform_key))
+    sim.transforms[transform_key] = xaffine
     return sim
 
 
@@ -363,6 +405,128 @@ def point_set_sel_coords(point_set, sel_dict, sdims=("z", "y", "x")):
         else:
             keep &= np.abs(pts[:, i] - float(v)) <= 1e-9
     return pts[keep]
+
+
+def process_fields(sim: Sim, func, **func_kwargs) -> Sim:
+    """``func`` applied to the spatial array of every non-spatial field
+    (every (t, c) pair), reassembled; ``func`` must keep the shape."""
+    nsdims = get_nonspatial_dims_from_sim(sim)
+    data = sim.to_numpy()
+    lead = data.shape[: len(nsdims)]
+    flat = data.reshape((-1,) + data.shape[len(nsdims):])
+    out = np.stack([np.asarray(func(f, **func_kwargs)) for f in flat])
+    if out.shape[1:] != flat.shape[1:]:
+        raise ValueError(
+            f"func changed the spatial shape {flat.shape[1:]} -> "
+            f"{out.shape[1:]}; process_fields requires same-shape output."
+        )
+    return sim.copy(data=out.reshape(lead + out.shape[1:]))
+
+
+def get_sim_field(sim: Sim, ns_coords: Optional[Dict[str, Any]] = None) -> Sim:
+    """The spatial sim of one field: each non-spatial dim selected at the
+    coordinate ``ns_coords`` gives (its first by default)."""
+    nsdims = get_nonspatial_dims_from_sim(sim)
+    if not nsdims:
+        return sim
+    ns_coords = ns_coords or {}
+    sel = {nd: ns_coords.get(nd, np.asarray(sim.coords[nd])[0]) for nd in nsdims}
+    return sim_sel_coords(sim, sel)
+
+
+def max_project_sim(sim: Sim, dim: str) -> Sim:
+    """Maximum-intensity projection along a spatial dim (NaN ignored, as
+    ``np.nanmax``); the transforms lose that dim's row and column. A sim
+    over a device tensor is projected on its device."""
+    axis = sim.dim_index(dim)
+    if isinstance(sim.data, torch.Tensor):
+        data = _nanmax_tensor(sim.data, axis)
+    else:
+        data = np.nanmax(sim.to_numpy(), axis=axis)
+    out = Sim(
+        data=data,
+        dims=tuple(d for d in sim.dims if d != dim),
+        spacing={d: v for d, v in sim.spacing.items() if d != dim},
+        origin={d: v for d, v in sim.origin.items() if d != dim},
+        coords={d: v for d, v in sim.coords.items() if d != dim},
+        name=sim.name,
+        attrs=dict(sim.attrs),
+    )
+    ndim_in = len(sim.spatial_dims)
+    keep = [i for i, d in enumerate(sim.spatial_dims) if d != dim] + [ndim_in]
+    for key, xaff in sim.transforms.items():
+        data_t = xaff.data[..., keep, :][..., :, keep]
+        out.transforms[key] = XAffine(data_t, t_coords=xaff.t_coords)
+    return out
+
+
+def _nanmax_tensor(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``np.nanmax`` of a tensor along ``axis``, in its dtype. The unsigned
+    16 to 64 bit types have no reductions in torch and reduce through a
+    wider signed type."""
+    if x.is_floating_point():
+        isnan = torch.isnan(x)
+        m = torch.where(isnan, torch.tensor(-torch.inf, dtype=x.dtype, device=x.device), x)
+        m = m.amax(dim=axis)
+        return torch.where(isnan.all(dim=axis), torch.tensor(torch.nan, dtype=x.dtype,
+                                                             device=x.device), m)
+    if x.dtype in (torch.uint16, torch.uint32):
+        return x.to(torch.int64).amax(dim=axis).to(x.dtype)
+    return x.amax(dim=axis)
+
+
+def serialize_zarr_backed_sim(sim: Sim) -> dict:
+    """A JSON-able payload of a zarr-backed sim, for work spread over
+    processes: where its zarr array lies (``zarr_spec``: the array's path
+    and, for a view of a larger array, the view's selection), its physical
+    metadata and transforms. The data is reopened where the payload is
+    read, never shipped."""
+    from multiview_stitcher_torch.io.zarr_backend import LazyZarrArray
+
+    data = sim.data
+    if not isinstance(data, LazyZarrArray):
+        raise ValueError(
+            "serialize_zarr_backed_sim requires a zarr-backed sim "
+            "(data opened through io.zarr_backend / io.ngff_utils)."
+        )
+    return {
+        "zarr_spec": data.spec(),
+        "dims": list(sim.dims),
+        "spacing": {d: float(v) for d, v in sim.spacing.items()},
+        "origin": {d: float(v) for d, v in sim.origin.items()},
+        "c_coords": np.asarray(sim.coords["c"]).tolist() if "c" in sim.dims else None,
+        "t_coords": np.asarray(sim.coords["t"]).tolist() if "t" in sim.dims else None,
+        "transforms": {
+            k: {
+                "data": np.asarray(v.data).tolist(),
+                "t_coords": np.asarray(v.t_coords).tolist() if v.t_coords is not None else None,
+            }
+            for k, v in sim.transforms.items()
+        },
+    }
+
+
+def deserialize_zarr_backed_sim(payload: dict) -> Sim:
+    """The lazy zarr-backed sim of a :func:`serialize_zarr_backed_sim`
+    payload."""
+    from multiview_stitcher_torch.io.zarr_backend import LazyZarrArray
+
+    sim = get_sim_from_array(
+        LazyZarrArray.from_spec(payload["zarr_spec"]),
+        dims=tuple(payload["dims"]),
+        scale=payload["spacing"],
+        translation=payload["origin"],
+        c_coords=payload["c_coords"],
+        t_coords=payload["t_coords"],
+    )
+    sim.transforms = {
+        k: XAffine(
+            np.asarray(v["data"]),
+            t_coords=np.asarray(v["t_coords"]) if v["t_coords"] is not None else None,
+        )
+        for k, v in payload["transforms"].items()
+    }
+    return sim
 
 
 def set_point_set(sim: Sim, points, points_key: str = "beads"):

@@ -3,11 +3,15 @@ corresponding point sets, as groupwise resolution and marker registration
 use them.
 
 Copy of ``multiview_stitcher_tpu.transforms``'s estimators: translation
-(mean displacement), rigid and similarity (Umeyama) and affine (lstsq), and
-``Affine_Fit``, the reference's fit object over the same affine solve.
+(mean displacement), rigid and similarity (Umeyama) and affine (lstsq), as
+functions and as estimator classes (``estimate(src, dst)``, ``params``,
+``residuals``, ``inverse``), and ``Affine_Fit``, the reference's fit object
+over the same affine solve.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -87,6 +91,51 @@ _ESTIMATORS = {
 
 def estimate_transform(kind: str, src, dst) -> np.ndarray:
     return _ESTIMATORS[kind](src, dst)
+
+
+class _BaseTransform:
+    kind: str = "affine"
+
+    def __init__(self, dimensionality: int = 2, matrix: Optional[np.ndarray] = None):
+        self.dimensionality = dimensionality
+        self.params = np.eye(dimensionality + 1) if matrix is None else np.asarray(matrix)
+
+    def estimate(self, src, dst) -> bool:
+        """Fit ``params`` to the point pairs; False (``params`` unchanged)
+        where the fit is not finite."""
+        M = estimate_transform(self.kind, src, dst)
+        if not np.all(np.isfinite(M)):
+            return False
+        self.params = M
+        return True
+
+    def __call__(self, coords):
+        coords = np.asarray(coords, dtype=float)
+        ndim = self.dimensionality
+        return coords @ self.params[:ndim, :ndim].T + self.params[:ndim, ndim]
+
+    def residuals(self, src, dst) -> np.ndarray:
+        return np.sqrt(np.sum((self(src) - np.asarray(dst)) ** 2, axis=1))
+
+    @property
+    def inverse(self):
+        return type(self)(dimensionality=self.dimensionality, matrix=np.linalg.inv(self.params))
+
+
+class TranslationTransform(_BaseTransform):
+    kind = "translation"
+
+
+class EuclideanTransform(_BaseTransform):
+    kind = "rigid"
+
+
+class SimilarityTransform(_BaseTransform):
+    kind = "similarity"
+
+
+class AffineTransform(_BaseTransform):
+    kind = "affine"
 
 
 def Affine_Fit(from_pts, to_pts):  # noqa: N802 (the reference's name)

@@ -158,3 +158,18 @@ def is_stackable(arrays) -> bool:
         tuple(a.shape) == tuple(first.shape) and np.dtype(a.dtype) == np.dtype(first.dtype)
         for a in arrays[1:]
     )
+
+
+def is_chunk_aligned_concatenate(arrays, axis: int) -> bool:
+    """True when :func:`concatenate` along ``axis`` would succeed: equal
+    extents off ``axis``. The views read through index mapping, so no
+    alignment of chunk grids is needed."""
+    arrays = list(arrays)
+    if not arrays:
+        return False
+    shapes = [tuple(a.shape) for a in arrays]
+    axis = int(axis)
+    return all(
+        s[:axis] == shapes[0][:axis] and s[axis + 1:] == shapes[0][axis + 1:]
+        for s in shapes[1:]
+    )

@@ -375,12 +375,16 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import multiview_stitcher_torch.weights\n"
         "import multiview_stitcher_torch.zarr_utils\n"
         "from multiview_stitcher_torch.fusion import fuse_np, func_ignore_nan_warning\n"
+        "import multiview_stitcher_torch.sample_data\n"
+        "from multiview_stitcher_torch.fusion import prepare_block_fusion\n"
+        "assert p.spatial_image_utils.get_sim_field and p.misc_utils.ndindex_batches\n"
+        "assert p.ngff_utils.read_ngff_multiscales\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('jax', 'jaxlib', 'multiview_stitcher_tpu', 'networkx', 'pandas', 'tensorstore',\n"
-        "     'triton', 'zarr', 'numcodecs', 'blosc', 'ants', 'itk', 'matplotlib'))\n"
+        "     'triton', 'zarr', 'numcodecs', 'blosc', 'ants', 'itk', 'matplotlib', 'xarray'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
