@@ -34,7 +34,9 @@ Phases, one printed line or block each:
    between valid ones, and the 5 x 5 weight grids of ``fuse``. 3D, through
    both kernels: rotations of 47, 92, 137 and -133 degrees about y, NaN and
    inf, a steep shear, a stack cut by every face, invalid items, and the 5^3
-   weight grids. Each exact-affine line prints how many blocks or runs
+   weight grids; each exact-affine kernel also on the host-slab route's
+   input (uint16 windows, zeros beyond their extents, a padding slot, no
+   ``tile_idx``). Each exact-affine line prints how many blocks or runs
    staged their box in shared memory, took the large-footprint route, or
    were filled with ``cval``. Both translation kernels also take int16,
    float64 and boolean tiles and outputs (boolean: equal voxel for voxel),
@@ -59,8 +61,13 @@ Phases, one printed line or block each:
    bands, views a band, batches, bytes each way, the streams' busy times,
    wall time and output Mvox/s; level 0 read back and held against the
    monolithic output of phase 4, the multiscales metadata and every pyramid
-   level checked; about 1 GB of disk, removed after the API phase, which
-   follows (lines start with the card's name and power limit, then
+   level checked; about 1 GB of disk, removed after the API phase. Then the
+   ``zarr3:`` lines (each with the card's name and power limit): the same
+   tiles into an NGFF 0.5 OME-Zarr (zarr v3), level 0 in chunks of 128 and
+   shards of (64, 512, 512), cold and warm, the streaming bands aligned to
+   whole shards, every level bit-equal to phase 5's v2 store, the files of
+   both stores counted. The API phase follows (lines start with the card's
+   name and power limit, then
    ``api:``): ``prepare_block_fusion`` of the lazy zarr tiles into one zarr
    v2 array with ``output_chunksize=512`` (nblocks [1, 4, 4]), the 16 blocks
    split between a creating and an attaching callable and run by
@@ -74,7 +81,22 @@ Phases, one printed line or block each:
    neighbours apart) and ``sims_are_far_apart`` of the 1024 tiles,
    ``max_project_sim`` of the device output along z (equal to ``amax``), and
    one zarr tile through ``serialize_zarr_backed_sim`` and back, byte for
-   byte;
+   byte. Then the ``slabs:`` lines: four lazy zarr v2 views of (384, 1024,
+   1024) uint16 in chunks of 64^3 (3.22 GB, above ``TILES_MAX_BYTES``, which
+   is not patched), rotated about y by 0, 45, 90 and 135 degrees, fused with
+   chunks of 256 through the batched tier's host slabs and kernel 4, cold
+   and warm: output Mvox/s, the warm split (plan, read, pack, upload,
+   kernel, blend, download), window bytes read against tile bytes, uploads,
+   peak device memory beside the same views fused from memory through the
+   device stack, within 1 count of that output and of a (64, 256, 256)
+   window fused with ``device="cpu"``, kernel 4 against its plain version on
+   the fullest slab batch; the views are removed after. Then the ``shear:``
+   lines: four (256, 512, 512) uint16 views of one smooth volume in a row,
+   every other one rotated by 0.05 rad in (y, x), fused with
+   ``MVS_TPU_SHEAR=1`` set only inside the phase (the shear tier, no kernel
+   launched), cold and warm, the plan's passes and the tier's time (CUDA
+   events), held within the reference's shear tolerance of the exact
+   kernels' output of the same views;
 6. the same as 4 for a 2D slide-scan mosaic: 32 x 32 tiles of 512^2 uint16,
    overlap 64;
 7. three affine main paths through ``fusion.fuse``, one per exact-affine
@@ -208,8 +230,9 @@ Phases, one printed line or block each:
    its time, the plain version's time, its bound and its error, and its
    launches in the beads phase's fuse (``beads_launches``), the
    deconvolution's warm fuse (``deconv_launches``), the metrics' batched
-   call (``metrics_launches``) and the API phase's block-wise fusion
-   (``api_launches``).
+   call (``metrics_launches``), the API phase's block-wise fusion
+   (``api_launches``) and the ``slabs:`` phase's warm fuse
+   (``slab_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 the script exits non-zero without that line; without a CUDA device it exits
@@ -882,9 +905,10 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
     against the monolithic output of the same tiles (itself held against the
     plain version in phase 4); the multiscales metadata and every pyramid
     level must exist, and level 1 must be the block mean of level 0. The
-    files live under ``work``: the fused store is removed at the end, the
-    tiles are kept for the API phase and returned as lazy sims beside the
-    results (all of ``work`` is removed when this phase fails)."""
+    files live under ``work``: the fused store (``fused.ome.zarr``) is kept
+    for the ``zarr3:`` phase, and the tiles for it and the API phase,
+    returned as lazy sims beside the results (all of ``work`` is removed
+    when this phase fails)."""
 
     from multiview_stitcher_torch import msi_utils
     from multiview_stitcher_torch.fusion import _core as tcore
@@ -923,6 +947,7 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
         tcore.ngff_utils = types.SimpleNamespace(
             finalize_ome_zarr_levels=timed_finalize,
             read_sim_from_ome_zarr=tcore.ngff_utils.read_sim_from_ome_zarr,
+            _zarr_format=tcore.ngff_utils._zarr_format,
         )
         for run in ("cold", "warm"):
             # the warm run is this path's run: counts set to 0 just before
@@ -968,7 +993,6 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
         raise
     finally:
         tcore.ngff_utils = sys.modules["multiview_stitcher_torch.io.ngff_utils"]
-        shutil.rmtree(out_url, ignore_errors=True)
     mvox = level0.size / 1e6
     for run, r in runs.items():
         log(f"{label} {run}: wall {r['wall_s'] * 1e3:.1f} ms, {mvox / r['wall_s']:.1f} Mvox/s out, "
@@ -1321,6 +1345,14 @@ def check_exact_small_cases(np, torch, tea):
         last = fn(*args, **dict(kw, cval=float("nan")))[B]
         if not bool(torch.isnan(last).all()):
             raise AssertionError(f"exact {kind}: a padding slot was sampled")
+        # the host-slab route's input: uint16 windows zero-padded beyond their
+        # extents, one item each, and a padding slot, with no tile_idx
+        slabs = np.zeros((B + 1,) + src, np.uint16)
+        for b in range(B):
+            inside_ext = tuple(slice(0, int(n)) for n in extents[b])
+            slabs[b][inside_ext] = base[b][inside_ext].astype(np.uint16)
+        compare(kind, "slabs uint16 cval=nan", (torch.from_numpy(slabs).cuda(),) + args[1:],
+                {"valid": kw["valid"], "cval": float("nan")})
     check_exact_2d_routes(np, torch, tea, worst)
     check_exact_3d_routes(np, torch, tea, worst)
     return worst
@@ -3331,6 +3363,379 @@ def metrics_phase(np, torch, tea, tf, msims, truth, meta, sp_params, n):
     return out
 
 
+# ---------------------------------------------------------------------------
+# zarr3: phase 5's tiles fused into NGFF 0.5, sharded
+# ---------------------------------------------------------------------------
+
+ZARR3_SHARDS = (64, 512, 512)
+
+
+def count_files(root) -> int:
+    return sum(1 for f in Path(root).rglob("*") if f.is_file())
+
+
+def zarr3_phase(np, torch, tf, tstream, fuse, lazy, work, v2_url, v2_warm_s,
+                shards=ZARR3_SHARDS):
+    """``zarr3:`` lines: phase 5's 1024 lazy zarr tiles fused zarr -> zarr
+    into an NGFF 0.5 OME-Zarr (zarr v3), level 0 in chunks of 128 and shards
+    of ``ZARR3_SHARDS``, cold and warm; the streaming tier's bands align to
+    whole shards. Held: every level bit-equal to phase 5's v2 store at
+    ``v2_url``, the group's ``ome`` attributes at version 0.5, level 0
+    sharded; printed: the files of each store and the warm time beside
+    phase 5's. ``shards`` is level 0's shard shape."""
+    from multiview_stitcher_torch.io import zarr_backend
+
+    label = "zarr3"
+    out_url = str(work / "fused_v3.ome.zarr")
+    opts = {"ngff_version": "0.5",
+            "zarr_array_creation_kwargs": {"shards": list(shards)}}
+    runs = {}
+    for run in ("cold", "warm"):
+        tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+        t0 = time.perf_counter()
+        res = fuse(lazy, transform_key=KEY, output_chunksize=128, output_zarr_url=out_url,
+                   zarr_options=opts)
+        torch.cuda.synchronize()
+        runs[run] = {"wall_s": time.perf_counter() - t0, **tstream.last_telemetry}
+    tele = runs["warm"]
+    launches = tf.fuse_translation_3d.launches
+    if launches != tele["bands_total"] or tele["band_height"] % shards[tele["band_axis"]]:
+        raise AssertionError(f"{label}: launches {launches}, bands {tele}")
+    attrs, fmt = zarr_backend.read_group_metadata(out_url)
+    v2_attrs, _ = zarr_backend.read_group_metadata(v2_url)
+    ms = attrs["ome"]["multiscales"][0]
+    if fmt != 3 or attrs["ome"]["version"] != "0.5" or [d["path"] for d in ms["datasets"]] != [
+            d["path"] for d in v2_attrs["multiscales"][0]["datasets"]]:
+        raise AssertionError(f"{label}: group metadata {attrs}")
+    level0 = zarr_backend.open_zarr_array(out_url + "/0")
+    if level0.zarr_format != 3 or level0.shards != tuple(shards) or res.data.zarr_format != 3:
+        raise AssertionError(f"{label}: level 0 is zarr {level0.zarr_format}, shards {level0.shards}")
+    for ds in ms["datasets"]:
+        a = np.asarray(zarr_backend.open_zarr_array(f"{out_url}/{ds['path']}"))
+        b = np.asarray(zarr_backend.open_zarr_array(f"{v2_url}/{ds['path']}"))
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{label}: level {ds['path']} differs from the v2 store")
+    files = {"v3": count_files(out_url), "v2": count_files(v2_url),
+             "v3_level0": count_files(out_url + "/0"), "v2_level0": count_files(v2_url + "/0")}
+    mvox = level0.shape[0] * level0.shape[1] * level0.shape[2] / 1e6
+    for run, r in runs.items():
+        log(f"{card_line()} {label} {run}: wall {r['wall_s']:.3f} s, {mvox / r['wall_s']:.1f} "
+            f"Mvox/s out, bands {r['bands_total']} of {r['band_height']} rows on axis "
+            f"{r['band_axis']}, NV {r['nv']}, up {r['up_bytes'] / 1e6:.1f} MB")
+    log(f"{card_line()} {label}: every level bit-equal to phase 5's v2 store; files "
+        f"{files['v3']} (level 0 {files['v3_level0']}) against v2's {files['v2']} (level 0 "
+        f"{files['v2_level0']}); warm {runs['warm']['wall_s']:.3f} s against phase 5's "
+        f"{v2_warm_s:.3f} s")
+    return {"launches": int(launches), "files": files, "out_mvox": mvox,
+            "v2_warm_s": v2_warm_s, **{run: r for run, r in runs.items()}}
+
+
+# ---------------------------------------------------------------------------
+# slabs: lazy views larger than TILES_MAX_BYTES through host slabs
+# ---------------------------------------------------------------------------
+
+SLAB_SHAPE = (384, 1024, 1024)
+SLAB_ANGLES = (0, 45, 90, 135)
+SLAB_CHUNK = 256
+SLAB_STORE_CHUNKS = (64, 64, 64)
+SLAB_WINDOW = (64, 256, 256)
+
+
+class SlabTimer(StageTimer):
+    """:class:`StageTimer` for the host-slab route: the plan ends where the
+    slab reads start (``fusion._core._iter_slabs``); kernel, blend and
+    download by CUDA events as there, the uploads from the route's events."""
+
+    def __enter__(self):
+        super().__enter__()
+        tcore = self.tcore
+        self._saved_iter = tcore._iter_slabs
+
+        def iter_slabs(*a, **k):
+            self.t_upload_start = time.perf_counter()
+            return self._saved_iter(*a, **k)
+
+        tcore._iter_slabs = iter_slabs
+        return self
+
+    def __exit__(self, *exc):
+        self.tcore._iter_slabs = self._saved_iter
+        return super().__exit__(*exc)
+
+
+def slabs_phase(np, torch, tsi, tcore, tea, tf, fuse, work, shape=SLAB_SHAPE,
+                chunk=SLAB_CHUNK, store_chunks=SLAB_STORE_CHUNKS, window=SLAB_WINDOW):
+    """``slabs:`` lines: four lazy zarr v2 views of ``shape`` uint16, rotated
+    about y by 0, 45, 90 and 135 degrees, together above
+    ``TILES_MAX_BYTES`` (not patched): ``fuse()`` takes the batched tier's
+    host slabs (each chunk's windows read from the zarr arrays, packed into
+    (B, K, *S_max) slabs, uploaded through pinned buffers one batch ahead),
+    kernel 4 on them. Cold and warm, the warm call split into plan, read,
+    pack, upload, kernel, blend and download; window bytes read against tile
+    bytes; peak device memory beside the same views fused from memory
+    through the device stack. Held: within 1 count of that device-stack
+    output and, on a ``window`` of the output, of ``device="cpu"``; no tile
+    stacked or uploaded; kernel 4 against its plain version on the fullest
+    slab batch. Returns (results, the slab launches of the five wrappers)."""
+    from multiview_stitcher_torch.io import zarr_backend
+
+    label = "slabs"
+    wrappers = {n: getattr(tea, n) for n in EXACT_WRAPPERS}
+
+    def counts():
+        return {n: w.launches for n, w in wrappers.items()} | {
+            "fuse_translation_2d": tf.fuse_translation_2d.launches,
+            "fuse_translation_3d": tf.fuse_translation_3d.launches}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+        tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+
+    t0 = time.perf_counter()
+    sims = multiview_sims(np, tsi, shape, SLAB_ANGLES, seed=11)
+    make_s = time.perf_counter() - t0
+    tile_bytes = sum(s.data.nbytes for s in sims)
+    if tile_bytes <= tcore.TILES_MAX_BYTES:
+        raise AssertionError(f"{label}: {tile_bytes} bytes of views fit under the limit")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        lazy = []
+        for i, s in enumerate(sims):
+            url = str(work / f"view_{i}.zarr")
+            zarr_backend.create_zarr_array(url, s.data.shape, store_chunks, s.data.dtype)[...] = s.data
+            sim = tsi.get_sim_from_array(zarr_backend.open_zarr_array(url), dims=s.dims,
+                                         translation=dict(s.origin))
+            tsi.set_sim_affine(sim, s.transforms[KEY].data, transform_key=KEY)
+            lazy.append(sim)
+        write_s = time.perf_counter() - t0
+        uploaded = tcore.tile_upload_bytes
+        runs = {}
+        for run in ("cold", "warm"):
+            tcore.clear_device_tile_cache()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            with SlabTimer(torch, tcore, tf, tea) as st:
+                t0 = time.perf_counter()
+                out = fuse(lazy, transform_key=KEY, output_chunksize=chunk).data
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                split = st.split_ms(t0, t1)
+            tele = dict(tcore.last_slab_telemetry)
+            events = tele.pop("upload_events", [])
+            split["upload_ms"] = sum(e0.elapsed_time(e1) for e0, e1 in events)
+            split["read_ms"], split["pack_ms"] = tele["read_s"] * 1e3, tele["pack_s"] * 1e3
+            runs[run] = {"wall_s": t1 - t0, "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "launches": counts(), **split, **tele}
+        launched = runs["warm"]["launches"]
+        sepy = "exact_affine_batch_3d_sepy"
+        if launched[sepy] < 2 or any(v for n, v in launched.items() if n != sepy):
+            raise AssertionError(f"{label}: launches {launched}, expected kernel 4 only")
+        tele = runs["warm"]
+        if (tele["tier"], tele["route"]) != ("batched", "exact") or (
+                tcore.tile_upload_bytes != uploaded):
+            raise AssertionError(f"{label}: route {tele['tier']}/{tele['route']}, tile bytes "
+                                 f"uploaded {tcore.tile_upload_bytes - uploaded}")
+        top = max(int(s.data.max()) for s in sims)
+        if out.dtype != np.uint16 or out.ndim != 3 or int(out.max()) > top or not out.any():
+            raise AssertionError(f"{label}: output {out.shape} {out.dtype}")
+
+        # kernel 4 on the fullest slab batch of the warm run (uint16 slabs,
+        # no tile_idx), against its plain version on the same inputs
+        args, kw = st.kernel_call
+        st = None
+        got = tea.exact_affine_batch_3d_sepy(*args, **kw)
+        ref_b = tea.exact_affine_batch_3d_sepy_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isnan(got), torch.isnan(ref_b)):
+            raise AssertionError(f"{label}: slab batch masks differ from the plain version")
+        slab_err = float((torch.nan_to_num(got) - torch.nan_to_num(ref_b)).abs().max())
+        del got, ref_b
+        # uint16 data up to `top`: the f32 ulps of the coordinate scale with the value
+        if slab_err > EXACT_ATOL * max(top, 100) / 100:
+            raise AssertionError(f"{label}: slab batch differs from the plain version by {slab_err}")
+        packed = tea._check_args(3, args[0], *args[1:5], kw["cval"], None, None, kw["valid"])
+        slab_kernel_ms = time_kernel_ms(torch, tea._launch, (tea._ENTRY_POINTS[1], packed), {},
+                                        reps=10)
+        slab_batch = list(args[0].shape)
+        del args, kw, packed
+
+        # the same views from memory, through the device stack
+        tcore.clear_device_tile_cache()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref = fuse(sims, transform_key=KEY, output_chunksize=chunk).data
+        torch.cuda.synchronize()
+        stack_s = time.perf_counter() - t0
+        stack_peak = torch.cuda.max_memory_allocated()
+        tcore.clear_device_tile_cache()
+        diff = np.abs(out.astype(np.int32) - ref.astype(np.int32))
+        err, n_diff = int(diff.max()), int(np.count_nonzero(diff))
+        del diff, ref
+        if err > UINT_COUNTS:
+            raise AssertionError(f"{label}: differs from the device-stack output by {err}")
+
+        # a window of the output on the CPU, from the same lazy views
+        sdims = ["z", "y", "x"]
+        osp = tcore.process_output_stack_properties(lazy, transform_key=KEY)
+        start = [(n - w) // 2 // chunk * chunk for n, w in zip(out.shape, window)]
+        props = {"shape": dict(zip(sdims, window)), "spacing": dict(osp["spacing"]),
+                 "origin": {d: osp["origin"][d] + start[i] * osp["spacing"][d]
+                            for i, d in enumerate(sdims)}}
+        t0 = time.perf_counter()
+        cpu = fuse(lazy, transform_key=KEY, output_chunksize=chunk,
+                   output_stack_properties=props, device="cpu").data
+        cpu_s = time.perf_counter() - t0
+        got = out[tuple(slice(a, a + w) for a, w in zip(start, window))]
+        cpu_err = int(np.abs(got.astype(np.int32) - cpu.astype(np.int32)).max())
+        if cpu_err > UINT_COUNTS:
+            raise AssertionError(f"{label}: window differs from device='cpu' by {cpu_err}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    mvox = out.size / 1e6
+    stack_need = tile_bytes + 2 * tile_bytes  # the uint16 stack and its f32 copy
+    for run, r in runs.items():
+        log(f"{card_line()} {label} {run}: output {out.shape} {out.dtype}, fuse {r['wall_s']:.3f} s, "
+            f"{mvox / r['wall_s']:.1f} Mvox/s out, {r['units']} batches, {r['windows']} windows, "
+            f"read {r['window_bytes'] / 1e9:.3f} GB of windows against {tile_bytes / 1e9:.3f} GB "
+            f"of tiles, uploaded {r['upload_bytes'] / 1e9:.3f} GB, peak device memory "
+            f"{r['peak_bytes'] / 1e9:.3f} GB, kernel 4 launches {r['launches'][sepy]}")
+    w = runs["warm"]
+    log(f"{card_line()} {label} warm split ms: " + json.dumps({
+        k: round(w[k], 1) for k in ("plan_ms", "read_ms", "pack_ms", "upload_ms", "kernel_ms",
+                                    "blend_ms", "download_ms", "other_ms") if k in w})
+        + " (read and pack on the reader threads, beside the rest)")
+    log(f"{card_line()} {label}: device-stack route from memory {stack_s:.3f} s, peak "
+        f"{stack_peak / 1e9:.3f} GB (its stack {tile_bytes / 1e9:.3f} GB, with an f32 copy "
+        f"{stack_need / 1e9:.3f} GB) against the slabs' {w['peak_bytes'] / 1e9:.3f} GB; "
+        f"{n_diff} voxels differ by 1 count; window {window} on the CPU in {cpu_s:.1f} s, max "
+        f"{cpu_err} counts; views made in {make_s:.1f} s, written in {write_s:.1f} s; kernel 4 "
+        f"on the fullest slab batch {slab_batch} {slab_kernel_ms:.4f} ms, {slab_err:.3g} from "
+        f"its plain version")
+    if w["peak_bytes"] >= stack_peak:
+        raise AssertionError(f"{label}: slabs peak {w['peak_bytes']} not below the device "
+                             f"stack's {stack_peak}")
+    return {"tile_bytes": tile_bytes, "out_shape": list(out.shape), "out_mvox": mvox,
+            "max_abs_err_counts": err, "voxels_differ": n_diff, "cpu_window_err": cpu_err,
+            "cpu_window_s": cpu_s, "stack_fuse_s": stack_s, "stack_peak_bytes": stack_peak,
+            "stack_with_f32_bytes": stack_need, "slab_kernel_ms": slab_kernel_ms,
+            "slab_kernel_max_abs_err": slab_err, "slab_batch": slab_batch, "make_s": make_s,
+            "write_s": write_s,
+            **{run: r for run, r in runs.items()}}, launched
+
+
+# ---------------------------------------------------------------------------
+# shear: the shear tier with MVS_TPU_SHEAR=1
+# ---------------------------------------------------------------------------
+
+SHEAR_SHAPE = (256, 512, 512)
+SHEAR_VIEWS = 4
+SHEAR_THETA = 0.05
+SHEAR_CHUNK = 128
+
+
+def shear_views(np, tsi, shape, n_views, theta):
+    """The reference's shear-tier layout (tests/test_shear.py::_rotated_sims)
+    at ``shape``: ``n_views`` copies of one smooth volume (a sum of sines
+    x 100, as uint16, the content of those tests) in a row along x, 3/4 of a
+    view apart, every other one rotated by ``theta`` in (y, x)."""
+    axes = [np.linspace(0, 3 * np.pi, n, dtype=np.float32) for n in shape]
+    vol = (np.sin(axes[0])[:, None, None] + np.sin(axes[1] + 1)[None, :, None]
+           + np.sin(axes[2] + 2)[None, None, :] + 3.0)
+    data = (vol * 100).astype(np.uint16)
+    rot = np.eye(4)
+    rot[1:3, 1:3] = [[np.cos(theta), -np.sin(theta)], [np.sin(theta), np.cos(theta)]]
+    sims = [
+        tsi.get_sim_from_array(data.copy(), dims=["z", "y", "x"],
+                               translation={"z": 0.0, "y": 0.0, "x": i * 0.75 * shape[2]})
+        for i in range(n_views)
+    ]
+    return with_affine(tsi, sims, [rot if i % 2 else np.eye(4) for i in range(n_views)])
+
+
+def shear_phase(np, torch, tsi, tcore, tea, tf, fuse, shape=SHEAR_SHAPE, n_views=SHEAR_VIEWS,
+                theta=SHEAR_THETA, chunk=SHEAR_CHUNK):
+    """``shear:`` lines: four (256, 512, 512) uint16 views of one smooth
+    volume (:func:`shear_views`), fused with ``MVS_TPU_SHEAR=1`` set only
+    inside this phase: the shear tier's passes as torch ops, no kernel
+    launched. Not the affine path's multi-view views: the shear planner (the
+    reference's) factors every map of a plan under one axis order and bounds
+    each pass's intermediate extent at 3 times the chunk's or the window's
+    (``max_growth``), and the windows of views rotated about the common
+    centre, cut at the views' borders, spread the maps' offsets beyond that
+    at every chunk size, in both packages; their plan is None and the gather
+    route would take them. Printed: cold and warm ``fuse()``, batches, the
+    plan's passes, the tier's time. Held: the output within the reference's
+    shear tolerance of the exact kernels' output of the same views
+    (tests/test_shear.py: 99th percentile of the difference under 3 counts,
+    mean under 0.5, under 0.2 % of voxels off by more than 5 % of the
+    maximum)."""
+    label = "shear"
+    sims = shear_views(np, tsi, shape, n_views, theta)
+    t0 = time.perf_counter()
+    exact = fuse(sims, transform_key=KEY, output_chunksize=chunk).data
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    wrappers = [getattr(tea, n) for n in EXACT_WRAPPERS]
+    plans, events = [], []
+    orig_plan, orig_batch = tcore._plan_shear_bundle, tcore._fuse_chunk_batch_kernel_shear
+
+    def plan(*a, **k):
+        plans.append(orig_plan(*a, **k))
+        return plans[-1]
+
+    def batch(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = orig_batch(*a, **k)
+        e1.record()
+        events.append((e0, e1))
+        return res
+
+    tcore._plan_shear_bundle, tcore._fuse_chunk_batch_kernel_shear = plan, batch
+    os.environ["MVS_TPU_SHEAR"] = "1"
+    try:
+        runs = {}
+        for run in ("cold", "warm"):
+            tcore.clear_device_tile_cache()
+            events.clear()
+            for w in wrappers:
+                w.launches = 0
+            t0 = time.perf_counter()
+            out = fuse(sims, transform_key=KEY, output_chunksize=chunk).data
+            torch.cuda.synchronize()
+            runs[run] = {"wall_s": time.perf_counter() - t0, "batches": len(events),
+                         "tier_ms": sum(e0.elapsed_time(e1) for e0, e1 in events),
+                         "kernel_launches": sum(w.launches for w in wrappers)}
+    finally:
+        del os.environ["MVS_TPU_SHEAR"]
+        tcore._plan_shear_bundle, tcore._fuse_chunk_batch_kernel_shear = orig_plan, orig_batch
+    bundle = plans[-1]
+    if bundle is None or not runs["warm"]["batches"] or runs["warm"]["kernel_launches"]:
+        raise AssertionError(f"{label}: plan {bundle}, runs {runs}")
+    d = np.abs(out.astype(np.float64) - exact.astype(np.float64))
+    stats = {"p99": float(np.percentile(d, 99)), "mean": float(d.mean()),
+             "share_off_5pct": float((d > 0.05 * exact.max()).mean()), "max": float(d.max())}
+    del d
+    if not (stats["p99"] < 3.0 and stats["mean"] < 0.5 and stats["share_off_5pct"] < 0.002):
+        raise AssertionError(f"{label}: against the exact kernels {stats}")
+    splan, _, wplan, _ = bundle
+    for run, r in runs.items():
+        log(f"{card_line()} {label} {run}: output {out.shape}, fuse {r['wall_s']:.3f} s, "
+            f"{out.size / 1e6 / r['wall_s']:.1f} Mvox/s out, {r['batches']} batches, the tier "
+            f"{r['tier_ms']:.1f} ms (CUDA events), kernel launches {r['kernel_launches']}")
+    log(f"{card_line()} {label}: plan perm {splan.perm}, {splan.n_passes} passes "
+        f"{[p[:2] for p in splan.passes]}, weights {wplan.n_passes} passes; against the exact "
+        f"kernels' fuse ({exact_s:.3f} s): " + json.dumps({k: round(v, 4) for k, v in stats.items()}))
+    return {"views": n_views, "theta": theta, "passes": splan.n_passes, "perm": list(splan.perm),
+            "weight_passes": wplan.n_passes, "exact_fuse_s": exact_s, **stats,
+            **{run: r for run, r in runs.items()}}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3381,6 +3786,12 @@ def main() -> int:
     work = REPO / ".bench_large" / "chip_smoke_zarr"
     zarr, lazy3 = zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims3, mono3, work)
     try:
+        # the same tiles into NGFF 0.5, sharded, against phase 5's store
+        t_phase = time.perf_counter()
+        zarr3 = zarr3_phase(np, torch, tf, tstream, fuse, lazy3, work,
+                            str(work / "fused.ome.zarr"), zarr["warm"]["wall_s"])
+        zarr3["phase_s"] = time.perf_counter() - t_phase
+        log(f"zarr3: phase {zarr3['phase_s']:.1f} s")
         # the public API slice on the same tiles: block-wise fusion, the
         # output kept on the card, the host names at this size
         api = api_phase(np, torch, tsi, tcore, tf, tea, fuse, sims3, mono3, lazy3,
@@ -3388,6 +3799,21 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del sims3, mono3, lazy3
+    torch.cuda.empty_cache()
+
+    # lazy views larger than TILES_MAX_BYTES: the host-slab route
+    t_phase = time.perf_counter()
+    slabs, slab_launches = slabs_phase(np, torch, tsi, tcore, tea, tf, fuse,
+                                       REPO / ".bench_large" / "chip_smoke_slabs")
+    slabs["phase_s"] = time.perf_counter() - t_phase
+    log(f"slabs: phase {slabs['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # the shear tier, MVS_TPU_SHEAR=1 inside the phase only
+    t_phase = time.perf_counter()
+    shear = shear_phase(np, torch, tsi, tcore, tea, tf, fuse)
+    shear["phase_s"] = time.perf_counter() - t_phase
+    log(f"shear: phase {shear['phase_s']:.1f} s")
     torch.cuda.empty_cache()
     # 2D bands of 16 view-list tiles of 64 rows: about 1024 output rows each
     r2, _, _ = main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, 2, n=32, tile=512,
@@ -3471,7 +3897,9 @@ def main() -> int:
         k["deconv_launches"] = deconv["fuse"]["launches"][k["name"]]
         k["metrics_launches"] = quality["launches"][k["name"]]
         k["api_launches"] = api["blocks"]["launch_counts"][k["name"]]
-    detail = {"3d": r3, "2d": r2, "zarr": zarr, "api": api, **{f"affine_{k}": v for k, v in affine.items()},
+        k["slab_launches"] = slab_launches[k["name"]]
+    detail = {"3d": r3, "2d": r2, "zarr": zarr, "zarr3": zarr3, "api": api, "slabs": slabs,
+              "shear": shear, **{f"affine_{k}": v for k, v in affine.items()},
               "general": general, "multiscale": multiscale, "beads": beads, "deconv": deconv,
               "stitch": stitched, "metrics": quality,
               "f1_fuse_max_abs_err": f1_err, "build_s": build_s, "small_cases_s": small_s,

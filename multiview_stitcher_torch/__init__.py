@@ -7,7 +7,8 @@ the JAX package: the host helpers it needs are copied here under the same
 module names.
 
 Ported so far: ``fusion.fuse`` of sims and of multiscale msims (any fusion
-and weights function, in memory or into OME-Zarr), ``registration.register``
+and weights function, in memory or into OME-Zarr; lazy views larger than the
+card through host slabs), ``registration.register``
 (the view graph, batched phase correlation, groupwise resolution; over
 pyramid levels and over ``t``; any other pairwise function pair by pair,
 marker-based registration of bead point sets, the linear two-pass
@@ -25,10 +26,12 @@ which takes the plain PyTorch version of every kernel.
 - ``detection`` — ``detect_beads``; ``registration_plugins`` — ANTsPy, ITK-Elastix
 - ``fusion.mv_deconv`` — ``multi_view_deconvolution``, a fusion function
 - ``metrics`` — ``tile_pair_image_metrics``, NCC and SSIM of view overlaps
-- ``io.zarr_backend`` / ``io.ngff_utils`` — zarr v2 and OME-Zarr (NGFF 0.4)
+- ``io.zarr_backend`` / ``io.ngff_utils`` — zarr v2 and v3 (sharded or not),
+  OME-Zarr (NGFF 0.4 and 0.5)
 - ``transformation`` — ``transform_sim``, ``transform_pts``
 - ``ops.translation_fusion`` — the two translation-fusion kernels
 - ``ops.exact_affine`` — the three exact-affine resampling kernels
+- ``ops.shear`` — the shear tier's plans and passes (``MVS_TPU_SHEAR=1``)
 - ``sample_data`` — synthetic tile grids with known shifts
 - ``convert`` — builds this package's sims from the JAX package's fields
 

@@ -12,13 +12,13 @@ order (:func:`_execute_fusion_plan`):
   (zarr-backed), that exceed :data:`TILES_MAX_BYTES` or that hold more than
   :data:`STREAM_BYTES` stream through banded kernel calls that overlap
   upload, kernel and download (``fusion._streaming``) when their layout
-  bands; other grids run in one kernel call over the whole output. Lazy
-  tiles above :data:`TILES_MAX_BYTES` that do not band are refused (the
-  reference's host-slab route is not ported); the chunked tiers below read
-  lazy tiles of any size into the device tile stack.
+  bands; other grids run in one kernel call over the whole output while
+  the tiles fit on the device. Lazy tiles above :data:`TILES_MAX_BYTES` that
+  do not band go to the batched tier's host slabs, as in the reference.
 - **Tiles tier**: the other builtin fusion functions (``max_fusion``,
   ``simple_average_fusion``), and pixel scales the kernels do not take, on
-  axis-aligned plans of equal-shape tiles: each chunk's views are resampled
+  axis-aligned plans of equal-shape tiles that fit on the device: each
+  chunk's views are resampled
   from the whole tiles on the device by the separable axis-aligned resample
   and blended with torch ops, chunks in batches under a memory bound.
 - **Batched tier**: builtin fusion functions on views that are rotated,
@@ -31,6 +31,9 @@ order (:func:`_execute_fusion_plan`):
   views that may hold NaN take its gather route instead, as in the
   reference: the gather resample of each view's NaN-padded window
   (``ops.resample``), so that NaN pixels drop out of a view's contribution.
+  With ``MVS_TPU_SHEAR=1`` (the one environment variable the port reads)
+  the shear tier (``ops.shear``) takes the place of the exact kernels, as in
+  the reference.
 - **Host tier**: any other fusion function, any ``weights_func`` (such as
   ``weights.content_based``) or ``fusion_func_kwargs``: each chunk, with the
   halo its functions declare, is fused by the computation of the extension
@@ -38,8 +41,15 @@ order (:func:`_execute_fusion_plan`):
   tensor on the device) to the user's functions.
 
 ``trim_overlap=False`` with a halo keeps each chunk's extended region in the
-output, chunks side by side (the batched and host tiers). Every tier reads
-its tile stack through the device tile cache (:class:`_DeviceTileCache`): a
+output, chunks side by side (the batched and host tiers).
+
+Lazy views whose bytes exceed :data:`TILES_MAX_BYTES` do not fit on the
+device: the batched and host tiers then read each chunk's source windows
+from them on the host, pack them into slabs and upload those, a batch or a
+chunk ahead of the computation (the host-slab route, :func:`_iter_slabs`,
+counted in :data:`last_slab_telemetry`); no tile stack is made. Otherwise
+every tier reads its tile stack through the device tile cache
+(:class:`_DeviceTileCache`): a
 repeat ``fuse()`` over the same source arrays, or a ``fuse()`` after
 ``registration.register(..., device_tiles=True)`` has uploaded them, uploads
 nothing; float views that the gather route or the host tier read with their
@@ -47,8 +57,9 @@ NaN kept are the one exception, a second stack uploaded once. The streaming
 tier uploads its bands anew, as the reference's does.
 
 ``fuse(output_zarr_url=...)`` writes the output chunk by chunk into a zarr v2
-array (an OME-Zarr level 0 with its pyramid, by default) through
-``io.zarr_backend``, and returns a sim backed by it. With
+array, or a zarr v3 array (sharded or not) for NGFF 0.5 (an OME-Zarr level 0
+with its pyramid, by default) through ``io.zarr_backend``, and returns a sim
+backed by it. With
 ``output_on_backend=True`` the output stays a torch tensor on the call's
 device: the tiers that fuse on the device write into it there (the streaming
 tier uploads its host output once). :func:`prepare_block_fusion` fuses a
@@ -60,7 +71,9 @@ the ROADMAP.md item that will cover it; nothing falls back quietly.
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import time
 import warnings
 import weakref
@@ -88,8 +101,8 @@ _ROADMAP = "ROADMAP.md, queue 1"
 
 # the translation tier streams tiles that hold more than STREAM_BYTES, and
 # tiles that are not in memory whatever their size; lazy tiles above
-# TILES_MAX_BYTES that do not band are refused there (the reference's
-# host-slab route is not ported)
+# TILES_MAX_BYTES do not fit on the device: where they do not band, the
+# chunked tiers read them as host slabs
 STREAM_BYTES = 192 << 20
 TILES_MAX_BYTES = 2 << 30
 # the batched and tiles tiers resample at most this many view voxels at once
@@ -446,12 +459,27 @@ def _edge_pad(view: torch.Tensor, shape) -> torch.Tensor:
     return out
 
 
+def _read_retrying(read, label):
+    """``read()``, retried up to ``_READ_RETRIES`` times, after a short
+    backoff, on a transient IO error; any other error surfaces at once."""
+    for attempt in range(_READ_RETRIES + 1):
+        try:
+            return read()
+        except (OSError, TimeoutError) as e:
+            if attempt == _READ_RETRIES:
+                raise
+            logger.warning(
+                "lazy %s read failed (%s: %s), retry %d/%d",
+                label, type(e).__name__, e, attempt + 1, _READ_RETRIES,
+            )
+            time.sleep(0.2 * 2**attempt)
+
+
 def _materialize_tiles(field_sims, out=None) -> np.ndarray:
     """(V, *tile) array of equal-shape tiles (into ``out`` when given).
     Lazy tiles are read in parallel by a thread pool (file reads release the
     GIL; one at a time, 1000 small tiles pay each read's latency), each read
-    retried up to ``_READ_RETRIES`` times, after a short backoff, on a
-    transient IO error; any other error surfaces at once."""
+    through :func:`_read_retrying`."""
     V = len(field_sims)
     if out is None:
         shape = tuple(field_sims[0].data.shape)
@@ -463,22 +491,161 @@ def _materialize_tiles(field_sims, out=None) -> np.ndarray:
         return out
 
     def fetch(i):
-        for attempt in range(_READ_RETRIES + 1):
-            try:
-                out[i] = np.asarray(field_sims[i].data)
-                return
-            except (OSError, TimeoutError) as e:
-                if attempt == _READ_RETRIES:
-                    raise
-                logger.warning(
-                    "lazy tile read %d failed (%s: %s), retry %d/%d",
-                    i, type(e).__name__, e, attempt + 1, _READ_RETRIES,
-                )
-                time.sleep(0.2 * 2**attempt)
+        out[i] = _read_retrying(lambda: np.asarray(field_sims[i].data), f"tile {i}")
 
     with ThreadPoolExecutor(max_workers=min(_READ_WORKERS, V)) as ex:
         list(ex.map(fetch, range(V)))
     return out
+
+
+# what the most recent run of the host-slab route did: the tier and route,
+# units (batches or chunks), windows and their bytes read, bytes uploaded,
+# tile bytes of the views, the seconds spent reading windows and packing
+# slabs (queueing the windows' copies into their slabs and the padding on
+# the device), summed over units on the reader thread, and on a CUDA device
+# the (start, end) events of each upload on its stream
+last_slab_telemetry: dict = {}
+
+
+def _pad_beyond(slab, extent, value=None) -> None:
+    """Pad ``slab`` (an array or a tensor) in place beyond ``extent``, axis
+    by axis: with ``value``, or by repeating the last row/column/plane
+    (numpy's ``pad(mode="edge")``) when it is None."""
+    for d, e in enumerate(extent):
+        if e < slab.shape[d]:
+            src = [slice(None)] * slab.ndim
+            dst = [slice(None)] * slab.ndim
+            src[d], dst[d] = slice(e - 1, e), slice(e, None)
+            slab[tuple(dst)] = slab[tuple(src)] if value is None else value
+
+
+# unsigned dtypes whose copies run on their signed twins' bits (not every
+# device copies them)
+_SIGNED_TWIN = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def _iter_slabs(units, field_sims, dtype, pad, device):
+    """The host-slab route's reads and uploads: for each unit, a ``(shape,
+    windows)`` pair whose windows are ``(position, iview, starts, stops)``,
+    yield the slab of ``shape`` on ``device`` in ``dtype``, window k read
+    from view ``iview``'s data (lazy or not) into ``slab[position]`` from
+    its origin, and padded beyond it: with NaN (``pad="nan"``; positions no
+    window fills are NaN too), by edge replication (``"edge"``), or not at
+    all (``None``: for readers that mask by the windows' extents and never
+    sample a position no window fills, as the exact kernels do).
+
+    A reader thread reads the next unit while the caller computes on this
+    one: the windows of a unit, each cut into pieces along its first axis,
+    are read by ``_READ_WORKERS`` threads (:func:`_read_retrying`) into one
+    host buffer, pinned on a CUDA device, one window after another with no
+    padding; the buffer is uploaded on a stream of its own, where each
+    window is copied into its place in the slab and padded, and the slab is
+    handed to the caller's stream through an event. A buffer is refilled
+    only after its upload has completed. Nothing reads more than a window,
+    nothing but the windows crosses to the device, and the tiles are never
+    stacked. Counts go to :data:`last_slab_telemetry`."""
+    if not units:
+        return
+    cuda = device.type == "cuda"
+    tdtype = _torch_dtype(dtype)
+
+    def extent(window):
+        return [int(b) - int(a) for a, b in zip(window[2], window[3])]
+
+    cap = max(sum(int(np.prod(extent(w))) for w in windows) for _, windows in units)
+    bufs = _streaming._HostBuffers(3, (cap,), tdtype, cuda)
+    tele = last_slab_telemetry
+    if cuda:
+        compute = torch.cuda.current_stream(device)
+        up_stream = torch.cuda.Stream(device)
+
+    def pieces(windows, offsets):
+        """Each window's read cut along its first axis, at multiples of the
+        array's chunks where it has them, into enough pieces for every
+        reader (a batch of few views would leave most of them idle)."""
+        per = max(1, -(-_READ_WORKERS // len(windows)))
+        out = []
+        for (pos, iview, starts, stops), off in zip(windows, offsets):
+            a, b = int(starts[0]), int(stops[0])
+            step = -(-(b - a) // per)
+            chunk = int((getattr(field_sims[iview].data, "chunks", None) or (1,))[0])
+            step = -(-step // chunk) * chunk
+            cuts = sorted({a, b} | {c for c in range(-(-a // step) * step, b, step) if c > a})
+            for z0, z1 in zip(cuts[:-1], cuts[1:]):
+                out.append((off, extent((pos, iview, starts, stops)), iview,
+                            (z0,) + tuple(starts[1:]), (z1,) + tuple(stops[1:]), z0 - a))
+        return out
+
+    def read_into(flat, piece):
+        off, ext, iview, starts, stops, at = piece
+        sl = tuple(slice(int(a), int(b)) for a, b in zip(starts, stops))
+        data = field_sims[iview].data
+        dest = flat[off:off + int(np.prod(ext))].reshape(ext)[at:at + int(stops[0] - starts[0])]
+        if isinstance(data, zarr_backend.LazyZarrArray):
+            # straight from the chunk files into the host buffer
+            _read_retrying(lambda: data[sl].read(out=dest), f"window of view {iview}")
+        else:
+            dest[...] = _read_retrying(lambda: np.asarray(data[sl]), f"window of view {iview}")
+        return dest.nbytes
+
+    def load(unit, pool):
+        shape, windows = unit
+        sizes = [int(np.prod(extent(w))) for w in windows]
+        offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        total = int(offsets[-1])
+        slot = bufs.acquire()
+        t0 = time.perf_counter()
+        nbytes = sum(pool.map(lambda p: read_into(slot.array, p), pieces(windows, offsets)))
+        t1 = time.perf_counter()
+        with torch.cuda.stream(up_stream) if cuda else contextlib.nullcontext():
+            packed = torch.empty(total, dtype=tdtype, device=device)
+            if cuda:
+                start, uploaded, done = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+                start.record()
+            packed.copy_(slot.tensor[:total], non_blocking=cuda)
+            if cuda:
+                uploaded.record()
+                tele["upload_events"].append((start, uploaded))
+            slab = torch.empty(shape, dtype=tdtype, device=device)
+            if pad == "nan":
+                slab.fill_(float("nan"))
+            bits = _SIGNED_TWIN.get(tdtype)
+            dst, src = (slab, packed) if bits is None else (slab.view(bits), packed.view(bits))
+            for w, off in zip(windows, offsets):
+                ext = extent(w)
+                region = dst[w[0]][tuple(slice(0, e) for e in ext)]
+                region.copy_(src[int(off):int(off) + region.numel()].view(ext))
+                if pad == "edge":
+                    _pad_beyond(dst[w[0]], ext)
+            if cuda:
+                done.record()
+        bufs.release(slot, uploaded if cuda else None)
+        tele["windows"] += len(windows)
+        tele["window_bytes"] += nbytes
+        tele["upload_bytes"] += total * slab.element_size()
+        tele["read_s"] += t1 - t0
+        tele["pack_s"] += time.perf_counter() - t1
+        tele["units"] += 1
+        return slab, done if cuda else None
+
+    with ThreadPoolExecutor(_READ_WORKERS) as pool, ThreadPoolExecutor(1) as loader:
+        fut = loader.submit(load, units[0], pool)
+        for i in range(len(units)):
+            dev, done = fut.result()
+            if i + 1 < len(units):
+                fut = loader.submit(load, units[i + 1], pool)
+            if cuda:
+                compute.wait_event(done)
+                dev.record_stream(compute)
+            yield dev
+
+
+def _slab_telemetry_start(tier, route, field_sims) -> None:
+    last_slab_telemetry.clear()
+    last_slab_telemetry.update(
+        tier=tier, route=route, tile_bytes=_tile_bytes(field_sims), units=0, windows=0,
+        window_bytes=0, upload_bytes=0, read_s=0.0, pack_s=0.0, upload_events=[],
+    )
 
 
 class _DeviceTileCache:
@@ -623,6 +790,12 @@ class _PrefixedSink:
     def dtype(self) -> np.dtype:
         return np.dtype(self.array.dtype)
 
+    @property
+    def shards(self) -> Optional[tuple]:
+        """The spatial shard shape of a sharded zarr v3 array, else None."""
+        shards = getattr(self.array, "shards", None)
+        return None if shards is None else tuple(shards[len(self.prefix):])
+
     def __setitem__(self, slices, value):
         if not isinstance(slices, tuple):
             slices = (slices,)
@@ -722,7 +895,10 @@ def _fuse_translation_views(
     """The reference's choice of translation tier: the banded streaming tier
     for uniform unit-scale tiles that are lazy, too large for the device or
     above :data:`STREAM_BYTES`, when their layout bands; otherwise one
-    monolithic kernel call. A failed streaming run raises."""
+    monolithic kernel call while the tiles fit on the device. Returns False
+    when neither takes the call (lazy tiles above :data:`TILES_MAX_BYTES`
+    that do not band: the chunked tiers read them as host slabs). A failed
+    streaming run raises."""
     plan = {"sparams": param_mats}
     tiles_in_memory = all(not si_utils._is_lazy(s.data) for s in field_sims)
     tiles_fit_on_device = _tiles_fit_on_device(field_sims)
@@ -759,12 +935,9 @@ def _fuse_translation_views(
         if res is not None:
             if sink is not out:
                 out.copy_(torch.from_numpy(sink))
-            return
+            return True
     if not tiles_fit_on_device:
-        raise NotImplementedError(
-            f"{_tile_bytes(field_sims)} bytes of lazy tiles that do not band need the "
-            f"host-slab route, which is not ported yet ({_ROADMAP}: item 10)"
-        )
+        return False
     _execute_fusion_plan_translation(
         plan,
         field_sims,
@@ -777,6 +950,7 @@ def _fuse_translation_views(
         scale=scale,
         scales=scales,
     )
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -1165,6 +1339,118 @@ def _fuse_chunk_batch_kernel_gather(stack, t, S_max, out_shape, mode, use_bw, ou
                         mode, use_bw, out_dtype)
 
 
+def _shear_tier_enabled() -> bool:
+    """``MVS_TPU_SHEAR=1`` puts the shear tier ahead of the exact-affine
+    kernels, as in the reference; any other value (its ``auto`` is on only on
+    a TPU) leaves it off. The one environment variable the port reads."""
+    return os.environ.get("MVS_TPU_SHEAR") == "1"
+
+
+def _shear_source_margin(ndim: int) -> int:
+    """Extra source-window pixels when the shear tier may run: its
+    interpolation support spreads about one source pixel per elementary pass
+    (2D: 3 passes, 3D: 7)."""
+    return (2 * ndim + 1) if _shear_tier_enabled() else 0
+
+
+def _plan_shear_bundle(params, S_max, O_max, use_bw):
+    """The shear tier's plans over every (entry, view) map of a chunk plan:
+    ``(plan, ctx, wplan, wctx)``, the weight grids' maps planned in 4x
+    refined grid coordinates; None when a map does not factor (the gather
+    route then takes the plan, as in the reference)."""
+    from multiview_stitcher_torch.ops import shear as shear_ops
+
+    items = [it for kp in params for it in kp]
+    res = shear_ops.plan_shear(
+        np.stack([it["m"] for it in items]), np.stack([it["o"] for it in items]), S_max, O_max
+    )
+    if res is None:
+        return None
+    if not use_bw:
+        return res[0], res[1], None, None
+    ndim = len(O_max)
+    wres = shear_ops.plan_shear(
+        4.0 * np.stack([it["wm"] for it in items]), 4.0 * np.stack([it["wo"] for it in items]),
+        (17,) * ndim, O_max,
+    )
+    if wres is None:
+        return None
+    return res[0], res[1], wres[0], wres[1]
+
+
+def _slabs_from_stack(stack, tile_idx, starts, extents, window) -> torch.Tensor:
+    """(N, *window) float32 windows of the (V, *T) ``stack``: item n reads
+    ``stack[tile_idx[n]]`` from ``starts[n]`` and repeats its last sample
+    beyond ``extents[n]`` on each axis, which is the host slab of the same
+    window edge-padded (:func:`_pad_beyond`); float data through
+    ``nan_to_num``."""
+    dev = stack.device
+    N = len(tile_idx)
+    ndim = len(window)
+    st = torch.as_tensor(np.asarray(starts), dtype=torch.int64, device=dev).reshape(N, ndim)
+    ext = torch.as_tensor(np.asarray(extents), dtype=torch.int64, device=dev).reshape(N, ndim)
+    idx = [torch.as_tensor(np.asarray(tile_idx), dtype=torch.int64, device=dev).reshape(
+        (N,) + (1,) * ndim)]
+    for d in range(ndim):
+        i = torch.arange(window[d], device=dev)[None, :]
+        i = st[:, d, None] + torch.minimum(i, (ext[:, d, None] - 1).clamp(min=0))
+        shape = [N] + [1] * ndim
+        shape[1 + d] = window[d]
+        idx.append(i.reshape(shape))
+    # uint16 has no gather on every device: read its bits as int16
+    if stack.dtype == torch.uint16:
+        return (stack.view(torch.int16)[tuple(idx)].to(torch.int32) & 0xFFFF).to(torch.float32)
+    out = stack[tuple(idx)].to(torch.float32)
+    return torch.nan_to_num(out) if stack.dtype.is_floating_point else out
+
+
+def _fuse_chunk_batch_kernel_shear(slabs, t, bundle, out_shape, mode, use_bw, out_dtype):
+    """Fuse a batch of B chunks with up to K views each through the shear
+    tier (the reference's ``_fuse_chunk_batch_kernel_shear``): ``slabs``
+    (B * K, *S) float32, edge-padded and free of NaN; ``t`` the tables of
+    :func:`_build_exact_batch`; ``bundle`` from :func:`_plan_shear_bundle`.
+    The 5^ndim weight grids are refined 4x (``refine_grid``) and resampled
+    through their own plan. Returns (B, *out_shape) in ``out_dtype``."""
+    from multiview_stitcher_torch.ops import shear as shear_ops
+
+    plan, ctx, wplan, wctx = bundle
+    B, K = t["valid"].shape
+    ndim = len(out_shape)
+    BK = B * K
+    dev = slabs.device
+    valid = t["valid"].reshape(BK)
+    # padding slots take a real slot's maps for their coefficients: the
+    # identity does not factor under a plan that permutes the axes (the
+    # reference's ShearCtx raises there); the slots are masked anyway
+    fill = np.where(valid, np.arange(BK), int(np.argmax(valid)))
+
+    def coeffs(c, mats, offs):
+        return c.coeffs(mats[fill], offs[fill])
+
+    mats = t["mats"].reshape(BK, ndim, ndim)
+    offs = t["offs"].reshape(BK, ndim)
+    keep = torch.as_tensor(valid, device=dev).reshape((BK,) + (1,) * ndim)
+    data_t = shear_ops.shear_resample_batch(
+        slabs, coeffs(ctx, mats, offs), mats, offs, t["extents"].reshape(BK, ndim), plan,
+        float("nan"),
+    )
+    data_t = torch.where(keep, data_t, torch.nan)
+    bw = None
+    if use_bw:
+        wmats = 4.0 * t["wmats"].reshape(BK, ndim, ndim)
+        woffs = 4.0 * t["woffs"].reshape(BK, ndim)
+        wg = shear_ops.refine_grid(
+            torch.as_tensor(t["wgrids"].reshape((BK,) + (5,) * ndim), device=dev), 4, ndim=ndim
+        )
+        bw = shear_ops.shear_resample_batch(
+            wg, coeffs(wctx, wmats, woffs), wmats, woffs, np.full((BK, ndim), 17.0, np.float32),
+            wplan, 0.0,
+        ) * keep
+        bw = bw.reshape((B, K) + tuple(out_shape))
+    split = (B, K) + tuple(out_shape)
+    return _blend_batch(data_t.reshape(split), bw, mode, use_bw, out_dtype)
+
+
 def _untrimmed_axis_positions(plan, sdims, overlap_in_pixels):
     """Per-axis start offsets of each chunk's extended region in the
     untrimmed (``trim_overlap=False``) output layout, where chunk i occupies
@@ -1241,54 +1527,121 @@ def _execute_fusion_plan_batched(
     Every chunk's view list is padded to K_max slots and every kernel grid
     to the plan-wide largest chunk; chunks go in batches of
     ``MAX_BATCH_ELEMENTS // (K_max * prod(S_max))`` (the reference's rule,
-    S_max being the largest source window), in order. Views are resampled by
-    the exact-affine kernels from the tile stack on the device, or, for float
-    views that may hold NaN (:func:`_float_views_may_hold_nan`), by the
-    gather route, which reads their NaN-padded windows at unclamped starts
-    from the stack with its NaN kept, so that NaN pixels drop out of each
-    view's contribution. The fused chunks are assembled on the device and
-    downloaded once."""
+    S_max being the largest source window), in order. The route, as the
+    reference picks it: with ``MVS_TPU_SHEAR=1`` the shear tier
+    (``ops.shear``) when every map factors, else the gather route; without
+    it, the gather route for float views that may hold NaN
+    (:func:`_float_views_may_hold_nan`), which reads their NaN-padded
+    windows so that NaN pixels drop out of each view's contribution, else
+    the exact-affine kernels.
+
+    The source: the tile stack on the device while the tiles fit
+    (:func:`_tiles_fit_on_device`), the exact kernels reading it at window
+    starts clamped so that an S_max window fits, the other routes at the
+    unclamped starts; else host slabs, (B, K, *S_max) a batch, read window by
+    window from the views (:func:`_iter_slabs`) at unclamped starts, padded
+    with NaN for the gather route (float views), by edge replication for the
+    shear tier and not at all for the exact kernels (which mask by the
+    windows' extents, as the gather does), and uploaded in the views'
+    dtype. The fused chunks are assembled on the
+    device and downloaded once."""
     ndim = len(sdims)
     entries = [e for e in plan["per_chunk_entries"] if e["views"]]
     if not entries:
         return
     K_max, S_max, O_max = _plan_window_shapes(entries, sdims)
     batch_size = max(1, int(MAX_BATCH_ELEMENTS // max(K_max * int(np.prod(S_max)), 1)))
-    gather = _float_views_may_hold_nan(field_sims)
-    stack_shape = None if gather else tuple(
+    host_slabs = not _tiles_fit_on_device(field_sims)
+    shear = _shear_tier_enabled()
+    route = "gather" if shear or _float_views_may_hold_nan(field_sims) else "exact"
+    # window starts are clamped only for the exact kernels on the stack
+    stack_shape = None if route != "exact" or host_slabs else tuple(
         max(int(s.data.shape[i]) for s in field_sims) for i in range(ndim)
     )
     params = exact_kernel_params(
         entries, field_sims, plan["sparams"], sdims, S_max, O_max, stack_shape,
         use_bw, blending_widths, shrink_distance,
     )
-    if gather:
-        tiles = _tiles_to_device(field_sims, device, keep_nan=True).to(torch.float32)
-    else:
+    bundle = _plan_shear_bundle(params, S_max, O_max, use_bw) if shear else None
+    if bundle is not None:
+        route = "shear"
+    if route == "exact":
         kind = _exact_kind(ndim, params, use_bw)
+    batches = [
+        (entries[i0 : i0 + batch_size],
+         _build_exact_batch(params[i0 : i0 + batch_size], K_max, ndim, use_bw))
+        for i0 in range(0, len(entries), batch_size)
+    ]
+    if host_slabs:
+        dtype = np.dtype(field_sims[0].data.dtype)
+        pad = {"gather": "nan", "exact": None, "shear": "edge"}[route]
+        if pad == "nan" and not np.issubdtype(dtype, np.floating):
+            pad = None  # the gather masks by the windows' extents
+        _slab_telemetry_start("batched", route, field_sims)
+        units = [
+            ((len(batch), K_max) + S_max,
+             [((bi, vi), int(t["tile_idx"][bi, vi]), t["starts"][bi, vi],
+               t["starts"][bi, vi] + t["extents"][bi, vi].astype(np.int64))
+              for bi in range(len(batch)) for vi in range(K_max) if t["valid"][bi, vi]])
+            for batch, t in batches
+        ]
+        sources = _iter_slabs(units, field_sims, dtype, pad, device)
+    elif route == "exact":
         tiles = _tiles_to_device(field_sims, device)
         if tiles.is_cuda:
             # read as float32 once for all launches where the kernels do not
             # read the dtype (the wrappers would cast it at every launch)
             tiles = exact_affine.kernel_input(tiles)
+    elif route == "gather":
+        tiles = _tiles_to_device(field_sims, device, keep_nan=True).to(torch.float32)
+    else:
+        tiles = _tiles_to_device(field_sims, device)
     out_dtype = _torch_dtype(out.dtype)
-    out_dev = torch.zeros(out.shape, dtype=out_dtype, device=tiles.device)
+    out_dev = torch.zeros(out.shape, dtype=out_dtype, device=device)
     untrimmed_pos = (
         _untrimmed_axis_positions(plan, sdims, overlap_in_pixels)
         if _untrimmed(trim_overlap, overlap_in_pixels, sdims) else None
     )
-    for i0 in range(0, len(entries), batch_size):
-        batch = entries[i0 : i0 + batch_size]
-        t = _build_exact_batch(params[i0 : i0 + batch_size], K_max, ndim, use_bw)
-        if gather:
-            fused = _fuse_chunk_batch_kernel_gather(
-                tiles, t, S_max, O_max, mode, use_bw, out_dtype
+    for batch, t in batches:
+        B = len(batch)
+        BK = B * K_max
+        slabs = next(sources) if host_slabs else None
+        if route == "exact" and host_slabs:
+            fused = _fuse_chunk_batch_kernel_exact(
+                exact_affine.kernel_input(slabs), t["mats"], t["offs"], t["extents"],
+                t["wgrids"], t["wmats"], t["woffs"], t["valid"], O_max, mode, use_bw, kind,
+                out_dtype,
             )
-        else:
+        elif route == "exact":
             fused = _fuse_chunk_batch_kernel_exact_devtiles(
                 tiles, t["tile_idx"], t["starts"], t["mats"], t["offs"], t["extents"],
                 t["wgrids"], t["wmats"], t["woffs"], t["valid"],
                 O_max, mode, use_bw, kind, out_dtype,
+            )
+        elif route == "gather" and host_slabs:
+            # each slab is its own source, read from its origin
+            t_slabs = dict(t, tile_idx=np.arange(BK, dtype=np.int32).reshape(B, K_max),
+                           starts=np.zeros_like(t["starts"]))
+            fused = _fuse_chunk_batch_kernel_gather(
+                slabs.reshape((BK,) + S_max).to(torch.float32), t_slabs, S_max, O_max, mode,
+                use_bw, out_dtype,
+            )
+        elif route == "gather":
+            fused = _fuse_chunk_batch_kernel_gather(
+                tiles, t, S_max, O_max, mode, use_bw, out_dtype
+            )
+        else:
+            if host_slabs:
+                slabs = slabs.reshape((BK,) + S_max).to(torch.float32)
+                if np.issubdtype(dtype, np.floating):
+                    slabs = torch.nan_to_num(slabs)
+            else:
+                slabs = _slabs_from_stack(
+                    tiles, t["tile_idx"].reshape(BK), t["starts"].reshape(BK, ndim),
+                    t["extents"].reshape(BK, ndim), S_max,
+                )
+            fused = _fuse_chunk_batch_kernel_shear(
+                slabs, t, bundle, O_max, mode, use_bw, out_dtype
             )
         for bi, entry in enumerate(batch):
             src, dst = _chunk_regions(entry, output_stack_properties, sdims, untrimmed_pos)
@@ -1604,28 +1957,55 @@ def _execute_fusion_plan_host(
     """The reference's per-chunk tier: each chunk with views is fused by
     :func:`fuse_np`'s computation on its extended bounding box, from the
     views' source windows, and written trimmed, or, with
-    ``trim_overlap=False`` and halos, untrimmed in the untrimmed layout. The
-    reference cuts each window on the host; here the views sit on the device
-    once (float32, NaN kept) and each window is read from there, which gives
-    the same samples. The fused chunks are assembled on the device and
+    ``trim_overlap=False`` and halos, untrimmed in the untrimmed layout.
+    While the tiles fit (:func:`_tiles_fit_on_device`) the views sit on the
+    device once (float32, NaN kept) and each window is read from there, which
+    gives the samples the reference's host windows give; else each chunk's
+    windows are read from the views on the host into a (K, *window) slab,
+    uploaded in the views' dtype (:func:`_iter_slabs`, the next chunk read
+    while this one fuses). The fused chunks are assembled on the device and
     downloaded once."""
     entries = [e for e in plan["per_chunk_entries"] if e["views"]]
     if not entries:
         return
     views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
-    stack = _tiles_to_device(field_sims, device, keep_nan=True).to(torch.float32)
+    chunk_windows = [
+        [_slab_window(field_sims[iview], bb) for iview, bb in e["views"]] for e in entries
+    ]
+    host_slabs = not _tiles_fit_on_device(field_sims)
+    if host_slabs:
+        dtype = np.dtype(field_sims[0].data.dtype)
+        _slab_telemetry_start("host", "gather", field_sims)
+        units = []
+        for entry, windows in zip(entries, chunk_windows):
+            shape = tuple(max(w[1][i] - w[0][i] for w in windows) for i in range(len(sdims)))
+            units.append(((len(windows),) + shape, [
+                (k, iview, w[0], w[1]) for k, ((iview, _), w) in enumerate(zip(entry["views"], windows))
+            ]))
+        sources = _iter_slabs(
+            units, field_sims, dtype, "nan" if np.issubdtype(dtype, np.floating) else None,
+            device,
+        )
+    else:
+        stack = _tiles_to_device(field_sims, device, keep_nan=True).to(torch.float32)
     out_dtype = _torch_dtype(out.dtype)
-    out_dev = torch.zeros(out.shape, dtype=out_dtype, device=stack.device)
+    out_dev = torch.zeros(out.shape, dtype=out_dtype, device=device)
     untrimmed = _untrimmed(trim_overlap, overlap_in_pixels, sdims)
     untrimmed_pos = (
         _untrimmed_axis_positions(plan, sdims, overlap_in_pixels) if untrimmed else None
     )
     trim = overlap_in_pixels if trim_overlap else {d: 0 for d in sdims}
-    for entry in entries:
+    for entry, windows in zip(entries, chunk_windows):
         iviews = [iview for iview, _ in entry["views"]]
-        windows = [_slab_window(field_sims[iview], bb) for iview, bb in entry["views"]]
+        starts = np.array([w[0] for w in windows])
+        if host_slabs:
+            # the chunk's slab stack: view k at position k, read from its origin
+            stack = next(sources).to(torch.float32)
+            tile_idx, starts = np.arange(len(iviews)), np.zeros_like(starts)
+        else:
+            tile_idx = np.array(iviews)
         fused = _fuse_views(
-            stack, np.array(iviews), np.array([w[0] for w in windows]),
+            stack, tile_idx, starts,
             np.array([np.subtract(w[1], w[0]) for w in windows]), [w[2] for w in windows],
             [plan["sparams"][i] for i in iviews], [views_bb[i] for i in iviews],
             entry["output_bb_overlap"], sdims,
@@ -1676,9 +2056,10 @@ def _execute_fusion_plan(
     ``fusion_func_kwargs``) takes the tiles tier for an axis-aligned plan of
     equal-shape tiles written trimmed, else the batched tier (the
     exact-affine kernels, or the gather route for float views that may hold
-    NaN); every other call takes the host tier. The chunked tiers read lazy
-    tiles of any size into the device tile stack; only the translation tier
-    refuses lazy tiles above :data:`TILES_MAX_BYTES` that do not band."""
+    NaN, the shear tier with ``MVS_TPU_SHEAR=1``); every other call takes the
+    host tier. Lazy tiles above :data:`TILES_MAX_BYTES` that do not band skip
+    the monolithic translation and the tiles tier, and the batched and host
+    tiers read them as host slabs, window by window."""
     ndim = len(sdims)
     builtin_mode = _BUILTIN_FUSION_MODES.get(fusion_func)
     builtin = builtin_mode is not None and weights_func is None and not fusion_func_kwargs
@@ -1692,13 +2073,12 @@ def _execute_fusion_plan(
             None if scale is not None
             else _views_output_scales_per_view(field_sims, output_stack_properties, sdims)
         )
-        if scale is not None or scales is not None:
-            _fuse_translation_views(
-                param_mats, field_sims, output_stack_properties, sdims,
-                scale=scale, scales=scales, blending_widths=blending_widths,
-                shrink_distance=shrink_distance, out=out, device=device,
-                output_chunksize=output_chunksize,
-            )
+        if (scale is not None or scales is not None) and _fuse_translation_views(
+            param_mats, field_sims, output_stack_properties, sdims,
+            scale=scale, scales=scales, blending_widths=blending_widths,
+            shrink_distance=shrink_distance, out=out, device=device,
+            output_chunksize=output_chunksize,
+        ):
             return
 
     views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
@@ -1714,6 +2094,7 @@ def _execute_fusion_plan(
         overlap_in_pixels=overlap_in_pixels,
         interpolation_order=interpolation_order,
         sdims=sdims,
+        extra_source_margin_in_pixels=_shear_source_margin(ndim),
     )
     common = dict(blending_widths=blending_widths, shrink_distance=shrink_distance,
                   out=out, device=device)
@@ -1729,6 +2110,7 @@ def _execute_fusion_plan(
     if (
         not untrimmed
         and len({tuple(s.data.shape) for s in field_sims}) == 1
+        and _tiles_fit_on_device(field_sims)
         and _plan_is_axis_aligned(param_mats, ndim)
     ):
         _execute_fusion_plan_tiles(
@@ -1796,17 +2178,19 @@ def fuse(
     module docstring says which tier takes which call. Views may hold numpy
     arrays or lazy zarr arrays (``io.zarr_backend``). Returns a Sim in the
     input dtype with an identity affine under ``transform_key``: in host
-    memory, or, with ``output_zarr_url``, backed by the zarr v2 array written
+    memory, or, with ``output_zarr_url``, backed by the zarr array written
     there. Given msims (:class:`~.msi_utils.Msim`), it returns an msim (see
     :func:`_fuse_msims`; ``output_origin``, ``output_shape`` and
     ``output_stack_properties`` are not read then, as in the reference).
-    ``zarr_options``: ``ome_zarr`` (default True: an NGFF 0.4
-    OME-Zarr with level 0 at ``{url}/0``, its pyramid and metadata; False: a
-    plain array at ``url``), ``ngff_version`` ("0.4"), ``create_output``
-    (default True; False writes into the array already there),
-    ``overwrite`` (default True) and ``zarr_array_creation_kwargs`` (for
-    example a ``compressor``). The output's zarr chunks are
-    ``output_chunksize``, 1 on each non-spatial dim.
+    ``zarr_options``: ``ome_zarr`` (default True: an OME-Zarr
+    with level 0 at ``{url}/0``, its pyramid and metadata; False: a plain
+    array at ``url``), ``ngff_version`` ("0.4": zarr v2; "0.5": zarr v3),
+    ``create_output`` (default True; False writes into the array already
+    there), ``overwrite`` (default True) and ``zarr_array_creation_kwargs``
+    (for example a v2 ``compressor``, or ``shards`` at 0.5: level 0 sharded,
+    each shard a multiple of the chunks and the granularity of the streaming
+    tier's band writes). The output's zarr chunks are ``output_chunksize``,
+    1 on each non-spatial dim; the values do not depend on the layout.
 
     The fusion runs on ``device``: the CUDA device by default (raising if
     there is none), or the CPU with ``device="cpu"``, which takes the
@@ -1864,8 +2248,7 @@ def fuse(
             device=device,
         )
     zarr_options = dict(zarr_options or {})
-    if output_zarr_url is not None and zarr_options.get("ngff_version", "0.4") != "0.4":
-        raise NotImplementedError(zarr_backend._V3)
+    ngff_version = zarr_options.get("ngff_version", "0.4")
     sims_in = list(images)
     sdims = si_utils.get_spatial_dims_from_sim(sims_in[0])
     nsdims = si_utils.get_nonspatial_dims_from_sim(sims_in[0])
@@ -1975,6 +2358,7 @@ def fuse(
                 shape=out_full_shape,
                 chunks=zarr_chunks,
                 dtype=out_dtype,
+                zarr_format=ngff_utils._zarr_format(ngff_version),
                 overwrite=zarr_options.get("overwrite", True),
                 **(zarr_options.get("zarr_array_creation_kwargs") or {}),
             )
@@ -2023,6 +2407,7 @@ def fuse(
             output_zarr_url,
             dims=tuple(nsdims) + tuple(sdims),
             stack_properties=sink_stack_properties,
+            ngff_version=ngff_version,
             c_coords=ns_coord_lists.get("c"),
         )
         out_sim = ngff_utils.read_sim_from_ome_zarr(output_zarr_url)

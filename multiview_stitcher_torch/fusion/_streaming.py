@@ -76,8 +76,8 @@ def plan_bands(offs, extents, out_shape_full, tile_shape, axis_chunk=None):
     ``offs``: (V, ndim) output-pixel -> view-pixel translations (so a view
     occupies output coords [-off, -off + extent) along each axis).
     ``axis_chunk``: optional per-axis output chunk size for write alignment
-    (zarr sinks: bands must not share output chunks across concurrent
-    writers). Of the axes with uniform view extents, the one with the most
+    (zarr sinks: bands must not share output chunks, or the shards of a
+    sharded zarr v3 sink, across concurrent writers). Of the axes with uniform view extents, the one with the most
     bands (at least 3) whose band needs fewer than all views wins.
     """
     V, ndim = offs.shape
@@ -225,7 +225,11 @@ def execute_streaming(
     )
 
     axis_chunk = None
-    if is_zarr_sink and output_chunksize is not None:
+    shards = getattr(out_sink, "shards", None) if is_zarr_sink else None
+    if shards is not None:
+        # concurrent band writes must not share a shard file
+        axis_chunk = [int(x) for x in shards[-ndim:]]
+    elif is_zarr_sink and output_chunksize is not None:
         # concurrent band writes must not share an output chunk
         axis_chunk = [int(output_chunksize[d]) for d in sdims]
     bands = plan_bands(offs, extents, out_shape_full, tile_shape, axis_chunk)

@@ -1,4 +1,5 @@
-"""OME-Zarr (NGFF 0.4) levels and metadata, on the port's zarr v2 IO.
+"""OME-Zarr levels and metadata, NGFF 0.4 (zarr v2) and 0.5 (zarr v3, with
+shards), on the port's zarr IO.
 
 A subset of ``multiview_stitcher_tpu.io.ngff_utils`` under the same names:
 the per-level coordinate transformations, the block-wise pyramid from a
@@ -8,11 +9,13 @@ sim and of all levels as an msim. NGFF stores no affines: a sim read back
 carries an identity transform, and an msim's named transforms are kept in
 the group's attributes under :data:`TRANSFORMS_ATTR_KEY`, as the reference
 package keeps them, so that a store written by either package carries its
-transforms into the other. Also the NGFF time calibration of sims and
+transforms into the other. NGFF 0.5 nests the multiscales under an ``ome``
+attribute with its version, as the reference writes it (its omero channels
+stay at the top level, as there). Also the NGFF time calibration of sims and
 msims, and the reference's in-memory NGFF containers (:class:`NgffImage`,
 :class:`NgffMultiscales`) with their conversions. The virtual NGFF server
 (``serve_virtual_ome_zarrs``, ``VirtualOMEZarr*``) waits for ROADMAP.md item
-30, and NGFF 0.5 for item 21: both raise ``NotImplementedError``.
+30 and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -84,58 +87,47 @@ def calc_ngff_coordinate_transformations_and_axes(
     return coordtfs, axes
 
 
-def finalize_ome_zarr_levels(
-    output_zarr_url: str,
-    dims,
-    stack_properties: dict,
-    ngff_version: str = "0.4",
-    c_coords=None,
-    downscale_factors_per_spatial_dim: Optional[Dict[str, int]] = None,
-    block_size: int = 512,
-    time_transform: Optional[dict] = None,
-    channel_windows: Optional[List[tuple]] = None,
-):
-    """Complete an OME-Zarr whose level 0 was written chunk by chunk: build
-    each pyramid level block by block from the one before (never a whole
-    level in memory) and write the multiscales and omero metadata.
-    ``channel_windows``: per channel, the (start, end) of its omero window
-    (by default (0, 65535))."""
-    if ngff_version != "0.4":
-        raise NotImplementedError(zarr_backend._V3)
+def _zarr_format(ngff_version: str) -> int:
+    if ngff_version not in ("0.4", "0.5"):
+        raise ValueError(f"ngff_version must be '0.4' or '0.5', got {ngff_version!r}")
+    return 2 if ngff_version == "0.4" else 3
+
+
+def _build_levels(output_zarr_url, dims, spatial_shape, zarr_format, layout,
+                  downscale_factors_per_spatial_dim=None):
+    """Build pyramid levels 1 and up of the OME-Zarr at ``output_zarr_url``
+    from its level 0, block by block from the level before (never a whole
+    level in memory): ``layout(shape)`` gives a level's (chunks, shards),
+    and a block is one shard (or chunk), so that no block shares a file.
+    Returns the plan's absolute factors."""
     dims = tuple(dims)
     sdims = [d for d in dims if d in si_utils.SPATIAL_DIMS]
-    nsdims = [d for d in dims if d not in si_utils.SPATIAL_DIMS]
-    spacing = {d: float(stack_properties["spacing"][d]) for d in sdims}
-    origin = {d: float(stack_properties["origin"][d]) for d in sdims}
-    spatial_shape = {d: int(stack_properties["shape"][d]) for d in sdims}
-
     res_shapes, res_rel_factors, res_abs_factors = msi_utils.calc_resolution_levels(
         spatial_shape,
         downscale_factors_per_spatial_dim=downscale_factors_per_spatial_dim,
     )
-    n_res = len(res_shapes)
-
     prev = zarr_backend.open_zarr_array(f"{output_zarr_url}/0")
     prev_shape = prev.shape
-    for level in range(1, n_res):
+    for level in range(1, len(res_shapes)):
         rel = res_rel_factors[level]
         factors = [rel.get(d, 1) if d in sdims else 1 for d in dims]
         new_shape = tuple(s // f for s, f in zip(prev_shape, factors))
-        chunks = [
-            1 if d in nsdims else min(block_size, new_shape[i]) for i, d in enumerate(dims)
-        ]
+        chunks, shards = layout(new_shape)
         arr = zarr_backend.create_zarr_array(
             f"{output_zarr_url}/{level}",
             shape=new_shape,
             chunks=chunks,
             dtype=prev.dtype,
+            zarr_format=zarr_format,
             overwrite=True,
+            shards=shards,
         )
         # block-wise: read a factor-aligned window of prev, coarsen, write
-        n_blocks = [-(-new_shape[i] // chunks[i]) for i in range(len(dims))]
+        blocks = arr.write_chunks
+        n_blocks = [-(-new_shape[i] // blocks[i]) for i in range(len(dims))]
         for bi in itertools.product(*[range(n) for n in n_blocks]):
             out_sl = tuple(
-                slice(bi[i] * chunks[i], min((bi[i] + 1) * chunks[i], new_shape[i]))
+                slice(bi[i] * blocks[i], min((bi[i] + 1) * blocks[i], new_shape[i]))
                 for i in range(len(dims))
             )
             in_sl = tuple(
@@ -145,9 +137,21 @@ def finalize_ome_zarr_levels(
             arr[out_sl] = msi_utils._coarsen_mean(np.asarray(prev[in_sl]), factors)
         prev = arr
         prev_shape = new_shape
+    return res_abs_factors
 
+
+def _write_ngff_attrs(output_zarr_url, dims, stack_properties, res_abs_factors, ngff_version,
+                      c_coords=None, time_transform=None, channel_windows=None):
+    """The multiscales (nested under ``ome`` for NGFF 0.5) and omero
+    attributes of the store's group."""
+    sdims = [d for d in dims if d in si_utils.SPATIAL_DIMS]
+    nsdims = [d for d in dims if d not in si_utils.SPATIAL_DIMS]
     coordtfs, axes = calc_ngff_coordinate_transformations_and_axes(
-        {"spacing": spacing, "origin": origin, "shape": spatial_shape},
+        {
+            "spacing": {d: float(stack_properties["spacing"][d]) for d in sdims},
+            "origin": {d: float(stack_properties["origin"][d]) for d in sdims},
+            "shape": {d: int(stack_properties["shape"][d]) for d in sdims},
+        },
         res_abs_factors,
         nsdims=nsdims,
         time_transform=time_transform,
@@ -157,12 +161,14 @@ def finalize_ome_zarr_levels(
             "axes": axes,
             "datasets": [
                 {"path": f"{level}", "coordinateTransformations": coordtfs[level]}
-                for level in range(n_res)
+                for level in range(len(res_abs_factors))
             ],
             "version": ngff_version,
         }
     ]
     attrs = {"multiscales": multiscales}
+    if ngff_version != "0.4":
+        attrs = {"ome": {"version": ngff_version, "multiscales": multiscales}}
     if c_coords is not None:
         c_coords = np.asarray(c_coords)
         windows = channel_windows or [(0, 65535)] * len(c_coords)
@@ -177,7 +183,43 @@ def finalize_ome_zarr_levels(
                 for ch, (lo, hi) in zip(c_coords, windows)
             ]
         }
-    zarr_backend.write_group_metadata(str(output_zarr_url), attrs)
+    zarr_backend.write_group_metadata(
+        str(output_zarr_url), attrs, zarr_format=_zarr_format(ngff_version)
+    )
+
+
+def finalize_ome_zarr_levels(
+    output_zarr_url: str,
+    dims,
+    stack_properties: dict,
+    ngff_version: str = "0.4",
+    c_coords=None,
+    downscale_factors_per_spatial_dim: Optional[Dict[str, int]] = None,
+    block_size: int = 512,
+    time_transform: Optional[dict] = None,
+    channel_windows: Optional[List[tuple]] = None,
+):
+    """Complete an OME-Zarr whose level 0 was written chunk by chunk: build
+    each pyramid level block by block from the one before (never a whole
+    level in memory; chunks of ``block_size``, unsharded, zarr v2 for NGFF
+    0.4 and v3 for 0.5) and write the multiscales and omero metadata.
+    ``channel_windows``: per channel, the (start, end) of its omero window
+    (by default (0, 65535))."""
+    zarr_format = _zarr_format(ngff_version)
+    dims = tuple(dims)
+    nsdims = [d for d in dims if d not in si_utils.SPATIAL_DIMS]
+
+    def layout(shape):
+        return [1 if d in nsdims else min(block_size, shape[i]) for i, d in enumerate(dims)], None
+
+    res_abs_factors = _build_levels(
+        output_zarr_url, dims,
+        {d: int(stack_properties["shape"][d]) for d in dims if d in si_utils.SPATIAL_DIMS},
+        zarr_format, layout, downscale_factors_per_spatial_dim,
+    )
+    _write_ngff_attrs(output_zarr_url, dims, stack_properties, res_abs_factors, ngff_version,
+                      c_coords=c_coords, time_transform=time_transform,
+                      channel_windows=channel_windows)
 
 
 def _default_chunks(sim: Sim) -> List[int]:
@@ -199,46 +241,67 @@ def write_sim_to_ome_zarr(
     chunks: Optional[List[int]] = None,
     shards: Optional[List[int]] = None,
 ) -> Sim:
-    """Write a sim as a multiscale OME-Zarr (NGFF 0.4, zarr v2) and return
-    it read back lazily, with the sim's transforms. Level 0 holds the data
-    in ``chunks`` (by default 1 on t and c, 256 (3D) or 2048 (2D) pixels on
-    each spatial dim); :func:`finalize_ome_zarr_levels` builds the pyramid
-    from it and writes the metadata, with the sim's NGFF time calibration
-    and, for a ``c`` dim, each channel's value range as its omero window.
-    Without ``overwrite``, a level 0 of the same shape already in the store
-    is kept (the store is the checkpoint)."""
-    if ngff_version != "0.4" or shards is not None:
-        raise NotImplementedError(zarr_backend._V3)
+    """Write a sim as a multiscale OME-Zarr (NGFF 0.4 in zarr v2, or 0.5 in
+    zarr v3) and return it read back lazily, with the sim's transforms.
+    Every level holds its data in ``chunks`` (by default 1 on t and c, 256
+    (3D) or 2048 (2D) pixels on each spatial dim), cut to the level's shape;
+    ``shards`` (NGFF 0.5 only) shards each level, the shard cut to the level
+    and rounded up to a multiple of its chunks, as the reference does. Level
+    0 is written, and each further level built from the one before block by
+    block; the metadata carry the sim's NGFF time calibration and, for a
+    ``c`` dim, each channel's value range as its omero window. Without
+    ``overwrite``, a level 0 of the same shape already in the store is kept
+    (the store is the checkpoint)."""
+    zarr_format = _zarr_format(ngff_version)
+    if shards is not None and zarr_format == 2:
+        raise ValueError("shards requires ngff_version >= 0.5 (zarr v3)")
     if overwrite and os.path.exists(output_zarr_url):
         shutil.rmtree(output_zarr_url)
     data = sim.to_numpy()
+    chunks = _default_chunks(sim) if chunks is None else list(chunks)
+
+    def layout(shape):
+        level_chunks = [min(int(c), int(s)) for c, s in zip(chunks, shape)]
+        level_shards = None
+        if shards is not None:
+            # clamp to the level shape, then round up to an inner-chunk
+            # multiple (sharding_indexed requires exact divisibility)
+            level_shards = [
+                min(int(sh), -(-int(s) // c) * c)
+                for sh, s, c in zip(shards, shape, level_chunks)
+            ]
+            level_shards = [-(-sh // c) * c for sh, c in zip(level_shards, level_chunks)]
+        return level_chunks, level_shards
+
     level0_url = f"{output_zarr_url}/0"
     try:
-        keep = tuple(zarr_backend.open_zarr_array(level0_url).shape) == data.shape
+        keep = tuple(zarr_backend.open_zarr_array(level0_url, zarr_format).shape) == data.shape
     except FileNotFoundError:
         keep = False
     if not keep:
-        chunks = _default_chunks(sim) if chunks is None else chunks
+        level_chunks, level_shards = layout(data.shape)
         arr = zarr_backend.create_zarr_array(
             level0_url,
             shape=data.shape,
-            chunks=[min(c, s) for c, s in zip(chunks, data.shape)],
+            chunks=level_chunks,
             dtype=data.dtype,
+            zarr_format=zarr_format,
             overwrite=True,
+            shards=level_shards,
         )
         arr[...] = data
     windows = None
     if "c" in sim.dims:
         other_axes = tuple(i for i, d in enumerate(sim.dims) if d != "c")
         windows = list(zip(data.min(axis=other_axes), data.max(axis=other_axes)))
-    finalize_ome_zarr_levels(
-        output_zarr_url,
-        dims=sim.dims,
-        stack_properties=si_utils.get_stack_properties_from_sim(sim),
-        ngff_version=ngff_version,
-        c_coords=sim.coords.get("c"),
-        downscale_factors_per_spatial_dim=downscale_factors_per_spatial_dim,
-        time_transform=sim.attrs.get("ngff_time_transform"),
+    stack_properties = si_utils.get_stack_properties_from_sim(sim)
+    res_abs_factors = _build_levels(
+        output_zarr_url, sim.dims, {d: int(stack_properties["shape"][d]) for d in sim.spatial_dims},
+        zarr_format, layout, downscale_factors_per_spatial_dim,
+    )
+    _write_ngff_attrs(
+        output_zarr_url, sim.dims, stack_properties, res_abs_factors, ngff_version,
+        c_coords=sim.coords.get("c"), time_transform=sim.attrs.get("ngff_time_transform"),
         channel_windows=windows,
     )
     return read_sim_from_ome_zarr(
@@ -551,12 +614,17 @@ def read_ngff_multiscales(zarr_path) -> NgffMultiscales:
 
 def write_multiscales_metadata(path, axes, datasets, ngff_version: str = "0.4"):
     """Write only the NGFF multiscales metadata of a store whose arrays are
-    written apart (block by block, possibly by several workers). NGFF 0.5
-    (zarr v3) raises ``NotImplementedError``."""
-    if ngff_version != "0.4":
-        raise NotImplementedError(zarr_backend._V3)
-    multiscale = {"axes": list(axes), "datasets": list(datasets), "version": "0.4"}
-    zarr_backend.write_group_metadata(str(path), {"multiscales": [multiscale]}, zarr_format=2)
+    written apart (block by block, possibly by several workers): at the top
+    level of a v2 group (0.4), or nested under ``ome`` in a v3 group
+    (0.5)."""
+    multiscale = {"axes": list(axes), "datasets": list(datasets)}
+    if _zarr_format(ngff_version) == 2:
+        attrs = {"multiscales": [dict(multiscale, version="0.4")]}
+    else:
+        attrs = {"ome": {"version": "0.5", "multiscales": [multiscale]}}
+    zarr_backend.write_group_metadata(
+        str(path), attrs, zarr_format=_zarr_format(ngff_version)
+    )
 
 
 _VIRTUAL_SERVING = (

@@ -1,42 +1,54 @@
-"""Zarr v2 arrays on numpy, ``json``, ``os`` and the standard library's ``zlib``.
+"""Zarr v2 and v3 arrays on numpy, ``json``, ``os`` and the standard library.
 
 The port's counterpart of ``multiview_stitcher_tpu.io.zarr_backend``, which
 reads and writes through tensorstore, under the same function names. The
-card's machine has neither tensorstore nor zarr-python, so the format is
+card's machine has neither tensorstore nor zarr-python, so the formats are
 written out here:
 
-- zarr v2 only: a ``.zarray`` JSON document beside one file per chunk, chunks
-  in C (or, read only, F) order, the ``"."`` and ``"/"`` dimension separators,
+- zarr v2: a ``.zarray`` JSON document beside one file per chunk, chunks in
+  C (or, read only, F) order, the ``"."`` and ``"/"`` dimension separators,
   ``fill_value`` for chunks that do not exist, edge chunks stored at full
-  size. Zarr v3 raises ``NotImplementedError`` (ROADMAP.md, queue 1, item 21).
-- compressors: ``null`` and ``{"id": "zlib", "level": n}`` are read and
+  size. Compressors: ``null`` and ``{"id": "zlib", "level": n}`` are read and
   written; blosc (tensorstore's default for an array created without a
   compressor) only where ``numcodecs`` or the ``blosc`` module imports; any
   other compressor, and any filter, raises ``NotImplementedError`` naming it.
   The port writes ``compressor: null`` unless asked otherwise.
-- a region write that covers a chunk's whole extent writes the chunk without
-  reading it; any other reads, modifies and writes it. Chunk files are
-  replaced atomically, so readers never see half a chunk; two writers of one
-  chunk must not overlap in time (the streaming tier aligns its bands to
-  whole output chunks for that reason).
+- zarr v3 (NGFF 0.5): a ``zarr.json`` document as tensorstore writes it,
+  chunk keys ``c/i/j`` (the ``"default"`` key encoding; ``"v2"`` keys are
+  read too), the ``bytes`` codec in either endianness, ``gzip`` and ``zstd``
+  where the standard library or the ``zstandard`` module decodes them,
+  ``crc32c`` (the Castagnoli CRC, table-driven here), and the
+  ``sharding_indexed`` codec: one file per shard holding its inner chunks
+  and, at its end (or start), an index of one (offset, nbytes) uint64 pair
+  per inner chunk, 2^64 - 1 for a chunk that is not stored, followed by its
+  CRC32C. Inner chunks that hold only the fill value are not stored, and a
+  shard that holds none is not written, as tensorstore does. Any other codec
+  raises ``NotImplementedError`` naming it.
+- a region write that covers a chunk's (or shard's) whole extent writes it
+  without reading it; any other reads, modifies and writes it. A sharded
+  array's region writes go shard by shard under a lock per shard within the
+  process. Chunk and shard files are replaced atomically, so readers never
+  see half of one; two processes must not write one chunk or shard at once
+  (the streaming tier aligns its bands to whole output chunks, or shards,
+  for that reason).
 
-Each array's ``.zarray`` is parsed once, when it is opened; a
+Each array's metadata document is parsed once, when it is opened; a
 :class:`LazyZarrArray` and every view sliced from it share that parse.
 """
 
 from __future__ import annotations
 
+import gzip
 import itertools
 import json
 import os
 import shutil
+import threading
 import uuid
 import zlib
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
-
-_V3 = "zarr v3 and NGFF 0.5 are not ported yet (ROADMAP.md, queue 1: item 21)"
 
 
 def _local_path(url) -> str:
@@ -149,6 +161,22 @@ def _encode_fill(value, dtype: np.dtype):
     return int(value)
 
 
+def _decode_fill_v3(value, dtype: np.dtype):
+    """A v3 ``fill_value``: a number, a boolean, ``"NaN"`` / ``"Infinity"`` /
+    ``"-Infinity"``, or a float's bits as a ``"0x..."`` string."""
+    if isinstance(value, str) and value.startswith("0x"):
+        bits = np.array(int(value, 16), dtype=f"u{dtype.itemsize}")
+        return bits.view(dtype)[()]
+    return _decode_fill(value, dtype)
+
+
+def _encode_fill_v3(value, dtype: np.dtype):
+    if dtype.kind == "f" and value is not None:
+        v = _encode_fill(value, dtype)
+        return v if isinstance(v, str) else float(v)
+    return _encode_fill(0 if value is None else value, dtype)
+
+
 def _write_atomically(path: str, data: bytes) -> None:
     tmp = f"{path}.{uuid.uuid4().hex}.partial"
     with open(tmp, "wb") as f:
@@ -156,16 +184,74 @@ def _write_atomically(path: str, data: bytes) -> None:
     os.replace(tmp, path)
 
 
-class ZarrV2:
+class _ChunkGrid:
+    """Reads and writes of boxes, ``(start, stop)`` per dim, over a regular
+    grid of cells of shape ``self.grid`` (a v2 or plain v3 array's chunks, a
+    sharded v3 array's shards), through ``_read_cell(idx)`` (None where the
+    cell is not stored) and ``_write_cell(idx, cell)``."""
+
+    shape: tuple
+    grid: tuple
+    dtype: np.dtype
+    fill: object
+
+    def _cell_ranges(self, box):
+        return [
+            range(b0 // c, -(-b1 // c)) if b1 > b0 else range(0)
+            for (b0, b1), c in zip(box, self.grid)
+        ]
+
+    def _overlap(self, idx, box):
+        """(cell-local, box-local) slices of a cell's part of ``box``, and
+        whether that part is the cell's whole extent inside the array."""
+        in_cell, in_box, whole = [], [], True
+        for i, (b0, b1), c, n in zip(idx, box, self.grid, self.shape):
+            c0, c1 = i * c, min((i + 1) * c, n)
+            lo, hi = max(c0, b0), min(c1, b1)
+            in_cell.append(slice(lo - c0, hi - c0))
+            in_box.append(slice(lo - b0, hi - b0))
+            whole &= lo == c0 and hi == c1
+        return tuple(in_cell), tuple(in_box), whole
+
+    def read(self, box, out: Optional[np.ndarray] = None) -> np.ndarray:
+        """The box's values, into ``out`` when given (an array of the box's
+        shape, which may be a view)."""
+        if out is None:
+            out = np.empty(tuple(b1 - b0 for b0, b1 in box), dtype=self.dtype)
+        for idx in itertools.product(*self._cell_ranges(box)):
+            in_cell, in_box, _ = self._overlap(idx, box)
+            cell = self._read_cell(idx)
+            out[in_box] = self.fill if cell is None else cell[in_cell]
+        return out
+
+    def _update_cell(self, idx, box, value) -> None:
+        in_cell, in_box, whole = self._overlap(idx, box)
+        cell = None if whole else self._read_cell(idx)
+        if cell is None:
+            cell = np.full(self.grid, self.fill, dtype=self.dtype)
+        else:
+            cell = cell.copy()
+        cell[in_cell] = value[in_box]
+        self._write_cell(idx, cell)
+
+    def write(self, box, value: np.ndarray) -> None:
+        for idx in itertools.product(*self._cell_ranges(box)):
+            self._update_cell(idx, box, value)
+
+
+class ZarrV2(_ChunkGrid):
     """One zarr v2 array on disk: its parsed ``.zarray`` and chunk IO over
     boxes of ``(start, stop)`` per dim."""
+
+    zarr_format = 2
+    shards = None
 
     def __init__(self, path: str, meta: dict):
         if meta.get("filters"):
             raise NotImplementedError(f"zarr filters {meta['filters']} are not supported")
         self.path = path
         self.shape = tuple(int(s) for s in meta["shape"])
-        self.chunks = tuple(int(c) for c in meta["chunks"])
+        self.chunks = self.grid = tuple(int(c) for c in meta["chunks"])
         self.dtype = np.dtype(meta["dtype"])
         self.order = meta.get("order", "C")
         self.fill = _decode_fill(meta.get("fill_value"), self.dtype)
@@ -176,7 +262,7 @@ class ZarrV2:
         key = self.sep.join(str(i) for i in idx) if idx else "0"
         return os.path.join(self.path, key)
 
-    def _read_chunk(self, idx) -> Optional[np.ndarray]:
+    def _read_cell(self, idx) -> Optional[np.ndarray]:
         try:
             with open(self._chunk_path(idx), "rb") as f:
                 raw = f.read()
@@ -186,7 +272,7 @@ class ZarrV2:
             raw = self.codec.decode(raw)
         return np.frombuffer(raw, dtype=self.dtype).reshape(self.chunks, order=self.order)
 
-    def _write_chunk(self, idx, chunk: np.ndarray) -> None:
+    def _write_cell(self, idx, chunk: np.ndarray) -> None:
         if self.order != "C":
             raise NotImplementedError("writing F-order zarr chunks is not supported")
         chunk = np.ascontiguousarray(chunk)
@@ -196,42 +282,295 @@ class ZarrV2:
         data = self.codec.encode(chunk) if self.codec is not None else chunk.tobytes()
         _write_atomically(path, data)
 
-    def _chunk_ranges(self, box):
-        return [
-            range(b0 // c, -(-b1 // c)) if b1 > b0 else range(0)
-            for (b0, b1), c in zip(box, self.chunks)
-        ]
 
-    def _overlap(self, idx, box):
-        """(chunk-local, box-local) slices of a chunk's part of ``box``, and
-        whether that part is the chunk's whole extent inside the array."""
-        in_chunk, in_box, whole = [], [], True
-        for i, (b0, b1), c, n in zip(idx, box, self.chunks, self.shape):
-            c0, c1 = i * c, min((i + 1) * c, n)
-            lo, hi = max(c0, b0), min(c1, b1)
-            in_chunk.append(slice(lo - c0, hi - c0))
-            in_box.append(slice(lo - b0, hi - b0))
-            whole &= lo == c0 and hi == c1
-        return tuple(in_chunk), tuple(in_box), whole
+# ---------------------------------------------------------------------------
+# zarr v3
+# ---------------------------------------------------------------------------
 
-    def read(self, box) -> np.ndarray:
-        out = np.empty(tuple(b1 - b0 for b0, b1 in box), dtype=self.dtype)
-        for idx in itertools.product(*self._chunk_ranges(box)):
-            in_chunk, in_box, _ = self._overlap(idx, box)
-            chunk = self._read_chunk(idx)
-            out[in_box] = self.fill if chunk is None else chunk[in_chunk]
+
+def _crc32c_table() -> np.ndarray:
+    table = np.zeros(256, dtype=np.uint32)
+    for n in range(256):
+        c = n
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+        table[n] = c
+    return table
+
+
+_CRC32C_TABLE = [int(x) for x in _crc32c_table()]
+
+
+def crc32c(data: bytes) -> int:
+    """The CRC-32C (Castagnoli polynomial, reflected 0x82F63B78) of
+    ``data``, table-driven; ``zlib.crc32`` is the other polynomial."""
+    crc = 0xFFFFFFFF
+    table = _CRC32C_TABLE
+    for byte in data:
+        crc = table[(crc ^ byte) & 0xFF] ^ (crc >> 8)
+    return crc ^ 0xFFFFFFFF
+
+
+class _Crc32c:
+    def encode(self, raw: bytes) -> bytes:
+        return raw + crc32c(raw).to_bytes(4, "little")
+
+    def decode(self, raw: bytes) -> bytes:
+        body, stored = raw[:-4], int.from_bytes(raw[-4:], "little")
+        if crc32c(body) != stored:
+            raise ValueError("zarr v3 crc32c checksum mismatch")
+        return body
+
+
+class _Gzip:
+    def __init__(self, level: int = 5):
+        self.level = int(level)
+
+    def encode(self, raw: bytes) -> bytes:
+        return gzip.compress(raw, compresslevel=self.level, mtime=0)
+
+    def decode(self, raw: bytes) -> bytes:
+        return gzip.decompress(raw)
+
+
+class _Zstd:
+    def __init__(self, level: int = 0):
+        try:
+            import zstandard
+        except ImportError:
+            raise NotImplementedError(
+                "zarr v3 codec 'zstd' needs the zstandard module, which does not import here"
+            ) from None
+        self.zstandard, self.level = zstandard, int(level)
+
+    def encode(self, raw: bytes) -> bytes:
+        return self.zstandard.ZstdCompressor(level=self.level).compress(raw)
+
+    def decode(self, raw: bytes) -> bytes:
+        return self.zstandard.ZstdDecompressor().stream_reader(raw).read()
+
+
+def _bytes_to_bytes(codec: dict):
+    name, conf = codec["name"], codec.get("configuration") or {}
+    if name == "gzip":
+        return _Gzip(conf.get("level", 5))
+    if name == "zstd":
+        return _Zstd(conf.get("level", 0))
+    if name == "crc32c":
+        return _Crc32c()
+    raise NotImplementedError(
+        f"zarr v3 codec {name!r} ({codec}) is not supported: the port reads and writes "
+        "bytes, sharding_indexed, gzip, zstd (where zstandard imports) and crc32c"
+    )
+
+
+class _Pipeline:
+    """A v3 codec chain: ``bytes`` (array to bytes, either endianness, C
+    order) and bytes-to-bytes codecs after it."""
+
+    def __init__(self, codecs, dtype: np.dtype, shape):
+        codecs = list(codecs)
+        if not codecs or codecs[0]["name"] != "bytes":
+            names = [c["name"] for c in codecs]
+            raise NotImplementedError(
+                f"zarr v3 codecs {names}: the port reads chains that start with 'bytes' "
+                "(or a single sharding_indexed codec)"
+            )
+        endian = (codecs[0].get("configuration") or {}).get("endian", "little")
+        self.dtype = dtype.newbyteorder("<" if endian == "little" else ">")
+        self.native = dtype
+        self.shape = tuple(shape)
+        self.b2b = [_bytes_to_bytes(c) for c in codecs[1:]]
+
+    def encode(self, chunk: np.ndarray) -> bytes:
+        raw = np.ascontiguousarray(chunk, dtype=self.dtype).tobytes()
+        for c in self.b2b:
+            raw = c.encode(raw)
+        return raw
+
+    def decode(self, raw: bytes) -> np.ndarray:
+        for c in reversed(self.b2b):
+            raw = c.decode(raw)
+        return np.frombuffer(raw, dtype=self.dtype).reshape(self.shape).astype(
+            self.native, copy=False)
+
+
+_EMPTY = np.uint64(2**64 - 1)
+_DEFAULT_INDEX_CODECS = [{"name": "bytes", "configuration": {"endian": "little"}},
+                         {"name": "crc32c"}]
+
+
+class ZarrV3(_ChunkGrid):
+    """One zarr v3 array on disk: its parsed ``zarr.json`` and chunk or
+    shard IO over boxes of ``(start, stop)`` per dim. ``chunks`` is the read
+    granularity (a sharded array's inner chunks), ``shards`` the shard shape
+    (None unsharded) and ``grid`` the file granularity."""
+
+    zarr_format = 3
+    _locks_guard = threading.Lock()
+    _locks: dict = {}
+
+    def __init__(self, path: str, meta: dict):
+        if meta.get("node_type", "array") != "array":
+            raise ValueError(f"{path}: zarr.json describes a {meta.get('node_type')}, not an array")
+        if meta.get("storage_transformers"):
+            raise NotImplementedError(
+                f"zarr v3 storage transformers {meta['storage_transformers']} are not supported")
+        grid = meta["chunk_grid"]
+        if grid.get("name") != "regular":
+            raise NotImplementedError(f"zarr v3 chunk grid {grid.get('name')!r} is not supported")
+        self.path = path
+        self.shape = tuple(int(s) for s in meta["shape"])
+        self.grid = tuple(int(c) for c in grid["configuration"]["chunk_shape"])
+        self.dtype = np.dtype(meta["data_type"])
+        self.fill = _decode_fill_v3(meta.get("fill_value"), self.dtype)
+        enc = meta.get("chunk_key_encoding", {"name": "default"})
+        conf = enc.get("configuration") or {}
+        if enc["name"] == "default":
+            self._prefix, self._sep = "c", conf.get("separator", "/")
+        elif enc["name"] == "v2":
+            self._prefix, self._sep = None, conf.get("separator", ".")
+        else:
+            raise NotImplementedError(f"zarr v3 chunk key encoding {enc['name']!r} is not supported")
+        codecs = meta.get("codecs") or [{"name": "bytes"}]
+        if codecs[0]["name"] == "sharding_indexed":
+            if len(codecs) != 1:
+                raise NotImplementedError(f"zarr v3 codecs after sharding_indexed: {codecs[1:]}")
+            sconf = codecs[0]["configuration"]
+            self.chunks = tuple(int(c) for c in sconf["chunk_shape"])
+            self.shards = self.grid
+            if any(s % c for s, c in zip(self.shards, self.chunks)):
+                raise ValueError(f"shard shape {self.shards} is no multiple of the inner "
+                                 f"chunk shape {self.chunks}")
+            self.inner = _Pipeline(sconf.get("codecs") or [{"name": "bytes"}], self.dtype,
+                                   self.chunks)
+            self.n_inner = tuple(s // c for s, c in zip(self.shards, self.chunks))
+            self.index = _Pipeline(sconf.get("index_codecs") or _DEFAULT_INDEX_CODECS,
+                                   np.dtype(np.uint64), self.n_inner + (2,))
+            self.index_nbytes = len(self.index.encode(np.zeros(self.n_inner + (2,), np.uint64)))
+            self.index_at_end = sconf.get("index_location", "end") == "end"
+        else:
+            self.chunks, self.shards = self.grid, None
+            self.inner = _Pipeline(codecs, self.dtype, self.chunks)
+
+    def _cell_path(self, idx) -> str:
+        parts = [str(i) for i in idx]
+        if self._prefix is not None:
+            parts = [self._prefix] + parts
+        key = self._sep.join(parts) if parts else "0"
+        return os.path.join(self.path, *key.split("/"))
+
+    def _read_file(self, idx) -> Optional[bytes]:
+        try:
+            with open(self._cell_path(idx), "rb") as f:
+                return f.read()
+        except FileNotFoundError:
+            return None
+
+    def _is_fill(self, chunk: np.ndarray) -> bool:
+        if self.dtype.kind == "f" and np.isnan(self.fill):
+            return bool(np.isnan(chunk).all())
+        return bool((chunk == self.fill).all())
+
+    def _store(self, idx, data: Optional[bytes]) -> None:
+        path = self._cell_path(idx)
+        if data is None:
+            if os.path.exists(path):
+                os.remove(path)
+            return
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        _write_atomically(path, data)
+
+    # -- sharded: one file a shard, inner chunks behind an index --------------
+
+    def _shard_index(self, raw: bytes) -> np.ndarray:
+        n = self.index_nbytes
+        part = raw[-n:] if self.index_at_end else raw[:n]
+        return self.index.decode(part).reshape(-1, 2)
+
+    def _inner_chunks(self, raw: bytes, wanted=None):
+        """(inner index, chunk) of the stored inner chunks of a shard,
+        those in ``wanted`` (a set of inner indexes) when given."""
+        table = self._shard_index(raw)
+        for k, inner in enumerate(np.ndindex(*self.n_inner)):
+            offset, nbytes = table[k]
+            if offset == _EMPTY and nbytes == _EMPTY:
+                continue
+            if wanted is not None and inner not in wanted:
+                continue
+            yield inner, self.inner.decode(raw[int(offset):int(offset) + int(nbytes)])
+
+    def _read_cell(self, idx) -> Optional[np.ndarray]:
+        raw = self._read_file(idx)
+        if raw is None:
+            return None
+        if self.shards is None:
+            return self.inner.decode(raw)
+        shard = np.full(self.shards, self.fill, dtype=self.dtype)
+        for inner, chunk in self._inner_chunks(raw):
+            shard[tuple(slice(i * c, (i + 1) * c) for i, c in zip(inner, self.chunks))] = chunk
+        return shard
+
+    def _write_cell(self, idx, cell: np.ndarray) -> None:
+        if self.shards is None:
+            self._store(idx, None if self._is_fill(cell) else self.inner.encode(cell))
+            return
+        table = np.full(self.n_inner + (2,), _EMPTY, dtype=np.uint64)
+        parts, offset = [], 0 if self.index_at_end else self.index_nbytes
+        for inner in np.ndindex(*self.n_inner):
+            lo = [(s * g) + i * c for s, g, i, c in zip(idx, self.grid, inner, self.chunks)]
+            if any(a >= n for a, n in zip(lo, self.shape)):
+                continue  # wholly outside the array
+            chunk = cell[tuple(slice(i * c, (i + 1) * c) for i, c in zip(inner, self.chunks))]
+            if self._is_fill(chunk):
+                continue
+            data = self.inner.encode(chunk)
+            table[inner] = (offset, len(data))
+            parts.append(data)
+            offset += len(data)
+        if not parts:
+            self._store(idx, None)
+            return
+        index = self.index.encode(table)
+        self._store(idx, b"".join(parts + [index]) if self.index_at_end
+                    else b"".join([index] + parts))
+
+    def _lock(self, idx) -> threading.Lock:
+        key = (self.path, tuple(idx))
+        with self._locks_guard:
+            return self._locks.setdefault(key, threading.Lock())
+
+    def read(self, box, out: Optional[np.ndarray] = None) -> np.ndarray:
+        if self.shards is None:
+            return super().read(box, out)
+        # decode only the inner chunks the box meets
+        if out is None:
+            out = np.empty(tuple(b1 - b0 for b0, b1 in box), dtype=self.dtype)
+        out[...] = self.fill
+        for idx in itertools.product(*self._cell_ranges(box)):
+            raw = self._read_file(idx)
+            if raw is None:
+                continue
+            origin = [i * g for i, g in zip(idx, self.grid)]
+            wanted = set(itertools.product(*[
+                range(max(b0 - o, 0) // c, -(-min(b1 - o, g) // c))
+                for (b0, b1), o, g, c in zip(box, origin, self.grid, self.chunks)
+            ]))
+            for inner, chunk in self._inner_chunks(raw, wanted):
+                c0 = [o + i * c for o, i, c in zip(origin, inner, self.chunks)]
+                src, dst = [], []
+                for (b0, b1), a, c in zip(box, c0, self.chunks):
+                    lo, hi = max(a, b0), min(a + c, b1)
+                    src.append(slice(lo - a, hi - a))
+                    dst.append(slice(lo - b0, hi - b0))
+                out[tuple(dst)] = chunk[tuple(src)]
         return out
 
-    def write(self, box, value: np.ndarray) -> None:
-        for idx in itertools.product(*self._chunk_ranges(box)):
-            in_chunk, in_box, whole = self._overlap(idx, box)
-            chunk = None if whole else self._read_chunk(idx)
-            if chunk is None:
-                chunk = np.full(self.chunks, self.fill, dtype=self.dtype)
-            else:
-                chunk = chunk.copy()
-            chunk[in_chunk] = value[in_box]
-            self._write_chunk(idx, chunk)
+    def _update_cell(self, idx, box, value) -> None:
+        if self.shards is None:
+            return super()._update_cell(idx, box, value)
+        with self._lock(idx):
+            return super()._update_cell(idx, box, value)
 
 
 class _Fancy(Exception):
@@ -239,15 +578,15 @@ class _Fancy(Exception):
 
 
 class LazyZarrArray:
-    """Lazy view over a zarr v2 array: the counterpart of the reference's
-    ``LazyTSArray``.
+    """Lazy view over a zarr v2 or v3 array: the counterpart of the
+    reference's ``LazyTSArray``.
 
     ``shape``, ``dtype``, ``__getitem__`` (integers, slices with a positive
     step and ``...`` give another lazy view; nothing is read until
     ``read`` / ``np.asarray``; other indexes read the view and index the
     result), ``__setitem__`` (a region write with unit steps)."""
 
-    def __init__(self, array: ZarrV2, sel=None):
+    def __init__(self, array, sel=None):
         self._array = array
         # per dim of the array: an int (the dim is dropped) or (start, stop, step)
         self._sel = tuple((0, n, 1) for n in array.shape) if sel is None else tuple(sel)
@@ -262,7 +601,23 @@ class LazyZarrArray:
 
     @property
     def chunks(self) -> tuple:
+        """The array's chunk shape (a sharded array's inner chunks)."""
         return self._array.chunks
+
+    @property
+    def shards(self) -> Optional[tuple]:
+        """The shard shape of a sharded v3 array, else None."""
+        return self._array.shards
+
+    @property
+    def write_chunks(self) -> tuple:
+        """The extent that concurrent region writes must not share: the
+        shards of a sharded array, else its chunks."""
+        return self._array.grid
+
+    @property
+    def zarr_format(self) -> int:
+        return self._array.zarr_format
 
     @property
     def ndim(self) -> int:
@@ -277,12 +632,13 @@ class LazyZarrArray:
         array (an index, or start, stop and step)."""
         return {
             "path": self._array.path,
+            "zarr_format": self._array.zarr_format,
             "sel": [s if isinstance(s, int) else list(s) for s in self._sel],
         }
 
     @classmethod
     def from_spec(cls, spec: dict) -> "LazyZarrArray":
-        array = open_zarr_array(spec["path"])._array
+        array = open_zarr_array(spec["path"], spec.get("zarr_format"))._array
         sel = [s if isinstance(s, int) else tuple(s) for s in spec["sel"]]
         if len(sel) != len(array.shape):
             raise ValueError(f"selection {spec['sel']} does not match {array.path}'s {array.shape}")
@@ -337,11 +693,21 @@ class LazyZarrArray:
         value = np.broadcast_to(np.asarray(value), view.shape)
         self._array.write(box, value.reshape(tuple(b1 - b0 for b0, b1 in box)))
 
-    def read(self) -> np.ndarray:
+    def read(self, out: Optional[np.ndarray] = None) -> np.ndarray:
+        """The view's values, read into ``out`` when given (an array of the
+        view's shape; a view with steps or dropped dims reads as usual and
+        copies)."""
+        plain = all(not isinstance(s, int) and s[2] == 1 for s in self._sel)
+        if out is not None and plain:
+            return self._array.read(self._box(), out)
         data = self._array.read(self._box())
-        return data[tuple(
+        data = data[tuple(
             0 if isinstance(s, int) else slice(None, None, s[2]) for s in self._sel
         )]
+        if out is not None:
+            out[...] = data
+            return out
+        return data
 
     def __array__(self, dtype=None, copy=None):
         out = self.read()
@@ -354,20 +720,58 @@ def _read_json(path: str) -> dict:
 
 
 def open_zarr_array(url: str, zarr_format: Optional[int] = None) -> LazyZarrArray:
-    """Open an existing zarr v2 array."""
+    """Open an existing zarr v2 (``.zarray``) or v3 (``zarr.json``) array,
+    whichever is there unless ``zarr_format`` names one."""
     path = _local_path(url)
-    if zarr_format == 3 or (
-        not os.path.exists(os.path.join(path, ".zarray"))
-        and os.path.exists(os.path.join(path, "zarr.json"))
-    ):
-        raise NotImplementedError(f"{url}: {_V3}")
-    try:
-        meta = _read_json(os.path.join(path, ".zarray"))
-    except FileNotFoundError:
-        raise FileNotFoundError(f"Could not open zarr array at {url}: no .zarray") from None
-    if meta.get("zarr_format") != 2:
-        raise NotImplementedError(f"{url}: zarr_format {meta.get('zarr_format')}: {_V3}")
-    return LazyZarrArray(ZarrV2(path, meta))
+    formats = (2, 3) if zarr_format is None else (int(zarr_format),)
+    for fmt in formats:
+        name = ".zarray" if fmt == 2 else "zarr.json"
+        try:
+            meta = _read_json(os.path.join(path, name))
+        except FileNotFoundError:
+            continue
+        if meta.get("zarr_format") != fmt:
+            raise ValueError(f"{url}/{name}: zarr_format {meta.get('zarr_format')}, not {fmt}")
+        return LazyZarrArray(ZarrV2(path, meta) if fmt == 2 else ZarrV3(path, meta))
+    raise FileNotFoundError(
+        f"Could not open zarr array at {url}: no "
+        + " or ".join(".zarray" if f == 2 else "zarr.json" for f in formats)
+    )
+
+
+def _v3_metadata(shape, chunks, dtype: np.dtype, fill_value, shards) -> dict:
+    """A v3 array's ``zarr.json`` as tensorstore writes it: the ``bytes``
+    codec (little-endian), or ``sharding_indexed`` of the inner ``chunks``
+    with its default index codecs (``bytes``, ``crc32c``)."""
+    bytes_codec = {"configuration": {"endian": "little"}, "name": "bytes"}
+    if shards is None:
+        grid, codecs = chunks, [bytes_codec]
+    else:
+        for sh, c in zip(shards, chunks):
+            if sh % c:
+                raise ValueError(
+                    f"shard shape {tuple(shards)} must be a multiple "
+                    f"of the inner chunk shape {tuple(chunks)}"
+                )
+        grid = shards
+        codecs = [{
+            "configuration": {
+                "chunk_shape": list(chunks),
+                "codecs": [bytes_codec],
+                "index_codecs": [bytes_codec, {"name": "crc32c"}],
+            },
+            "name": "sharding_indexed",
+        }]
+    return {
+        "chunk_grid": {"configuration": {"chunk_shape": list(grid)}, "name": "regular"},
+        "chunk_key_encoding": {"name": "default"},
+        "codecs": codecs,
+        "data_type": dtype.name,
+        "fill_value": _encode_fill_v3(fill_value, dtype),
+        "node_type": "array",
+        "shape": list(shape),
+        "zarr_format": 3,
+    }
 
 
 def create_zarr_array(
@@ -382,47 +786,68 @@ def create_zarr_array(
     shards: Optional[Sequence[int]] = None,
     dimension_separator: str = ".",
 ) -> LazyZarrArray:
-    """Create a zarr v2 array for region writes (with ``overwrite``, after
+    """Create a zarr array for region writes (with ``overwrite``, after
     removing whatever is at ``url``), or open the one there when
-    ``overwrite`` is False and its shape, chunks and dtype agree."""
-    if zarr_format != 2 or shards is not None:
-        raise NotImplementedError(_V3)
+    ``overwrite`` is False and its shape, chunks, shards and dtype agree.
+
+    ``zarr_format=2``: a ``.zarray`` with ``compressor`` and
+    ``dimension_separator``. ``zarr_format=3`` (NGFF 0.5): a ``zarr.json``
+    as tensorstore writes it; ``shards`` makes it sharded
+    (``sharding_indexed``), ``chunks`` then the inner chunks, each shard a
+    multiple of them and one file, the granularity of concurrent writes.
+    As in the reference, a v3 array takes no ``compressor``: it is left
+    uncompressed."""
     if dimension_separator not in (".", "/"):
         raise ValueError(f"dimension_separator must be '.' or '/', got {dimension_separator!r}")
+    if zarr_format not in (2, 3):
+        raise ValueError(f"zarr_format must be 2 or 3, got {zarr_format!r}")
+    if zarr_format == 2 and shards is not None:
+        raise ValueError("sharding requires zarr_format=3 (NGFF 0.5)")
     path = _local_path(url)
     dtype = np.dtype(dtype)
     shape = [int(s) for s in shape]
     chunks = [int(c) for c in chunks]
+    shards = None if shards is None else [int(s) for s in shards]
+    if zarr_format == 2:
+        meta = {
+            "zarr_format": 2,
+            "shape": shape,
+            "chunks": chunks,
+            "dtype": dtype.str,
+            "compressor": compressor,
+            "fill_value": _encode_fill(fill_value, dtype),
+            "order": "C",
+            "filters": None,
+            "dimension_separator": dimension_separator,
+        }
+        name, array = ".zarray", ZarrV2(path, meta)  # checks the compressor first
+    else:
+        meta = _v3_metadata(shape, chunks, dtype, fill_value, shards)
+        name, array = "zarr.json", ZarrV3(path, meta)
     if overwrite and os.path.exists(path):
         shutil.rmtree(path)
-    elif not overwrite and os.path.exists(os.path.join(path, ".zarray")):
-        arr = open_zarr_array(url)
-        if (list(arr.shape), list(arr.chunks), arr.dtype) != (shape, chunks, dtype):
+    elif not overwrite and os.path.exists(os.path.join(path, name)):
+        arr = open_zarr_array(url, zarr_format)
+        if (list(arr.shape), list(arr.chunks), arr.dtype) != (shape, chunks, dtype) or (
+            arr.shards != (None if shards is None else tuple(shards))
+        ):
             raise ValueError(
                 f"{url} holds a {arr.shape} {arr.dtype} array in chunks of "
-                f"{arr.chunks}, not {tuple(shape)} {dtype} in chunks of {tuple(chunks)}"
+                f"{arr.chunks} (shards {arr.shards}), not {tuple(shape)} {dtype} in chunks "
+                f"of {tuple(chunks)} (shards {None if shards is None else tuple(shards)})"
             )
         return arr
-    meta = {
-        "zarr_format": 2,
-        "shape": shape,
-        "chunks": chunks,
-        "dtype": dtype.str,
-        "compressor": compressor,
-        "fill_value": _encode_fill(fill_value, dtype),
-        "order": "C",
-        "filters": None,
-        "dimension_separator": dimension_separator,
-    }
-    array = ZarrV2(path, meta)  # checks the compressor before anything is written
     os.makedirs(path, exist_ok=True)
-    _write_atomically(os.path.join(path, ".zarray"), json.dumps(meta, indent=2).encode())
+    text = (json.dumps(meta, indent=2) if zarr_format == 2
+            else json.dumps(meta, sort_keys=True, separators=(",", ":")))
+    _write_atomically(os.path.join(path, name), text.encode())
     return LazyZarrArray(array)
 
 
 def attach_zarr_array(url: str, zarr_format: Optional[int] = None) -> LazyZarrArray:
     """Open an existing array for writing. Several writers may attach and
-    write disjoint sets of chunks: one file per chunk."""
+    write disjoint sets of chunks (of shards, for a sharded array): one file
+    each."""
     return open_zarr_array(url, zarr_format=zarr_format)
 
 
@@ -432,12 +857,16 @@ def attach_zarr_array(url: str, zarr_format: Optional[int] = None) -> LazyZarrAr
 
 
 def write_group_metadata(path: str, attrs: dict, zarr_format: int = 2):
-    if zarr_format != 2:
-        raise NotImplementedError(_V3)
+    """A group's attributes: ``.zgroup`` and ``.zattrs`` (v2), or a
+    ``zarr.json`` of ``node_type`` group (v3)."""
     path = _local_path(path)
     os.makedirs(path, exist_ok=True)
-    _write_atomically(os.path.join(path, ".zgroup"), json.dumps({"zarr_format": 2}).encode())
-    _write_atomically(os.path.join(path, ".zattrs"), json.dumps(attrs, indent=2).encode())
+    if zarr_format == 2:
+        _write_atomically(os.path.join(path, ".zgroup"), json.dumps({"zarr_format": 2}).encode())
+        _write_atomically(os.path.join(path, ".zattrs"), json.dumps(attrs, indent=2).encode())
+    else:
+        doc = {"zarr_format": 3, "node_type": "group", "attributes": attrs}
+        _write_atomically(os.path.join(path, "zarr.json"), json.dumps(doc, indent=2).encode())
 
 
 def read_group_metadata(path: str) -> Tuple[dict, int]:

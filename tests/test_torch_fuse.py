@@ -181,7 +181,12 @@ def test_fuse_without_device_needs_cuda():
 
 
 def test_fuse_refuses_what_the_slice_does_not_cover(tmp_path, monkeypatch):
+    """What the earlier slices refused now fuses, held to the reference:
+    NGFF 0.5 output (zarr v3), msims level by level, and lazy tiles above
+    the on-card limit that do not band, which leave the translation tier
+    for the batched tier's host slabs (the reference's own fall-through)."""
     from multiview_stitcher_torch.io import zarr_backend as tzb
+    from multiview_stitcher_tpu.io import zarr_backend as jzb
 
     jsims = _case("grid2d_uint16")
     sims = _to_port(jsims)
@@ -189,32 +194,43 @@ def test_fuse_refuses_what_the_slice_does_not_cover(tmp_path, monkeypatch):
     def fuse(images=sims, **kw):
         return tfuse(images, transform_key=KEY, device="cpu", **kw)
 
-    # zarr output is ported for zarr v2 / NGFF 0.4 only (nothing is written)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fuse(output_zarr_url=str(tmp_path / "out.zarr"), zarr_options={"ngff_version": "0.5"})
+    # zarr output at NGFF 0.5 (zarr v3): the reference's metadata and values
+    opts = {"ngff_version": "0.5"}
+    got = fuse(output_zarr_url=str(tmp_path / "out.zarr"), zarr_options=opts)
+    ref = jfuse(jsims, transform_key=KEY, output_zarr_url=str(tmp_path / "ref.zarr"),
+                zarr_options=opts)
+    assert jzb.read_group_metadata(str(tmp_path / "out.zarr")) == jzb.read_group_metadata(
+        str(tmp_path / "ref.zarr"))
+    _assert_fused_close(np.asarray(got.data), np.asarray(ref.data))
     # msims are fused level by level (an msim of this grid's one level)
     fused_msim = fuse(images=[tmsi.get_msim_from_sim(s) for s in sims])
     assert tmsi.is_msim(fused_msim) and len(fused_msim.sims) == 1
     np.testing.assert_array_equal(fused_msim.sims[0].data, fuse().data)
-    # lazy tiles above the on-card limit that cannot band (mixed shapes) need
-    # the host-slab route in the translation tier; the chunked tiers read
-    # them into the device stack and fuse them, as the reference does
+    # lazy tiles above the on-card limit that cannot band (mixed shapes):
+    # host slabs in the batched (default and max) and host (content-based)
+    # tiers, against the reference on the same tiles, also lazy and past its
+    # limit
     mixed = _case("mixed_shapes_uint16")
-    lazy = []
+    lazy, jlazy = [], []
     for i, s in enumerate(_to_port(mixed)):
         url = str(tmp_path / f"tile_{i}.zarr")
         tzb.create_zarr_array(url, s.data.shape, s.data.shape, s.data.dtype)[...] = s.data
         lazy.append(tsi.get_sim_from_array(tzb.open_zarr_array(url), dims=s.dims,
                                            translation=dict(s.origin)))
+        jlazy.append(si_utils.get_sim_from_array(jzb.open_zarr_array(url), dims=s.dims,
+                                                 translation=dict(s.origin)))
     monkeypatch.setattr(tcore, "TILES_MAX_BYTES", 0)
-    with pytest.raises(NotImplementedError, match="host-slab.*ROADMAP"):
-        fuse(images=lazy)
-    for kw, jkw in (
-        ({"fusion_func": tcore.max_fusion}, {"fusion_func": jcore.max_fusion}),
-        ({"weights_func": tweights.content_based}, {"weights_func": weights.content_based}),
+    monkeypatch.setenv("MVS_TPU_TILES_MAX_BYTES", "0")
+    for kw, jkw, tier in (
+        ({}, {}, "batched"),
+        ({"fusion_func": tcore.max_fusion}, {"fusion_func": jcore.max_fusion}, "batched"),
+        ({"weights_func": tweights.content_based}, {"weights_func": weights.content_based},
+         "host"),
     ):
-        ref = np.asarray(jfuse(mixed, transform_key=KEY, **jkw).data)
+        ref = np.asarray(jfuse(jlazy, transform_key=KEY, **jkw).data)
+        tcore.last_slab_telemetry.clear()
         got = fuse(images=lazy, **kw).data
+        assert tcore.last_slab_telemetry["tier"] == tier
         assert got.shape == ref.shape and got.dtype == ref.dtype
         assert np.abs(got.astype(np.int64) - ref.astype(np.int64)).max() <= 1
 

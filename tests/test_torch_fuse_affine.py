@@ -439,11 +439,12 @@ def test_fuse_affine_refuses_what_needs_the_gather_tier(tmp_path, monkeypatch):
     untrimmed layout now fuse (the gather route, the plan's wider windows
     and the untrimmed writes; each is held to the reference in
     tests/test_torch_general_fusion.py): here the NaN view against the
-    reference's gather tier, the CPU default. Lazy tiles above the on-card
-    limit are refused only by the translation tier (the host-slab route is
-    not ported); rotated lazy tiles of any size are read into the device
-    stack and fuse, as they did before the gather route came, held here to
-    the reference on the same tiles in memory."""
+    reference's gather tier, the CPU default. Rotated lazy tiles above the
+    on-card limit take the batched tier's host slabs (the gather route:
+    lazy float views may hold NaN), each window read and uploaded on its
+    own, no tile stacked or uploaded; held here to the reference on the same
+    tiles in memory (tests/test_torch_slabs.py holds the route to the
+    reference's own host slabs)."""
     from multiview_stitcher_torch.io import zarr_backend as tzb
 
     monkeypatch.delenv("MVS_TPU_EXACT_AFFINE", raising=False)
@@ -466,11 +467,17 @@ def test_fuse_affine_refuses_what_needs_the_gather_tier(tmp_path, monkeypatch):
         tsi.set_sim_affine(sim, s.transforms[KEY].data, transform_key=KEY)
         lazy.append(sim)
     monkeypatch.setattr(tcore, "TILES_MAX_BYTES", 0)
+    uploaded = tcore.tile_upload_bytes
     for kw in ({}, {"interpolation_order": 3}, {"overlap_in_pixels": 4, "trim_overlap": False}):
         ref = np.asarray(jfuse(clean, transform_key=KEY, output_chunksize=cs, **kw).data)
+        tcore.last_slab_telemetry.clear()
         got = tfuse(lazy, transform_key=KEY, output_chunksize=cs, device="cpu", **kw).data
         assert got.shape == ref.shape
         np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
+        tele = tcore.last_slab_telemetry
+        assert (tele["tier"], tele["route"]) == ("batched", "gather")
+        assert tele["units"] >= 1 and 0 < tele["window_bytes"] <= tele["upload_bytes"]
+    assert tcore.tile_upload_bytes == uploaded
 
 
 def test_a_failing_kernel_raises_and_nothing_retries(monkeypatch):

@@ -227,15 +227,25 @@ def test_blosc_chunks_go_through_whichever_blosc_module_imports(tmp_path, monkey
 
 
 def test_zarr_v3_is_refused_naming_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tzb.create_zarr_array(str(tmp_path / "a.zarr"), (4,), (2,), np.uint8, zarr_format=3)
+    """Zarr v3 was refused until its item was ported; the calls that raised
+    now read and write what tensorstore does (tests/test_torch_zarr3.py
+    holds the rest): a v3 array the port creates, one the reference wrote,
+    and an NGFF 0.5 ``fuse()``, each against the reference."""
+    a = np.arange(4, dtype=np.uint8)
+    arr = tzb.create_zarr_array(str(tmp_path / "a.zarr"), (4,), (2,), np.uint8, zarr_format=3)
+    arr[...] = a
+    np.testing.assert_array_equal(jzb.open_zarr_array(str(tmp_path / "a.zarr")).read(), a)
     url = str(tmp_path / "v3.zarr")
-    jzb.create_zarr_array(url, (4, 4), (2, 2), np.uint16, zarr_format=3)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tzb.open_zarr_array(url)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tfuse(_to_port(_grid_sims(n=2)), transform_key=KEY, device="cpu",
-              output_zarr_url=str(tmp_path / "out.zarr"), zarr_options={"ngff_version": "0.5"})
+    b = np.arange(16, dtype=np.uint16).reshape(4, 4)
+    jzb.create_zarr_array(url, (4, 4), (2, 2), np.uint16, zarr_format=3)[...] = b
+    np.testing.assert_array_equal(np.asarray(tzb.open_zarr_array(url)), b)
+    sims = _grid_sims(n=2)
+    kw = dict(transform_key=KEY, zarr_options={"ngff_version": "0.5"})
+    got = tfuse(_to_port(sims), device="cpu", output_zarr_url=str(tmp_path / "out.zarr"), **kw)
+    ref = jfuse(sims, output_zarr_url=str(tmp_path / "ref.zarr"), **kw)
+    assert jzb.read_group_metadata(str(tmp_path / "out.zarr")) == jzb.read_group_metadata(
+        str(tmp_path / "ref.zarr"))
+    _assert_close(np.asarray(got.data), np.asarray(ref.data))
 
 
 def test_group_metadata_reads_back_in_both_packages(tmp_path):
