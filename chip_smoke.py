@@ -10,7 +10,10 @@ Phases, one printed line or block each:
 
 1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` gives it, and
    whether ``zarr``, ``numcodecs`` or a blosc module imports (in a child
-   process: the port's zarr IO needs none of them);
+   process: the port's zarr IO needs none of them), whether the readers'
+   optional packages import (``h5py``, ``imageio``, ``PIL``, ``zstandard``,
+   ``imagecodecs``, ``aicsimageio``; in child processes too), and the C
+   compiler the TIFF codecs build with;
 2. the build of every CUDA source of the port, timed (nvcc, sm_90a);
 3. each kernel against its plain version on the card, on small cases: the
    translation kernels on small layouts (unit scale, uniform z stride 2 and
@@ -226,13 +229,45 @@ Phases, one printed line or block each:
    key. Held: the truth's NCC at least 0.999 and above the metadata's; the
    4 x 4 corner within 1e-4 of ``device="cpu"`` per pair, by the batched
    NCC and by the host loop with NCC and SSIM;
-14. a ``kernels`` JSON line: per kernel its launches in the main-path run,
+14. the readers (lines start with the card's name and power limit, then
+   ``readers:``), on files written under ``.bench_large/`` from seeded
+   generators and removed after: the native TIFF codecs' build, timed (it
+   must take the native route), and the decode rates of the native
+   decoders against the Python ones, bit-equal (LZW and PackBits on an 8 MB
+   uint16 image, deflate with predictor 2 on 64 MB); a CZI slide scan, 16 x
+   16 tiles of 1024^2 uint16 in 2 channels, overlap 102 px, cut from one
+   band-limited image, written as raw subblocks (1.07 GB) whose X/Y starts
+   are the true positions plus integers in [-3, 3] px, opened lazily by
+   ``io.read_mosaic_into_sims`` and ``stitch()``-ed by channel 0, cold and
+   warm: the warm split (open, register with its ``last_telemetry``
+   stages, fuse; the file's reads by stage), bytes read against the file's
+   size, tile bytes uploaded, ``fuse_translation_2d`` launches; held: every
+   tile's offset within 0.25 px of the truth, the output bit-equal to
+   ``stitch()`` of the same tiles as numpy arrays, a 2048^2 window within 1
+   count of ``fuse(device="cpu")``; a multi-view CZI in a Lightsheet Z.1
+   layout, four (256, 512, 512) uint16 views of one volume at 0, 90, 180 and
+   270 degrees about y (``View`` positions and angles), read by
+   ``read_multiview_czi_into_sims`` and fused cold and warm through kernel
+   4 (warm split, launches), bit-equal to ``fuse()`` of the same arrays from
+   memory under the reader's affines, a 128^3 window within 1 count of
+   ``device="cpu"``; a 4 x 4 grid of deflate TIFFs of (64, 512, 512) uint16,
+   overlap 64, written by ``write_tiff``, opened lazily by
+   ``read_tiff_into_sim`` and fused into an OME-Zarr with chunks of 128,
+   cold and warm (rate, streaming telemetry, ``fuse_translation_3d``
+   launches), level 0 bit-equal to the same tiles fused from memory, a
+   (64, 256, 256) window across the central overlaps within 1 count of
+   ``device="cpu"``; and
+   small ZSTD1 CZI, Imaris and PNG files where ``zstandard``, ``h5py`` and
+   ``imageio`` / ``PIL`` import (else reported as not run, the reader
+   raising as the JAX package's does);
+15. a ``kernels`` JSON line: per kernel its launches in the main-path run,
    its time, the plain version's time, its bound and its error, and its
    launches in the beads phase's fuse (``beads_launches``), the
    deconvolution's warm fuse (``deconv_launches``), the metrics' batched
    call (``metrics_launches``), the API phase's block-wise fusion
-   (``api_launches``) and the ``slabs:`` phase's warm fuse
-   (``slab_launches``).
+   (``api_launches``), the ``slabs:`` phase's warm fuse
+   (``slab_launches``) and the ``readers:`` phase's warm calls on data a
+   reader delivered (``readers_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 the script exits non-zero without that line; without a CUDA device it exits
@@ -248,6 +283,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -1882,11 +1918,13 @@ class GeneralTimer(StageTimer):
 
 
 def window_props(osp, sdims, start, size):
-    """Stack properties of the output window of ``size`` pixels that starts
-    ``start`` pixels into ``osp``: on the same grid, so a fuse of the window
-    plans the same chunks (with their halos) as the whole output's."""
+    """Stack properties of the output window of ``size`` pixels (one count for
+    every axis, or one per axis) that starts ``start`` pixels into ``osp``:
+    on the same grid, so a fuse of the window plans the same chunks (with
+    their halos) as the whole output's."""
+    sizes = [size] * len(sdims) if isinstance(size, int) else list(size)
     return {
-        "shape": {d: size for d in sdims},
+        "shape": dict(zip(sdims, sizes)),
         "spacing": dict(osp["spacing"]),
         "origin": {d: osp["origin"][d] + start[i] * osp["spacing"][d] for i, d in enumerate(sdims)},
     }
@@ -3736,6 +3774,738 @@ def shear_phase(np, torch, tsi, tcore, tea, tf, fuse, shape=SHEAR_SHAPE, n_views
             **{run: r for run, r in runs.items()}}
 
 
+# ---------------------------------------------------------------------------
+# the readers: files written here, read by the port's readers, fused on the card
+# ---------------------------------------------------------------------------
+
+# the CZI slide scan: 16 x 16 tiles of 1024^2 uint16, 2 channels, 10 % overlap,
+# its stage positions off by integers in [-3, 3] px, 0.5 um pixels
+READERS_MOSAIC_N = 16
+READERS_MOSAIC_TILE = 1024
+READERS_MOSAIC_OVERLAP = 102
+READERS_MOSAIC_ERROR = 3
+READERS_SPACING = 0.5
+READERS_WINDOW = 2048
+READERS_OFFSET_ATOL = 0.25
+# the multi-view CZI (a Lightsheet Z.1 layout): four views about y
+READERS_MV_SHAPE = (256, 512, 512)
+READERS_MV_ANGLES = (0, 90, 180, 270)
+READERS_MV_WINDOW = 128
+# the TIFF tile grid: 4 x 4 deflate TIFFs of (64, 512, 512), overlap 64
+READERS_TIFF_N = 4
+READERS_TIFF_TILE = (64, 512, 512)
+READERS_TIFF_OVERLAP = 64
+# the codecs' rate lines: an 8 MB uint16 image (LZW, PackBits), 64 MB (deflate
+# with predictor 2)
+READERS_CODEC_SHAPE = (2048, 2048)
+READERS_DEFLATE_SHAPE = (4096, 8192)
+# optional packages of the readers, probed in a child process
+READERS_OPTIONAL = ("h5py", "imageio", "PIL", "zstandard", "imagecodecs", "aicsimageio")
+
+
+def czi_segment_header(sid, size):
+    """The 32-byte header of a ZISRAW segment of ``size`` data bytes
+    (allocated rounded up to 32)."""
+    import struct
+
+    allocated = -(-size // 32) * 32
+    return sid.encode().ljust(16, b"\0") + struct.pack("<qq", allocated, size), allocated - size
+
+
+def write_czi(path, xml, planes):
+    """Write a ZISRAW (CZI) file: the file header, the metadata segment, one
+    subblock segment a plane (each with a small metadata block before its
+    pixels) and a trailing DELETED segment the readers skip. ``planes``
+    yields (dims, pixel type, compression, payload): ``dims`` maps each
+    dimension letter to (start, size), the payload is the subblock's bytes
+    (a contiguous numpy array for raw pixels). Returns the bytes written.
+    The reader tests write their CZI files with it too."""
+    import struct
+
+    sub_meta = b"<METADATA><Tags/></METADATA>"
+
+    with open(path, "wb") as f:
+        body = (struct.pack("<iiii", 1, 0, 0, 0) + b"\x11" * 32
+                + struct.pack("<iqqiq", 0, 0, 0, 0, 0)).ljust(512, b"\0")
+        head, pad = czi_segment_header("ZISRAWFILE", len(body))
+        f.write(head + body + b"\0" * pad)
+        xml_bytes = xml.encode()
+        body = struct.pack("<ii", len(xml_bytes), 0).ljust(256, b"\0") + xml_bytes
+        head, pad = czi_segment_header("ZISRAWMETADATA", len(body))
+        f.write(head + body + b"\0" * pad)
+        for dims, pixel_type, compression, payload in planes:
+            payload = memoryview(payload).cast("B")
+            entry = b"DV" + struct.pack("<iqii", pixel_type, f.tell(), 0, compression)
+            entry += b"\0" * 6 + struct.pack("<i", len(dims))
+            for name, (start, size) in dims.items():
+                entry += name.encode().ljust(4, b"\0") + struct.pack("<iifi", start, size,
+                                                                     float(start), size)
+            lead = (struct.pack("<iiq", len(sub_meta), 0, payload.nbytes)
+                    + entry).ljust(256, b"\0") + sub_meta
+            head, pad = czi_segment_header("ZISRAWSUBBLOCK", len(lead) + payload.nbytes)
+            f.write(head + lead)
+            f.write(payload)
+            f.write(b"\0" * pad)
+        head, pad = czi_segment_header("DELETED", 64)
+        f.write(head + b"\0" * (64 + pad))
+        return f.tell()
+
+
+def czi_metadata_xml(spacing_um, channels, views=None, center=None):
+    """The CZI metadata the readers use: scaling, channel names, the
+    multi-view positions (x, y, z in um, angle in degrees) and the
+    ``CenterPosition``."""
+    dist = "".join(f'<Distance Id="{d}"><Value>{v * 1e-6!r}</Value></Distance>'
+                   for d, v in spacing_um.items())
+    chans = "".join(f'<Channel Id="Channel:{i}" Name="{n}"/>' for i, n in enumerate(channels))
+    mv = ""
+    if views is not None:
+        mv = "<MultiView>" + "".join(
+            f"<View><PositionX>{x!r}</PositionX><PositionY>{y!r}</PositionY>"
+            f"<PositionZ>{z!r}</PositionZ><Angle>{a!r}</Angle></View>" for x, y, z, a in views
+        ) + "</MultiView>"
+    if center is not None:
+        mv += "<CenterPosition>" + ",".join(repr(float(c)) for c in center) + "</CenterPosition>"
+    return ("<ImageDocument><Metadata><Scaling><Items>" + dist + "</Items></Scaling>"
+            "<Information><Image><Dimensions><Channels>" + chans + "</Channels></Dimensions>"
+            "</Image></Information><Experiment>" + mv + "</Experiment></Metadata>"
+            "</ImageDocument>")
+
+
+def probe_modules(names):
+    """Whether each module imports, each in a child process (this one
+    imports none of them)."""
+    return {m: subprocess.run([sys.executable, "-c", f"import {m}"], capture_output=True,
+                              timeout=120).returncode == 0 for m in names}
+
+
+class ReadCounter:
+    """Counts the bytes and seconds of the CZI reader's subblock reads, by
+    the stage (``stage`` attribute) they happen in."""
+
+    def __init__(self, tczi):
+        self.tczi, self.stage, self.bytes, self.seconds = tczi, "other", {}, {}
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        read = self._read = self.tczi.CziFile.read_subblock
+
+        def counted(czi, sb):
+            t = time.perf_counter()
+            out = read(czi, sb)
+            dt = time.perf_counter() - t
+            with self._lock:
+                self.bytes[self.stage] = self.bytes.get(self.stage, 0) + sb.data_size
+                self.seconds[self.stage] = self.seconds.get(self.stage, 0.0) + dt
+            return out
+
+        self.tczi.CziFile.read_subblock = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.tczi.CziFile.read_subblock = self._read
+        return False
+
+
+def readers_codecs(np, torch, say, shape=READERS_CODEC_SHAPE, deflate_shape=READERS_DEFLATE_SHAPE):
+    """The native codec build (timed; it must take the native route) and the
+    decode rates of the native decoders against the Python ones, each output
+    bit-equal: LZW and PackBits on an uint16 image of ``shape``, deflate with
+    predictor 2 on one of ``deflate_shape``."""
+    import zlib
+
+    from multiview_stitcher_torch.io import codecs
+
+    fresh = not codecs.library_path().exists()
+    t0 = time.perf_counter()
+    route = codecs.native_route()
+    build_s = time.perf_counter() - t0
+    if route != "native":
+        raise AssertionError(f"readers: the TIFF codecs took the {route} route "
+                             f"(compiler {codecs.compiler()})")
+    say(f"native codecs {'built' if fresh else 'loaded'} in {build_s:.3f} s with "
+        f"{codecs.compiler()} into {codecs.library_path().relative_to(REPO)}")
+
+    def rate(fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        return out, time.perf_counter() - t
+
+    img = smooth_noise(torch, shape, seed=21, device="cuda")
+    raw = img.tobytes()
+    out = {"build_s": build_s, "route": route, "compiler": codecs.compiler()}
+    for name, enc, native, plain in (
+        ("lzw", codecs.lzw_encode, codecs.lzw_decode, codecs._lzw_decode_py),
+        ("packbits", codecs.packbits_encode, codecs.packbits_decode, codecs._packbits_decode_py),
+    ):
+        data, enc_s = rate(enc, raw)
+        got, native_s = rate(native, data, len(raw))
+        ref, plain_s = rate(plain, data, len(raw))
+        if got != raw or ref != raw:
+            raise AssertionError(f"readers: {name} decode differs from the image")
+        out[name] = {"mb": len(raw) / 1e6, "ratio": len(data) / len(raw), "encode_s": enc_s,
+                     "native_mb_s": len(raw) / 1e6 / native_s,
+                     "python_mb_s": len(raw) / 1e6 / plain_s}
+    big = smooth_noise(torch, deflate_shape, seed=22, device="cuda")
+    diff = np.diff(big.astype(np.int64), axis=-1, prepend=0).astype(np.uint16)
+    data, enc_s = rate(zlib.compress, diff.tobytes())
+
+    def decode(undo):
+        arr = np.frombuffer(codecs.deflate_decode(data, big.nbytes), np.uint16).reshape(big.shape)
+        return undo(arr)
+
+    got, native_s = rate(decode, codecs.undo_predictor2)
+    ref, plain_s = rate(decode, codecs._undo_predictor2_py)
+    _, inflate_s = rate(codecs.deflate_decode, data, big.nbytes)
+    if not (np.array_equal(got, big) and np.array_equal(ref, big)):
+        raise AssertionError("readers: deflate + predictor 2 decode differs from the image")
+    out["deflate_predictor2"] = {"mb": big.nbytes / 1e6, "ratio": len(data) / big.nbytes,
+                                 "encode_s": enc_s, "inflate_mb_s": big.nbytes / 1e6 / inflate_s,
+                                 "native_mb_s": big.nbytes / 1e6 / native_s,
+                                 "python_mb_s": big.nbytes / 1e6 / plain_s}
+    for name in ("lzw", "packbits", "deflate_predictor2"):
+        r = out[name]
+        say(f"decode {name}: {r['mb']:.1f} MB (compressed to {r['ratio']:.3f}), native "
+            f"{r['native_mb_s']:.1f} MB/s, Python {r['python_mb_s']:.2f} MB/s, bit-equal"
+            + (f"; zlib alone {r['inflate_mb_s']:.1f} MB/s" if "inflate_mb_s" in r else ""))
+    return out
+
+
+def readers_mosaic(np, torch, tsi, tcore, tf, tstream, fuse, work, say, n=READERS_MOSAIC_N,
+                   tile=READERS_MOSAIC_TILE, overlap=READERS_MOSAIC_OVERLAP,
+                   window=READERS_WINDOW):
+    """A CZI slide-scan mosaic through ``stitch()``: n x n tiles of tile^2
+    uint16 in 2 channels cut from one band-limited image at their true grid
+    positions, written as raw subblocks whose X/Y starts hold the true
+    positions plus an integer error; opened lazily by
+    ``io.read_mosaic_into_sims``, stitched on the card by channel 0, cold
+    and warm. Held: every tile's registered offset within 0.25 px of the
+    truth (after the global offset), the fused image bit-equal to
+    ``stitch()`` of the same tiles held as numpy arrays, a centre window
+    within 1 count of ``fuse(device="cpu")``; at least one launch of
+    ``fuse_translation_2d``."""
+    from multiview_stitcher_torch import io as tio
+    from multiview_stitcher_torch import msi_utils as tmsi
+    from multiview_stitcher_torch import registration as treg
+    from multiview_stitcher_torch import stitch as tstitch
+    from multiview_stitcher_torch.io import czi_utils as tczi
+
+    rng = np.random.default_rng(23)
+    step = tile - overlap
+    extent = (n - 1) * step + tile
+    t0 = time.perf_counter()
+    image = smooth_noise(torch, (2, extent, extent), seed=23, device="cuda")
+    truth, starts = [], []
+    for iy in range(n):
+        for ix in range(n):
+            y0, x0 = iy * step, ix * step
+            err = rng.integers(-READERS_MOSAIC_ERROR, READERS_MOSAIC_ERROR + 1, 2)
+            truth.append((y0, x0))
+            starts.append((y0 + err[0], x0 + err[1]))
+    truth, starts = np.asarray(truth, float), np.asarray(starts)
+
+    def subblocks():
+        for m, (ys, xs) in enumerate(starts):
+            y0, x0 = (int(v) for v in truth[m])
+            for c in range(2):
+                plane = np.ascontiguousarray(image[c, y0:y0 + tile, x0:x0 + tile])
+                yield ({"X": (int(xs), tile), "Y": (int(ys), tile), "C": (c, 1), "M": (m, 1),
+                        "S": (0, 1)}, 1, 0, plane)
+
+    path = work / "slide_scan.czi"
+    xml = czi_metadata_xml({"X": READERS_SPACING, "Y": READERS_SPACING}, ["DAPI", "GFP"])
+    file_bytes = write_czi(path, xml, subblocks())
+    write_s = time.perf_counter() - t0
+    del image
+    sp = READERS_SPACING
+    tol = {"y": READERS_MOSAIC_ERROR * sp, "x": READERS_MOSAIC_ERROR * sp}
+    # shortest paths: the default global optimisation stops unconverged on
+    # large grids (ROADMAP item 24); its error is printed beside
+    rkw = {"reg_channel_index": 0, "overlap_tolerance": tol,
+           "groupwise_resolution_method": "shortest_paths"}
+    spans, graphs = {}, []
+
+    def timed(module, name, counter):
+        fn = getattr(module, name)
+
+        def wrapped(*a, **k):
+            counter.stage = name
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spans[name] = (t, time.perf_counter())
+            counter.stage = "other"
+            return out
+
+        setattr(module, name, wrapped)
+        return fn
+
+    resolve = treg.param_resolution.groupwise_resolution
+
+    def keep_graph(g, **k):
+        graphs.append(g)
+        return resolve(g, **k)
+
+    def run(sims):
+        tcore.clear_device_tile_cache()
+        msims = [tmsi.get_msim_from_sim(s, scale_factors=[]) for s in sims]
+        with ReadCounter(tczi) as counter:
+            saved = (timed(tstitch.registration, "register", counter),
+                     timed(tstitch.fusion, "fuse", counter))
+            treg.param_resolution.groupwise_resolution = keep_graph
+            try:
+                t = time.perf_counter()
+                fused = tstitch.stitch(msims, transform_key=KEY, register_kwargs=rkw)
+                torch.cuda.synchronize()
+                t_end = time.perf_counter()
+            finally:
+                tstitch.registration.register, tstitch.fusion.fuse = saved
+                treg.param_resolution.groupwise_resolution = resolve
+        (r0, r1), (f0, f1) = spans["register"], spans["fuse"]
+        spans.update(register_s=r1 - r0, fuse_s=f1 - f0, outside_s=(r0 - t) + (f0 - r1)
+                     + (t_end - f1))
+        return msims, fused, t_end - t, counter
+
+    t0 = time.perf_counter()
+    lazy = tio.read_mosaic_into_sims(path)
+    open_cold_s = time.perf_counter() - t0
+    if len(lazy) != n * n or not all(isinstance(s.data, tczi.LazyCziTile) for s in lazy):
+        raise AssertionError(f"readers: {len(lazy)} lazy tiles read, {n * n} expected")
+    _, cold, cold_s, _ = run(lazy)
+    del cold
+    # this path's run: counts set to 0 just before, read just after
+    tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+    uploaded = tcore.tile_upload_bytes
+    t0 = time.perf_counter()
+    lazy = tio.read_mosaic_into_sims(path)
+    open_s = time.perf_counter() - t0
+    msims, fused, warm_s, counter = run(lazy)
+    warm = dict(spans)
+    launches = tf.fuse_translation_2d.launches
+    reg_tel, stream = dict(treg.last_telemetry), dict(tstream.last_telemetry)
+    tile_bytes = tcore.tile_upload_bytes - uploaded
+    if launches < 1 or tf.fuse_translation_3d.launches:
+        raise AssertionError(f"readers: fuse_translation_2d launches {launches}, 3d "
+                             f"{tf.fuse_translation_3d.launches}")
+
+    # every pair's shift, and the registered offsets, against the truth
+    # (after the global offset)
+    pert = starts - truth
+    g_pairs = graphs[-1]
+    pair_err = max(
+        float(np.abs(np.asarray(d["transform"].data)[:2, 2] / sp - (pert[v] - pert[u])).max())
+        for u, v, d in g_pairs.edges(data=True))
+    origins = np.asarray([[s.origin["y"], s.origin["x"]] for s in lazy])
+
+    def offset_error(mats):
+        placed = np.asarray([m[:2, :2] @ o + m[:2, 2] for m, o in zip(mats, origins)]) / sp
+        err = placed - truth
+        return float(np.abs(err - err.mean(axis=0)).max())
+
+    offset_err = offset_error(
+        [np.asarray(tmsi.get_transform_from_msim(m, "registered").data) for m in msims])
+    global_params, _ = resolve(g_pairs, method="global_optimization")
+    global_opt_err = offset_error([np.asarray(global_params[k].data) for k in range(len(lazy))])
+    meta_err = float(np.abs(pert - pert.mean(axis=0)).max())
+    if pair_err > READERS_OFFSET_ATOL or offset_err > READERS_OFFSET_ATOL:
+        raise AssertionError(f"readers: pair shifts {pair_err:.3f} px, registered offsets "
+                             f"{offset_err:.3f} px from the truth")
+
+    # the same tiles as numpy arrays under the same metadata
+    t0 = time.perf_counter()
+    mem = [tsi.get_sim_from_array(np.asarray(s.data), dims=s.dims, scale=dict(s.spacing),
+                                  translation=dict(s.origin), transform_key=KEY,
+                                  c_coords=list(s.coords["c"])) for s in lazy]
+    read_all_s = time.perf_counter() - t0
+    _, ref, mem_s, _ = run(mem)
+    if ref.data.shape != fused.data.shape or not np.array_equal(ref.data, fused.data):
+        raise AssertionError("readers: stitch() of the lazy CZI differs from the in-memory tiles")
+    del ref, mem
+
+    # a centre window against the CPU
+    out = fused.data
+    osp = {"spacing": dict(fused.spacing), "origin": dict(fused.origin)}
+    start = [(out.shape[1] - window) // 2, (out.shape[2] - window) // 2]
+    props = window_props(osp, ["y", "x"], start, window)
+    t0 = time.perf_counter()
+    cpu = fuse([tmsi.get_sim_from_msim(m) for m in msims], transform_key="registered",
+               output_stack_properties=props, device="cpu").data
+    cpu_s = time.perf_counter() - t0
+    win_err = general_window_err(
+        np, out[:, start[0]:start[0] + window, start[1]:start[1] + window], cpu,
+        "readers: CZI mosaic window")
+    tcore.clear_device_tile_cache()
+
+    split = {
+        "open_s": open_s,
+        "register_s": warm["register_s"],
+        "graph_and_prune_s": reg_tel["graph_s"] + reg_tel["prune_s"],
+        "crop_plan_s": reg_tel["plan_s"],
+        "tile_upload_s": reg_tel["upload_s"],
+        "pairwise_host_s": reg_tel["pairwise_s"],
+        "pairwise_device_ms": reg_tel.get("pairwise_device_ms"),
+        "resolve_s": reg_tel["resolve_s"],
+        "fuse_s": warm["fuse_s"],
+        "outside_register_and_fuse_s": warm["outside_s"],
+        "memory_register_s": spans["register_s"],
+        "memory_fuse_s": spans["fuse_s"],
+        "register_read_s": counter.seconds.get("register", 0.0),
+        "fuse_read_s": counter.seconds.get("fuse", 0.0),
+    }
+    read = {k: int(v) for k, v in counter.bytes.items()}
+    say(f"CZI slide scan: {n} x {n} tiles of {tile}^2 uint16, 2 channels, overlap {overlap} px, "
+        f"{sp} um pixels, stage positions off by up to {meta_err:.0f} px; file {file_bytes / 1e9:.3f}"
+        f" GB of raw subblocks written in {write_s:.1f} s; opened lazily in {open_cold_s:.3f} s "
+        f"cold, {open_s:.3f} s warm; output {out.shape} {out.dtype}")
+    say(f"CZI slide scan: cold stitch {cold_s:.3f} s, warm stitch {warm_s:.3f} s (open "
+        f"{open_s:.3f} s besides); the same tiles from memory {mem_s:.3f} s (read into memory "
+        f"in {read_all_s:.2f} s); edges {reg_tel['edges']}, pairs {reg_tel['pruned_edges']}; "
+        f"fuse_translation_2d launches {launches}")
+    say("CZI slide scan: warm split " + json.dumps(
+        {k: (None if v is None else round(v, 4)) for k, v in split.items()}))
+    say(f"CZI slide scan: bytes read from the file by stage {read} ({sum(read.values()) / 1e9:.3f}"
+        f" GB against a {file_bytes / 1e9:.3f} GB file: register reads channel 0, fuse reads "
+        f"channel 0 for the output geometry and each channel to fuse it); tiles uploaded "
+        f"{tile_bytes} bytes as device tile stacks, {stream.get('up_bytes')} bytes by the "
+        f"streamed fuse of the last channel in {stream.get('bands_total')} bands")
+    say(f"CZI slide scan: every pair's shift within {pair_err:.4f} px of the truth; offsets "
+        f"resolved by shortest paths within {offset_err:.4f} px of the truth, by the default "
+        f"global optimisation within {global_opt_err:.4f} px (not held: item 24); stitch() "
+        f"bit-equal to "
+        f"the in-memory tiles'; the centre {window}^2 window within {win_err} counts of "
+        f"device='cpu' ({cpu_s:.1f} s)")
+    return {"launches": int(launches), "file_bytes": file_bytes, "write_s": write_s,
+            "open_cold_s": open_cold_s, "cold_stitch_s": cold_s, "warm_stitch_s": warm_s,
+            "memory_stitch_s": mem_s, **split, "read_bytes": read, "tile_upload_bytes": tile_bytes,
+            "stream": stream, "edges": reg_tel["edges"], "pairs": reg_tel["pruned_edges"],
+            "pair_max_err_px": pair_err, "offset_max_err_px": offset_err,
+            "global_opt_offset_max_err_px": global_opt_err, "window_max_err": win_err}
+
+
+def readers_multiview(np, torch, tsi, tcore, tf, tea, fuse, work, say, shape=READERS_MV_SHAPE,
+                      angles=READERS_MV_ANGLES, window=READERS_MV_WINDOW, chunk=128):
+    """A multi-view CZI in a Lightsheet Z.1 layout: views of one smooth
+    volume with ``View`` positions (the volume's centre) and angles,
+    read by ``read_multiview_czi_into_sims`` under the default
+    ``rotate_around_y_positions``, fused on the card cold and warm through
+    the exact-affine tier. Held: the output bit-equal to ``fuse()`` of the
+    same arrays from memory under the affines the reader returned, a central
+    window within 1 count of ``device="cpu"``; at least one launch of
+    ``exact_affine_3d_sepy``."""
+    from multiview_stitcher_torch.io import czi_utils as tczi
+
+    rng = np.random.default_rng(24)
+    t0 = time.perf_counter()
+    base = smooth_tile(np, rng, tuple(s // 4 for s in shape))
+    for axis in range(3):
+        base = np.repeat(base, 4, axis=axis)
+    centre = [(s - 1) / 2 for s in shape]  # z, y, x in um (1 um voxels)
+    views = [(centre[2], centre[1], centre[0], float(a)) for a in angles]
+    data = [np.ascontiguousarray(np.roll(base, 37 * iv, axis=2)) for iv in range(len(angles))]
+
+    def subblocks():
+        for v, vol in enumerate(data):
+            for z in range(shape[0]):
+                yield ({"X": (0, shape[2]), "Y": (0, shape[1]), "C": (0, 1), "Z": (z, 1),
+                        "M": (0, 1), "S": (0, 1), "V": (v, 1)}, 1, 0, vol[z])
+
+    path = work / "multiview.czi"
+    xml = czi_metadata_xml({"X": 1.0, "Y": 1.0, "Z": 1.0}, ["Ch0"], views=views)
+    file_bytes = write_czi(path, xml, subblocks())
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sims = tczi.read_multiview_czi_into_sims(path)
+    read_s = time.perf_counter() - t0
+    for s, v in zip(sims, data):
+        if not np.array_equal(np.asarray(s.data)[0], v):
+            raise AssertionError("readers: a multi-view CZI view differs from what was written")
+    names = {"2d": EXACT_WRAPPERS[0], "sepy": EXACT_WRAPPERS[1], "general": EXACT_WRAPPERS[2]}
+
+    def counts():
+        return {k: getattr(tea, n).launches for k, n in names.items()}
+
+    t0 = time.perf_counter()
+    cold = fuse(sims, transform_key=KEY, output_chunksize=chunk)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    del cold
+    tcore.clear_device_tile_cache()
+    for n in names.values():
+        getattr(tea, n).launches = 0
+    tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+    with StageTimer(torch, tcore, tf, tea) as st:
+        t0 = time.perf_counter()
+        fused = fuse(sims, transform_key=KEY, output_chunksize=chunk)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        split = st.split_ms(t0, t1)
+    warm_s = t1 - t0
+    launched = counts()
+    if launched["sepy"] < 1 or launched["general"] or launched["2d"]:
+        raise AssertionError(f"readers: multi-view launches {launched}, expected the sepy kernel")
+
+    mem = []
+    for s in sims:
+        m = tsi.get_sim_from_array(np.array(s.data), dims=s.dims, scale=dict(s.spacing),
+                                   translation=dict(s.origin), c_coords=list(s.coords["c"]))
+        tsi.set_sim_affine(m, s.transforms[KEY].data, transform_key=KEY)
+        mem.append(m)
+    ref = fuse(mem, transform_key=KEY, output_chunksize=chunk).data
+    out = fused.data
+    if ref.shape != out.shape or not np.array_equal(ref, out):
+        raise AssertionError("readers: the multi-view CZI's fuse differs from the in-memory one")
+    del ref, mem
+    sdims = ["z", "y", "x"]
+    osp = {"spacing": dict(fused.spacing), "origin": dict(fused.origin)}
+    start = [(out.shape[-3 + i] - window) // 2 // chunk * chunk for i in range(3)]
+    t0 = time.perf_counter()
+    cpu = fuse(sims, transform_key=KEY, output_chunksize=chunk, device="cpu",
+               output_stack_properties=window_props(osp, sdims, start, window)).data
+    cpu_s = time.perf_counter() - t0
+    win = out[(Ellipsis,) + tuple(slice(a, a + window) for a in start)]
+    win_err = general_window_err(np, win, cpu, "readers: multi-view window")
+    tcore.clear_device_tile_cache()
+    angles_read = [float(np.rad2deg(np.arctan2(s.transforms[KEY].data[0, 2],
+                                               s.transforms[KEY].data[0, 0]))) for s in sims]
+    say(f"multi-view CZI: {len(angles)} views of {shape} uint16 at {list(angles)} degrees about "
+        f"y, file {file_bytes / 1e9:.3f} GB written in {write_s:.1f} s, read in {read_s:.2f} s; "
+        f"affines' angles {[round(a, 6) for a in angles_read]}; output {out.shape} {out.dtype}")
+    say(f"multi-view CZI: cold fuse {cold_s:.3f} s, warm fuse {warm_s:.3f} s, launches "
+        f"{launched}; warm split " + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    say(f"multi-view CZI: bit-equal to fuse() from memory; central {window}^3 window within "
+        f"{win_err} counts of device='cpu' ({cpu_s:.1f} s)")
+    return {"launches": launched, "file_bytes": file_bytes, "write_s": write_s, "read_s": read_s,
+            "cold_fuse_s": cold_s, "warm_fuse_s": warm_s, "split_ms": split,
+            "window_max_err": win_err}
+
+
+def readers_tiff_grid(np, torch, tsi, tcore, tf, tstream, fuse, work, say, n=READERS_TIFF_N,
+                      tile=READERS_TIFF_TILE, overlap=READERS_TIFF_OVERLAP, chunk=128):
+    """A 3D tile grid of deflate TIFFs (z pages) written by the port's
+    ``write_tiff``, opened lazily by ``read_tiff_into_sim(path,
+    translation=...)`` and fused into an OME-Zarr with
+    ``output_chunksize=128`` through the streaming tier, cold and warm.
+    Held: level 0 bit-equal to the same tiles fused from memory into an
+    OME-Zarr of their own; a chunk-aligned window across the central tiles'
+    overlaps (all z, 2 chunks in y and x) within 1 count of the same lazy
+    tiles fused with ``device="cpu"``, the plain versions; at least one
+    launch of ``fuse_translation_3d``."""
+    from multiview_stitcher_torch.io import tif_utils as ttif
+    from multiview_stitcher_torch.io import zarr_backend
+
+    step = tile[1] - overlap
+    extent = (n - 1) * step + tile[1]
+    t0 = time.perf_counter()
+    vol = smooth_noise(torch, (tile[0], extent, extent), seed=25, device="cuda")
+    jobs = []
+    for iy in range(n):
+        for ix in range(n):
+            data = np.ascontiguousarray(vol[:, iy * step:iy * step + tile[1],
+                                            ix * step:ix * step + tile[2]])
+            jobs.append((work / f"tile_{iy}_{ix}.tif", data,
+                         {"z": 0.0, "y": float(iy * step), "x": float(ix * step)}))
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda j: ttif.write_tiff(j[0], j[1], compression="deflate"), jobs))
+    write_s = time.perf_counter() - t0
+    del vol
+    file_bytes = sum(j[0].stat().st_size for j in jobs)
+    tile_bytes = sum(j[1].nbytes for j in jobs)
+    runs = {}
+    for run in ("cold", "warm"):
+        url = str(work / f"tiff_grid_{run}.ome.zarr")
+        tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+        t0 = time.perf_counter()
+        sims = [ttif.read_tiff_into_sim(p, translation=t) for p, _, t in jobs]
+        open_s = time.perf_counter() - t0
+        if not all(isinstance(s.data, ttif.LazyTiffPagesND) for s in sims):
+            raise AssertionError("readers: the TIFF tiles were not read lazily")
+        t0 = time.perf_counter()
+        res = fuse(sims, transform_key=KEY, output_chunksize=chunk, output_zarr_url=url)
+        torch.cuda.synchronize()
+        runs[run] = {"open_s": open_s, "wall_s": time.perf_counter() - t0,
+                     **tstream.last_telemetry}
+    launches = tf.fuse_translation_3d.launches
+    tele = runs["warm"]
+    if launches < 1 or tf.fuse_translation_2d.launches or tele["bands_done"] != launches:
+        raise AssertionError(f"readers: TIFF grid launches {launches}, streaming {tele}")
+    mem = [tsi.get_sim_from_array(d, dims=["z", "y", "x"], translation=t) for _, d, t in jobs]
+    mem_url = str(work / "tiff_grid_memory.ome.zarr")
+    t0 = time.perf_counter()
+    fuse(mem, transform_key=KEY, output_chunksize=chunk, output_zarr_url=mem_url)
+    mem_s = time.perf_counter() - t0
+    level0 = np.asarray(zarr_backend.open_zarr_array(str(work / "tiff_grid_warm.ome.zarr") + "/0"))
+    ref0 = np.asarray(zarr_backend.open_zarr_array(mem_url + "/0"))
+    if level0.shape != ref0.shape or not np.array_equal(level0, ref0):
+        raise AssertionError("readers: the TIFF grid's level 0 differs from the in-memory fuse")
+    del ref0
+    # the kernel against its plain versions at these tile shapes: a window
+    # of the same lazy tiles fused on the CPU
+    sdims = ["z", "y", "x"]
+    osp = {"spacing": dict(res.spacing), "origin": dict(res.origin)}
+    size = [level0.shape[-3]] + [min(2 * chunk, s) for s in level0.shape[-2:]]
+    start = [0] + [(s - w) // 2 // chunk * chunk for s, w in zip(level0.shape[-2:], size[1:])]
+    t0 = time.perf_counter()
+    cpu = fuse(sims, transform_key=KEY, output_chunksize=chunk, device="cpu",
+               output_stack_properties=window_props(osp, sdims, start, size)).data
+    cpu_s = time.perf_counter() - t0
+    win = level0[(Ellipsis,) + tuple(slice(a, a + w) for a, w in zip(start, size))]
+    win_err = general_window_err(np, win, np.asarray(cpu), "readers: TIFF grid window")
+    del cpu, win
+    say(f"TIFF grid: {n} x {n} deflate TIFFs of {tile} uint16, overlap {overlap}, "
+        f"{tile_bytes / 1e6:.0f} MB of tiles in {file_bytes / 1e6:.0f} MB of files written in "
+        f"{write_s:.1f} s; level 0 {level0.shape} {level0.dtype}")
+    for run, r in runs.items():
+        say(f"TIFF grid {run}: open {r['open_s'] * 1e3:.1f} ms, fuse into OME-Zarr "
+            f"{r['wall_s']:.3f} s ({tile_bytes / 1e6 / r['wall_s']:.0f} MB/s of tiles read and "
+            f"fused), streaming {r['elapsed_s'] * 1e3:.1f} ms, bands {r['bands_total']}, NV "
+            f"{r['nv']}, up {r['up_bytes'] / 1e6:.1f} MB, stream spans ms "
+            + " ".join(f"{k} {r[k + '_ms']}" for k in ("up", "compute", "down")))
+    say(f"TIFF grid: fuse_translation_3d launches {launches}; level 0 bit-equal to the "
+        f"in-memory tiles' fuse ({mem_s:.3f} s); window {size} at {start} within {win_err} "
+        f"counts of device='cpu' ({cpu_s:.1f} s)")
+    return {"launches": int(launches), "write_s": write_s, "file_bytes": file_bytes,
+            "tile_bytes": tile_bytes, "memory_fuse_s": mem_s, "window_max_err": win_err,
+            **{run: r for run, r in runs.items()}}
+
+
+def readers_optional(np, say, found, work):
+    """The readers that need an optional package, on small files: a ZSTD1
+    hi/lo CZI mosaic (zstandard), an Imaris file (h5py), a PNG (imageio /
+    PIL). Where the package is absent, the reader must raise as the JAX
+    package's does, and the case is reported as not run."""
+    from multiview_stitcher_torch import io as tio
+    from multiview_stitcher_torch.io import czi_utils as tczi
+
+    rng = np.random.default_rng(26)
+    img = rng.integers(0, 4000, (2, 64, 80), dtype=np.uint16)
+    results = {}
+
+    def case(name, needs, run, absent_error):
+        if all(found.get(m) for m in needs):
+            run()
+            results[name] = "ran"
+        else:
+            missing = [m for m in needs if not found.get(m)]
+            results[name] = f"not run: {', '.join(missing)} absent"
+            if absent_error is not None:
+                try:
+                    absent_error()
+                except (ImportError, NotImplementedError):
+                    pass
+                else:
+                    raise AssertionError(f"readers: {name} did not raise without {missing}")
+
+    def zstd_run():
+        import zstandard
+
+        path = work / "zstd.czi"
+        planes = []
+        for c in range(2):
+            raw = img[c].tobytes()
+            # ZSTD1 with the hi/lo byte planes of 16-bit data
+            payload = bytes([3, 1, 1]) + zstandard.ZstdCompressor().compress(raw[0::2] + raw[1::2])
+            planes.append(({"X": (0, img.shape[2]), "Y": (0, img.shape[1]), "C": (c, 1),
+                            "M": (0, 1), "S": (0, 1)}, 1, 6, payload))
+        write_czi(path, czi_metadata_xml({"X": 1.0, "Y": 1.0}, ["a", "b"]), planes)
+        (sim,) = tio.read_mosaic_into_sims(path)
+        if not np.array_equal(np.asarray(sim.data), img):
+            raise AssertionError("readers: the ZSTD1 CZI differs from what was written")
+
+    def zstd_absent():
+        tczi._decompress_subblock(b"\x01", 6, np.uint16)
+
+    def ims_run():
+        import h5py
+
+        path = work / "small.ims"
+        with h5py.File(path, "w") as f:
+            g = f.create_group("DataSet/ResolutionLevel 0/TimePoint 0/Channel 0")
+            g.create_dataset("Data", data=img[0][None])
+            for d, s in zip("ZYX", (1,) + img.shape[1:]):
+                g.attrs[f"ImageSize{d}"] = np.bytes_(str(s))
+            info = f.create_group("DataSetInfo/Image")
+            for i, (d, s) in enumerate(zip("XYZ", img.shape[:0:-1] + (1,))):
+                info.attrs[d] = np.bytes_(str(s))
+                info.attrs[f"ExtMin{i}"] = np.bytes_("0")
+                info.attrs[f"ExtMax{i}"] = np.bytes_(str(s))
+        (sim,) = tio.read_mosaic_into_sims(path)
+        if not np.array_equal(np.asarray(sim.data)[0], img[0]):
+            raise AssertionError("readers: the Imaris file differs from what was written")
+
+    def ims_absent():
+        import importlib
+
+        importlib.import_module("multiview_stitcher_torch.io.imaris_utils")
+
+    def png_run():
+        from PIL import Image
+
+        path = work / "small.png"
+        Image.fromarray((img[0] >> 4).astype(np.uint8)).save(path)
+        (sim,) = tio.read_mosaic_into_sims(path)
+        if not np.array_equal(np.asarray(sim.data), (img[0] >> 4).astype(np.uint8)):
+            raise AssertionError("readers: the PNG differs from what was written")
+
+    def png_absent():
+        path = work / "absent.png"
+        path.write_bytes(b"\x89PNG")
+        tio.read_mosaic_into_sims(path)
+
+    case("czi_zstd1", ("zstandard",), zstd_run, zstd_absent)
+    case("imaris", ("h5py",), ims_run, ims_absent)
+    case("png", ("imageio", "PIL"), png_run, png_absent if not found.get("imageio") else None)
+    say("optional formats: " + json.dumps(results))
+    return results
+
+
+def readers_phase(np, torch, tsi, tcore, tf, tea, tstream, fuse, work, found, scale=1):
+    """``readers:`` lines: the user's files through the port's readers to
+    ``stitch()`` and ``fuse()`` on the card (the codecs, a CZI slide scan, a
+    multi-view CZI, a TIFF tile grid, the optional formats). The files live
+    under ``work``, removed after. ``scale`` divides the sizes (1 on the
+    card). Returns the results and the launches of each kernel in the
+    phase's reader-driven warm calls."""
+    card = card_line()
+
+    def say(msg):
+        log(f"{card} readers: {msg}")
+
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    try:
+        codec = readers_codecs(
+            np, torch, say, shape=tuple(s // scale for s in READERS_CODEC_SHAPE),
+            deflate_shape=tuple(s // scale for s in READERS_DEFLATE_SHAPE))
+        mosaic = readers_mosaic(
+            np, torch, tsi, tcore, tf, tstream, fuse, work, say,
+            n=max(3, READERS_MOSAIC_N // scale), tile=READERS_MOSAIC_TILE // scale,
+            overlap=READERS_MOSAIC_OVERLAP // scale, window=READERS_WINDOW // scale)
+        torch.cuda.empty_cache()
+        multiview = readers_multiview(
+            np, torch, tsi, tcore, tf, tea, fuse, work, say,
+            shape=tuple(s // scale for s in READERS_MV_SHAPE),
+            window=READERS_MV_WINDOW // scale, chunk=128 // scale)
+        torch.cuda.empty_cache()
+        tiff = readers_tiff_grid(
+            np, torch, tsi, tcore, tf, tstream, fuse, work, say,
+            tile=(READERS_TIFF_TILE[0] // min(scale, 4),) + tuple(
+                s // scale for s in READERS_TIFF_TILE[1:]),
+            overlap=READERS_TIFF_OVERLAP // scale, chunk=128 // scale)
+        optional = readers_optional(np, say, found, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {"fuse_translation_3d": tiff["launches"],
+                "fuse_translation_2d": mosaic["launches"],
+                "exact_affine_batch_2d": multiview["launches"]["2d"],
+                "exact_affine_batch_3d_sepy": multiview["launches"]["sepy"],
+                "exact_affine_batch_3d_general": multiview["launches"]["general"]}
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase {phase_s:.1f} s; launches on data the readers delivered {json.dumps(launches)}")
+    return {"codecs": codec, "czi_mosaic": mosaic, "czi_multiview": multiview,
+            "tiff_grid": tiff, "optional": optional, "phase_s": phase_s}, launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3765,6 +4535,11 @@ def main() -> int:
              for m in ("zarr", "numcodecs", "blosc")}
     log("modules that import here (the port's zarr IO needs none; blosc chunks need "
         "numcodecs or blosc): " + json.dumps(found))
+    from multiview_stitcher_torch.io import codecs as tcodecs
+
+    reader_found = probe_modules(READERS_OPTIONAL)
+    log("optional packages of the readers that import here: " + json.dumps(reader_found)
+        + f"; the C compiler of the TIFF codecs: {tcodecs.compiler()}")
 
     names, paths, build_s = build_all(_build)
     log(f"build: {names} in {build_s:.1f} s")
@@ -3869,6 +4644,12 @@ def main() -> int:
     # the registration's quality over the whole mosaic
     quality = metrics_phase(np, torch, tea, tf, n=32, **grid)
     del grid
+    torch.cuda.empty_cache()
+
+    # the user's files: the readers to stitch() and fuse() on the card
+    readers, readers_launches = readers_phase(np, torch, tsi, tcore, tf, tea, tstream, fuse,
+                                              REPO / ".bench_large" / "chip_smoke_readers",
+                                              reader_found)
 
     source = "multiview_stitcher_torch/csrc/translation_fusion.cu"
     exact_source = "multiview_stitcher_torch/csrc/exact_affine.cu"
@@ -3898,10 +4679,11 @@ def main() -> int:
         k["metrics_launches"] = quality["launches"][k["name"]]
         k["api_launches"] = api["blocks"]["launch_counts"][k["name"]]
         k["slab_launches"] = slab_launches[k["name"]]
+        k["readers_launches"] = readers_launches[k["name"]]
     detail = {"3d": r3, "2d": r2, "zarr": zarr, "zarr3": zarr3, "api": api, "slabs": slabs,
               "shear": shear, **{f"affine_{k}": v for k, v in affine.items()},
               "general": general, "multiscale": multiscale, "beads": beads, "deconv": deconv,
-              "stitch": stitched, "metrics": quality,
+              "stitch": stitched, "metrics": quality, "readers": readers,
               "f1_fuse_max_abs_err": f1_err, "build_s": build_s, "small_cases_s": small_s,
               "total_s": time.perf_counter() - t_start}
     log("detail: " + json.dumps(detail))

@@ -16,7 +16,9 @@ resolution), ``detection.detect_beads``, ``stitch.stitch``,
 ``transformation.transform_sim`` with linear interpolation, multi-view
 deconvolution (``fusion.mv_deconv``) and registration-quality metrics
 (``metrics.tile_pair_image_metrics``), block-wise fusion into a shared zarr
-array (``fusion.prepare_block_fusion``), and the public names of the JAX
+array (``fusion.prepare_block_fusion``), the readers of TIFF, CZI (mosaics
+and multi-view), Imaris and the everyday image formats
+(``io.read_mosaic_into_sims``), and the public names of the JAX
 package's modules listed below, with the JAX package's parameters. Entry
 points run on the CUDA device unless the caller passes ``device="cpu"``,
 which takes the plain PyTorch version of every kernel.
@@ -28,6 +30,9 @@ which takes the plain PyTorch version of every kernel.
 - ``metrics`` — ``tile_pair_image_metrics``, NCC and SSIM of view overlaps
 - ``io.zarr_backend`` / ``io.ngff_utils`` — zarr v2 and v3 (sharded or not),
   OME-Zarr (NGFF 0.4 and 0.5)
+- ``io`` — ``read_mosaic_into_sims``; ``io.tif_utils``, ``io.czi_utils``
+  (with ``io.jpeg``), ``io.imaris_utils``, ``io.fallback``; ``io.codecs`` —
+  the TIFF decoders, native C built at first use
 - ``transformation`` — ``transform_sim``, ``transform_pts``
 - ``ops.translation_fusion`` — the two translation-fusion kernels
 - ``ops.exact_affine`` — the three exact-affine resampling kernels
@@ -35,10 +40,10 @@ which takes the plain PyTorch version of every kernel.
 - ``sample_data`` — synthetic tile grids with known shifts
 - ``convert`` — builds this package's sims from the JAX package's fields
 
-The reference's module names ``spatial_image_utils``, ``ngff_utils`` and
-``misc_utils`` are aliases of ``si_utils``, ``io.ngff_utils`` and
-``utils.misc``; ``tif_utils``, ``czi_utils`` and ``imaris_utils`` raise
-``ImportError`` until the readers are ported (ROADMAP.md item 29).
+The reference's module names ``spatial_image_utils``, ``ngff_utils``,
+``misc_utils``, ``tif_utils``, ``czi_utils`` and ``imaris_utils`` are
+aliases of ``si_utils``, ``io.ngff_utils``, ``utils.misc`` and the three
+readers under ``io``.
 """
 
 import importlib
@@ -71,8 +76,10 @@ _ALIASES = {
     "spatial_image_utils": "multiview_stitcher_torch.si_utils",
     "ngff_utils": "multiview_stitcher_torch.io.ngff_utils",
     "misc_utils": "multiview_stitcher_torch.utils.misc",
+    "tif_utils": "multiview_stitcher_torch.io.tif_utils",
+    "czi_utils": "multiview_stitcher_torch.io.czi_utils",
+    "imaris_utils": "multiview_stitcher_torch.io.imaris_utils",
 }
-_READERS = ("tif_utils", "czi_utils", "imaris_utils")
 
 
 def __getattr__(name):
@@ -82,8 +89,4 @@ def __getattr__(name):
         return importlib.import_module(_ALIASES[name])
     if name == "metrics":
         return importlib.import_module(f"{__name__}.metrics")
-    if name in _READERS:
-        raise ImportError(
-            f"{__name__}.{name}: the readers are not ported yet (ROADMAP.md, queue 1: item 29)"
-        )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -60,7 +60,8 @@ KEY = jsi.DEFAULT_TRANSFORM_KEY
 # package (the port's own modules: convert, ops._build, ops.translation_fusion)
 PORTED_MODULES = [
     "", "convert", "detection", "fusion", "fusion._core", "fusion._streaming",
-    "fusion.mv_deconv", "io", "io.ngff_utils", "io.zarr_backend", "metrics",
+    "fusion.mv_deconv", "io", "io.codecs", "io.czi_utils", "io.fallback", "io.imaris_utils",
+    "io.jpeg", "io.ngff_utils", "io.tif_utils", "io.zarr_backend", "metrics",
     "msi_utils", "mv_graph", "ops", "ops.exact_affine", "ops.filters",
     "ops.image_metrics", "ops.phase_correlation", "ops.resample", "ops.shear",
     "param_resolution",
@@ -73,15 +74,7 @@ PORT_ONLY = {"convert", "ops._build", "ops.translation_fusion"}
 
 # public names of the JAX modules the port leaves out, with the item that
 # covers them
-_READERS = "item 29 (readers)"
 LEFT_OUT = {
-    "io": {
-        "read_mosaic_into_sims": _READERS, "read_mosaic_into_sims_aicsimageio": _READERS,
-        "save_sim_as_tif": _READERS, "get_number_of_scenes_in_mosaic": _READERS,
-        "read_mosaic_into_sims_czifile": _READERS,
-        "read_mosaic_image_into_list_of_spatial_xarrays": _READERS,
-        "read_tiff_into_spatial_xarray": _READERS, "read_tif_into_msim": _READERS,
-    },
     "io.ngff_utils": {"serve_virtual_ome_zarrs": "item 30"},
     "io.zarr_backend": {"LazyTSArray": "item 28 leaves tensorstore out"},
     "ops.exact_affine": {
@@ -174,8 +167,8 @@ def test_package_all_and_aliases():
     assert tpkg.ngff_utils is tngff
     assert tpkg.misc_utils is tmisc
     for reader in ("tif_utils", "czi_utils", "imaris_utils"):
-        with pytest.raises(ImportError, match="item 29"):
-            getattr(tpkg, reader)
+        assert getattr(tpkg, reader) is importlib.import_module(f"{tpkg.__name__}.io.{reader}")
+        assert getattr(jpkg, reader).__name__ == f"{jpkg.__name__}.io.{reader}"
     with pytest.raises(AttributeError):
         tpkg.not_a_module  # noqa: B018
     for name in ("VirtualOMEZarr", "VirtualOMEZarrPlate", "VirtualOMEZarrServer"):
