@@ -260,14 +260,39 @@ Phases, one printed line or block each:
    small ZSTD1 CZI, Imaris and PNG files where ``zstandard``, ``h5py`` and
    ``imageio`` / ``PIL`` import (else reported as not run, the reader
    raising as the JAX package's does);
-15. a ``kernels`` JSON line: per kernel its launches in the main-path run,
+15. the mesh phase (lines start with the card's name and power limit, then
+   ``mesh:``), in parts beside the phases whose data it reuses:
+   ``parallel.mesh.get_mesh()`` logged, then a virtual mesh of four entries
+   on cuda:0 (``Mesh([cuda:0] * 4)``). After the API phase, ``fuse(mesh=)``
+   of phase 4's grid in memory (kernel 1, one band of whole view-list tiles
+   an entry; the grid is one tile deep in z, so three bands are padding)
+   bit-equal to phase 4's monolithic output, warm wall times sharded and
+   unsharded (a one-entry mesh) in turns, each band's kernel ms; and
+   ``utils.profiling.device_trace`` around one warm streamed ``fuse()`` of
+   that grid, whose five CUDA ops with the most device time must name
+   kernel 1. After phase 6, the same for the 2D scan (kernel 2, four bands),
+   and ``max_fusion`` of its 8 x 8 corner through the tiles tier, chunks of
+   1024, sharded against unsharded, bit-equal. After each affine main path
+   of phase 7, one more warm ``fuse()`` keeps its fullest batches (joined
+   until they hold a chunk an entry), which ``parallel.pipeline.
+   sharded_fuse_chunks_exact`` fuses over the mesh (kernels 3, 4 and 5),
+   bit-equal to the same batch unsharded and within tolerance of the plain
+   versions. After the readers, ``register(mesh=)`` of an 8 x 8 grid of
+   64^3 tiles cut from one volume, from host crops and from the resident
+   stack, within 1e-6 px of the unsharded call; ``get_stage_times()`` after
+   a ``stitch()``, carrying the four stage names of the JAX package; and two
+   processes on the card (gloo on localhost, torchrun's variables set
+   here) running ``multihost_fuse`` of a 4 x 4 grid of zarr tiles into one
+   store, byte-equal to one process's;
+16. a ``kernels`` JSON line: per kernel its launches in the main-path run,
    its time, the plain version's time, its bound and its error, and its
    launches in the beads phase's fuse (``beads_launches``), the
    deconvolution's warm fuse (``deconv_launches``), the metrics' batched
    call (``metrics_launches``), the API phase's block-wise fusion
    (``api_launches``), the ``slabs:`` phase's warm fuse
-   (``slab_launches``) and the ``readers:`` phase's warm calls on data a
-   reader delivered (``readers_launches``).
+   (``slab_launches``), the ``readers:`` phase's warm calls on data a
+   reader delivered (``readers_launches``) and the mesh phase's sharded
+   runs (``mesh_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 the script exits non-zero without that line; without a CUDA device it exits
@@ -4506,6 +4531,427 @@ def readers_phase(np, torch, tsi, tcore, tf, tea, tstream, fuse, work, found, sc
             "tiff_grid": tiff, "optional": optional, "phase_s": phase_s}, launches
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: mesh=, the sharded pipeline helpers, multi-host, profiling
+# ---------------------------------------------------------------------------
+
+MESH_ENTRIES = 4
+MESH_TILES_SUBGRID = 8
+MESH_TILES_CHUNK = 1024
+MESH_REG_N = 8
+MESH_REG_ATOL = 1e-6
+MESH_MH_N = 4
+MESH_MH_TIMEOUT_S = 300
+MESH_TRACE_TOP = 5
+MESH_STAGES = ("register.adjacency_graph", "register.pairwise_registrations",
+               "register.groupwise_resolution", "fuse.plan")
+KERNEL_NAMES = ("fuse_translation_3d", "fuse_translation_2d") + EXACT_WRAPPERS
+
+
+class MeshPhase:
+    """The ``mesh:`` lines: each sharded path over ``mesh`` (by default a
+    virtual mesh of :data:`MESH_ENTRIES` entries on cuda:0), held to its
+    unsharded run on cuda:0; the launches of each kernel inside the sharded
+    runs (``mesh_launches``); ``processes`` processes in the multi-host
+    part."""
+
+    def __init__(self, np, torch, tf, tea, mesh=None, processes=2):
+        from multiview_stitcher_torch.parallel import mesh as tmesh
+
+        self.np, self.torch, self.tf, self.tea = np, torch, tf, tea
+        self.card = card_line()
+        self.out = {"phase_s": 0.0}
+        self.launches = {k: 0 for k in KERNEL_NAMES}
+        self.processes = processes
+        found = tmesh.get_mesh()
+        self.say(f"get_mesh(): size {found.size}, devices {[str(d) for d in found.devices]}")
+        self.mesh = mesh or tmesh.Mesh([torch.device("cuda", 0)] * MESH_ENTRIES)
+        self.single = tmesh.Mesh([torch.device("cuda", 0)])
+        self.say(f"the mesh of this phase: {self.mesh}")
+
+    def say(self, msg):
+        log(f"[{self.card}] mesh: {msg}")
+
+    def _counts(self):
+        return {k: getattr(self.tf if "translation" in k else self.tea, k).launches
+                for k in KERNEL_NAMES}
+
+    def run(self, sharded, fn, *a, **k):
+        """``fn(*a, **k)`` to its end on the card: (result, wall s, launches
+        by kernel); a ``sharded`` run's launches count in ``mesh_launches``."""
+        before = self._counts()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        for d in self.mesh.distinct_devices:
+            self.torch.cuda.synchronize(d)
+        wall = time.perf_counter() - t0
+        launched = {n: c - before[n] for n, c in self._counts().items()}
+        if sharded:
+            for n, c in launched.items():
+                self.launches[n] += c
+        return out, wall, launched
+
+    def part(self, name, fn, *a, **k):
+        """Run one part of the phase, keep its result and add its time."""
+        t0 = time.perf_counter()
+        self.out[name] = fn(*a, **k)
+        self.out["phase_s"] += time.perf_counter() - t0
+
+    def translation(self, fuse, sims, mono, ndim):
+        """Kernel 1 or 2: fuse(mesh=) of a main path's grid in memory, one
+        band a mesh entry, against the unsharded monolithic output."""
+        np, torch, tf = self.np, self.torch, self.tf
+        name = f"fuse_translation_{ndim}d"
+        launch = tf._launch
+        bands = []
+
+        def timed_launch(*a, **k):
+            # the events on the stream of the band's card, where it launches
+            with torch.cuda.device(a[1].device):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = launch(*a, **k)
+                e1.record()
+            bands.append((a[6].origin, e0, e1))
+            return out
+
+        # a one-entry mesh takes the unsharded monolithic tier (no streaming);
+        # after a sharded call that puts the tiles on every card, the two run
+        # in turns
+        walls = {"unsharded": [], "sharded": []}
+        band_ms = []
+        for which in ("warm", "unsharded", "sharded", "sharded", "unsharded"):
+            sharded = which != "unsharded"
+            del bands[:]
+            tf._launch = timed_launch
+            try:
+                fused, wall, launched = self.run(
+                    sharded, fuse, sims, transform_key=KEY,
+                    mesh=self.mesh if sharded else self.single)
+            finally:
+                tf._launch = launch
+            if which != "warm":
+                walls[which].append(wall)
+            want = {n: (self.mesh.size if sharded else 1) if n == name else 0
+                    for n in KERNEL_NAMES}
+            if launched != want:
+                raise AssertionError(f"{name} mesh ({which}): launches {launched}, want {want}")
+            if not np.array_equal(fused.data, mono):
+                diff = int(np.abs(fused.data.astype(np.int32) - mono.astype(np.int32)).max())
+                raise AssertionError(f"{name} mesh ({which}): output differs from the unsharded "
+                                     f"monolithic one by {diff}")
+            if sharded:
+                band_ms = [(list(o), e0.elapsed_time(e1)) for o, e0, e1 in bands]
+            del fused
+        res = {"out_shape": list(mono.shape), "bands": band_ms,
+               "sharded_warm_s": walls["sharded"], "unsharded_warm_s": walls["unsharded"],
+               "bit_equal": True}
+        self.say(f"{name}: fuse(mesh=) of the {ndim}D grid, output {tuple(mono.shape)}, "
+                 f"{self.mesh.size} bands (origin, kernel ms) {band_ms}; warm wall sharded "
+                 f"{walls['sharded']} s, unsharded {walls['unsharded']} s; bit-equal to the "
+                 f"unsharded monolithic output")
+        return res
+
+    def tiles_tier(self, fuse, tcore, sims, n):
+        """The tiles tier (max_fusion) over the mesh: chunk slices a mesh
+        entry, against the unsharded call."""
+        np = self.np
+        sub = [sims[iy * n + ix] for iy in range(MESH_TILES_SUBGRID)
+               for ix in range(MESH_TILES_SUBGRID)]
+        kw = dict(transform_key=KEY, fusion_func=tcore.max_fusion,
+                  output_chunksize=MESH_TILES_CHUNK)
+        ref = fuse(sub, **kw).data  # warm: the upload and the first plan
+        fuse(sub, mesh=self.mesh, **kw)  # warm: the tiles on every card
+        walls = {"unsharded": [], "sharded": []}
+        for which in ("unsharded", "sharded", "sharded", "unsharded"):
+            sharded = which == "sharded"
+            got, wall, launched = self.run(sharded, fuse, sub, mesh=self.mesh if sharded else None,
+                                           **kw)
+            walls[which].append(wall)
+            if any(launched.values()):
+                raise AssertionError(f"tiles tier mesh ({which}): launches {launched}, expected "
+                                     f"none")
+            if not np.array_equal(got.data, ref):
+                raise AssertionError(f"tiles tier mesh ({which}): output differs from the "
+                                     f"unsharded call")
+        res = {"out_shape": list(ref.shape), "sharded_s": walls["sharded"],
+               "unsharded_s": walls["unsharded"], "bit_equal": True}
+        self.say(f"tiles tier: max_fusion of {MESH_TILES_SUBGRID} x {MESH_TILES_SUBGRID} tiles, "
+                 f"output {tuple(ref.shape)}, chunks {MESH_TILES_CHUNK}: warm sharded "
+                 f"{walls['sharded']} s, unsharded {walls['unsharded']} s, bit-equal")
+        return res
+
+    def exact(self, tcore, batch, kind):
+        """Kernels 3, 4 and 5: pipeline.sharded_fuse_chunks_exact of the
+        fullest batches of an affine main path (joined until they hold a
+        chunk a mesh entry), against the same batch unsharded and the plain
+        versions."""
+        from multiview_stitcher_torch.parallel import mesh as tmesh
+        from multiview_stitcher_torch.parallel import pipeline
+
+        np, torch, tea = self.np, self.torch, self.tea
+        name = dict(zip(("2d", "sepy", "general"), EXACT_WRAPPERS))[kind]
+        slabs, tables, out_shape = batch["slabs"], batch["tables"], batch["out_shape"]
+        ref, unsharded_s, _ = self.run(
+            False, tcore._fuse_chunk_batch_kernel_exact, slabs, *tables, out_shape,
+            "weighted_average", True, kind)
+        for _ in range(2):  # the first call loads the kernels on every card
+            got, sharded_s, launched = self.run(
+                True, pipeline.sharded_fuse_chunks_exact, slabs, *tables, out_shape, self.mesh)
+        parts = sum(1 for lo, hi in tmesh.shard_bounds(len(slabs), self.mesh) if hi > lo)
+        want = {n: 2 * parts if n == name else 0 for n in KERNEL_NAMES}
+        if launched != want:
+            raise AssertionError(f"{name} mesh: launches {launched}, want {want}")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{name} mesh: sharded batch differs from the unsharded one by "
+                                 f"{float((got - ref).abs().max())}")
+        saved = {n: getattr(tea, n) for n in EXACT_WRAPPERS}
+        try:
+            for n in EXACT_WRAPPERS:
+                setattr(tea, n, getattr(tea, n + "_plain"))
+            plain = pipeline.sharded_fuse_chunks_exact(slabs, *tables, out_shape, self.mesh)
+        finally:
+            for n, fn in saved.items():
+                setattr(tea, n, fn)
+        top = float(slabs.max())
+        tol = max(float(UINT_COUNTS), EXACT_ATOL * max(top, 100.0) / 100.0)
+        err = float((got - plain).abs().max())
+        if err > tol:
+            raise AssertionError(f"{name} mesh: sharded batch differs from its plain version by "
+                                 f"{err} (tolerance {tol})")
+        res = {"batch": list(slabs.shape), "parts": parts, "launches": launched[name],
+               "sharded_s": sharded_s, "unsharded_s": unsharded_s, "plain_max_abs_err": err,
+               "bit_equal": True}
+        self.say(f"{name}: sharded_fuse_chunks_exact of the {batch['batches']} fullest batches "
+                 f"{tuple(slabs.shape)} "
+                 f"-> {tuple(got.shape)} in {parts} parts, {launched[name]} launches a call, "
+                 f"sharded {sharded_s * 1e3:.2f} ms (its second call), unsharded "
+                 f"{unsharded_s * 1e3:.2f} ms (host clock, to the end on every card), "
+                 f"bit-equal to the unsharded batch, {err:.3g} from the plain versions "
+                 f"(tolerance {tol:.3g})")
+        return res
+
+    def register(self, tsi, tstitch, treg, tmsi, tprof):
+        """register(mesh=) of an 8 x 8 grid of 64^3 tiles from host crops and
+        from the resident stack, against the unsharded call; stitch()'s
+        stage times."""
+        np, torch = self.np, self.torch
+        from multiview_stitcher_torch.fusion import _core as tcore
+
+        sims, _, _ = stitch_grid_sims(np, tsi, MESH_REG_N, 64, 12, seed=17)
+        res = {}
+
+        def register(device_tiles, mesh):
+            tcore.clear_device_tile_cache()
+            msims = [tmsi.get_msim_from_sim(s, scale_factors=[]) for s in sims]
+            t0 = time.perf_counter()
+            params = np.stack([np.asarray(p.data) for p in treg.register(
+                msims, transform_key=KEY, overlap_tolerance=STITCH_TOLERANCE,
+                device_tiles=device_tiles, mesh=mesh)])
+            torch.cuda.synchronize()
+            return params, time.perf_counter() - t0
+
+        register(False, None)  # warm: cuFFT plans, the crop shapes' first batches
+        for device_tiles in (False, True):
+            params, walls = {}, {}
+            for which in ("unsharded", "sharded"):
+                params[which], walls[which] = register(
+                    device_tiles, self.mesh if which == "sharded" else None)
+                if treg.last_telemetry["device_tiles"] != device_tiles:
+                    raise AssertionError(f"register mesh: device_tiles {device_tiles}, telemetry "
+                                         f"{treg.last_telemetry}")
+            err = float(np.abs(params["sharded"] - params["unsharded"]).max())
+            if err > MESH_REG_ATOL:
+                raise AssertionError(f"register mesh (device_tiles={device_tiles}): parameters "
+                                     f"{err} px from the unsharded call")
+            key = "device_tiles" if device_tiles else "host_crops"
+            res[key] = {"max_abs_err_px": err, "sharded_s": walls["sharded"],
+                        "unsharded_s": walls["unsharded"],
+                        "pairs": int(treg.last_telemetry["pairs"])}
+            self.say(f"register(mesh=), {MESH_REG_N} x {MESH_REG_N} tiles of 64^3, {key}: "
+                     f"{res[key]['pairs']} pairs, parameters {err:.3g} px from unsharded "
+                     f"(bound {MESH_REG_ATOL}), sharded {walls['sharded']:.3f} s, unsharded "
+                     f"{walls['unsharded']:.3f} s")
+        tcore.clear_device_tile_cache()
+        tprof.reset_stage_times()
+        tstitch.stitch(sims, register_kwargs={"overlap_tolerance": STITCH_TOLERANCE})
+        torch.cuda.synchronize()
+        stages = tprof.get_stage_times()
+        missing = [s for s in MESH_STAGES if s not in stages]
+        if missing:
+            raise AssertionError(f"stitch() recorded {sorted(stages)}, missing {missing}")
+        res["stitch_stage_times"] = stages
+        self.say("stitch() stage times " + json.dumps(stages))
+        tcore.clear_device_tile_cache()
+        return res
+
+    def multihost(self, tsi, tngff, texec, tmh, work):
+        """``processes`` processes (gloo on localhost, torchrun's variables
+        set here; process k on card k modulo the cards) run multihost_fuse
+        of a 4 x 4 zarr grid into one store, byte-equal to one process's."""
+        np = self.np
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        try:
+            sims, truth, _ = stitch_grid_sims(np, tsi, MESH_MH_N, 64, 12, seed=19)
+            specs = []
+            for i, (s, t) in enumerate(zip(sims, truth)):
+                url = str(work / f"tile{i}.ome.zarr")
+                tngff.write_sim_to_ome_zarr(s, url, overwrite=True)
+                specs.append({"url": url, "origin": dict(zip("zyx", map(float, t)))})
+            t0 = time.perf_counter()
+            tmh.multihost_fuse([texec.SourceSpec(**s) for s in specs], str(work / "single.zarr"),
+                               KEY, output_chunksize=64)
+            single_s = time.perf_counter() - t0
+            cfg = work / "cfg.json"
+            cfg.write_text(json.dumps({"specs": specs, "out": str(work / "multi.zarr")}))
+            driver = (
+                "import json, sys\n"
+                f"sys.path.insert(0, {str(REPO)!r})\n"
+                "from multiview_stitcher_torch.parallel import executors, multihost\n"
+                "cfg = json.load(open(sys.argv[1]))\n"
+                "multihost.initialize()\n"
+                "pid, n = multihost.process_info()\n"
+                f"assert n == {self.processes}, n\n"
+                "specs = [executors.SourceSpec(**s) for s in cfg['specs']]\n"
+                f"multihost.multihost_fuse(specs, cfg['out'], {KEY!r}, output_chunksize=64)\n"
+                "print('process', pid, 'of', n, 'done', flush=True)\n"
+            )
+            port = free_port()
+            procs = []
+            t0 = time.perf_counter()
+            try:
+                for rank in range(self.processes):
+                    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                               WORLD_SIZE=str(self.processes), RANK=str(rank),
+                               LOCAL_RANK=str(rank))
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-c", driver, str(cfg)], env=env,
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                deadline = time.monotonic() + MESH_MH_TIMEOUT_S
+                outs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+                        for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            multi_s = time.perf_counter() - t0
+            if any(p.returncode for p in procs):
+                raise AssertionError("multihost: a process failed:\n" + "\n".join(outs))
+            a, b = work / "single.zarr", work / "multi.zarr"
+            files = sorted(str(p.relative_to(a)) for p in a.rglob("*") if p.is_file())
+            if files != sorted(str(p.relative_to(b)) for p in b.rglob("*") if p.is_file()):
+                raise AssertionError("multihost: the two stores hold different files")
+            for f in files:
+                if (a / f).read_bytes() != (b / f).read_bytes():
+                    raise AssertionError(f"multihost: {f} differs between the stores")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        res = {"files": len(files), "single_process_s": single_s, "processes": self.processes,
+               "multi_process_s": multi_s}
+        self.say(f"multihost_fuse of {MESH_MH_N} x {MESH_MH_N} zarr tiles of 64^3: one process "
+                 f"{single_s:.2f} s, {self.processes} processes (gloo on localhost) "
+                 f"{multi_s:.2f} s from their start, {len(files)} files byte-equal")
+        return res
+
+    def trace(self, fuse, sims, tprof, work):
+        """device_trace around one warm fuse() of the 3D grid: the CUDA ops
+        with the most device time; kernel 1 must be among them."""
+        torch = self.torch
+        fuse(sims, transform_key=KEY)  # warm
+        torch.cuda.synchronize()
+        with tprof.device_trace(str(work)) as prof:
+            fuse(sims, transform_key=KEY)
+            torch.cuda.synchronize()
+        size = (work / "trace.json").stat().st_size
+        shutil.rmtree(work, ignore_errors=True)
+
+        def device_us(e):
+            for attr in ("self_device_time_total", "self_cuda_time_total"):
+                v = getattr(e, attr, None)
+                if v is not None:
+                    return float(v)
+            return 0.0
+
+        events = sorted(prof.key_averages(), key=device_us, reverse=True)
+        top = [(e.key, device_us(e) / 1e3) for e in events[:MESH_TRACE_TOP] if device_us(e) > 0]
+        if not any("fuse_translation_3d" in k for k, _ in top):
+            raise AssertionError(f"trace: kernel 1 is not among the top CUDA ops {top}")
+        res = {"top": top, "trace_bytes": size}
+        self.say(f"device_trace of one warm fuse() of the 3D grid ({size} bytes of Chrome "
+                 f"trace): top CUDA ops by device ms " + json.dumps(top))
+        return res
+
+
+def free_port() -> int:
+    """A TCP port on localhost that no process holds now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def capture_fullest_batches(np, torch, tcore, run, min_chunks):
+    """Run ``run()`` with ``_fuse_chunk_batch_kernel_exact`` watched; return
+    the batches with the most valid view slots, fullest first, until they
+    hold ``min_chunks`` chunks, joined into one batch (the batches of a plan
+    share their slot count and window): its slabs (cut from the device
+    stack, float32), host tables and output shape."""
+    orig = tcore._fuse_chunk_batch_kernel_exact
+    calls = []
+
+    def host(x):
+        return x.cpu().numpy() if torch.is_tensor(x) else np.array(x)
+
+    def watch(data, mats, offs, extents, wgrids, wmats, woffs, view_valid, out_shape,
+              mode="weighted_average", use_bw=True, kind="sepy", out_dtype=torch.float32,
+              tile_idx=None, starts=None):
+        if mode == "weighted_average" and use_bw:
+            calls.append({
+                "n": int(np.sum(view_valid)), "data": data, "out_shape": tuple(out_shape),
+                "kind": kind, "tile_idx": None if tile_idx is None else host(tile_idx),
+                "starts": None if starts is None else host(starts),
+                "tables": tuple(host(x) for x in (mats, offs, extents, wgrids, wmats, woffs,
+                                                  view_valid)),
+            })
+        return orig(data, mats, offs, extents, wgrids, wmats, woffs, view_valid, out_shape, mode,
+                    use_bw, kind, out_dtype, tile_idx=tile_idx, starts=starts)
+
+    tcore._fuse_chunk_batch_kernel_exact = watch
+    try:
+        out = run()
+    finally:
+        tcore._fuse_chunk_batch_kernel_exact = orig
+    chosen, chunks = [], 0
+    for c in sorted(calls, key=lambda c: -c["n"]):
+        if chunks >= min_chunks:
+            break
+        chosen.append(c)
+        chunks += len(c["tables"][-1])
+    nd = len(chosen[0]["out_shape"])
+    S = tuple(int(x) for x in np.concatenate(
+        [c["tables"][2].reshape(-1, nd) for c in chosen]).max(0))
+    slabs = []
+    for c in chosen:
+        B, K = np.shape(c["tables"][-1])
+        ext = c["tables"][2].reshape(-1, nd)
+        if c["tile_idx"] is None:
+            slabs.append(c["data"].to(torch.float32))
+        else:
+            slabs.append(tcore._slabs_from_stack(
+                c["data"], c["tile_idx"].reshape(-1), c["starts"].reshape(-1, nd), ext, S,
+            ).reshape((B, K) + S))
+    return out, {
+        "slabs": torch.cat(slabs),
+        "tables": tuple(np.concatenate(t) for t in zip(*(c["tables"] for c in chosen))),
+        "out_shape": chosen[0]["out_shape"], "kind": chosen[0]["kind"],
+        "batches": len(chosen),
+    }
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4555,6 +5001,16 @@ def main() -> int:
     f1_err = check_f1_fuse(np, torch, tsi, tf, tea, fuse)
     small_s = time.perf_counter() - t_small
     log(f"small cases: {small_s:.1f} s")
+    from multiview_stitcher_torch import msi_utils as tmsi
+    from multiview_stitcher_torch import registration as treg
+    from multiview_stitcher_torch import stitch as tstitch
+    from multiview_stitcher_torch.io import ngff_utils as tngff
+    from multiview_stitcher_torch.parallel import executors as texec
+    from multiview_stitcher_torch.parallel import multihost as tmh
+    from multiview_stitcher_torch.utils import profiling as tprof
+
+    # the mesh phase runs in parts beside the main paths whose data it reuses
+    mesh = MeshPhase(np, torch, tf, tea)
 
     r3, sims3, mono3 = main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, 3, n=32, tile=64,
                                  overlap=12, band_tiles=2)
@@ -4571,6 +5027,10 @@ def main() -> int:
         # output kept on the card, the host names at this size
         api = api_phase(np, torch, tsi, tcore, tf, tea, fuse, sims3, mono3, lazy3,
                         r3["download_ms"], work)
+        # kernel 1 over the virtual mesh, and a trace of the streamed path
+        mesh.part("kernel_1", mesh.translation, fuse, sims3, mono3, 3)
+        mesh.part("trace", mesh.trace, fuse, sims3, tprof,
+                  REPO / ".bench_large" / "chip_smoke_trace")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     del sims3, mono3, lazy3
@@ -4591,8 +5051,13 @@ def main() -> int:
     log(f"shear: phase {shear['phase_s']:.1f} s")
     torch.cuda.empty_cache()
     # 2D bands of 16 view-list tiles of 64 rows: about 1024 output rows each
-    r2, _, _ = main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, 2, n=32, tile=512,
-                         overlap=64, band_tiles=16)
+    r2, sims2, mono2 = main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, 2, n=32,
+                                 tile=512, overlap=64, band_tiles=16)
+    # kernel 2 over the virtual mesh, and the tiles tier on a corner of the scan
+    mesh.part("kernel_2", mesh.translation, fuse, sims2, mono2, 2)
+    mesh.part("tiles_tier", mesh.tiles_tier, fuse, tcore, sims2, 32)
+    del sims2, mono2
+    torch.cuda.empty_cache()
 
     def coupling(rng):
         return np.eye(3) + rng.uniform(0.005, 0.02, (3, 3)) * rng.choice([-1, 1], (3, 3))
@@ -4613,6 +5078,15 @@ def main() -> int:
         affine[kind] = affine_main_path(
             np, torch, tcore, tf, tea, fuse, label, sims, chunksize, kind
         )
+
+        def exact_part():
+            # the fullest batch of one more warm call, through the sharded helper
+            _, batch = capture_fullest_batches(
+                np, torch, tcore,
+                lambda: fuse(sims, transform_key=KEY, output_chunksize=chunksize), MESH_ENTRIES)
+            return mesh.exact(tcore, batch, kind)
+
+        mesh.part(f"exact_{kind}", exact_part)
         del sims
         torch.cuda.empty_cache()
 
@@ -4650,6 +5124,13 @@ def main() -> int:
     readers, readers_launches = readers_phase(np, torch, tsi, tcore, tf, tea, tstream, fuse,
                                               REPO / ".bench_large" / "chip_smoke_readers",
                                               reader_found)
+    torch.cuda.empty_cache()
+
+    # the mesh phase's last parts: register(mesh=), stitch()'s stages, two processes
+    mesh.part("register", mesh.register, tsi, tstitch, treg, tmsi, tprof)
+    mesh.part("multihost", mesh.multihost, tsi, tngff, texec, tmh,
+              REPO / ".bench_large" / "chip_smoke_multihost")
+    mesh.say(f"phase {mesh.out['phase_s']:.1f} s in all")
 
     source = "multiview_stitcher_torch/csrc/translation_fusion.cu"
     exact_source = "multiview_stitcher_torch/csrc/exact_affine.cu"
@@ -4680,10 +5161,11 @@ def main() -> int:
         k["api_launches"] = api["blocks"]["launch_counts"][k["name"]]
         k["slab_launches"] = slab_launches[k["name"]]
         k["readers_launches"] = readers_launches[k["name"]]
+        k["mesh_launches"] = mesh.launches[k["name"]]
     detail = {"3d": r3, "2d": r2, "zarr": zarr, "zarr3": zarr3, "api": api, "slabs": slabs,
               "shear": shear, **{f"affine_{k}": v for k, v in affine.items()},
               "general": general, "multiscale": multiscale, "beads": beads, "deconv": deconv,
-              "stitch": stitched, "metrics": quality, "readers": readers,
+              "stitch": stitched, "metrics": quality, "readers": readers, "mesh": mesh.out,
               "f1_fuse_max_abs_err": f1_err, "build_s": build_s, "small_cases_s": small_s,
               "total_s": time.perf_counter() - t_start}
     log("detail: " + json.dumps(detail))

@@ -18,7 +18,8 @@ deconvolution (``fusion.mv_deconv``) and registration-quality metrics
 (``metrics.tile_pair_image_metrics``), block-wise fusion into a shared zarr
 array (``fusion.prepare_block_fusion``), the readers of TIFF, CZI (mosaics
 and multi-view), Imaris and the everyday image formats
-(``io.read_mosaic_into_sims``), and the public names of the JAX
+(``io.read_mosaic_into_sims``), fusion and registration over a device mesh
+and across processes (``parallel``), and the public names of the JAX
 package's modules listed below, with the JAX package's parameters. Entry
 points run on the CUDA device unless the caller passes ``device="cpu"``,
 which takes the plain PyTorch version of every kernel.
@@ -37,6 +38,11 @@ which takes the plain PyTorch version of every kernel.
 - ``ops.translation_fusion`` — the two translation-fusion kernels
 - ``ops.exact_affine`` — the three exact-affine resampling kernels
 - ``ops.shear`` — the shear tier's plans and passes (``MVS_TPU_SHEAR=1``)
+- ``parallel`` — ``mesh`` (``Mesh``, ``get_mesh``: ``mesh=`` of ``fuse``,
+  ``register`` and ``stitch``), ``pipeline`` (sharded pair and chunk
+  batches), ``executors`` (JSON work specs, block partitions) and
+  ``multihost`` (``multihost_fuse`` over ``torch.distributed``)
+- ``utils.profiling`` — stage timers and ``torch.profiler`` traces
 - ``sample_data`` — synthetic tile grids with known shifts
 - ``convert`` — builds this package's sims from the JAX package's fields
 
@@ -51,7 +57,7 @@ import importlib
 __version__ = "0.1.0"
 
 # the JAX package's __all__, less the modules not ported yet (vis_utils,
-# neuroglancer: item 30; parallel: item 12)
+# neuroglancer: item 30)
 __all__ = [
     "si_utils",
     "msi_utils",
@@ -68,6 +74,7 @@ __all__ = [
     "sample_data",
     "io",
     "zarr_utils",
+    "parallel",
     "stitch",
     "ops",
 ]

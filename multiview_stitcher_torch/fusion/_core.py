@@ -65,8 +65,12 @@ device: the tiers that fuse on the device write into it there (the streaming
 tier uploads its host output once). :func:`prepare_block_fusion` fuses a
 zarr array block by block, the blocks spread over workers at will.
 
-Any input this port does not cover raises ``NotImplementedError`` naming
-the ROADMAP.md item that will cover it; nothing falls back quietly.
+``fuse(mesh=...)`` (a ``parallel.mesh.Mesh`` of more than one entry) splits
+the translation tier's output into one band of whole view-list tiles per
+mesh entry, and the tiles tier's chunks into one contiguous part per entry,
+each fused on its entry's device from that device's copy of the tile stack;
+the other tiers, and the streaming tier, run on one device, as in the
+reference. The sharded output equals the unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -90,14 +94,13 @@ from multiview_stitcher_torch.io import ngff_utils, zarr_backend
 from multiview_stitcher_torch.ops import exact_affine
 from multiview_stitcher_torch.ops import resample as resample_ops
 from multiview_stitcher_torch.ops import translation_fusion
+from multiview_stitcher_torch.parallel import mesh as mesh_utils
 from multiview_stitcher_torch.utils import misc as misc_utils
+from multiview_stitcher_torch.utils import profiling
 
 BoundingBox = Dict[str, Dict[str, Union[float, int]]]
 
 logger = logging.getLogger(__name__)
-
-# where the inputs the port refuses are queued
-_ROADMAP = "ROADMAP.md, queue 1"
 
 # the translation tier streams tiles that hold more than STREAM_BYTES, and
 # tiles that are not in memory whatever their size; lazy tiles above
@@ -672,7 +675,7 @@ class _DeviceTileCache:
     def key_for(field_sims, device):
         """The cache key of these views' stack on ``device``; None where a
         source cannot be identified (it is then not cached)."""
-        parts = [str(torch.device(device))]
+        parts = [str(mesh_utils.indexed_device(device))]
         for s in field_sims:
             data = s.data
             if isinstance(data, np.ndarray):
@@ -802,10 +805,18 @@ class _PrefixedSink:
         self.array[self.prefix + slices] = value
 
 
-def _download(fused: torch.Tensor, out) -> None:
+def _download(fused: torch.Tensor, out, row0: Optional[int] = None) -> None:
     """Copy the fused output into ``out``: a host array, a sink written by
-    regions (:class:`_PrefixedSink`), or a tensor on the device (which takes
-    a copy on the device, no download)."""
+    regions (:class:`_PrefixedSink`), or a tensor on a device (which takes a
+    copy between devices, no download). With ``row0``, ``fused`` is the
+    band of ``out`` from row ``row0`` on."""
+    if row0 is not None:
+        rows = slice(row0, row0 + fused.shape[0])
+        if isinstance(out, (np.ndarray, torch.Tensor)):
+            out = out[rows]
+        else:
+            out[(rows,) + (slice(None),) * (fused.dim() - 1)] = fused.cpu().numpy()
+            return
     if isinstance(out, torch.Tensor):
         out.copy_(fused)
     elif not isinstance(out, np.ndarray):
@@ -838,28 +849,34 @@ def _execute_fusion_plan_translation(
     device,
     scale=None,
     scales=None,
+    mesh=None,
 ):
     """The whole output in one translation-kernel call with per-tile view
     lists. ``scale`` is the per-dim output-pixel -> view-pixel scale shared
-    by all views; ``scales`` the (V, ndim) per-view variant."""
+    by all views; ``scales`` the (V, ndim) per-view variant. With a sharded
+    ``mesh``, the reference's ``_pallas_fused_sharded``: the first tile axis
+    of the view lists is padded with empty lists (-1) to a multiple of the
+    mesh size, and each mesh entry fuses its band of ``b_t0`` whole tiles at
+    the band's integer ``origin`` from its device's tile stack; every band
+    is launched before the first is copied out, cropped to the output."""
     ndim = len(sdims)
     out_shape = tuple(int(output_stack_properties["shape"][d]) for d in sdims)
     tile_shape = _kernel_tile_shape(ndim, out_shape)
-    views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
-    if scales is not None:
-        scale_arr = np.asarray(scales, dtype=np.float64)
-        # the per-dim max stands where the reference sized its windows; the
-        # kernels read the true per-view scales
-        scale = tuple(float(x) for x in scale_arr.max(axis=0))
-    else:
-        scale_arr = np.asarray(scale, dtype=np.float64)
-    offs, extents, wdiags, woffs, wgrids = translation_kernel_params(
-        plan, views_bb, output_stack_properties, sdims,
-        blending_widths, shrink_distance, scale_arr,
-    )
-    view_idx = tile_view_lists(offs, extents, scale_arr, out_shape, tile_shape)
+    with profiling.stage("fuse.plan"):
+        views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
+        if scales is not None:
+            scale_arr = np.asarray(scales, dtype=np.float64)
+            # the per-dim max stands where the reference sized its windows;
+            # the kernels read the true per-view scales
+            scale = tuple(float(x) for x in scale_arr.max(axis=0))
+        else:
+            scale_arr = np.asarray(scale, dtype=np.float64)
+        offs, extents, wdiags, woffs, wgrids = translation_kernel_params(
+            plan, views_bb, output_stack_properties, sdims,
+            blending_widths, shrink_distance, scale_arr,
+        )
+        view_idx = tile_view_lists(offs, extents, scale_arr, out_shape, tile_shape)
 
-    tiles = _tiles_to_device(field_sims, device)
     fuse_fn = (
         translation_fusion.fuse_translation_3d
         if ndim == 3
@@ -868,14 +885,34 @@ def _execute_fusion_plan_translation(
     kscale = scale
     if ndim == 3:
         kscale = (int(np.ceil(scale[0])),) + tuple(scale[1:])
-    fused = fuse_fn(
-        tiles, view_idx, offs, extents, wdiags, woffs, wgrids,
-        out_shape=out_shape, tile_shape=tile_shape, K=view_idx.shape[-1],
-        out_dtype=_torch_dtype(out.dtype),
-        scale=kscale,
-        scales=None if scales is None else np.asarray(scales, np.float32),
+    kw = dict(
+        tile_shape=tile_shape, K=view_idx.shape[-1], out_dtype=_torch_dtype(out.dtype),
+        scale=kscale, scales=None if scales is None else np.asarray(scales, np.float32),
     )
-    _download(fused, out)
+    tables = (offs, extents, wdiags, woffs, wgrids)
+    if not mesh_utils.is_sharded(mesh):
+        tiles = _tiles_to_device(field_sims, device)
+        _download(fuse_fn(tiles, view_idx, *tables, out_shape=out_shape, **kw), out)
+        return
+    n_t0 = view_idx.shape[0]
+    pad = (-n_t0) % mesh.size
+    view_idx = np.concatenate(
+        [view_idx, np.full((pad,) + view_idx.shape[1:], -1, dtype=view_idx.dtype)]
+    )
+    b_t0 = (n_t0 + pad) // mesh.size
+    rows = b_t0 * tile_shape[0]
+    replicas = {d: _tiles_to_device(field_sims, d) for d in mesh.distinct_devices}
+    bands = [
+        fuse_fn(
+            replicas[d], view_idx[k * b_t0:(k + 1) * b_t0], *tables,
+            out_shape=(rows,) + out_shape[1:], origin=(k * rows,) + (0,) * (ndim - 1), **kw,
+        )
+        for k, d in enumerate(mesh.devices)
+    ]
+    for k, band in enumerate(bands):
+        n = min(rows, out_shape[0] - k * rows)
+        if n > 0:
+            _download(band[:n], out, row0=k * rows)
 
 
 def _fuse_translation_views(
@@ -891,11 +928,13 @@ def _fuse_translation_views(
     out,
     device,
     output_chunksize,
+    mesh=None,
 ):
     """The reference's choice of translation tier: the banded streaming tier
     for uniform unit-scale tiles that are lazy, too large for the device or
-    above :data:`STREAM_BYTES`, when their layout bands; otherwise one
-    monolithic kernel call while the tiles fit on the device. Returns False
+    above :data:`STREAM_BYTES`, when their layout bands and no ``mesh`` is
+    given; otherwise one monolithic kernel call (one a band per entry of a
+    sharded ``mesh``) while the tiles fit on the device. Returns False
     when neither takes the call (lazy tiles above :data:`TILES_MAX_BYTES`
     that do not band: the chunked tiers read them as host slabs). A failed
     streaming run raises."""
@@ -903,7 +942,8 @@ def _fuse_translation_views(
     tiles_in_memory = all(not si_utils._is_lazy(s.data) for s in field_sims)
     tiles_fit_on_device = _tiles_fit_on_device(field_sims)
     stream_worthy = (
-        len({tuple(s.data.shape) for s in field_sims}) == 1
+        mesh is None  # the banded pipeline is single-device
+        and len({tuple(s.data.shape) for s in field_sims}) == 1
         and scale is not None
         and all(s == 1.0 for s in scale)
         and (
@@ -949,6 +989,7 @@ def _fuse_translation_views(
         device=device,
         scale=scale,
         scales=scales,
+        mesh=mesh,
     )
     return True
 
@@ -1236,6 +1277,38 @@ def _blend_batch(data_t, bw, mode, use_bw, out_dtype):
     the output dtype (truncating for integers) run on the device."""
     fused, _ = _reduce_views(data_t, bw, mode, use_bw, dim=1)
     return translation_fusion._cast(fused, out_dtype)
+
+
+def _fuse_chunk_batch_kernel(slabs, mats, offs, wgrids, wmats, woffs, view_valid, out_shape,
+                             mode="weighted_average", use_bw=True):
+    """Fuse a batch of B chunks from their (B, K, *S) NaN-padded slabs: each
+    slab resampled at its (ndim, ndim) map and offset by the gather resample
+    (``ops.resample.affine_resample_batch``, NaN outside), each 5^ndim
+    blending grid at its own map (0 outside), padding views (``view_valid``
+    False) dropped, blended over K and ``nan_to_num``. Returns the float32
+    (B, *out_shape) batch on the device of ``slabs``."""
+    slabs = torch.as_tensor(slabs)
+    dev = slabs.device
+    ndim = len(out_shape)
+    B, K = slabs.shape[:2]
+    BK = B * K
+    split = (B, K) + tuple(out_shape)
+    keep = torch.as_tensor(view_valid, device=dev).reshape((B, K) + (1,) * ndim)
+    data_t = resample_ops.affine_resample_batch(
+        slabs.reshape((BK,) + tuple(slabs.shape[2:])).to(torch.float32),
+        torch.as_tensor(mats).reshape(BK, ndim, ndim), torch.as_tensor(offs).reshape(BK, ndim),
+        out_shape, cval=float("nan"),
+    ).reshape(split)
+    data_t = torch.where(keep, data_t, torch.nan)
+    bw = None
+    if use_bw:
+        bw = resample_ops.affine_resample_batch(
+            torch.as_tensor(wgrids, dtype=torch.float32, device=dev).reshape((BK,) + (5,) * ndim),
+            torch.as_tensor(wmats).reshape(BK, ndim, ndim),
+            torch.as_tensor(woffs).reshape(BK, ndim), out_shape, cval=0.0,
+        ).reshape(split) * keep
+    fused, _ = _reduce_views(data_t, bw, mode, use_bw, dim=1)
+    return torch.nan_to_num(fused)
 
 
 def _fuse_chunk_batch_kernel_exact(
@@ -1698,6 +1771,7 @@ def _execute_fusion_plan_tiles(
     shrink_distance,
     out,
     device,
+    mesh=None,
 ):
     """The reference's tiles tier for axis-aligned plans of equal-shape
     tiles: the whole tiles sit on the device once (the device tile cache, as
@@ -1705,7 +1779,11 @@ def _execute_fusion_plan_tiles(
     separable axis-aligned resample, blended over the views and cast on the
     device. Chunks go in batches of ``MAX_BATCH_ELEMENTS // (K_max *
     prod(O_max))``; the fused chunks are assembled on the device and
-    downloaded once."""
+    downloaded once. With a sharded ``mesh`` (the reference's
+    ``_fuse_chunks_tiles_map_kernel_sharded``) each entry fuses its
+    contiguous slice of the chunks (:func:`~.parallel.mesh.shard_parts`:
+    the reference's split of the chunk axis padded to a mesh multiple, the
+    padding chunks not fused) from its device's tile stack."""
     ndim = len(sdims)
     entries = [e for e in plan["per_chunk_entries"] if e["views"]]
     if not entries:
@@ -1751,26 +1829,37 @@ def _execute_fusion_plan_tiles(
                 wdiags[ci, vi] = np.diag(wm)
                 woffs[ci, vi] = wo
 
-    tiles = _tiles_to_device(field_sims, device).to(torch.float32)
     out_dtype = _torch_dtype(out.dtype)
-    out_dev = torch.zeros(out.shape, dtype=out_dtype, device=tiles.device)
-    batch_size = max(1, int(MAX_BATCH_ELEMENTS // max(K_max * int(np.prod(O_max)), 1)))
-    for c0 in range(0, C, batch_size):
-        sl = slice(c0, c0 + batch_size)
-        B = len(entries[sl])
-        N = B * K_max
-        data_t, bw = _resample_tiles(
-            tiles, view_idx[sl].reshape(N), diags[sl].reshape(N, ndim),
-            offs[sl].reshape(N, ndim), wgrids[sl].reshape((N,) + (5,) * ndim),
-            wdiags[sl].reshape(N, ndim), woffs[sl].reshape(N, ndim), valid[sl].reshape(N),
-            O_max, use_bw,
+    out_device = mesh_utils.indexed_device(device)
+    parts = (
+        mesh_utils.shard_parts(C, mesh) if mesh_utils.is_sharded(mesh)
+        else [(slice(0, C), out_device)]
+    )
+    replicas = {
+        d: _tiles_to_device(field_sims, d).to(torch.float32) for d in dict.fromkeys(
+            d for _, d in parts
         )
-        split = (B, K_max) + O_max
-        fused = _blend_batch(data_t.reshape(split), None if bw is None else bw.reshape(split),
-                             mode, use_bw, out_dtype)
-        for bi, entry in enumerate(entries[sl]):
-            src, dst = _chunk_regions(entry, output_stack_properties, sdims, None)
-            out_dev[dst] = fused[bi][src]
+    }
+    out_dev = torch.zeros(out.shape, dtype=out_dtype, device=out_device)
+    batch_size = max(1, int(MAX_BATCH_ELEMENTS // max(K_max * int(np.prod(O_max)), 1)))
+    for part, d in parts:
+        for c0 in range(part.start, part.stop, batch_size):
+            sl = slice(c0, min(c0 + batch_size, part.stop))
+            B = len(entries[sl])
+            N = B * K_max
+            data_t, bw = _resample_tiles(
+                replicas[d], view_idx[sl].reshape(N), diags[sl].reshape(N, ndim),
+                offs[sl].reshape(N, ndim), wgrids[sl].reshape((N,) + (5,) * ndim),
+                wdiags[sl].reshape(N, ndim), woffs[sl].reshape(N, ndim), valid[sl].reshape(N),
+                O_max, use_bw,
+            )
+            split = (B, K_max) + O_max
+            fused = _blend_batch(data_t.reshape(split),
+                                 None if bw is None else bw.reshape(split),
+                                 mode, use_bw, out_dtype)
+            for bi, entry in enumerate(entries[sl]):
+                src, dst = _chunk_regions(entry, output_stack_properties, sdims, None)
+                out_dev[dst] = fused[bi][src]
     _download(out_dev, out)
 
 
@@ -2046,6 +2135,7 @@ def _execute_fusion_plan(
     shrink_distance,
     out,
     device,
+    mesh=None,
 ):
     """Fuse one set of spatial views into ``out`` through the tier the
     reference takes (its ``_execute_fusion_plan``), in its order: for the
@@ -2059,7 +2149,8 @@ def _execute_fusion_plan(
     NaN, the shear tier with ``MVS_TPU_SHEAR=1``); every other call takes the
     host tier. Lazy tiles above :data:`TILES_MAX_BYTES` that do not band skip
     the monolithic translation and the tiles tier, and the batched and host
-    tiers read them as host slabs, window by window."""
+    tiers read them as host slabs, window by window. A sharded ``mesh``
+    splits the translation and the tiles tier over its entries."""
     ndim = len(sdims)
     builtin_mode = _BUILTIN_FUSION_MODES.get(fusion_func)
     builtin = builtin_mode is not None and weights_func is None and not fusion_func_kwargs
@@ -2077,25 +2168,30 @@ def _execute_fusion_plan(
             param_mats, field_sims, output_stack_properties, sdims,
             scale=scale, scales=scales, blending_widths=blending_widths,
             shrink_distance=shrink_distance, out=out, device=device,
-            output_chunksize=output_chunksize,
+            output_chunksize=output_chunksize, mesh=mesh,
         ):
             return
 
-    views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
-    chunk_bbs, block_indices = mv_graph.get_chunk_bbs(output_stack_properties, output_chunksize)
-    plan = _build_spatial_fusion_plan(
-        sparams=param_mats,
-        views_bb=views_bb,
-        output_stack_properties=output_stack_properties,
-        output_chunksize=output_chunksize,
-        output_chunk_bbs=chunk_bbs,
-        output_chunk_bbs_with_overlap=[_extend_bb(bb, overlap_in_pixels) for bb in chunk_bbs],
-        block_indices=block_indices,
-        overlap_in_pixels=overlap_in_pixels,
-        interpolation_order=interpolation_order,
-        sdims=sdims,
-        extra_source_margin_in_pixels=_shear_source_margin(ndim),
-    )
+    with profiling.stage("fuse.plan"):
+        views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
+        chunk_bbs, block_indices = mv_graph.get_chunk_bbs(
+            output_stack_properties, output_chunksize
+        )
+        plan = _build_spatial_fusion_plan(
+            sparams=param_mats,
+            views_bb=views_bb,
+            output_stack_properties=output_stack_properties,
+            output_chunksize=output_chunksize,
+            output_chunk_bbs=chunk_bbs,
+            output_chunk_bbs_with_overlap=[
+                _extend_bb(bb, overlap_in_pixels) for bb in chunk_bbs
+            ],
+            block_indices=block_indices,
+            overlap_in_pixels=overlap_in_pixels,
+            interpolation_order=interpolation_order,
+            sdims=sdims,
+            extra_source_margin_in_pixels=_shear_source_margin(ndim),
+        )
     common = dict(blending_widths=blending_widths, shrink_distance=shrink_distance,
                   out=out, device=device)
     if not builtin:
@@ -2115,7 +2211,7 @@ def _execute_fusion_plan(
     ):
         _execute_fusion_plan_tiles(
             plan, field_sims, output_stack_properties, sdims,
-            mode=builtin_mode, use_bw=use_bw, **common,
+            mode=builtin_mode, use_bw=use_bw, mesh=mesh, **common,
         )
         return
     _execute_fusion_plan_batched(
@@ -2199,8 +2295,12 @@ def fuse(
     way). With ``output_on_backend=True`` an in-memory output is a torch
     tensor on ``device`` (msims and zarr outputs are not affected, as in the
     reference). ``sims`` is the deprecated name of ``images``;
-    ``batch_options`` is accepted and not read, as in the reference. A device
-    ``mesh`` is not ported yet.
+    ``batch_options`` is accepted and not read, as in the reference.
+
+    ``mesh`` (a :class:`~.parallel.mesh.Mesh`) of more than one entry
+    shards the translation and the tiles tier over its entries (see the
+    module docstring); without ``device`` the call runs on the mesh's first
+    device, which holds the output. The result equals the unsharded one.
     """
     if backend not in (None, "numpy", "torch"):
         raise ValueError(
@@ -2218,11 +2318,7 @@ def fuse(
         images = sims
     elif sims is not None:
         raise TypeError("fuse() got both 'images' and deprecated 'sims'. Use only 'images'.")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"fusion across a device mesh is not ported yet ({_ROADMAP}: item 12)"
-        )
-    device = misc_utils.resolve_device(device)
+    mesh, device = mesh_utils.resolve(mesh, device)
     if not len(images):
         raise ValueError("images must contain at least one image.")
     input_is_msim = [msi_utils.is_msim(im) for im in images]
@@ -2245,6 +2341,7 @@ def fuse(
             blending_widths=blending_widths,
             output_zarr_url=output_zarr_url,
             zarr_options=zarr_options,
+            mesh=mesh,
             device=device,
         )
     zarr_options = dict(zarr_options or {})
@@ -2400,6 +2497,7 @@ def fuse(
             shrink_distance=shrink_distance,
             out=out,
             device=device,
+            mesh=mesh,
         )
 
     if output_zarr_url is not None and ome_zarr:

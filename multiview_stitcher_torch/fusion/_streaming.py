@@ -206,6 +206,7 @@ def execute_streaming(
     from multiview_stitcher_torch import si_utils
     from multiview_stitcher_torch.fusion import _core
     from multiview_stitcher_torch.ops import translation_fusion
+    from multiview_stitcher_torch.utils import profiling
 
     device = torch.device("cpu" if device is None else device)
     cuda = device.type == "cuda"
@@ -219,20 +220,20 @@ def execute_streaming(
     V = len(field_sims)
     views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
 
-    # per-view kernel tables (original order; streaming runs at unit scale)
-    offs, extents, wdiags, woffs, wgrids = _core.translation_kernel_params(
-        plan, views_bb, output_stack_properties, sdims, blending_widths, shrink_distance,
-    )
-
-    axis_chunk = None
-    shards = getattr(out_sink, "shards", None) if is_zarr_sink else None
-    if shards is not None:
-        # concurrent band writes must not share a shard file
-        axis_chunk = [int(x) for x in shards[-ndim:]]
-    elif is_zarr_sink and output_chunksize is not None:
-        # concurrent band writes must not share an output chunk
-        axis_chunk = [int(output_chunksize[d]) for d in sdims]
-    bands = plan_bands(offs, extents, out_shape_full, tile_shape, axis_chunk)
+    with profiling.stage("fuse.plan"):
+        # per-view kernel tables (original order; streaming runs at unit scale)
+        offs, extents, wdiags, woffs, wgrids = _core.translation_kernel_params(
+            plan, views_bb, output_stack_properties, sdims, blending_widths, shrink_distance,
+        )
+        axis_chunk = None
+        shards = getattr(out_sink, "shards", None) if is_zarr_sink else None
+        if shards is not None:
+            # concurrent band writes must not share a shard file
+            axis_chunk = [int(x) for x in shards[-ndim:]]
+        elif is_zarr_sink and output_chunksize is not None:
+            # concurrent band writes must not share an output chunk
+            axis_chunk = [int(output_chunksize[d]) for d in sdims]
+        bands = plan_bands(offs, extents, out_shape_full, tile_shape, axis_chunk)
     if bands is None:
         return None
 

@@ -30,8 +30,10 @@ fixed view's pixel grid (``phase_correlation_registration`` with
 the caller's ``pairwise_executor``.
 
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``.
-Inputs this slice does not cover (a device mesh, ``plot_summary``) raise
-``NotImplementedError`` naming the ROADMAP.md item that will cover them.
+A device ``mesh`` (``parallel.mesh.Mesh``) of more than one entry splits
+each batch of pairs into one part per entry, registered on its device.
+``plot_summary`` raises ``NotImplementedError`` naming the ROADMAP.md item
+that will cover it.
 """
 
 from __future__ import annotations
@@ -59,9 +61,11 @@ from multiview_stitcher_torch.msi_utils import Msim
 from multiview_stitcher_torch.ops import image_metrics as im_metrics
 from multiview_stitcher_torch.ops import phase_correlation as pc_ops
 from multiview_stitcher_torch.ops import resample as resample_ops
+from multiview_stitcher_torch.parallel import mesh as mesh_utils
 from multiview_stitcher_torch.param_utils import XAffine
 from multiview_stitcher_torch.si_utils import Sim
 from multiview_stitcher_torch.utils import misc as misc_utils
+from multiview_stitcher_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -1045,13 +1049,18 @@ def register(
     (``use_fused_core=False``) register pair by pair
     (:func:`register_pair_of_msims`), or through ``pairwise_executor(msims,
     edges, kwargs)`` when given. ``n_parallel_pairwise_regs`` and
-    ``scheduler`` keep the reference's signature and are not read.
+    ``scheduler`` keep the reference's signature and are not read. A
+    ``mesh`` of more than one entry splits each pair batch over its entries
+    (see :func:`compute_pairwise_registrations`).
 
     Returns the per-view affines, or with ``return_dict`` the reference's
     dict, whose graph is this package's :class:`~.mv_graph.Graph` and whose
     resolution metrics are a dict of numpy columns. Runs on ``device``: the
-    CUDA device by default, or the CPU with ``device="cpu"``."""
-    device = misc_utils.resolve_device(device)
+    CUDA device by default (the first device of a ``mesh``), or the CPU with
+    ``device="cpu"``. Records the stages ``register.adjacency_graph``,
+    ``register.pairwise_registrations`` and ``register.groupwise_resolution``
+    in ``utils.profiling``."""
+    mesh, device = mesh_utils.resolve(mesh, device)
     pairwise_reg_func_kwargs = pairwise_reg_func_kwargs or {}
     groupwise_resolution_kwargs = groupwise_resolution_kwargs or {}
     pre_reg_pruning_method_kwargs = pre_reg_pruning_method_kwargs or {}
@@ -1059,8 +1068,6 @@ def register(
         warnings.warn(
             "register(..., scheduler=) is deprecated and unused.", DeprecationWarning, stacklevel=2
         )
-    if mesh is not None:
-        raise _not_ported("registration across a device mesh", "item 12")
     if plot_summary:
         raise _not_ported("plot_summary (matplotlib)", "item 27")
 
@@ -1094,9 +1101,11 @@ def register(
             for param in [registration_binning, overlap_tolerance]
         ]
 
-    g = mv_graph.build_view_adjacency_graph_from_msims(
-        msims_reg, transform_key=transform_key, pairs=pairs, overlap_tolerance=overlap_tolerance
-    )
+    with profiling.stage("register.adjacency_graph"):
+        g = mv_graph.build_view_adjacency_graph_from_msims(
+            msims_reg, transform_key=transform_key, pairs=pairs,
+            overlap_tolerance=overlap_tolerance,
+        )
     t1 = time.perf_counter()
     telemetry["graph_s"] = t1 - t0
     if pre_registration_pruning_method is not None:
@@ -1110,24 +1119,27 @@ def register(
     telemetry["edges"] = g.number_of_edges()
     telemetry["pruned_edges"] = g_reg.number_of_edges()
 
-    g_reg_computed = compute_pairwise_registrations(
-        msims_reg, g_reg, transform_key=transform_key, points_key=points_key,
-        prefilter_markers=prefilter_markers,
-        registration_binning=registration_binning, reg_res_level=reg_res_level,
-        overlap_tolerance=overlap_tolerance, pairwise_reg_func=pairwise_reg_func,
-        pairwise_reg_func_kwargs=pairwise_reg_func_kwargs,
-        n_parallel_pairwise_regs=n_parallel_pairwise_regs, pairwise_executor=pairwise_executor,
-        device_tiles=device_tiles, device=device, telemetry=telemetry,
-    )
+    with profiling.stage("register.pairwise_registrations"):
+        g_reg_computed = compute_pairwise_registrations(
+            msims_reg, g_reg, transform_key=transform_key, points_key=points_key,
+            prefilter_markers=prefilter_markers,
+            registration_binning=registration_binning, reg_res_level=reg_res_level,
+            overlap_tolerance=overlap_tolerance, pairwise_reg_func=pairwise_reg_func,
+            pairwise_reg_func_kwargs=pairwise_reg_func_kwargs,
+            n_parallel_pairwise_regs=n_parallel_pairwise_regs,
+            pairwise_executor=pairwise_executor, mesh=mesh,
+            device_tiles=device_tiles, device=device, telemetry=telemetry,
+        )
     if post_registration_do_quality_filter:
         g_reg_computed = mv_graph.filter_edges(
             g_reg_computed, threshold=post_registration_quality_threshold, weight_key="quality"
         )
 
     t2 = time.perf_counter()
-    params_dict, groupwise_resolution_info_dict = param_resolution.groupwise_resolution(
-        g_reg_computed, method=groupwise_resolution_method, **groupwise_resolution_kwargs
-    )
+    with profiling.stage("register.groupwise_resolution"):
+        params_dict, groupwise_resolution_info_dict = param_resolution.groupwise_resolution(
+            g_reg_computed, method=groupwise_resolution_method, **groupwise_resolution_kwargs
+        )
     params = [params_dict[iview] for iview in sorted(g_reg_computed.nodes())]
     if reduced_dim is not None:
         params = [param_utils.expand_affine_dims(p, [reduced_dim]) for p in params]
@@ -1169,10 +1181,12 @@ def compute_pairwise_registrations(msims, g_reg, n_parallel_pairwise_regs=None,
     returns one result dict an edge. Otherwise the default phase correlation
     runs batched on the device and any other pairwise function or kwargs
     pair by pair (:func:`register_pair_of_msims`, over ``t`` for views with
-    a ``t`` dim). A device ``mesh`` is not ported yet."""
-    if mesh is not None:
-        raise _not_ported("registration across a device mesh", "item 12")
-    device = misc_utils.resolve_device(device)
+    a ``t`` dim). A ``mesh`` of more than one entry splits each batch of the
+    batched path into one contiguous part per entry, registered on that
+    entry's device (the reference's ``_resample_and_register_batch_sharded``);
+    the results equal the unsharded ones. Without ``device`` the call runs
+    on the mesh's first device."""
+    mesh, device = mesh_utils.resolve(mesh, device)
     telemetry = {} if telemetry is None else telemetry
     g_reg_computed = g_reg.copy()
     edges = [tuple(sorted([e[0], e[1]])) for e in g_reg.edges]
@@ -1190,7 +1204,7 @@ def compute_pairwise_registrations(msims, g_reg, n_parallel_pairwise_regs=None,
         return _assign_pairwise_registrations(g_reg_computed, edges, params)
 
     params = _try_batched_phase_correlation(
-        msims, edges, register_kwargs, device=device, telemetry=telemetry
+        msims, edges, register_kwargs, device=device, telemetry=telemetry, mesh=mesh
     )
     if params is None:
         params = [
@@ -1221,10 +1235,29 @@ class _Unit(NamedTuple):
     T: np.ndarray
 
 
-def _try_batched_phase_correlation(msims, edges, register_kwargs, device, telemetry):
+def _part_crops(units, tiles, fshape, mshape, device):
+    """The fixed and moving crop batches of ``units`` on ``device``: cut
+    from the resident stack ``tiles`` there (with the constant-overlap flags
+    computed on the device), or uploaded from the host crops. Returns
+    (fixed, moving, flags or None, bytes uploaded)."""
+    if tiles is not None:
+        def refs_of(refs):
+            return [r.view for r in refs], [r.starts for r in refs], [r.shape for r in refs]
+
+        f_dev = _crops_from_resident(tiles, *refs_of([u.fixed for u in units]), fshape)
+        m_dev = _crops_from_resident(tiles, *refs_of([u.moving for u in units]), mshape)
+        return f_dev, m_dev, _crop_const_flags(f_dev, m_dev), 0
+    f_dev, nb_f = _host_crops_to_device([u.fixed for u in units], fshape, device)
+    m_dev, nb_m = _host_crops_to_device([u.moving for u in units], mshape, device)
+    return f_dev, m_dev, None, nb_f + nb_m
+
+
+def _try_batched_phase_correlation(msims, edges, register_kwargs, device, telemetry, mesh=None):
     """Batched pairwise registration of every (edge, timepoint) unit: one
     device batch per crop-shape bucket (up to :data:`MAX_B` units), from host
-    crops or from crops cut out of the resident tile stack. Returns the
+    crops or from crops cut out of the resident tile stack; with a sharded
+    ``mesh``, each batch in one contiguous part per mesh entry on its device
+    (crops cut from that device's copy of the stack). Returns the
     per-edge results, stacked over ``t`` for views with a ``t`` dim, or None
     where the call is not the default phase correlation with its plain
     kwargs (the per-pair path takes it)."""
@@ -1365,14 +1398,15 @@ def _try_batched_phase_correlation(msims, edges, register_kwargs, device, teleme
             units.append(_Unit((ei, ti), refs[0], refs[1], fmat, foff, mmat, moff, out_shape, T))
 
     unit_results = {}
-    tiles_dev = None
+    replicas = {}
     tile_bytes_before = fusion_core.tile_upload_bytes
     telemetry["plan_s"] = time.perf_counter() - t_plan
     t_upload = time.perf_counter()
     if use_dev:
-        # one upload, or a hit of the stack a fuse() or register() left; a
-        # failed upload raises
-        tiles_dev = fusion_core._tiles_to_device(field_sims, device)
+        # one upload a device, or a hit of the stack a fuse() or register()
+        # left; a failed upload raises
+        devices = mesh.distinct_devices if mesh_utils.is_sharded(mesh) else (device,)
+        replicas = {d: fusion_core._tiles_to_device(field_sims, d) for d in devices}
     else:
         # host crops, with the constant guard before batching
         kept = []
@@ -1414,34 +1448,28 @@ def _try_batched_phase_correlation(msims, edges, register_kwargs, device, teleme
         mshape = tuple(max(u.moving.shape[d] for u in bucket) for d in range(ndim))
         for cstart in range(0, len(bucket), MAX_B):
             chunk = bucket[cstart:cstart + MAX_B]
-            tables = torch.from_numpy(np.stack([
-                np.concatenate([a.ravel() for a in (u.fmat, u.foff, u.mmat, u.moff)])
-                for u in chunk
-            ]).astype(np.float32)).to(device)
-            n2 = ndim * ndim
-            fmats = tables[:, :n2].reshape(-1, ndim, ndim)
-            foffs = tables[:, n2:n2 + ndim]
-            mmats = tables[:, n2 + ndim:2 * n2 + ndim].reshape(-1, ndim, ndim)
-            moffs = tables[:, 2 * n2 + ndim:]
-            const = None
-            if use_dev:
-                def refs_of(refs):
-                    return ([r.view for r in refs], [r.starts for r in refs],
-                            [r.shape for r in refs])
-
-                f_dev = _crops_from_resident(tiles_dev, *refs_of([u.fixed for u in chunk]), fshape)
-                m_dev = _crops_from_resident(
-                    tiles_dev, *refs_of([u.moving for u in chunk]), mshape
-                )
-                const = _crop_const_flags(f_dev, m_dev)
+            if mesh_utils.is_sharded(mesh):
+                parts = [(chunk[sl], d) for sl, d in mesh_utils.shard_parts(len(chunk), mesh)]
             else:
-                f_dev, nb_f = _host_crops_to_device([u.fixed for u in chunk], fshape, device)
-                m_dev, nb_m = _host_crops_to_device([u.moving for u in chunk], mshape, device)
-                crop_bytes += nb_f + nb_m
-            shifts, qualities = _resample_and_register_batch(
-                f_dev, m_dev, fmats, foffs, mmats, moffs, out_shape, uf, region_mode
-            )
-            pending.append((chunk, shifts, qualities, const))
+                parts = [(chunk, device)]
+            for part, dev in parts:
+                f_dev, m_dev, const, nbytes = _part_crops(
+                    part, replicas.get(dev), fshape, mshape, dev
+                )
+                crop_bytes += nbytes
+                tables = torch.from_numpy(np.stack([
+                    np.concatenate([a.ravel() for a in (u.fmat, u.foff, u.mmat, u.moff)])
+                    for u in part
+                ]).astype(np.float32)).to(dev)
+                n2 = ndim * ndim
+                fmats = tables[:, :n2].reshape(-1, ndim, ndim)
+                foffs = tables[:, n2:n2 + ndim]
+                mmats = tables[:, n2 + ndim:2 * n2 + ndim].reshape(-1, ndim, ndim)
+                moffs = tables[:, 2 * n2 + ndim:]
+                shifts, qualities = _resample_and_register_batch(
+                    f_dev, m_dev, fmats, foffs, mmats, moffs, out_shape, uf, region_mode
+                )
+                pending.append((part, shifts, qualities, const))
     if timed:
         ev1.record()
     telemetry["batches"] = len(pending)

@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 
 from multiview_stitcher_torch import fusion, msi_utils, registration, si_utils
 from multiview_stitcher_torch.msi_utils import Msim
-from multiview_stitcher_torch.utils import misc as misc_utils
+from multiview_stitcher_torch.parallel import mesh as mesh_utils
 
 
 def stitch(
@@ -34,13 +34,10 @@ def stitch(
     """Register -> resolve -> fuse. ``register_kwargs`` and ``fuse_kwargs``
     go to the two phases (and may override the ``device_tiles`` and
     ``transform_key`` set here). Returns the fused sim, backed by zarr with
-    ``output_zarr_url``. Runs on ``device``: the CUDA device by default, or
-    the CPU with ``device="cpu"``."""
-    device = misc_utils.resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "stitching across a device mesh is not ported yet (ROADMAP.md, queue 1: item 12)"
-        )
+    ``output_zarr_url``. Runs on ``device``: the CUDA device by default (the
+    first device of a ``mesh``), or the CPU with ``device="cpu"``. ``mesh``
+    (a :class:`~.parallel.mesh.Mesh`) goes to both phases."""
+    mesh, device = mesh_utils.resolve(mesh, device)
     msims = [
         m if isinstance(m, Msim) else msi_utils.get_msim_from_sim(m, scale_factors=[])
         for m in sims
@@ -49,12 +46,14 @@ def stitch(
     rkw.setdefault("device_tiles", True)
     rkw.setdefault("transform_key", transform_key)
     rkw.setdefault("new_transform_key", new_transform_key)
+    rkw.setdefault("mesh", mesh)
     rkw.setdefault("device", device)
     registration.register(msims, **rkw)
 
     sims_reg = [msi_utils.get_sim_from_msim(m) for m in msims]
     fkw = dict(fuse_kwargs or {})
     fkw.setdefault("transform_key", rkw["new_transform_key"])
+    fkw.setdefault("mesh", mesh)
     fkw.setdefault("device", device)
     if output_zarr_url is not None:
         fkw.setdefault("output_zarr_url", output_zarr_url)

@@ -40,6 +40,7 @@ from multiview_stitcher_torch import zarr_utils as tzu
 from multiview_stitcher_torch.fusion import _core as tcore
 from multiview_stitcher_torch.io import ngff_utils as tngff
 from multiview_stitcher_torch.io import zarr_backend as tzb
+from multiview_stitcher_torch.parallel.mesh import Mesh
 from multiview_stitcher_torch.utils import misc as tmisc
 from multiview_stitcher_tpu import fusion as jfusion
 from multiview_stitcher_tpu import msi_utils as jmsi
@@ -64,11 +65,13 @@ PORTED_MODULES = [
     "io.jpeg", "io.ngff_utils", "io.tif_utils", "io.zarr_backend", "metrics",
     "msi_utils", "mv_graph", "ops", "ops.exact_affine", "ops.filters",
     "ops.image_metrics", "ops.phase_correlation", "ops.resample", "ops.shear",
-    "param_resolution",
+    "parallel", "parallel.executors", "parallel.mesh", "parallel.multihost",
+    "parallel.pipeline", "param_resolution",
     "param_resolution.global_optimization", "param_resolution.linear_two_pass",
     "param_resolution.shortest_paths", "param_resolution.utils", "param_utils",
     "registration", "registration_plugins", "sample_data", "si_utils", "stitch",
-    "transformation", "transforms", "utils", "utils.misc", "weights", "zarr_utils",
+    "transformation", "transforms", "utils", "utils.misc", "utils.profiling", "weights",
+    "zarr_utils",
 ]
 PORT_ONLY = {"convert", "ops._build", "ops.translation_fusion"}
 
@@ -83,10 +86,18 @@ LEFT_OUT = {
         "plan_windows_3d_general": "item 28 leaves ops internals out",
     },
 }
-# JAX parameters the port leaves out (item 28: ops internals)
+# JAX parameters the port leaves out (item 28: ops internals; item 12: the
+# TPU's VMEM windows and output tile, and Pallas's interpret mode, which the
+# CUDA kernels do not take: they stage their own windows)
 PARAMS_LEFT_OUT = {
     ("ops.filters", "uniform_filter"): {"mode"},
     ("ops.phase_correlation", "rescale_intensity"): {"in_range", "out_range"},
+    ("parallel.pipeline", "sharded_fuse_chunks_exact"): {"win", "wwin", "tile", "interpret"},
+}
+# JAX defaults the port does not share, with the reason
+DEFAULTS_CHANGED = {
+    # a new directory under the temporary directory, not a fixed path
+    ("utils.profiling", "device_trace", "log_dir"): None,
 }
 # parameters the port adds besides ``device``: batched ops take the number
 # of spatial dims (the rest are batch dims), and a few functions take what
@@ -153,13 +164,15 @@ def test_public_api_matches_jax(name):
         for p in want:
             assert pp[p].kind == jp[p].kind, (name, attr, p)
             jd, pd = jp[p].default, pp[p].default
-            if isinstance(jd, (type(None), bool, int, float, str)):
+            if (name, attr, p) in DEFAULTS_CHANGED:
+                assert pd == DEFAULTS_CHANGED[(name, attr, p)], (name, attr, p, pd)
+            elif isinstance(jd, (type(None), bool, int, float, str)):
                 same_nan = isinstance(jd, float) and math.isnan(jd) and math.isnan(pd)
                 assert pd == jd or same_nan, (name, attr, p, pd, jd)
 
 
 def test_package_all_and_aliases():
-    unported = {"vis_utils", "neuroglancer", "parallel"}
+    unported = {"vis_utils", "neuroglancer"}
     assert tpkg.__all__ == [m for m in jpkg.__all__ if m not in unported]
     for m in tpkg.__all__:
         importlib.import_module(f"{tpkg.__name__}.{m}")
@@ -593,8 +606,21 @@ def test_link_quality_metric_matches_jax():
 
 
 def test_compute_pairwise_registrations_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """Anything but a ``parallel.mesh.Mesh`` is refused (TypeError); a CPU
+    mesh gives the unsharded pairs, within 1e-8."""
+    with pytest.raises(TypeError, match="Mesh"):
         treg.compute_pairwise_registrations([], tmv.Graph(), mesh=object(), device="cpu")
+    _, tsims = _both(**_SMALL)
+    msims = [tmsi.get_msim_from_sim(s.isel({"c": 0, "t": 0}), scale_factors=[]) for s in tsims]
+    g = tmv.build_view_adjacency_graph_from_msims(msims, transform_key=KEY)
+    ref = treg.compute_pairwise_registrations(msims, g, transform_key=KEY, device="cpu")
+    got = treg.compute_pairwise_registrations(
+        msims, g, transform_key=KEY, mesh=Mesh([torch.device("cpu")] * 3)
+    )
+    for (a, b, e) in ref.edges(data=True):
+        np.testing.assert_allclose(
+            got.edges[a, b]["transform"].data, e["transform"].data, atol=1e-8
+        )
 
 
 def test_compute_edge_residuals_takes_ndim():
@@ -734,8 +760,11 @@ def test_fuse_backend_names_and_mesh():
     # the JAX package's own array library is not this package's
     with pytest.raises(ValueError, match="backend"):
         tfusion.fuse(tsims, transform_key=KEY, device="cpu", backend="jax")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # a mesh is a parallel.mesh.Mesh; a CPU one gives the unsharded output
+    with pytest.raises(TypeError, match="Mesh"):
         tfusion.fuse(tsims, transform_key=KEY, device="cpu", mesh=object())
+    got = tfusion.fuse(tsims, transform_key=KEY, mesh=Mesh([torch.device("cpu")] * 3))
+    np.testing.assert_array_equal(got.data, ref.data)
 
 
 @pytest.mark.parametrize("stub", ["fuse_to_zarr", "fuse_to_multiscale_ome_zarr"])

@@ -393,6 +393,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "from multiview_stitcher_torch.fusion import fuse_np, func_ignore_nan_warning\n"
         "import multiview_stitcher_torch.sample_data\n"
         "from multiview_stitcher_torch.fusion import prepare_block_fusion\n"
+        "from multiview_stitcher_torch.parallel import executors, mesh, multihost, pipeline\n"
+        "from multiview_stitcher_torch.utils import profiling\n"
         "assert p.spatial_image_utils.get_sim_field and p.misc_utils.ndindex_batches\n"
         "assert p.ngff_utils.read_ngff_multiscales\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"

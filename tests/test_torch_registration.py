@@ -27,6 +27,7 @@ from multiview_stitcher_torch.ops import filters as tfilters
 from multiview_stitcher_torch.ops import image_metrics as tim
 from multiview_stitcher_torch.ops import phase_correlation as tpc
 from multiview_stitcher_torch.ops import resample as tresample
+from multiview_stitcher_torch.parallel.mesh import Mesh
 from multiview_stitcher_tpu import msi_utils, mv_graph, param_resolution, registration, sample_data
 from multiview_stitcher_tpu import si_utils
 from multiview_stitcher_tpu.ops import filters as jfilters
@@ -675,15 +676,22 @@ def test_register_refuses_what_the_slice_does_not_cover(grids):
     sims = _to_port(grids[2])
     kw = dict(transform_key=KEY, device="cpu")
     cases = [
-        (dict(mesh=object()), "item 12"),
         (dict(plot_summary=True), "item 27"),
     ]
     for extra, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             treg.register(sims, **kw, **extra)
+    default = treg.register(sims, **kw)
+    # what item 12 covered is no longer refused: a mesh is a
+    # parallel.mesh.Mesh (anything else raises TypeError), and a CPU mesh
+    # registers as the unsharded call does
+    with pytest.raises(TypeError, match="Mesh"):
+        treg.register(sims, **kw, mesh=object())
+    meshed = treg.register(sims, transform_key=KEY, mesh=Mesh([torch.device("cpu")] * 3))
+    for p, r in zip(meshed, default):
+        np.testing.assert_allclose(p.data, r.data, atol=1e-8)
     # what item 8's rest covered is no longer refused: the per-pair path, an
     # executor and the linear two-pass resolution run
-    default = treg.register(sims, **kw)
     for extra in (
         dict(pairwise_reg_func_kwargs={"use_fused_core": False}),
         dict(pairwise_executor=lambda m, edges, k: [

@@ -21,6 +21,7 @@ from multiview_stitcher_torch import registration as treg
 from multiview_stitcher_torch import weights as tweights
 from multiview_stitcher_torch.fusion import _core as tcore
 from multiview_stitcher_torch.fusion import fuse as tfuse
+from multiview_stitcher_torch.parallel.mesh import Mesh
 from multiview_stitcher_torch.stitch import stitch as tstitch
 from multiview_stitcher_tpu import msi_utils, sample_data, si_utils
 from multiview_stitcher_tpu.stitch import stitch as jstitch
@@ -189,5 +190,10 @@ def test_stitch_without_device_needs_cuda():
 
 
 def test_stitch_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """Anything but a ``parallel.mesh.Mesh`` is refused (TypeError); a CPU
+    mesh gives the unsharded output bit for bit."""
+    with pytest.raises(TypeError, match="Mesh"):
         tstitch(_to_port(_grid(2)), mesh=object(), device="cpu")
+    ref = tstitch(_to_port(_grid(2)), device="cpu")
+    got = tstitch(_to_port(_grid(2)), mesh=Mesh([torch.device("cpu")] * 3))
+    np.testing.assert_array_equal(got.to_numpy(), ref.to_numpy())
