@@ -284,7 +284,34 @@ Phases, one printed line or block each:
    processes on the card (gloo on localhost, torchrun's variables set
    here) running ``multihost_fuse`` of a 4 x 4 grid of zarr tiles into one
    store, byte-equal to one process's;
-16. a ``kernels`` JSON line: per kernel its launches in the main-path run,
+16. the serving path (lines start with the card's name and power limit,
+   then ``service:``), through the port's default device (no ``device=``
+   anywhere): phase 14's CZI slide scan written again (16 x 16 tiles of
+   1024^2 uint16, 2 channels, 1.07 GB); ``service.Session().load_mosaic``
+   of its 256 views, ``register`` by channel 0 (shortest paths,
+   ``upsample_factor`` 100) and
+   ``fuse_preview``, cold and warm, every registered offset within 0.25 px
+   of the truth; ``spec()`` / ``from_spec()`` round trip; ``serve()`` on a
+   free loopback port: every chunk of the preview route and one chunk of
+   each of four views read over HTTP (through the port's ``zarr_backend``
+   HTTP read and by plain GETs, 20 each, median and p95 printed), each
+   bit-equal to its sim; ``io.virtual_ngff.VirtualOMEZarr`` over
+   ``fuse(..., output_on_backend=True)`` of the registered scan, every chunk
+   cut on the card and bit-equal to the output downloaded, one served over
+   HTTP by a ``VirtualOMEZarrServer``; ``neuroglancer_state`` and
+   ``fusion_plan``; ``fuse_to_zarr`` in process with
+   ``FusionOptions(output_chunksize=8192)`` (4 blocks: each block reads every
+   tile), within 1 count of ``fuse()``;
+   the bytes read from the CZI by step. On the scan's 4 x 4 corner:
+   ``register`` over a ``LocalBridge`` within 1e-3 px of the in-process
+   call (the default options), and ``fuse_to_zarr`` (blocks of 2048^2) over
+   a ``ProcessPoolBridge`` of two workers
+   started by spawn on the card (each answers a probe with its device and
+   its kernel launches; kernel 2 launched in them), its store byte-equal to
+   the in-process store; the worker start-up timed. The five kernels'
+   launches are counted from 0 after the file is written and read at the
+   phase's end (``service_launches``);
+17. a ``kernels`` JSON line: per kernel its launches in the main-path run,
    its time, the plain version's time, its bound and its error, and its
    launches in the beads phase's fuse (``beads_launches``), the
    deconvolution's warm fuse (``deconv_launches``), the metrics' batched
@@ -292,7 +319,7 @@ Phases, one printed line or block each:
    (``api_launches``), the ``slabs:`` phase's warm fuse
    (``slab_launches``), the ``readers:`` phase's warm calls on data a
    reader delivered (``readers_launches``) and the mesh phase's sharded
-   runs (``mesh_launches``).
+   runs (``mesh_launches``) and the service phase (``service_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 the script exits non-zero without that line; without a CUDA device it exits
@@ -3996,25 +4023,14 @@ def readers_codecs(np, torch, say, shape=READERS_CODEC_SHAPE, deflate_shape=READ
     return out
 
 
-def readers_mosaic(np, torch, tsi, tcore, tf, tstream, fuse, work, say, n=READERS_MOSAIC_N,
-                   tile=READERS_MOSAIC_TILE, overlap=READERS_MOSAIC_OVERLAP,
-                   window=READERS_WINDOW):
-    """A CZI slide-scan mosaic through ``stitch()``: n x n tiles of tile^2
-    uint16 in 2 channels cut from one band-limited image at their true grid
-    positions, written as raw subblocks whose X/Y starts hold the true
-    positions plus an integer error; opened lazily by
-    ``io.read_mosaic_into_sims``, stitched on the card by channel 0, cold
-    and warm. Held: every tile's registered offset within 0.25 px of the
-    truth (after the global offset), the fused image bit-equal to
-    ``stitch()`` of the same tiles held as numpy arrays, a centre window
-    within 1 count of ``fuse(device="cpu")``; at least one launch of
-    ``fuse_translation_2d``."""
-    from multiview_stitcher_torch import io as tio
-    from multiview_stitcher_torch import msi_utils as tmsi
-    from multiview_stitcher_torch import registration as treg
-    from multiview_stitcher_torch import stitch as tstitch
-    from multiview_stitcher_torch.io import czi_utils as tczi
-
+def write_slide_scan(np, torch, work, n, tile, overlap):
+    """The CZI slide scan of the ``readers:`` and ``service:`` phases: n x n
+    tiles of tile^2 uint16 in 2 channels cut from one band-limited image
+    (made on the card from a seed) at their true grid positions, written as
+    raw subblocks whose X/Y starts hold the true positions plus an integer
+    error in [-READERS_MOSAIC_ERROR, READERS_MOSAIC_ERROR]. Returns the
+    path, the true and written (y, x) starts in pixels, the bytes written
+    and the seconds it took."""
     rng = np.random.default_rng(23)
     step = tile - overlap
     extent = (n - 1) * step + tile
@@ -4040,8 +4056,30 @@ def readers_mosaic(np, torch, tsi, tcore, tf, tstream, fuse, work, say, n=READER
     path = work / "slide_scan.czi"
     xml = czi_metadata_xml({"X": READERS_SPACING, "Y": READERS_SPACING}, ["DAPI", "GFP"])
     file_bytes = write_czi(path, xml, subblocks())
-    write_s = time.perf_counter() - t0
-    del image
+    return path, truth, starts, file_bytes, time.perf_counter() - t0
+
+
+def readers_mosaic(np, torch, tsi, tcore, tf, tstream, fuse, work, say, n=READERS_MOSAIC_N,
+                   tile=READERS_MOSAIC_TILE, overlap=READERS_MOSAIC_OVERLAP,
+                   window=READERS_WINDOW):
+    """A CZI slide-scan mosaic through ``stitch()``: n x n tiles of tile^2
+    uint16 in 2 channels cut from one band-limited image at their true grid
+    positions, written as raw subblocks whose X/Y starts hold the true
+    positions plus an integer error; opened lazily by
+    ``io.read_mosaic_into_sims``, stitched on the card by channel 0, cold
+    and warm. Held: every tile's registered offset within 0.25 px of the
+    truth (after the global offset), the fused image bit-equal to
+    ``stitch()`` of the same tiles held as numpy arrays, a centre window
+    within 1 count of ``fuse(device="cpu")``; at least one launch of
+    ``fuse_translation_2d``."""
+    from multiview_stitcher_torch import io as tio
+    from multiview_stitcher_torch import msi_utils as tmsi
+    from multiview_stitcher_torch import registration as treg
+    from multiview_stitcher_torch import stitch as tstitch
+    from multiview_stitcher_torch.io import czi_utils as tczi
+
+    path, truth, starts, file_bytes, write_s = write_slide_scan(np, torch, work, n, tile,
+                                                                overlap)
     sp = READERS_SPACING
     tol = {"y": READERS_MOSAIC_ERROR * sp, "x": READERS_MOSAIC_ERROR * sp}
     # shortest paths: the default global optimisation stops unconverged on
@@ -4529,6 +4567,369 @@ def readers_phase(np, torch, tsi, tcore, tf, tea, tstream, fuse, work, found, sc
     say(f"phase {phase_s:.1f} s; launches on data the readers delivered {json.dumps(launches)}")
     return {"codecs": codec, "czi_mosaic": mosaic, "czi_multiview": multiview,
             "tiff_grid": tiff, "optional": optional, "phase_s": phase_s}, launches
+
+
+# ---------------------------------------------------------------------------
+# the service phase: a session serving the slide scan, workers over bridges
+# ---------------------------------------------------------------------------
+
+# output blocks of the scan's fuse_to_zarr: 4 blocks (2 x 2) of the
+# (14854, 14854) output; each block reads every tile of both channels (ROADMAP
+# item 35), so 2048^2 blocks (64) read 104 GB and took 175.6 s (PERF.md, PR 16)
+SERVICE_CHUNK = 8192
+# the corner's blocks: 4 of them (3790^2 output), two a worker
+SERVICE_CORNER_CHUNK = 2048
+SERVICE_CORNER = 4
+SERVICE_WORKERS = 2
+SERVICE_HTTP_REPS = 20
+SERVICE_VIEWS = 4
+SERVICE_BRIDGE_ATOL = 1e-3
+SERVICE_WORKER_TIMEOUT_S = 300
+
+
+def service_worker_probe(barrier):
+    """Run in a worker of a ``ProcessPoolBridge``: its pid, its runtime's
+    device and card, and the launches of each kernel in the process so far.
+    Waits on ``barrier`` so that each worker of the pool answers once."""
+    import torch
+
+    from multiview_stitcher_torch.ops import exact_affine as tea
+    from multiview_stitcher_torch.ops import translation_fusion as tf
+    from multiview_stitcher_torch.service import bridge
+
+    barrier.wait(timeout=SERVICE_WORKER_TIMEOUT_S)
+    device = bridge._POOL_RUNTIME.device
+    launches = {"fuse_translation_3d": tf.fuse_translation_3d.launches,
+                "fuse_translation_2d": tf.fuse_translation_2d.launches,
+                **{name: getattr(tea, name).launches for name in EXACT_WRAPPERS}}
+    return {"pid": os.getpid(), "device": str(device),
+            "card": torch.cuda.get_device_name(device) if device.type == "cuda" else None,
+            "launches": launches}
+
+
+def probe_workers(bridge, ctx, n):
+    """One :func:`service_worker_probe` answer from each of the ``n``
+    workers of ``bridge`` (a barrier of ``n`` makes each worker take one)."""
+    with ctx.Manager() as manager:
+        barrier = manager.Barrier(n)
+        futures = [bridge._pool.submit(service_worker_probe, barrier) for _ in range(n)]
+        answers = [f.result(timeout=SERVICE_WORKER_TIMEOUT_S) for f in futures]
+    if len({a["pid"] for a in answers}) != n:
+        raise AssertionError(f"service: {n} workers expected, answers {answers}")
+    return answers
+
+
+def http_get(url) -> tuple:
+    """The bytes of a GET and its seconds."""
+    import urllib.request
+
+    t = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=60) as r:
+        data = r.read()
+    return data, time.perf_counter() - t
+
+
+def latency(np, seconds) -> dict:
+    return {"median_ms": float(np.median(seconds) * 1e3),
+            "p95_ms": float(np.percentile(seconds, 95) * 1e3), "n": len(seconds)}
+
+
+def padded_chunk(np, arr, idx, chunks):
+    """The zarr chunk ``idx`` of ``arr``, zero-padded to ``chunks``."""
+    sl = tuple(slice(i * c, min((i + 1) * c, n)) for i, c, n in zip(idx, chunks, arr.shape))
+    out = np.zeros(chunks, arr.dtype)
+    block = arr[sl]
+    out[tuple(slice(0, b) for b in block.shape)] = block
+    return out
+
+
+def service_phase(np, torch, tsi, tcore, tf, tea, fuse, work, scale=1):
+    """``service:`` lines: the service runtime on the card, through its
+    default device, over the ``readers:`` phase's CZI slide scan (written
+    again here under ``work``, removed after). In process: a ``Session``
+    loads the 256 views, registers them by channel 0 (shortest paths), fuses
+    a preview and serves it and the views over HTTP (loopback), read back
+    through the port's ``zarr_backend`` HTTP read; a virtual store over
+    ``fuse(..., output_on_backend=True)`` serves its chunks from the card;
+    the neuroglancer state and fusion plan; ``fuse_to_zarr`` block by block.
+    Over bridges, on the scan's 4 x 4 corner: ``register`` over a
+    ``LocalBridge`` against the in-process call, ``fuse_to_zarr`` over a
+    ``ProcessPoolBridge`` of two spawned workers on the card, byte-equal to
+    the in-process store. Returns the results and each kernel's launches in
+    the phase."""
+    import multiprocessing as mp
+
+    from multiview_stitcher_torch import msi_utils as tmsi
+    from multiview_stitcher_torch.utils import misc as tmisc
+    from multiview_stitcher_torch.io import czi_utils as tczi
+    from multiview_stitcher_torch.io import virtual_ngff as tvn
+    from multiview_stitcher_torch.io import zarr_backend as tzb
+    from multiview_stitcher_torch.parallel.executors import SourceSpec
+    from multiview_stitcher_torch.service import (
+        FusionOptions,
+        LocalBridge,
+        ProcessPoolBridge,
+        RegistrationOptions,
+        Session,
+    )
+
+    card = card_line()
+    # the port's default device, which no call of this phase names: the card
+    device = tmisc.resolve_device(None)
+
+    def say(msg):
+        log(f"{card} service: {msg}")
+
+    def synced(fn, *a, **k):
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    n = max(SERVICE_CORNER, READERS_MOSAIC_N // scale)
+    tile, overlap = READERS_MOSAIC_TILE // scale, READERS_MOSAIC_OVERLAP // scale
+    chunk, corner_chunk = SERVICE_CHUNK // scale, SERVICE_CORNER_CHUNK // scale
+    sp = READERS_SPACING
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    try:
+        path, truth, starts, file_bytes, write_s = write_slide_scan(np, torch, work, n, tile,
+                                                                    overlap)
+        # this phase's run: counts set to 0 just before, read just after
+        for name in KERNEL_NAMES:
+            getattr(tf if name.startswith("fuse_") else tea, name).launches = 0
+        # shortest paths (ROADMAP item 24) at a 0.01 px grid: the session's
+        # JSON options carry no overlap tolerance, so a pair's crops miss up
+        # to the stage error of their overlap, and the default 0.1 px grid
+        # leaves the offsets above the 0.25 px this phase holds
+        reg_opts = RegistrationOptions(new_transform_key="registered",
+                                       groupwise_resolution_method="shortest_paths",
+                                       pairwise_reg_func_kwargs={"upsample_factor": 100})
+        fuse_opts = FusionOptions(transform_key="registered", output_chunksize=chunk)
+
+        # -- in process: load, register, preview; cold, then warm ----------
+        say(f"slide scan {n} x {n} tiles of {tile}^2 uint16, 2 channels: {file_bytes / 1e9:.3f}"
+            f" GB of CZI written in {write_s:.1f} s; sessions on {device}")
+        counter = ReadCounter(tczi)
+        runs = []
+        with counter:
+            for label in ("cold", "warm"):
+                t0 = time.perf_counter()
+                counter.stage = "load"
+                session = Session()
+                views = session.load_mosaic(str(path))
+                load_s = time.perf_counter() - t0
+                counter.stage = "register"
+                summary, reg_s = synced(session.register, reg_opts)
+                counter.stage = "preview"
+                preview, preview_s = synced(session.fuse_preview)
+                runs.append({"load_s": load_s, "register_s": reg_s, "preview_s": preview_s,
+                             "first_preview_s": time.perf_counter() - t0})
+                say(f"{label}: load_mosaic {load_s:.3f} s, register {reg_s:.3f} s, fuse_preview "
+                    f"{preview_s:.3f} s, the first preview {runs[-1]['first_preview_s']:.3f} s "
+                    "after Session()")
+            counter.stage = "other"
+            if len(views) != n * n or session.device != device:
+                raise AssertionError(f"service: {len(views)} views on {session.device}")
+            described = session.describe()
+            spec_json = session.spec().to_json()
+            rebuilt, from_spec_s = synced(Session.from_spec, spec_json)
+            if rebuilt.spec().to_json() != spec_json or rebuilt.describe() != described:
+                raise AssertionError("service: from_spec() does not give the session back")
+            del rebuilt
+
+            # every view's registered offset against the truth (after the
+            # global offset)
+            origins = np.asarray([[v["origin"]["y"], v["origin"]["x"]] for v in described])
+            placed = np.asarray([np.asarray(p)[:2, :2] @ o + np.asarray(p)[:2, 2]
+                                 for p, o in zip(summary["params"], origins)]) / sp
+            err = placed - truth
+            offset_err = float(np.abs(err - err.mean(axis=0)).max())
+            say(f"from_spec {from_spec_s:.3f} s (every view reopens the CZI); offsets by "
+                f"shortest paths within {offset_err:.4f} px of the truth; preview "
+                f"{preview['shape']} at spacing {preview['spacing']}")
+            if offset_err > READERS_OFFSET_ATOL:
+                raise AssertionError(f"service: registered offsets {offset_err:.3f} px from "
+                                     "the truth")
+
+            # -- serve: the preview and four views over HTTP --------------
+            counter.stage = "serve"
+            info = session.serve(port=free_port())
+            try:
+                base, route = info["base_url"], preview["route"]
+                if route not in info["routes"] or len(info["routes"]) != n * n + 1:
+                    raise AssertionError(f"service: routes {info['routes'][:3]}...")
+                pstore = session.preview_store(route)
+                pdata = np.asarray(pstore.msim.sims[0].data)
+                got = tzb.open_zarr_array(f"{base}/{route}/0")
+                if not np.array_equal(np.asarray(got), pdata):
+                    raise AssertionError("service: the preview over HTTP differs from its sim")
+                pmeta = json.loads(pstore.get("0/.zarray"))
+                pgrid = [-(-s // c) for s, c in zip(pmeta["shape"], pmeta["chunks"])]
+                preview_lat = []
+                for idx in np.ndindex(*pgrid):
+                    key = ".".join(map(str, idx))
+                    for rep in range(SERVICE_HTTP_REPS):
+                        raw, dt = http_get(f"{base}/{route}/0/{key}")
+                        preview_lat.append(dt)
+                    if raw != padded_chunk(np, pdata, idx, pmeta["chunks"]).tobytes():
+                        raise AssertionError(f"service: preview chunk {key} differs")
+                view_ids = np.linspace(0, n * n - 1, SERVICE_VIEWS).round().astype(int)
+                view_lat = []
+                for v in view_ids:
+                    pixels = tmsi.get_sim_from_msim(session.msims[v]).to_numpy()
+                    vmeta = json.loads(http_get(f"{base}/{v}.ome.zarr/0/.zarray")[0])
+                    key = ".".join("0" for _ in vmeta["shape"])
+                    for rep in range(SERVICE_HTTP_REPS):
+                        raw, dt = http_get(f"{base}/{v}.ome.zarr/0/{key}")
+                        view_lat.append(dt)
+                    ref = padded_chunk(np, pixels, (0,) * pixels.ndim, vmeta["chunks"])
+                    if raw != ref.tobytes():
+                        raise AssertionError(f"service: view {v}'s chunk {key} differs")
+                state = session.neuroglancer_state(base_url=base)
+                if len(state["layers"]) != n * n or not state["layers"][-1]["source"][
+                        "url"].startswith(f"zarr://{base}/"):
+                    raise AssertionError("service: the neuroglancer state misses views")
+            finally:
+                session.stop_serving()
+            say(f"HTTP chunk requests (loopback, {SERVICE_HTTP_REPS} each): preview "
+                + json.dumps(latency(np, preview_lat)) + f" over {int(np.prod(pgrid))} chunks, "
+                "view " + json.dumps(latency(np, view_lat)) + f" over {len(view_ids)} views; "
+                "every chunk bit-equal to its sim; the neuroglancer state names every view")
+            counter.stage = "plan"
+            plan, plan_s = synced(session.fusion_plan, fuse_opts)
+
+            # -- a virtual store over the fused scan on the card -----------
+            counter.stage = "fuse"
+            sims = [tmsi.get_sim_from_msim(m) for m in session.msims]
+            fused, fuse_s = synced(fuse, sims, transform_key="registered",
+                                   output_on_backend=True)
+            if not (isinstance(fused.data, torch.Tensor)
+                    and fused.data.device.type == device.type):
+                raise AssertionError("service: fuse(output_on_backend=True) is not on the card")
+            host = fused.to_numpy()
+            dstore = tvn.VirtualOMEZarr(fused)
+            dmeta = json.loads(dstore.get("0/.zarray"))
+            dgrid = [-(-s // c) for s, c in zip(dmeta["shape"], dmeta["chunks"])]
+            card_lat = []
+            for idx in np.ndindex(*dgrid):
+                raw, dt = synced(dstore.get, "0/" + ".".join(map(str, idx)))
+                card_lat.append(dt)
+                if raw != padded_chunk(np, host, idx, dmeta["chunks"]).tobytes():
+                    raise AssertionError(f"service: chunk {idx} from the card differs")
+            server = tvn.VirtualOMEZarrServer({"fused.ome.zarr": dstore},
+                                              port=free_port()).start()
+            try:
+                card_http = []
+                for rep in range(SERVICE_HTTP_REPS):
+                    raw, dt = http_get(f"{server.base_url}/fused.ome.zarr/0/0.0.0")
+                    card_http.append(dt)
+                if raw != padded_chunk(np, host, (0, 0, 0), dmeta["chunks"]).tobytes():
+                    raise AssertionError("service: a card chunk over HTTP differs")
+            finally:
+                server.shutdown()
+            del fused, dstore
+            torch.cuda.empty_cache()
+            say(f"fusion_plan {plan_s:.3f} s; fuse(output_on_backend=True) {fuse_s:.3f} s, "
+                f"{tuple(dmeta['shape'])}; its {len(card_lat)} chunks served from the card "
+                + json.dumps(latency(np, card_lat)) + ", one over HTTP "
+                + json.dumps(latency(np, card_http)) + "; bit-equal to the output downloaded")
+
+            # -- fuse_to_zarr in process, block by block --------------------
+            counter.stage = "fuse_to_zarr"
+            url = str(work / "fused.zarr")
+            written, zarr_s = synced(session.fuse_to_zarr, url, fuse_opts)
+            if written != {"n_blocks": plan["n_blocks"], "written": plan["n_blocks"]}:
+                raise AssertionError(f"service: fuse_to_zarr wrote {written}, plan {plan}")
+            level0 = np.asarray(tzb.open_zarr_array(url))
+            if level0.shape != host.shape:
+                raise AssertionError(f"service: fuse_to_zarr {level0.shape}, fuse {host.shape}")
+            zarr_err = int(np.abs(level0.astype(np.int32) - host.astype(np.int32)).max())
+            read = {k: int(v) for k, v in counter.bytes.items()}
+            say(f"fuse_to_zarr in process: {plan['n_blocks']} blocks of {chunk}^2 in "
+                f"{zarr_s:.3f} s, within {zarr_err} counts of fuse(); bytes read from the CZI "
+                f"by step {json.dumps(read)} ({sum(read.values()) / 1e9:.3f} GB, file "
+                f"{file_bytes / 1e9:.3f} GB)")
+            if zarr_err > 1:
+                raise AssertionError(f"service: fuse_to_zarr {zarr_err} counts from fuse()")
+            del level0, host, session
+            shutil.rmtree(url)
+
+        # -- over bridges, on the scan's corner -----------------------------
+        # the default options: the bridge registers each pair alone and the
+        # session in batches, which share their 0.1 px grid
+        corner_opts = RegistrationOptions(new_transform_key="registered")
+        corner = [iy * n + ix for iy in range(SERVICE_CORNER) for ix in range(SERVICE_CORNER)]
+        sources = [SourceSpec(url=str(path), view_index=int(m)) for m in corner]
+        local = Session()
+        local.load(sources)
+        r_local, corner_reg_s = synced(local.register, corner_opts)
+        bridged = Session()
+        bridged.load(sources)
+        r_bridge, bridge_reg_s = synced(bridged.register, corner_opts, bridge=LocalBridge())
+        reg_diff = float(np.abs(np.asarray(r_bridge["params"])
+                                - np.asarray(r_local["params"])).max())
+        say(f"corner {SERVICE_CORNER} x {SERVICE_CORNER}: register {corner_reg_s:.3f} s in "
+            f"process, {bridge_reg_s:.3f} s over a LocalBridge, {reg_diff:.2e} px apart")
+        if reg_diff > SERVICE_BRIDGE_ATOL or r_bridge["edges"] != r_local["edges"]:
+            raise AssertionError(f"service: LocalBridge register {reg_diff} px from in-process")
+        copts = FusionOptions(transform_key="registered", output_chunksize=corner_chunk)
+        url_local, url_pool = str(work / "corner_local.zarr"), str(work / "corner_pool.zarr")
+        local_zarr, corner_zarr_s = synced(local.fuse_to_zarr, url_local, copts)
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        pool = ProcessPoolBridge(n_workers=SERVICE_WORKERS)
+        try:
+            started = probe_workers(pool, ctx, SERVICE_WORKERS)
+            startup_s = time.perf_counter() - t0
+            pool_zarr, pool_zarr_s = synced(
+                local.fuse_to_zarr, url_pool, copts, bridge=pool,
+                batch_size=max(1, -(-local_zarr["n_blocks"] // SERVICE_WORKERS)))
+            after = probe_workers(pool, ctx, SERVICE_WORKERS)
+        finally:
+            pool.close()
+        say(f"corner: fuse_to_zarr {corner_zarr_s:.3f} s in process ({local_zarr['n_blocks']} "
+            f"blocks), {pool_zarr_s:.3f} s over a ProcessPoolBridge of {SERVICE_WORKERS} "
+            f"workers (start-up, spawn to every worker's first answer, {startup_s:.3f} s); the "
+            f"workers {json.dumps(after)}")
+        if any(a["device"] != str(device) or (device.type == "cuda" and a["card"] is None)
+               for a in started + after):
+            raise AssertionError(f"service: workers not on the card {started}")
+        worker_launches = sum(a["launches"]["fuse_translation_2d"] for a in after)
+        if pool_zarr != local_zarr or worker_launches < 1:
+            raise AssertionError(f"service: bridged {pool_zarr} against {local_zarr}, "
+                                 f"{worker_launches} kernel 2 launches in the workers")
+        files = sorted(p.name for p in Path(url_local).iterdir())
+        if files != sorted(p.name for p in Path(url_pool).iterdir()) or any(
+                (Path(url_local) / f).read_bytes() != (Path(url_pool) / f).read_bytes()
+                for f in files):
+            raise AssertionError("service: the bridged store differs from the in-process one")
+        del local, bridged
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {name: getattr(tf if name.startswith("fuse_") else tea, name).launches
+                for name in KERNEL_NAMES}
+    if launches["fuse_translation_2d"] < 1:
+        raise AssertionError(f"service: kernel 2 was not launched {launches}")
+    phase_s = time.perf_counter() - t_phase
+    res = {
+        "views": n * n, "file_bytes": file_bytes, "write_s": write_s, "cold": runs[0],
+        "warm": runs[1], "from_spec_s": from_spec_s, "offset_max_err_px": offset_err,
+        "preview": {"shape": preview["shape"], "spacing": preview["spacing"]},
+        "preview_chunk_http": latency(np, preview_lat), "view_chunk_http": latency(np, view_lat),
+        "card_chunk": latency(np, card_lat), "card_chunk_http": latency(np, card_http),
+        "fusion_plan_s": plan_s, "fuse_on_card_s": fuse_s, "plan": plan,
+        "fuse_to_zarr_s": zarr_s, "fuse_to_zarr_max_err": zarr_err, "read_bytes": read,
+        "corner": {"views": len(corner), "register_s": corner_reg_s,
+                   "local_bridge_register_s": bridge_reg_s, "register_max_diff_px": reg_diff,
+                   "fuse_to_zarr_s": corner_zarr_s, "blocks": local_zarr["n_blocks"],
+                   "worker_startup_s": startup_s, "bridged_fuse_to_zarr_s": pool_zarr_s,
+                   "workers": after},
+        "launches": launches, "phase_s": phase_s,
+    }
+    say(f"phase {phase_s:.1f} s; launches {json.dumps(launches)}")
+    return res, launches
 
 
 # ---------------------------------------------------------------------------
@@ -5131,6 +5532,12 @@ def main() -> int:
     mesh.part("multihost", mesh.multihost, tsi, tngff, texec, tmh,
               REPO / ".bench_large" / "chip_smoke_multihost")
     mesh.say(f"phase {mesh.out['phase_s']:.1f} s in all")
+    torch.cuda.empty_cache()
+
+    # the serving path: a session over the slide scan, workers over bridges
+    service, service_launches = service_phase(np, torch, tsi, tcore, tf, tea, fuse,
+                                              REPO / ".bench_large" / "chip_smoke_service")
+    torch.cuda.empty_cache()
 
     source = "multiview_stitcher_torch/csrc/translation_fusion.cu"
     exact_source = "multiview_stitcher_torch/csrc/exact_affine.cu"
@@ -5162,10 +5569,12 @@ def main() -> int:
         k["slab_launches"] = slab_launches[k["name"]]
         k["readers_launches"] = readers_launches[k["name"]]
         k["mesh_launches"] = mesh.launches[k["name"]]
+        k["service_launches"] = service_launches[k["name"]]
     detail = {"3d": r3, "2d": r2, "zarr": zarr, "zarr3": zarr3, "api": api, "slabs": slabs,
               "shear": shear, **{f"affine_{k}": v for k, v in affine.items()},
               "general": general, "multiscale": multiscale, "beads": beads, "deconv": deconv,
               "stitch": stitched, "metrics": quality, "readers": readers, "mesh": mesh.out,
+              "service": service,
               "f1_fuse_max_abs_err": f1_err, "build_s": build_s, "small_cases_s": small_s,
               "total_s": time.perf_counter() - t_start}
     log("detail: " + json.dumps(detail))

@@ -19,18 +19,25 @@ deconvolution (``fusion.mv_deconv``) and registration-quality metrics
 array (``fusion.prepare_block_fusion``), the readers of TIFF, CZI (mosaics
 and multi-view), Imaris and the everyday image formats
 (``io.read_mosaic_into_sims``), fusion and registration over a device mesh
-and across processes (``parallel``), and the public names of the JAX
-package's modules listed below, with the JAX package's parameters. Entry
-points run on the CUDA device unless the caller passes ``device="cpu"``,
-which takes the plain PyTorch version of every kernel.
+and across processes (``parallel``), the serving path (virtual OME-Zarr
+stores, neuroglancer state, the figures, and the service runtime's sessions,
+workers and bridges), and the public names of the JAX package's modules
+listed below, with the JAX package's parameters. Entry points run on the
+CUDA device unless the caller passes ``device="cpu"``, which takes the plain
+PyTorch version of every kernel.
 
 - ``si_utils`` / ``msi_utils`` / ``param_utils`` / ``zarr_utils`` — data model
 - ``fusion`` — ``fuse``; ``registration`` — ``register``; ``stitch`` — ``stitch``
 - ``detection`` — ``detect_beads``; ``registration_plugins`` — ANTsPy, ITK-Elastix
 - ``fusion.mv_deconv`` — ``multi_view_deconvolution``, a fusion function
 - ``metrics`` — ``tile_pair_image_metrics``, NCC and SSIM of view overlaps
-- ``io.zarr_backend`` / ``io.ngff_utils`` — zarr v2 and v3 (sharded or not),
-  OME-Zarr (NGFF 0.4 and 0.5)
+- ``io.zarr_backend`` / ``io.ngff_utils`` — zarr v2 and v3 (sharded or not,
+  read over HTTP too), OME-Zarr (NGFF 0.4 and 0.5)
+- ``io.virtual_ngff`` — virtual OME-Zarr stores of sims and their server
+- ``vis_utils`` / ``neuroglancer`` — figures (matplotlib, imported at first
+  use) and viewer state
+- ``service`` — ``Session``, ``WorkerRuntime``, ``LocalBridge``,
+  ``ProcessPoolBridge`` and the JSON specs
 - ``io`` — ``read_mosaic_into_sims``; ``io.tif_utils``, ``io.czi_utils``
   (with ``io.jpeg``), ``io.imaris_utils``, ``io.fallback``; ``io.codecs`` —
   the TIFF decoders, native C built at first use
@@ -56,8 +63,7 @@ import importlib
 
 __version__ = "0.1.0"
 
-# the JAX package's __all__, less the modules not ported yet (vis_utils,
-# neuroglancer: item 30)
+# the JAX package's __all__
 __all__ = [
     "si_utils",
     "msi_utils",
@@ -74,6 +80,8 @@ __all__ = [
     "sample_data",
     "io",
     "zarr_utils",
+    "vis_utils",
+    "neuroglancer",
     "parallel",
     "stitch",
     "ops",

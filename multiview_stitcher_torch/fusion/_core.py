@@ -956,7 +956,7 @@ def _fuse_translation_views(
         # the streaming tier writes host bands: a device output takes them
         # from one host array, uploaded once
         sink = (
-            np.empty(tuple(out.shape), dtype=torch.empty(0, dtype=out.dtype).numpy().dtype)
+            np.empty(tuple(out.shape), dtype=si_utils.numpy_dtype(out.dtype))
             if isinstance(out, torch.Tensor) else out
         )
         res = _streaming.execute_streaming(

@@ -13,9 +13,10 @@ transforms into the other. NGFF 0.5 nests the multiscales under an ``ome``
 attribute with its version, as the reference writes it (its omero channels
 stay at the top level, as there). Also the NGFF time calibration of sims and
 msims, and the reference's in-memory NGFF containers (:class:`NgffImage`,
-:class:`NgffMultiscales`) with their conversions. The virtual NGFF server
-(``serve_virtual_ome_zarrs``, ``VirtualOMEZarr*``) waits for ROADMAP.md item
-30 and raises ``NotImplementedError``.
+:class:`NgffMultiscales`) with their conversions. The virtual OME-Zarr
+stores and their server live in ``io.virtual_ngff``; ``serve_virtual_ome_zarrs``
+and the ``VirtualOMEZarr*`` names are reached from here too, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -627,15 +628,27 @@ def write_multiscales_metadata(path, axes, datasets, ngff_version: str = "0.4"):
     )
 
 
-_VIRTUAL_SERVING = (
-    "serve_virtual_ome_zarrs", "VirtualOMEZarr", "VirtualOMEZarrPlate",
-    "VirtualOMEZarrHCSPlate", "VirtualOMEZarrServer",
-)
+def serve_virtual_ome_zarrs(*args, **kwargs):
+    """:func:`.virtual_ngff.serve_virtual_ome_zarrs`, reached from here as in
+    the reference."""
+    from multiview_stitcher_torch.io import virtual_ngff
+
+    return virtual_ngff.serve_virtual_ome_zarrs(*args, **kwargs)
+
+
+# the virtual store classes, reached from here as in the reference; looked up
+# at first use, since virtual_ngff imports this module
+_VIRTUAL_REEXPORTS = {
+    "VirtualOMEZarr": "VirtualOMEZarr",
+    "VirtualOMEZarrPlate": "VirtualOMEZarrPlate",
+    "VirtualOMEZarrHCSPlate": "VirtualOMEZarrPlate",
+    "VirtualOMEZarrServer": "VirtualOMEZarrServer",
+}
 
 
 def __getattr__(name):
-    if name in _VIRTUAL_SERVING:
-        raise NotImplementedError(
-            f"{name}: serving virtual OME-Zarrs is not ported yet (ROADMAP.md, queue 1: item 30)"
-        )
+    if name in _VIRTUAL_REEXPORTS:
+        from multiview_stitcher_torch.io import virtual_ngff
+
+        return getattr(virtual_ngff, _VIRTUAL_REEXPORTS[name])
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -415,9 +415,9 @@ class TiffPagesZarrV3Store:
     """Read-only virtual zarr-v3 array over a multi-page TIFF, whole pages
     as chunks.
 
-    Speaks the ``get(key) -> bytes | None`` protocol of the JAX package's
-    virtual OME-Zarr stores (their server is ROADMAP.md item 30 in this
-    package): no store is written; chunk requests decode single pages on
+    Speaks the ``get(key) -> bytes | None`` protocol of the virtual
+    OME-Zarr stores of ``io.virtual_ngff``, whose server serves it: no
+    store is written; chunk requests decode single pages on
     demand through per-thread cached handles. Non-spatial axes chunk at 1; edge padding never occurs since
     pages are exactly one chunk.
     """

@@ -34,6 +34,12 @@ written out here:
 
 Each array's metadata document is parsed once, when it is opened; a
 :class:`LazyZarrArray` and every view sliced from it share that parse.
+
+``open_zarr_array`` also reads an array served over ``http://`` or
+``https://`` (a virtual OME-Zarr of ``io.virtual_ngff``, any static zarr
+server), as tensorstore's ``http`` driver does for the JAX package: one GET a
+metadata document or chunk through ``urllib``, a 404 read as a chunk of the
+fill value, any other HTTP error raised. Such arrays are read only.
 """
 
 from __future__ import annotations
@@ -44,11 +50,39 @@ import json
 import os
 import shutil
 import threading
+import urllib.error
+import urllib.request
 import uuid
 import zlib
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+
+# seconds a GET of a metadata document or chunk may wait for the server
+HTTP_TIMEOUT_S = 60
+
+
+def _is_http(path) -> bool:
+    return str(path).startswith(("http://", "https://"))
+
+
+def _read_bytes(path: str) -> Optional[bytes]:
+    """The bytes of a file or of an HTTP(S) URL, None where there is none
+    (no such file, a 404)."""
+    if _is_http(path):
+        try:
+            with urllib.request.urlopen(path, timeout=HTTP_TIMEOUT_S) as r:
+                return r.read()
+        except urllib.error.HTTPError as err:
+            if err.code == 404:
+                return None
+            raise
+    try:
+        with open(path, "rb") as f:
+            return f.read()
+    except FileNotFoundError:
+        return None
 
 
 def _local_path(url) -> str:
@@ -178,6 +212,8 @@ def _encode_fill_v3(value, dtype: np.dtype):
 
 
 def _write_atomically(path: str, data: bytes) -> None:
+    if _is_http(path):
+        raise NotImplementedError(f"zarr arrays over HTTP are read only: {path}")
     tmp = f"{path}.{uuid.uuid4().hex}.partial"
     with open(tmp, "wb") as f:
         f.write(data)
@@ -263,10 +299,8 @@ class ZarrV2(_ChunkGrid):
         return os.path.join(self.path, key)
 
     def _read_cell(self, idx) -> Optional[np.ndarray]:
-        try:
-            with open(self._chunk_path(idx), "rb") as f:
-                raw = f.read()
-        except FileNotFoundError:
+        raw = _read_bytes(self._chunk_path(idx))
+        if raw is None:
             return None
         if self.codec is not None:
             raw = self.codec.decode(raw)
@@ -461,11 +495,7 @@ class ZarrV3(_ChunkGrid):
         return os.path.join(self.path, *key.split("/"))
 
     def _read_file(self, idx) -> Optional[bytes]:
-        try:
-            with open(self._cell_path(idx), "rb") as f:
-                return f.read()
-        except FileNotFoundError:
-            return None
+        return _read_bytes(self._cell_path(idx))
 
     def _is_fill(self, chunk: np.ndarray) -> bool:
         if self.dtype.kind == "f" and np.isnan(self.fill):
@@ -721,15 +751,16 @@ def _read_json(path: str) -> dict:
 
 def open_zarr_array(url: str, zarr_format: Optional[int] = None) -> LazyZarrArray:
     """Open an existing zarr v2 (``.zarray``) or v3 (``zarr.json``) array,
-    whichever is there unless ``zarr_format`` names one."""
-    path = _local_path(url)
+    whichever is there unless ``zarr_format`` names one: on the local file
+    system, or read only over HTTP(S)."""
+    path = str(url).rstrip("/") if _is_http(url) else _local_path(url)
     formats = (2, 3) if zarr_format is None else (int(zarr_format),)
     for fmt in formats:
         name = ".zarray" if fmt == 2 else "zarr.json"
-        try:
-            meta = _read_json(os.path.join(path, name))
-        except FileNotFoundError:
+        raw = _read_bytes(os.path.join(path, name))
+        if raw is None:
             continue
+        meta = json.loads(raw)
         if meta.get("zarr_format") != fmt:
             raise ValueError(f"{url}/{name}: zarr_format {meta.get('zarr_format')}, not {fmt}")
         return LazyZarrArray(ZarrV2(path, meta) if fmt == 2 else ZarrV3(path, meta))

@@ -32,8 +32,8 @@ the caller's ``pairwise_executor``.
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``.
 A device ``mesh`` (``parallel.mesh.Mesh``) of more than one entry splits
 each batch of pairs into one part per entry, registered on its device.
-``plot_summary`` raises ``NotImplementedError`` naming the ROADMAP.md item
-that will cover it.
+``plot_summary`` draws the reference's summary figures
+(``vis_utils.plot_registration_summaries``, which needs matplotlib).
 """
 
 from __future__ import annotations
@@ -69,7 +69,6 @@ from multiview_stitcher_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
-_ROADMAP = "ROADMAP.md, queue 1"
 # pairs registered in one batch (the reference's MAX_B)
 MAX_B = 512
 # candidate scoring handles (pair, candidate) items in groups whose float32
@@ -83,10 +82,6 @@ SCORE_BYTES = 1 << 30
 # buckets and batches; the levels registered at; the bytes of tiles and of
 # crops uploaded
 last_telemetry: dict = {}
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet ({_ROADMAP}: {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -1068,9 +1063,6 @@ def register(
         warnings.warn(
             "register(..., scheduler=) is deprecated and unused.", DeprecationWarning, stacklevel=2
         )
-    if plot_summary:
-        raise _not_ported("plot_summary (matplotlib)", "item 27")
-
     msims = [
         m if isinstance(m, Msim) else msi_utils.get_msim_from_sim(m, scale_factors=[])
         for m in msims
@@ -1153,17 +1145,32 @@ def register(
     last_telemetry.clear()
     last_telemetry.update(telemetry)
 
+    plot_info = {}
+    if plot_summary:
+        from multiview_stitcher_torch import vis_utils
+
+        plot_info = vis_utils.plot_registration_summaries(
+            msims, transform_key, new_transform_key, g_reg_computed,
+            groupwise_resolution_info_dict, show_plot=plot_summary,
+        )
+
     if return_dict:
         return {
             "params": params,
             "pairwise_registration": {
                 "graph": g_reg_computed,
                 "metrics": {"qualities": mv_graph.get_edge_attributes(g_reg_computed, "quality")},
-                "summary_plot": None,
+                "summary_plot": (
+                    (plot_info.get("fig_pair_reg"), plot_info.get("ax_pair_reg"))
+                    if plot_summary else None
+                ),
             },
             "groupwise_resolution": {
                 "metrics": groupwise_resolution_info_dict,
-                "summary_plot": None,
+                "summary_plot": (
+                    (plot_info.get("fig_group_res"), plot_info.get("ax_group_res"))
+                    if plot_summary else None
+                ),
             },
         }
     return params

@@ -549,6 +549,14 @@ def normalize_to_spatial_dict(value, sdims, name="value"):
     return {d: float(value) for d in sdims}
 
 
+def numpy_dtype(dtype) -> np.dtype:
+    """The numpy dtype of a sim's ``dtype``: a sim over a torch tensor has a
+    torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty((), dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
 def get_default_spatial_chunksizes(ndim: int):
     if ndim not in (2, 3):
         raise ValueError(f"only 2D and 3D sims are supported, got {ndim}D")

@@ -62,23 +62,23 @@ KEY = jsi.DEFAULT_TRANSFORM_KEY
 PORTED_MODULES = [
     "", "convert", "detection", "fusion", "fusion._core", "fusion._streaming",
     "fusion.mv_deconv", "io", "io.codecs", "io.czi_utils", "io.fallback", "io.imaris_utils",
-    "io.jpeg", "io.ngff_utils", "io.tif_utils", "io.zarr_backend", "metrics",
-    "msi_utils", "mv_graph", "ops", "ops.exact_affine", "ops.filters",
+    "io.jpeg", "io.ngff_utils", "io.tif_utils", "io.virtual_ngff", "io.zarr_backend", "metrics",
+    "msi_utils", "mv_graph", "neuroglancer", "ops", "ops.exact_affine", "ops.filters",
     "ops.image_metrics", "ops.phase_correlation", "ops.resample", "ops.shear",
     "parallel", "parallel.executors", "parallel.mesh", "parallel.multihost",
     "parallel.pipeline", "param_resolution",
     "param_resolution.global_optimization", "param_resolution.linear_two_pass",
     "param_resolution.shortest_paths", "param_resolution.utils", "param_utils",
-    "registration", "registration_plugins", "sample_data", "si_utils", "stitch",
-    "transformation", "transforms", "utils", "utils.misc", "utils.profiling", "weights",
-    "zarr_utils",
+    "registration", "registration_plugins", "sample_data", "service", "service.bridge",
+    "service.session", "service.specs", "service.worker", "si_utils", "stitch",
+    "transformation", "transforms", "utils", "utils.misc", "utils.profiling", "vis_utils",
+    "weights", "zarr_utils",
 ]
 PORT_ONLY = {"convert", "ops._build", "ops.translation_fusion"}
 
 # public names of the JAX modules the port leaves out, with the item that
 # covers them
 LEFT_OUT = {
-    "io.ngff_utils": {"serve_virtual_ome_zarrs": "item 30"},
     "io.zarr_backend": {"LazyTSArray": "item 28 leaves tensorstore out"},
     "ops.exact_affine": {
         "plan_windows_2d": "item 28 leaves ops internals out",
@@ -142,12 +142,7 @@ def test_public_api_matches_jax(name):
         if getattr(jobj, "__module__", None) != jm.__name__:
             continue
         if attr in left_out:
-            item = left_out[attr]
-            if item.startswith("item 30"):
-                with pytest.raises(NotImplementedError, match="item 30"):
-                    getattr(pm, attr)
-            else:
-                assert not hasattr(pm, attr), (name, attr, "is ported: take it off LEFT_OUT")
+            assert not hasattr(pm, attr), (name, attr, "is ported: take it off LEFT_OUT")
             continue
         assert hasattr(pm, attr), f"{name}.{attr} is missing in the port"
         pobj = getattr(pm, attr)
@@ -172,8 +167,7 @@ def test_public_api_matches_jax(name):
 
 
 def test_package_all_and_aliases():
-    unported = {"vis_utils", "neuroglancer"}
-    assert tpkg.__all__ == [m for m in jpkg.__all__ if m not in unported]
+    assert tpkg.__all__ == jpkg.__all__
     for m in tpkg.__all__:
         importlib.import_module(f"{tpkg.__name__}.{m}")
     assert tpkg.spatial_image_utils is tsi
@@ -184,9 +178,15 @@ def test_package_all_and_aliases():
         assert getattr(jpkg, reader).__name__ == f"{jpkg.__name__}.io.{reader}"
     with pytest.raises(AttributeError):
         tpkg.not_a_module  # noqa: B018
-    for name in ("VirtualOMEZarr", "VirtualOMEZarrPlate", "VirtualOMEZarrServer"):
-        with pytest.raises(NotImplementedError, match="item 30"):
-            getattr(tngff, name)
+    # the virtual stores are reached from io.ngff_utils, as in JAX
+    for name, jname in (("VirtualOMEZarr", "VirtualOMEZarr"),
+                        ("VirtualOMEZarrPlate", "VirtualOMEZarrPlate"),
+                        ("VirtualOMEZarrHCSPlate", "VirtualOMEZarrPlate"),
+                        ("VirtualOMEZarrServer", "VirtualOMEZarrServer")):
+        assert getattr(tngff, name).__name__ == getattr(jngff, name).__name__ == jname
+        assert getattr(tngff, name).__module__ == f"{tpkg.__name__}.io.virtual_ngff"
+    with pytest.raises(AttributeError):
+        tngff.VirtualOMEZarrNope  # noqa: B018
 
 
 def test_fusion_package_exports_match_jax():

@@ -395,6 +395,11 @@ def test_port_imports_no_jax_and_no_jax_package():
         "from multiview_stitcher_torch.fusion import prepare_block_fusion\n"
         "from multiview_stitcher_torch.parallel import executors, mesh, multihost, pipeline\n"
         "from multiview_stitcher_torch.utils import profiling\n"
+        "from multiview_stitcher_torch import neuroglancer, vis_utils\n"
+        "from multiview_stitcher_torch.io import virtual_ngff\n"
+        "from multiview_stitcher_torch.service import bridge, session, specs, worker\n"
+        "from multiview_stitcher_torch.service import Session, ProcessPoolBridge\n"
+        "assert p.ngff_utils.serve_virtual_ome_zarrs and p.ngff_utils.VirtualOMEZarr\n"
         "assert p.spatial_image_utils.get_sim_field and p.misc_utils.ndindex_batches\n"
         "assert p.ngff_utils.read_ngff_multiscales\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"

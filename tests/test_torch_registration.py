@@ -675,12 +675,17 @@ def test_register_without_device_needs_cuda(grids):
 def test_register_refuses_what_the_slice_does_not_cover(grids):
     sims = _to_port(grids[2])
     kw = dict(transform_key=KEY, device="cpu")
-    cases = [
-        (dict(plot_summary=True), "item 27"),
-    ]
-    for extra, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            treg.register(sims, **kw, **extra)
+    # what item 27 covered is no longer refused: plot_summary draws the
+    # summary figures and returns them
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    plotted = treg.register(sims, **kw, plot_summary=True, return_dict=True)
+    assert plotted["pairwise_registration"]["summary_plot"][0] is not None
+    assert plotted["groupwise_resolution"]["summary_plot"] == (None, None)
+    plt.close("all")
     default = treg.register(sims, **kw)
     # what item 12 covered is no longer refused: a mesh is a
     # parallel.mesh.Mesh (anything else raises TypeError), and a CPU mesh
