@@ -65,6 +65,17 @@ Phases, one printed line or block each:
    wall time and output Mvox/s; level 0 read back and held against the
    monolithic output of phase 4, the multiscales metadata and every pyramid
    level checked; about 1 GB of disk, removed after the API phase. Then the
+   ``link:`` lines (each with the card's name and power limit): the link
+   codec (``ops.link_codec``, off by default) on the same tiles: the host
+   half's rates, native and numpy, on one 8 MB upload batch; the torch
+   half's times on the card (CUDA events) on that batch; ``put_packed`` and
+   ``fetch_packed`` of the 537 MB stack beside one pinned copy each way; the
+   streamed north star with ``ENABLED = True`` cold and warm (wire bytes,
+   modes, wire bits a voxel, the streams' busy times, kernel 1's launches),
+   a call served from the packed upload stash (0 bytes up), the lazy zarr
+   tiles fused twice into a host array (the repeat reads no tile) beside the
+   same call without the codec, and the monolithic tier through the codec;
+   every output bit-equal to phase 4's. Then the
    ``zarr3:`` lines (each with the card's name and power limit): the same
    tiles into an NGFF 0.5 OME-Zarr (zarr v3), level 0 in chunks of 128 and
    shards of (64, 512, 512), cold and warm, the streaming bands aligned to
@@ -733,7 +744,7 @@ def main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, ndim, n, tile, over
     as in the reference; the monolithic tier runs on the same tiles in the
     same run (STREAM_BYTES raised for that call) for its stage split and the
     kernel's own timings, and the two outputs are compared. Returns the
-    results, the sims and the monolithic output."""
+    results, the sims, the monolithic output and the streamed one."""
     label = f"{ndim}d main path"
     sims = grid_sims(np, tsi, ndim, n, tile, overlap, seed=ndim)
     step = tile - overlap
@@ -919,7 +930,7 @@ def main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, ndim, n, tile, over
         "band_kernel_ms": band_ms,
         "band_bound_ms": max(b_bytes, b_ops),
         "band_max_abs_err": band_err,
-    }, sims, mono
+    }, sims, mono, out
 
 
 def translation_bound(np, ndim, tiles, tables, offs, extents, scale_arr, out_shape):
@@ -1099,6 +1110,263 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
             "tiles_write_s": write_s, "disk_write_mb_s": disk_mb_s,
             "levels": [list(x) for x in levels], "disk_bytes": disk,
             "out_mvox": mvox, **{run: r for run, r in runs.items()}}, lazy
+
+
+def best_s(fn, reps=2):
+    """Least wall time of ``reps`` calls of ``fn`` (seconds) and its result."""
+    best, res = None, None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = fn()
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return best, res
+
+
+def event_ms(torch, fn, reps=5):
+    """Mean time of ``fn()`` on the card by CUDA events, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def same_u16(torch, a, b) -> bool:
+    """Two uint16 tensors equal bit for bit (compared as int16)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def link_phase(np, torch, tcore, tf, tstream, fuse, sims, mono, streamed, lazy):
+    """Phase 5b, the link codec (``ops.link_codec``) on the 3D north star's
+    tiles: (a) the host half's rates, native and numpy, on one 8 MB upload
+    batch; (b) the torch half's times on the card on the same batch; (c)
+    ``put_packed`` / ``fetch_packed`` of the whole 537 MB tile stack beside
+    one pinned copy each way; (d) the streamed north star with the codec
+    on, cold and warm; (e) a call served from the packed upload stash; (f)
+    the lazy zarr tiles fused twice into a host array with the stash,
+    beside the call without the codec; (g) the monolithic tier with the
+    codec. Every output is held bit for bit: (d)-(f) to phase 4's streamed
+    output, (g) to its monolithic one. ``link_codec.ENABLED`` is set back
+    to False however the phase ends."""
+    from multiview_stitcher_torch.ops import link_codec as lc
+    from multiview_stitcher_torch.utils import misc
+
+    card = card_line()
+    say = lambda msg: log(f"{card}: link: {msg}")  # noqa: E731
+    device = misc.resolve_device(None)
+    cuda = device.type == "cuda"
+    res = {}
+    t_phase = time.perf_counter()
+    tiles = np.stack([s.data for s in sims])
+    tile_mb = tiles.nbytes / 1e6
+    per_batch = max(1, (8 << 20) // tiles[0].nbytes)
+    batch = np.ascontiguousarray(tiles[:per_batch])
+    mb = batch.nbytes / 1e6
+    X, Y = batch.shape[-1], batch.shape[-2]
+    flat = batch.reshape(-1)
+
+    # (a) the host half: MB/s of uint16 input, native C loops and numpy
+    rates = {}
+    native_codecs = lc._native_codecs
+    if native_codecs() is None:
+        raise AssertionError("link: the native codec library did not build")
+    for route in ("native", "numpy"):
+        if route == "numpy":
+            lc._native_codecs = lambda: None
+        try:
+            for nb in (10, 12):
+                s, packed = best_s(lambda: lc.pack_np(flat, nb))
+                rates[f"{route}_pack_{nb}"] = mb / s
+                s, back = best_s(lambda: lc.unpack_np(packed, nb, flat.size))
+                rates[f"{route}_unpack_{nb}"] = mb / s
+                if not np.array_equal(back, flat):
+                    raise AssertionError(f"link: {route} unpack at {nb} bits is not the batch")
+            for mode, enc, dec, args in (
+                ("delta", lc.delta_encode_np, lc.delta_decode_np, ()),
+                ("delta2", lc.delta2_encode_np, lc.delta2_decode_np, (X,)),
+                ("delta3", lc.delta3_encode_np, lc.delta3_decode_np, (X, Y)),
+            ):
+                if route == "native" and mode != "delta":
+                    continue  # numpy only: the C loops are first-order
+                s, (f, z) = best_s(lambda: enc(flat, *args))
+                rates[f"{route}_{mode}_encode"] = mb / s
+                s, back = best_s(lambda: dec(f, z, *args, flat.size))
+                rates[f"{route}_{mode}_decode"] = mb / s
+                if not np.array_equal(back, flat):
+                    raise AssertionError(f"link: {route} {mode} decode is not the batch")
+        finally:
+            lc._native_codecs = native_codecs
+    say(f"(a) host half on one {mb:.1f} MB batch {tuple(batch.shape)}, MB/s of uint16 in: "
+        + json.dumps({k: round(v, 1) for k, v in rates.items()}))
+    res["host_mb_s"] = rates
+
+    # (b) the torch half on the card, same batch: the bytes of the host half
+    info_b, rec_b = {}, {}
+    dev_b = lc.put_packed(batch, info=info_b, keep_packed=rec_b, device=device)
+    t_b = torch.from_numpy(batch.view(np.int16)).to(device).view(torch.uint16)
+    if not same_u16(torch, dev_b, t_b):
+        raise AssertionError("link: put_packed of the batch is not the batch")
+    for nb in (10, 12):
+        if not np.array_equal(lc.pack_torch(t_b, nb).cpu().numpy(), lc.pack_np(flat, nb)):
+            raise AssertionError(f"link: pack_torch at {nb} bits differs from pack_np")
+    packed12 = lc.pack_torch(t_b, 12)
+    x32 = lc._i32(t_b.reshape(-1))
+    f3, z3 = lc._encode(x32, info_b["mode"], X, Y) if info_b["mode"] != "plain" else (None, None)
+    dev_ms = {
+        "pack_12": event_ms(torch, lambda: lc.pack_torch(t_b, 12)),
+        "unpack_12": event_ms(torch, lambda: lc.unpack_torch(packed12, 12, flat.size)),
+        "probe_all": event_ms(torch, lambda: lc._delta_probe_all(t_b.reshape(-1), X, Y)),
+        "reassemble": event_ms(torch, lambda: lc.reassemble_packed(rec_b)),
+    }
+    if f3 is not None:
+        dev_ms[f"{info_b['mode']}_encode"] = event_ms(
+            torch, lambda: lc._encode(x32, info_b["mode"], X, Y))
+        dev_ms[f"{info_b['mode']}_decode"] = event_ms(
+            torch, lambda: lc._decode(f3, z3, info_b["mode"], flat.size, X, Y))
+    say(f"(b) torch half on the card, same batch, ms by CUDA events: "
+        + json.dumps({k: round(v, 4) for k, v in dev_ms.items()})
+        + f"; the batch ships {info_b}")
+    res["batch_info"], res["device_ms"] = info_b, dev_ms
+    del dev_b, packed12, x32, f3, z3, rec_b
+
+    # (c) the whole tile stack each way, beside one pinned copy each way
+    pinned = torch.empty(tiles.shape, dtype=torch.int16, pin_memory=cuda)
+    pinned.numpy()[...] = tiles.view(np.int16)
+    ref_dev = torch.empty(tiles.shape, dtype=torch.int16, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_dev.copy_(pinned, non_blocking=cuda)
+    torch.cuda.synchronize()
+    copy_up_s = time.perf_counter() - t0
+    ref_dev = ref_dev.view(torch.uint16)
+    info_up = {}
+    t0 = time.perf_counter()
+    got = lc.put_packed(tiles, info=info_up, device=device)
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    put_ok = same_u16(torch, got, ref_dev)
+    del got
+    t0 = time.perf_counter()
+    pinned.copy_(ref_dev.view(torch.int16), non_blocking=cuda)
+    torch.cuda.synchronize()
+    copy_down_s = time.perf_counter() - t0
+    host = np.empty(tiles.shape, np.uint16)
+    info_down = {}
+    t0 = time.perf_counter()
+    lc.fetch_packed(ref_dev, out=host, info=info_down)
+    fetch_s = time.perf_counter() - t0
+    fetch_ok = bool(np.array_equal(host, tiles))
+    del ref_dev, pinned, host
+    torch.cuda.empty_cache()
+    say(f"(c) the {tile_mb:.1f} MB tile stack {tuple(tiles.shape)}: put_packed {put_s:.3f} s "
+        f"({info_up}), pinned copy up {copy_up_s * 1e3:.2f} ms; fetch_packed {fetch_s:.3f} s "
+        f"({info_down}), pinned copy down {copy_down_s * 1e3:.2f} ms; bit-equal up {put_ok}, "
+        f"down {fetch_ok}")
+    if not (put_ok and fetch_ok):
+        raise AssertionError("link: put_packed or fetch_packed of the tile stack is not the stack")
+    res["stack"] = {"mb": tile_mb, "put_s": put_s, "put": info_up, "copy_up_ms": copy_up_s * 1e3,
+                    "fetch_s": fetch_s, "fetch": info_down, "copy_down_ms": copy_down_s * 1e3}
+    del tiles
+
+    def streamed_call(label, data, want, **kw):
+        tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+        t0 = time.perf_counter()
+        out = fuse(data, transform_key=KEY, **kw).data
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tele = dict(tstream.last_telemetry)
+        launches = tf.fuse_translation_3d.launches
+        same = bool(np.array_equal(out, want))
+        r = {"wall_s": wall, "launches": launches, "bit_equal": same, **tele}
+        modes = {way: {m: tele.get(f"{way}_{m}_{unit}", 0)
+                       for m in ("delta", "delta2", "delta3")}
+                 for way, unit in (("up", "batches"), ("down", "bands"))}
+        say(f"{label}: wall {wall:.3f} s, up {tele['up_bytes'] / 1e6:.1f} MB, down "
+            f"{tele['down_bytes'] / 1e6:.1f} MB, wire {tele.get('wire_bits_per_vox')} bits/vox, "
+            f"batches {tele['batches']} (delta-family counts {modes['up']}, reused "
+            f"{tele.get('up_batches_reused_packed')} from the stash), bands {tele['bands_total']} "
+            f"({modes['down']}), stream spans ms up {tele['up_ms']} compute "
+            f"{tele['compute_ms']} down {tele['down_ms']}, fuse_translation_3d launches "
+            f"{launches}, bit-equal {same}")
+        if not same or launches != tele["bands_total"] or tf.fuse_translation_2d.launches:
+            raise AssertionError(f"link: {label} differs or launched {launches} for "
+                                 f"{tele['bands_total']} bands")
+        return r
+
+    saved = tcore.STREAM_BYTES
+    lc.ENABLED = True
+    try:
+        # (d) the streamed north star, cold and warm (the stash emptied first)
+        tcore.clear_device_tile_cache()
+        res["streamed_cold"] = streamed_call("(d) streamed 3D, codec on, cold", sims, streamed)
+        tcore.clear_device_tile_cache()
+        res["streamed_warm"] = streamed_call("(d) streamed 3D, codec on, warm", sims, streamed)
+        # (e) the next call rebuilds every batch from the packed stash
+        stash = streamed_call("(e) streamed 3D, from the packed stash", sims, streamed)
+        if stash["up_bytes"] != 0 or stash["up_batches_reused_packed"] != stash["batches"]:
+            raise AssertionError(f"link: the stash call moved {stash['up_bytes']} bytes up, "
+                                 f"{stash['up_batches_reused_packed']} of {stash['batches']} "
+                                 "batches from the stash")
+        res["streamed_stash"] = stash
+        tcore.clear_device_tile_cache()
+
+        # (f) the lazy zarr tiles into a host array: without the codec, then
+        # twice with it (the repeat from the stash reads no tile)
+        reads = []
+        materialize = tcore._materialize_tiles
+
+        def counting(*a, **k):
+            reads.append(1)
+            return materialize(*a, **k)
+
+        tcore._materialize_tiles = counting
+        try:
+            lc.ENABLED = False
+            res["lazy_plain"] = streamed_call("(f) lazy zarr tiles, codec off", lazy, streamed)
+            lc.ENABLED = True
+            res["lazy_first"] = streamed_call("(f) lazy zarr tiles, codec on", lazy, streamed)
+            n_reads = len(reads)
+            res["lazy_repeat"] = streamed_call("(f) lazy zarr tiles, codec on, repeat", lazy,
+                                               streamed)
+            repeat_reads = len(reads) - n_reads
+        finally:
+            tcore._materialize_tiles = materialize
+        if repeat_reads or res["lazy_repeat"]["up_bytes"]:
+            raise AssertionError(f"link: the lazy repeat read {repeat_reads} batches")
+        say(f"(f) lazy repeat {res['lazy_repeat']['wall_s']:.3f} s against "
+            f"{res['lazy_plain']['wall_s']:.3f} s without the codec, 0 tile reads")
+        tcore.clear_device_tile_cache()
+
+        # (g) the monolithic tier: _tiles_to_device and _download through the codec
+        tcore.STREAM_BYTES = 1 << 62
+        tf.fuse_translation_3d.launches = 0
+        up0 = tcore.tile_upload_bytes
+        t0 = time.perf_counter()
+        got = fuse(sims, transform_key=KEY).data
+        torch.cuda.synchronize()
+        mono_s = time.perf_counter() - t0
+        up = tcore.tile_upload_bytes - up0
+        same = bool(np.array_equal(got, mono))
+        say(f"(g) monolithic, codec on: wall {mono_s:.3f} s, {up / 1e6:.1f} MB up on the wire, "
+            f"fuse_translation_3d launches {tf.fuse_translation_3d.launches}, bit-equal {same}")
+        if not same or tf.fuse_translation_3d.launches < 1:
+            raise AssertionError("link: the monolithic output through the codec differs")
+        res["mono"] = {"wall_s": mono_s, "up_bytes": up, "bit_equal": same}
+    finally:
+        # the device tile cache holds the stack again, as phase 4 left it
+        lc.ENABLED = False
+        tcore.STREAM_BYTES = saved
+        tstream._upload_stash.clear()
+        torch.cuda.empty_cache()
+    res["launches"] = res["streamed_warm"]["launches"]
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase {res['phase_s']:.1f} s")
+    return res
 
 
 def api_phase(np, torch, tsi, tcore, tf, tea, fuse, sims, mono, lazy, mono_download_ms, work,
@@ -5413,11 +5681,14 @@ def main() -> int:
     # the mesh phase runs in parts beside the main paths whose data it reuses
     mesh = MeshPhase(np, torch, tf, tea)
 
-    r3, sims3, mono3 = main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, 3, n=32, tile=64,
-                                 overlap=12, band_tiles=2)
+    r3, sims3, mono3, streamed3 = main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, 3,
+                                            n=32, tile=64, overlap=12, band_tiles=2)
     work = REPO / ".bench_large" / "chip_smoke_zarr"
     zarr, lazy3 = zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims3, mono3, work)
     try:
+        # the link codec on the same tiles, in memory and lazy
+        link = link_phase(np, torch, tcore, tf, tstream, fuse, sims3, mono3, streamed3, lazy3)
+        del streamed3
         # the same tiles into NGFF 0.5, sharded, against phase 5's store
         t_phase = time.perf_counter()
         zarr3 = zarr3_phase(np, torch, tf, tstream, fuse, lazy3, work,
@@ -5452,8 +5723,8 @@ def main() -> int:
     log(f"shear: phase {shear['phase_s']:.1f} s")
     torch.cuda.empty_cache()
     # 2D bands of 16 view-list tiles of 64 rows: about 1024 output rows each
-    r2, sims2, mono2 = main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, 2, n=32,
-                                 tile=512, overlap=64, band_tiles=16)
+    r2, sims2, mono2, _ = main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, 2, n=32,
+                                    tile=512, overlap=64, band_tiles=16)
     # kernel 2 over the virtual mesh, and the tiles tier on a corner of the scan
     mesh.part("kernel_2", mesh.translation, fuse, sims2, mono2, 2)
     mesh.part("tiles_tier", mesh.tiles_tier, fuse, tcore, sims2, 32)
@@ -5570,7 +5841,8 @@ def main() -> int:
         k["readers_launches"] = readers_launches[k["name"]]
         k["mesh_launches"] = mesh.launches[k["name"]]
         k["service_launches"] = service_launches[k["name"]]
-    detail = {"3d": r3, "2d": r2, "zarr": zarr, "zarr3": zarr3, "api": api, "slabs": slabs,
+        k["link_launches"] = link["launches"] if k["name"] == "fuse_translation_3d" else 0
+    detail = {"3d": r3, "2d": r2, "zarr": zarr, "link": link, "zarr3": zarr3, "api": api, "slabs": slabs,
               "shear": shear, **{f"affine_{k}": v for k, v in affine.items()},
               "general": general, "multiscale": multiscale, "beads": beads, "deconv": deconv,
               "stitch": stitched, "metrics": quality, "readers": readers, "mesh": mesh.out,

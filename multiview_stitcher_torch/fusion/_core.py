@@ -91,7 +91,7 @@ import torch
 from multiview_stitcher_torch import msi_utils, mv_graph, param_utils, si_utils, weights
 from multiview_stitcher_torch.fusion import _streaming
 from multiview_stitcher_torch.io import ngff_utils, zarr_backend
-from multiview_stitcher_torch.ops import exact_affine
+from multiview_stitcher_torch.ops import exact_affine, link_codec
 from multiview_stitcher_torch.ops import resample as resample_ops
 from multiview_stitcher_torch.ops import translation_fusion
 from multiview_stitcher_torch.parallel import mesh as mesh_utils
@@ -713,12 +713,15 @@ class _DeviceTileCache:
 
 _device_tile_cache = _DeviceTileCache()
 # bytes of tiles that _tiles_to_device copied to a device, over the process
+# (with the link codec on, the bytes on the wire)
 tile_upload_bytes = 0
 
 
 def clear_device_tile_cache() -> None:
-    """Drop every tile stack the device tile cache holds."""
+    """Drop every tile stack the device tile cache holds, and the streaming
+    tier's packed upload stash."""
     _device_tile_cache.clear()
+    _streaming._upload_stash.clear()
 
 
 def _tiles_to_device(field_sims, device, keep_nan: bool = False) -> torch.Tensor:
@@ -731,7 +734,10 @@ def _tiles_to_device(field_sims, device, keep_nan: bool = False) -> torch.Tensor
     apart, an integer stack is the same either way). Mixed tile shapes are
     uploaded as they are, one group per shape, and edge-padded on the device
     to the common maximum shape; the kernels mask each view by its true
-    extents, the gather tiers read inside each view's own shape."""
+    extents, the gather tiers read inside each view's own shape. With
+    ``link_codec.ENABLED`` a group of a dtype that packs crosses through
+    ``link_codec.put_packed`` at the width of its maximum (16 bits where
+    it holds negative values)."""
     global tile_upload_bytes
     key = _DeviceTileCache.key_for(field_sims, device)
     floating = any(np.issubdtype(np.dtype(s.data.dtype), np.floating) for s in field_sims)
@@ -747,8 +753,17 @@ def _tiles_to_device(field_sims, device, keep_nan: bool = False) -> torch.Tensor
         stack = _materialize_tiles(sims)
         if np.issubdtype(stack.dtype, np.floating) and not keep_nan:
             stack = np.nan_to_num(stack)
-        tile_upload_bytes += stack.nbytes
-        return torch.from_numpy(stack).to(device)
+        if not (link_codec.ENABLED and link_codec.is_packable(stack.dtype)):
+            tile_upload_bytes += stack.nbytes
+            return torch.from_numpy(stack).to(device)
+        negative = np.issubdtype(stack.dtype, np.signedinteger) and int(stack.min()) < 0
+        info = {}
+        dev = link_codec.put_packed(
+            stack, nbits=16 if negative else link_codec.nbits_for_max(int(stack.max(initial=0))),
+            info=info, device=device,
+        )
+        tile_upload_bytes += info["bytes"]
+        return dev
 
     shapes = [tuple(int(x) for x in s.data.shape) for s in field_sims]
     if len(set(shapes)) == 1:
@@ -805,22 +820,37 @@ class _PrefixedSink:
         self.array[self.prefix + slices] = value
 
 
+def _to_host(fused: torch.Tensor) -> np.ndarray:
+    """``fused`` as a host array: through ``link_codec.fetch_packed`` with
+    the link codec on."""
+    if link_codec.ENABLED:
+        return link_codec.fetch_packed(fused)
+    return fused.cpu().numpy()
+
+
 def _download(fused: torch.Tensor, out, row0: Optional[int] = None) -> None:
     """Copy the fused output into ``out``: a host array, a sink written by
     regions (:class:`_PrefixedSink`), or a tensor on a device (which takes a
     copy between devices, no download). With ``row0``, ``fused`` is the
-    band of ``out`` from row ``row0`` on."""
+    band of ``out`` from row ``row0`` on. With ``link_codec.ENABLED`` the
+    host copies come through ``link_codec.fetch_packed``, straight into a
+    C-contiguous host array of the tensor's dtype."""
     if row0 is not None:
         rows = slice(row0, row0 + fused.shape[0])
         if isinstance(out, (np.ndarray, torch.Tensor)):
             out = out[rows]
         else:
-            out[(rows,) + (slice(None),) * (fused.dim() - 1)] = fused.cpu().numpy()
+            out[(rows,) + (slice(None),) * (fused.dim() - 1)] = _to_host(fused)
             return
     if isinstance(out, torch.Tensor):
         out.copy_(fused)
     elif not isinstance(out, np.ndarray):
-        out[(slice(None),) * fused.dim()] = fused.cpu().numpy()
+        out[(slice(None),) * fused.dim()] = _to_host(fused)
+    elif link_codec.ENABLED:
+        if out.flags.c_contiguous and out.dtype == si_utils.numpy_dtype(fused.dtype):
+            link_codec.fetch_packed(fused, out=out)
+        else:
+            out[...] = link_codec.fetch_packed(fused)
     elif out.flags.c_contiguous:
         torch.from_numpy(out).copy_(fused)
     else:

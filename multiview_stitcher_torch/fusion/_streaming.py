@@ -26,10 +26,21 @@ memory out while the other stream still reads it. On the CPU
 
 The band plan is the reference's exactly (:func:`plan_bands`), and each band
 is fused by one kernel call with an integer ``origin``, so a band is bitwise
-what the monolithic call computes for its rows. Left for later, each an
-optimisation of the same output (ROADMAP.md, queue 1): the link codec and the
-packed and unpacked upload stashes (item 13), seeding the device tile cache
-(item 15).
+what the monolithic call computes for its rows.
+
+With ``ops.link_codec.ENABLED`` set, each upload batch crosses as packed bands
+(``link_codec.put_packed``, its width from the batch's maximum, the delta
+candidates where :data:`STREAM_DELTA` allows and the data is not negative),
+each fused band comes down the same way (``link_codec.fetch_packed``, its width
+from the largest batch maximum seen so far), and the telemetry counts wire
+bytes and the modes shipped. A pass then also keeps each upload's packed
+device buffers in the packed upload stash, within :data:`UPLOAD_STASH_BYTES`:
+a later pass over the same inputs and batch layout rebuilds every batch from
+it on the device (``link_codec.reassemble_packed``) and reads and uploads no
+tile. The stash entry dies with the in-memory source arrays and with
+``fusion._core.clear_device_tile_cache()``. Left for later (ROADMAP.md, item
+15): seeding the device tile cache after a pass, and the unpacked resume
+stash that exists for it.
 """
 
 from __future__ import annotations
@@ -38,10 +49,19 @@ import contextlib
 import queue
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from multiview_stitcher_torch.ops import link_codec
+
+# with the link codec on: whether uploads and band downloads try its delta
+# transforms (the reference's MVS_TPU_STREAM_DELTA), and the device bytes the
+# packed upload stash may hold, 0 to keep none (MVS_TPU_UPLOAD_STASH_BYTES)
+STREAM_DELTA = True
+UPLOAD_STASH_BYTES = 4 << 30
 
 # upload batches of about this many bytes of tiles, all of one shape
 _BATCH_BYTES = 8 << 20
@@ -59,6 +79,16 @@ _WRITER_THREADS = 3
 # busy time of each stream. It survives a deadline abort, so a partial run
 # still reports its progress
 last_telemetry: dict = {}
+
+# the packed upload stash: one entry, ``{"key", "batches"}``, whose batches map
+# a batch index to (``put_packed``'s record, the batch's maximum)
+_upload_stash: dict = {}
+
+
+def _drop_packed_entry(key) -> None:
+    entry = _upload_stash.get("packed_entry")
+    if entry is not None and entry["key"] == key:
+        del _upload_stash["packed_entry"]
 
 
 class StreamingDeadlineError(RuntimeError):
@@ -265,6 +295,23 @@ def execute_streaming(
     }
     global last_telemetry
     last_telemetry = tele
+    codec = link_codec.ENABLED
+    packable = link_codec.is_packable(dtype_in)
+    packed_key = None
+    packed_batches: dict = {}
+    if codec:
+        tele.update(
+            up_delta_batches=0, down_delta_bands=0, up_delta2_batches=0, down_delta2_bands=0,
+            up_delta3_batches=0, down_delta3_bands=0, up_batches_reused=0,
+            up_batches_reused_packed=0, wire_bits_per_vox=None,
+        )
+        cache_key = _core._DeviceTileCache.key_for(field_sims, device)
+        if cache_key is not None and UPLOAD_STASH_BYTES > 0:
+            packed_key = (cache_key, U, tile, n_batches, hash(np.ascontiguousarray(order).tobytes()))
+            entry = _upload_stash.get("packed_entry")
+            if entry is not None and entry["key"] == packed_key:
+                packed_batches = entry["batches"]
+    stash_is_new = not packed_batches
 
     # sorted-view tables, padded by NV rows so every [lo_b, lo_b + NV) slice
     # is in range (pad rows are never referenced: no list names them)
@@ -315,36 +362,108 @@ def execute_streaming(
     band_bufs = _HostBuffers(_MAX_INFLIGHT_BANDS, band_out_shape, tdtype_out, cuda)
     errors = []
 
+    def count_modes(info, way, unit):
+        # under tele_lock: the delta counters count every delta mode
+        if info.get("delta"):
+            tele[f"{way}_delta_{unit}"] += 1
+        if info.get("mode") in ("delta2", "delta3"):
+            tele[f"{way}_{info['mode']}_{unit}"] += 1
+
     def upload_batch(bi):
+        """(device batch, its event, the batch's maximum: 0 unless the codec
+        is on and the dtype packs)."""
+        stashed = packed_batches.get(bi)
+        if stashed is not None:
+            rec, bmax = stashed
+            with on(up_stream if cuda else None):
+                e0 = mark()
+                dev = link_codec.reassemble_packed(rec)
+                done = mark()
+            with tele_lock:
+                tele["up_batches_reused"] += 1
+                tele["up_batches_reused_packed"] += 1
+                if cuda:
+                    busy["up"].append((e0, done))
+            return dev, done, bmax
         vs = range(bi * U, min((bi + 1) * U, V))
         slot = up_bufs.acquire()
-        host = slot.array
-        _core._materialize_tiles([sims_s[v] for v in vs], out=host[: len(vs)])
-        if np.issubdtype(dtype_in, np.floating):
-            np.nan_to_num(host[: len(vs)], copy=False)
-        host[len(vs):] = host[len(vs) - 1]
-        with on(up_stream if cuda else None):
-            dev = torch.empty((U,) + tile, dtype=tdtype_in, device=device)
-            e0 = mark()
-            dev.copy_(slot.tensor, non_blocking=cuda)
-            done = mark()
-        up_bufs.release(slot, done)
+        copied = None  # the event of the copy out of the slot (without the codec)
+        try:
+            host = slot.array
+            _core._materialize_tiles([sims_s[v] for v in vs], out=host[: len(vs)])
+            if np.issubdtype(dtype_in, np.floating):
+                np.nan_to_num(host[: len(vs)], copy=False)
+            host[len(vs):] = host[len(vs) - 1]
+            if not codec:
+                with on(up_stream if cuda else None):
+                    dev = torch.empty((U,) + tile, dtype=tdtype_in, device=device)
+                    e0 = mark()
+                    dev.copy_(slot.tensor, non_blocking=cuda)
+                    done = copied = mark()
+                nbytes, bmax = host.nbytes, 0
+            else:
+                # the tail's repeated tile changes neither the maximum nor the minimum
+                bmax = int(host.max(initial=0)) if packable else 0
+                bneg = (packable and np.issubdtype(dtype_in, np.signedinteger)
+                        and int(host.min()) < 0)
+                info = {}
+                rec = {} if packed_key is not None else None
+                with on(up_stream if cuda else None):
+                    e0 = mark()
+                    # put_packed has read the host buffer when it returns
+                    dev = link_codec.put_packed(
+                        host,
+                        nbits=16 if (not packable or bneg) else link_codec.nbits_for_max(bmax),
+                        delta=STREAM_DELTA and packable and not bneg, info=info,
+                        keep_packed=rec, device=device,
+                    )
+                    done = mark()
+                nbytes = info["bytes"]
+        finally:
+            up_bufs.release(slot, copied)
         with tele_lock:
-            tele["up_bytes"] += host.nbytes
+            tele["up_bytes"] += nbytes
             if cuda:
                 busy["up"].append((e0, done))
-        return dev, done
+            if codec:
+                count_modes(info, "up", "batches")
+                if rec:
+                    used = sum(r["packed_bytes"] for r, _ in packed_batches.values())
+                    if used + rec["packed_bytes"] <= UPLOAD_STASH_BYTES:
+                        packed_batches[bi] = (rec, bmax)
+        return dev, done, bmax
 
-    def write_band(b, slot, done, h_true):
+    def write_band(b, slot, done, h_true, fused=None, nbits=None):
+        """Write band ``b`` to the sink: from its host slot once ``done``
+        has completed or, with the codec, fetched from ``fused`` by
+        ``link_codec.fetch_packed`` on the download stream."""
         try:
-            if done is not None:
-                done.synchronize()
-            src = slot.array[tuple(slice(0, h_true) if d == a else slice(None) for d in range(ndim))]
+            rows = tuple(slice(0, h_true) if d == a else slice(None) for d in range(ndim))
+            info = {}
+            if fused is not None:
+                src = slot.array if h_true == H else np.empty(slot.array[rows].shape,
+                                                             slot.array.dtype)
+                with on(dl_stream if cuda else None):
+                    d0 = mark()
+                    link_codec.fetch_packed(fused[rows], out=src, nbits=nbits,
+                                            delta=STREAM_DELTA, info=info)
+                    d1 = mark()
+                del fused  # its device memory is free while the sink is written
+            else:
+                if done is not None:
+                    done.synchronize()
+                src = slot.array[rows]
             out[tuple(
                 slice(b * H, b * H + h_true) if d == a else slice(None) for d in range(ndim)
             )] = src
             with tele_lock:
-                tele["down_bytes"] += src.nbytes
+                if info:
+                    tele["down_bytes"] += info["bytes"]
+                    count_modes(info, "down", "bands")
+                    if cuda:
+                        busy["down"].append((d0, d1))
+                else:
+                    tele["down_bytes"] += src.nbytes
                 tele["voxels_written"] += src.size
                 tele["bands_done"] += 1
                 tele["elapsed_s"] = time.perf_counter() - t_begin
@@ -354,6 +473,7 @@ def execute_streaming(
             band_bufs.release(slot)
 
     zero_batch = None  # made only when a window runs past the last batch
+    max_seen = 0  # the largest batch maximum so far: the width of the band downloads
     futs = {}
     visible = set()  # batches the compute stream waits for already
     next_submit = 0
@@ -387,7 +507,8 @@ def execute_streaming(
                                 zero_batch = torch.zeros((U,) + tile, dtype=tdtype_in, device=device)
                         window.append(zero_batch)
                         continue
-                    dev, done = futs[bi].result(timeout=remaining())
+                    dev, done, bmax = futs[bi].result(timeout=remaining())
+                    max_seen = max(max_seen, bmax)
                     if cuda and bi not in visible:
                         compute.wait_event(done)
                         dev.record_stream(compute)
@@ -425,19 +546,24 @@ def execute_streaming(
                     out_dtype=tdtype_out, origin=origin,
                 )
                 c1 = mark()
+            h_true = min(H, out_shape_full[a] - y0)
             with on(dl_stream if cuda else None):
                 if cuda:
                     dl_stream.wait_event(c1)
                     fused.record_stream(dl_stream)
                     busy["compute"].append((c0, c1))
-                d0 = mark()
-                slot.tensor.copy_(fused, non_blocking=cuda)
-                d1 = mark()
-                if cuda:
-                    busy["down"].append((d0, d1))
+                if codec:
+                    nbits = link_codec.nbits_for_max(max_seen) if packable else None
+                    write_futs.append(writers.submit(write_band, b, slot, None, h_true, fused,
+                                                     nbits))
+                else:
+                    d0 = mark()
+                    slot.tensor.copy_(fused, non_blocking=cuda)
+                    d1 = mark()
+                    if cuda:
+                        busy["down"].append((d0, d1))
+                    write_futs.append(writers.submit(write_band, b, slot, d1, h_true))
             del fused, band_tiles, window
-            h_true = min(H, out_shape_full[a] - y0)
-            write_futs.append(writers.submit(write_band, b, slot, d1, h_true))
 
             # drop device batches no later band reaches
             if b + 1 < B:
@@ -453,6 +579,18 @@ def execute_streaming(
         for stage, pairs in busy.items():
             tele[f"{stage}_ms"] = float(sum(e0.elapsed_time(e1) for e0, e1 in pairs))
     tele["elapsed_s"] = time.perf_counter() - t_begin
+    if codec:
+        if tele["voxels_written"]:
+            # wire bits per fused output voxel, both ways
+            tele["wire_bits_per_vox"] = (
+                8.0 * (tele["up_bytes"] + tele["down_bytes"]) / tele["voxels_written"]
+            )
+        if packed_batches and stash_is_new:
+            # kept after a failed band or an aborted pass too: its uploads serve the next
+            _upload_stash["packed_entry"] = {"key": packed_key, "batches": packed_batches}
+            for s in field_sims:
+                if isinstance(s.data, np.ndarray):
+                    weakref.finalize(s.data, _drop_packed_entry, packed_key)
     if errors:
         raise errors[0]
     if tele["aborted"]:

@@ -1,4 +1,5 @@
-/* Native TIFF decoders: PackBits, TIFF LZW and predictor 2.
+/* Native TIFF decoders (PackBits, TIFF LZW and predictor 2) and the link
+ * codec's host half (ops/link_codec.py: bit packing and the row delta).
  *
  * Built at first use by io/codecs.py (cc -O2 -shared -fPIC) into the
  * package's _build/ directory and called through ctypes, which releases the
@@ -163,4 +164,201 @@ void mvs_predictor2_rows_u16(uint16_t *data, long rows, long width)
     long r;
     for (r = 0; r < rows; r++)
         mvs_predictor2_u16(data + r * width, width, 1);
+}
+
+/* Link codec bit-pack (ops/link_codec.py byte-planar layout):
+ * packed = [lo bytes (count)] + [high bits, 8/(nbits-8) fields per byte].
+ * The loops are memory-bound and run without the GIL (ctypes releases it),
+ * so host packing overlaps the copies of other bands.
+ * Return bytes written / values written, or -1 on bad nbits. */
+
+long mvs_bitpack(const uint16_t *v, long count, int nbits, uint8_t *out)
+{
+    long k, blocks;
+    int e = nbits - 8, per, i;
+    if (nbits == 8) {
+        for (k = 0; k < count; k++)
+            out[k] = (uint8_t)(v[k] & 0xFF);
+        return count;
+    }
+    if (nbits < 8) {
+        /* sub-byte widths (delta residuals): groups of g values -> b
+         * bytes, little-endian fields (ops/link_codec.py
+         * _SUB_BYTE_GROUP layout); odd widths use group-of-8 (up to
+         * 56 bits -> uint64 accumulator) */
+        int g, b, j;
+        long groups;
+        if (nbits == 2)      { g = 4; b = 1; }
+        else if (nbits == 3) { g = 8; b = 3; }
+        else if (nbits == 4) { g = 2; b = 1; }
+        else if (nbits == 5) { g = 8; b = 5; }
+        else if (nbits == 6) { g = 4; b = 3; }
+        else if (nbits == 7) { g = 8; b = 7; }
+        else
+            return -1;
+        groups = (count + g - 1) / g;
+        for (k = 0; k < groups; k++) {
+            uint64_t acc = 0;
+            for (i = 0; i < g; i++) {
+                long p = k * (long)g + i;
+                uint64_t f = p < count ? (uint64_t)v[p] : 0;
+                acc |= f << (i * nbits);
+            }
+            for (j = 0; j < b; j++)
+                out[k * (long)b + j] = (uint8_t)(acc >> (8 * j));
+        }
+        return groups * (long)b;
+    }
+    if (e != 1 && e != 2 && e != 4)
+        return -1;
+    per = 8 / e;
+    for (k = 0; k < count; k++)
+        out[k] = (uint8_t)(v[k] & 0xFF);
+    blocks = (count + per - 1) / per;
+    for (k = 0; k < blocks; k++) {
+        uint8_t acc = 0;
+        for (i = 0; i < per; i++) {
+            long j = k * (long)per + i;
+            uint8_t hi = j < count ? (uint8_t)(v[j] >> 8) : 0;
+            acc |= (uint8_t)(hi << (i * e));
+        }
+        out[count + k] = acc;
+    }
+    return count + blocks;
+}
+
+/* Row-segmented zigzag delta transform (ops/link_codec.py delta mode).
+ * Rows of `row` values, edge-padded: firsts[r] is each row's first value,
+ * resid holds zigzag-coded wrapped first differences ((row-1) per row).
+ * Matches the numpy and torch codecs bit for bit (uint16 wraparound). */
+
+long mvs_delta_encode(const uint16_t *v, long count, int row,
+                      uint16_t *firsts, uint16_t *resid)
+{
+    long n_rows = (count + row - 1) / row;
+    long r, i;
+    for (r = 0; r < n_rows; r++) {
+        long base = r * (long)row;
+        uint16_t prev = v[base];
+        uint16_t *rr = resid + r * (long)(row - 1);
+        firsts[r] = prev;
+        for (i = 1; i < row; i++) {
+            long j = base + i;
+            uint16_t cur = j < count ? v[j] : v[count - 1];
+            int16_t d = (int16_t)(uint16_t)(cur - prev);
+            rr[i - 1] = (uint16_t)(((int)d << 1) ^ ((int)d >> 15));
+            prev = cur;
+        }
+    }
+    return n_rows;
+}
+
+long mvs_delta_decode(const uint16_t *firsts, const uint16_t *resid,
+                      long count, int row, uint16_t *out)
+{
+    long n_rows = (count + row - 1) / row;
+    long r, i;
+    for (r = 0; r < n_rows; r++) {
+        long base = r * (long)row;
+        uint16_t cur = firsts[r];
+        const uint16_t *rr = resid + r * (long)(row - 1);
+        if (base < count)
+            out[base] = cur;
+        for (i = 1; i < row; i++) {
+            long j = base + i;
+            int z = rr[i - 1];
+            int d = (z >> 1) ^ -(z & 1);
+            cur = (uint16_t)(cur + (uint16_t)d);
+            if (j < count)
+                out[j] = cur;
+            else
+                break;
+        }
+    }
+    return count;
+}
+
+long mvs_bitunpack(const uint8_t *buf, long buf_len, int nbits, long count,
+                   uint16_t *out)
+{
+    long k, blocks;
+    int e = nbits - 8, per, i;
+    uint8_t mask;
+    if (nbits == 8) {
+        if (buf_len < count)
+            return -1;
+        for (k = 0; k < count; k++)
+            out[k] = buf[k];
+        return count;
+    }
+    if (nbits < 8) {
+        int g, b, j;
+        long groups;
+        uint64_t m = (uint64_t)((1u << nbits) - 1);
+        if (nbits == 2)      { g = 4; b = 1; }
+        else if (nbits == 3) { g = 8; b = 3; }
+        else if (nbits == 4) { g = 2; b = 1; }
+        else if (nbits == 5) { g = 8; b = 5; }
+        else if (nbits == 6) { g = 4; b = 3; }
+        else if (nbits == 7) { g = 8; b = 7; }
+        else
+            return -1;
+        groups = (count + g - 1) / g;
+        if (buf_len < groups * (long)b)
+            return -1;
+        for (k = 0; k < groups; k++) {
+            uint64_t acc = 0;
+            for (j = 0; j < b; j++)
+                acc |= (uint64_t)buf[k * (long)b + j] << (8 * j);
+            for (i = 0; i < g; i++) {
+                long p = k * (long)g + i;
+                if (p < count)
+                    out[p] = (uint16_t)((acc >> (i * nbits)) & m);
+            }
+        }
+        return count;
+    }
+    if (e != 1 && e != 2 && e != 4)
+        return -1;
+    per = 8 / e;
+    mask = (uint8_t)((1 << e) - 1);
+    blocks = (count + per - 1) / per;
+    if (buf_len < count + blocks)
+        return -1;
+    /* full blocks: branch-free unrolled bodies the compiler can vectorize */
+    if (e == 2) {
+        long full = count / 4;
+        const uint8_t *hi = buf + count;
+        for (k = 0; k < full; k++) {
+            uint8_t acc = hi[k];
+            long j = k * 4;
+            out[j]     = (uint16_t)(buf[j]     | ((acc        & 3u) << 8));
+            out[j + 1] = (uint16_t)(buf[j + 1] | (((acc >> 2) & 3u) << 8));
+            out[j + 2] = (uint16_t)(buf[j + 2] | (((acc >> 4) & 3u) << 8));
+            out[j + 3] = (uint16_t)(buf[j + 3] | (((acc >> 6) & 3u) << 8));
+        }
+        k = full;
+    } else if (e == 4) {
+        long full = count / 2;
+        const uint8_t *hi = buf + count;
+        for (k = 0; k < full; k++) {
+            uint8_t acc = hi[k];
+            long j = k * 2;
+            out[j]     = (uint16_t)(buf[j]     | ((acc        & 15u) << 8));
+            out[j + 1] = (uint16_t)(buf[j + 1] | (((acc >> 4) & 15u) << 8));
+        }
+        k = full;
+    } else { /* e == 1 (9-bit): the ragged loop below handles all blocks */
+        k = 0;
+    }
+    for (; k < blocks; k++) { /* ragged tail */
+        uint8_t acc = buf[count + k];
+        for (i = 0; i < per; i++) {
+            long j = k * (long)per + i;
+            if (j < count)
+                out[j] = (uint16_t)(buf[j] |
+                                    (((acc >> (i * e)) & mask) << 8));
+        }
+    }
+    return count;
 }

@@ -98,7 +98,7 @@ def _load_native():
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_long]
             _lib = lib
         except Exception as e:  # noqa: BLE001
-            logger.warning("native TIFF codecs unavailable (%s); decoding in Python", e)
+            logger.warning("native codecs unavailable (%s); decoding in Python", e)
             _lib = None
         _lib_tried = True
     return _lib

@@ -59,6 +59,7 @@ from multiview_stitcher_torch import (
 )
 from multiview_stitcher_torch.msi_utils import Msim
 from multiview_stitcher_torch.ops import image_metrics as im_metrics
+from multiview_stitcher_torch.ops import link_codec
 from multiview_stitcher_torch.ops import phase_correlation as pc_ops
 from multiview_stitcher_torch.ops import resample as resample_ops
 from multiview_stitcher_torch.parallel import mesh as mesh_utils
@@ -934,7 +935,8 @@ def _crop_const_flags(f_crops, m_crops):
 def _host_crops_to_device(refs, bucket_shape, device):
     """Upload a batch of host crops: as uint16 where all are integers in its
     range, with the NaN pad rebuilt on the device, else as NaN-padded
-    float32. Returns (crops, bytes uploaded)."""
+    float32. With ``link_codec.ENABLED`` a uint16 batch crosses through
+    ``link_codec.put_packed``. Returns (crops, bytes on the wire)."""
     arrs = [r.arr for r in refs]
     B = len(arrs)
     as_uint16 = all(
@@ -948,10 +950,14 @@ def _host_crops_to_device(refs, bucket_shape, device):
         host = np.full((B,) + tuple(bucket_shape), np.nan, dtype=np.float32)
     for b, a in enumerate(arrs):
         host[b][tuple(slice(0, s) for s in a.shape)] = a
-    dev = torch.from_numpy(host).to(device)
-    if as_uint16:
-        dev = _renan_crops(dev, [r.shape for r in refs])
-    return dev, host.nbytes
+    if not (as_uint16 and link_codec.ENABLED):
+        dev = torch.from_numpy(host).to(device)
+        if as_uint16:
+            dev = _renan_crops(dev, [r.shape for r in refs])
+        return dev, host.nbytes
+    info = {}
+    dev = link_codec.put_packed(host, info=info, device=device)
+    return _renan_crops(dev, [r.shape for r in refs]), info["bytes"]
 
 
 # ---------------------------------------------------------------------------

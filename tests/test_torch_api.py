@@ -64,7 +64,7 @@ PORTED_MODULES = [
     "fusion.mv_deconv", "io", "io.codecs", "io.czi_utils", "io.fallback", "io.imaris_utils",
     "io.jpeg", "io.ngff_utils", "io.tif_utils", "io.virtual_ngff", "io.zarr_backend", "metrics",
     "msi_utils", "mv_graph", "neuroglancer", "ops", "ops.exact_affine", "ops.filters",
-    "ops.image_metrics", "ops.phase_correlation", "ops.resample", "ops.shear",
+    "ops.image_metrics", "ops.link_codec", "ops.phase_correlation", "ops.resample", "ops.shear",
     "parallel", "parallel.executors", "parallel.mesh", "parallel.multihost",
     "parallel.pipeline", "param_resolution",
     "param_resolution.global_optimization", "param_resolution.linear_two_pass",

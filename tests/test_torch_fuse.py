@@ -387,6 +387,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import multiview_stitcher_torch.ops.image_metrics\n"
         "import multiview_stitcher_torch.ops.filters\n"
         "import multiview_stitcher_torch.ops.resample\n"
+        "from multiview_stitcher_torch.ops import link_codec\n"
+        "assert link_codec.put_packed and link_codec.fetch_packed and link_codec.reassemble_packed\n"
         "import multiview_stitcher_torch.transformation\n"
         "import multiview_stitcher_torch.weights\n"
         "import multiview_stitcher_torch.zarr_utils\n"

@@ -626,3 +626,203 @@ def test_fuse_keeps_int16_and_float64_as_the_reference(tier, dtype, monkeypatch)
         np.testing.assert_allclose(got, ref, rtol=0, atol=5e-2)
     jcore.clear_device_tile_cache()
     jax.clear_caches()
+
+
+# ---------------------------------------------------------------------------
+# the link codec on the streaming tier (the reference's codec cases of
+# tests/test_streaming_fusion.py), with ops.link_codec.ENABLED patched in.
+# The codec is lossless: each output is bit-equal to the port's without it,
+# and within the file's 1 count of the reference (truncation ties of the
+# plain version against the reference's kernel, with or without the codec)
+# ---------------------------------------------------------------------------
+
+_JAX_REFS: dict = {}
+
+
+def _jax_ref(name, sims):
+    """The reference's streamed fuse() of a named grid, computed once."""
+    if name not in _JAX_REFS:
+        jcore.clear_device_tile_cache()
+        _JAX_REFS[name] = np.asarray(jfuse(sims, transform_key=KEY, output_chunksize=64).data)
+    return _JAX_REFS[name]
+
+
+@pytest.fixture
+def codec_on(monkeypatch, jax_streams):
+    """The port streams test-sized grids through the codec; test-sized
+    batches and bands sit under the codec's 1 MiB threshold, which is
+    lowered so that they pack."""
+    from multiview_stitcher_torch.ops import link_codec as tl
+
+    monkeypatch.setattr(tcore, "STREAM_BYTES", 0)
+    monkeypatch.setattr(tl, "_MIN_PACK_SIZE", 0)
+    tcore.clear_device_tile_cache()
+    yield tl
+    tcore.clear_device_tile_cache()
+
+
+def _codec_fuse(tl, monkeypatch, sims, enabled=True, **kw):
+    monkeypatch.setattr(tl, "ENABLED", enabled)
+    try:
+        return _port_fuse(sims, output_chunksize=64, **kw), dict(tstream.last_telemetry)
+    finally:
+        monkeypatch.setattr(tl, "ENABLED", False)
+
+
+def _smooth_ramp_sims(n=6, tile=48, overlap=12):
+    """Smooth ramps and small noise: residuals fit 8 bits, the values 12."""
+    step = tile - overlap
+    yy, xx = np.mgrid[0:tile, 0:tile]
+    rng = np.random.default_rng(3)
+    return [
+        si_utils.get_sim_from_array(
+            (1024 + 2 * (yy + xx) + rng.integers(0, 4, (tile, tile))).astype(np.uint16),
+            dims=["y", "x"], translation={"y": float(idx[0] * step), "x": float(idx[1] * step)})
+        for idx in np.ndindex((n, n))
+    ]
+
+
+def _gaussian_sims(n=6, tile=48, overlap=12):
+    """Band-limited tiles: locally constant gradients (delta2 content)."""
+    from scipy.ndimage import gaussian_filter
+
+    step = tile - overlap
+    rng = np.random.default_rng(7)
+    sims = []
+    for idx in np.ndindex((n, n)):
+        d = gaussian_filter(rng.random((tile, tile)), 3.0)
+        d -= d.min()
+        sims.append(si_utils.get_sim_from_array(
+            (d * (3000 / max(d.max(), 1e-9))).astype(np.uint16), dims=["y", "x"],
+            translation={"y": float(idx[0] * step), "x": float(idx[1] * step)}))
+    return sims
+
+
+_CODEC_KEYS = ("up_delta_batches", "down_delta_bands", "up_delta2_batches", "down_delta2_bands",
+               "up_delta3_batches", "down_delta3_bands", "up_batches_reused",
+               "up_batches_reused_packed", "wire_bits_per_vox")
+
+
+def test_codec_streaming_telemetry(codec_on, monkeypatch):
+    sims = _grid_sims(n=6, tile=48, overlap=12)
+    ref = _jax_ref("grid_6", sims)
+    plain, tele_off = _codec_fuse(codec_on, monkeypatch, _to_port(sims), enabled=False)
+    assert not set(_CODEC_KEYS) & set(tele_off)  # off: today's telemetry
+    out, tele = _codec_fuse(codec_on, monkeypatch, _to_port(sims))
+    assert set(_CODEC_KEYS) <= set(tele)
+    assert tele["bands_done"] == tele["bands_total"] > 0 and not tele["aborted"]
+    assert tele["up_bytes"] > 0 and tele["down_bytes"] > 0
+    assert tele["voxels_written"] == out.size and tele["elapsed_s"] > 0
+    assert tele["wire_bits_per_vox"] == pytest.approx(
+        8.0 * (tele["up_bytes"] + tele["down_bytes"]) / out.size)
+    # values under 3000 pack at 12 bits each way
+    raw_bits = 8.0 * (tele_off["up_bytes"] + tele_off["down_bytes"]) / out.size
+    assert tele["wire_bits_per_vox"] < raw_bits
+    np.testing.assert_array_equal(out, plain)
+    _assert_close(out, ref)
+
+
+def test_codec_streaming_smooth_data_ships_delta(codec_on, monkeypatch):
+    monkeypatch.setattr(tstream, "_BATCH_BYTES", 6 * 48 * 48 * 2)
+    sims = _smooth_ramp_sims()
+    out, tele = _codec_fuse(codec_on, monkeypatch, _to_port(sims))
+    assert tele["up_delta_batches"] > 0 and tele["down_delta_bands"] > 0
+    up_vox = sum(int(np.prod(s.data.shape)) for s in sims)
+    assert tele["up_bytes"] < codec_on.packed_byte_count(up_vox, 12)
+    assert tele["down_bytes"] < codec_on.packed_byte_count(out.size, 12)
+    monkeypatch.setattr(tstream, "STREAM_DELTA", False)
+    monkeypatch.setattr(codec_on, "DELTA", False)
+    tcore.clear_device_tile_cache()
+    out_plain, tele_plain = _codec_fuse(codec_on, monkeypatch, _to_port(sims))
+    assert tele_plain["up_delta_batches"] == tele_plain["down_delta_bands"] == 0
+    assert tele_plain["up_bytes"] > tele["up_bytes"]
+    np.testing.assert_array_equal(out, out_plain)
+    _assert_close(out, _jax_ref("smooth_ramp", sims))
+
+
+def test_codec_streaming_smooth_data_ships_delta2(codec_on, monkeypatch):
+    monkeypatch.setattr(tstream, "_BATCH_BYTES", 6 * 48 * 48 * 2)
+    sims = _gaussian_sims()
+    out, tele = _codec_fuse(codec_on, monkeypatch, _to_port(sims))
+    assert tele["down_delta2_bands"] > 0
+    assert tele["down_delta_bands"] >= tele["down_delta2_bands"]
+    monkeypatch.setattr(codec_on, "DELTA2", False)
+    tcore.clear_device_tile_cache()
+    out_d1, tele_d1 = _codec_fuse(codec_on, monkeypatch, _to_port(sims))
+    assert tele_d1["down_delta2_bands"] == tele_d1["up_delta2_batches"] == 0
+    assert tele["up_bytes"] + tele["down_bytes"] <= tele_d1["up_bytes"] + tele_d1["down_bytes"]
+    np.testing.assert_array_equal(out, out_d1)
+    off, _ = _codec_fuse(codec_on, monkeypatch, _to_port(sims), enabled=False)
+    np.testing.assert_array_equal(out, off)
+    _assert_close(out, _jax_ref("gaussian", sims))
+
+
+def test_packed_upload_stash_makes_repeat_pass_download_only(codec_on, monkeypatch):
+    import gc
+
+    monkeypatch.setattr(tstream, "_BATCH_BYTES", 6 * 48 * 48 * 2)
+    sims = _to_port(_grid_sims(n=6, tile=48, overlap=12))
+    out1, tele1 = _codec_fuse(codec_on, monkeypatch, sims)
+    assert tele1["up_bytes"] > 0 and tele1["up_batches_reused_packed"] == 0
+    assert "packed_entry" in tstream._upload_stash
+    reads = []
+    materialize = tcore._materialize_tiles
+    monkeypatch.setattr(tcore, "_materialize_tiles", lambda *a, **k: (reads.append(1),
+                                                                     materialize(*a, **k))[1])
+    out2, tele2 = _codec_fuse(codec_on, monkeypatch, sims)
+    assert tele2["up_bytes"] == 0 and not reads
+    assert tele2["up_batches_reused_packed"] == tele2["up_batches_reused"] == tele2["batches"]
+    np.testing.assert_array_equal(out1, out2)
+    _assert_close(out1, _jax_ref("grid_6", _grid_sims(n=6, tile=48, overlap=12)))
+    # the entry dies with the views' arrays
+    del sims
+    gc.collect()
+    assert "packed_entry" not in tstream._upload_stash
+    # a budget of 0 keeps no stash
+    monkeypatch.setattr(tstream, "UPLOAD_STASH_BYTES", 0)
+    sims = _to_port(_grid_sims(n=6, tile=48, overlap=12))
+    out3, tele3 = _codec_fuse(codec_on, monkeypatch, sims)
+    assert tele3["up_bytes"] > 0 and "packed_entry" not in tstream._upload_stash
+    np.testing.assert_array_equal(out1, out3)
+
+
+def test_codec_zarr_to_zarr_repeat_reads_no_tile(codec_on, monkeypatch, tmp_path):
+    """Lazy zarr tiles through the codec into a zarr sink, twice: the same
+    store as without the codec, and the repeat serves every batch from the
+    packed stash without reading a tile."""
+    sims = _gaussian_sims()
+    _, psims = _zarr_tiles(tmp_path, sims)
+    kw = dict(output_chunksize=64)
+    ref = _port_fuse(psims, **kw)
+    monkeypatch.setattr(codec_on, "ENABLED", True)
+    for run in ("cold", "repeat"):
+        url = str(tmp_path / f"{run}.zarr")
+        got = tfuse(psims, transform_key=KEY, device="cpu", output_zarr_url=url, **kw)
+        np.testing.assert_array_equal(np.asarray(got.data), ref)
+    tele = tstream.last_telemetry
+    assert tele["up_bytes"] == 0 and tele["up_batches_reused_packed"] == tele["batches"]
+    _assert_close(ref, _jax_ref("gaussian", sims))
+
+
+@pytest.mark.parametrize("which", ["put_packed", "fetch_packed"])
+def test_codec_failure_raises_from_fuse(which, codec_on, monkeypatch):
+    """An upload or band download that fails inside the codec raises from
+    fuse() (nothing falls back to another tier) and nothing hangs."""
+    sims = _to_port(_grid_sims(n=6, tile=48, overlap=12))
+    called = []
+    monkeypatch.setattr(tcore, "_execute_fusion_plan_translation",
+                        lambda *a, **k: called.append(1))
+    calls = []
+    orig = getattr(codec_on, which)
+
+    def failing(*a, **k):
+        calls.append(1)
+        if len(calls) == (1 if which == "put_packed" else 2):
+            raise OSError(f"injected {which} failure")
+        return orig(*a, **k)
+
+    monkeypatch.setattr(codec_on, which, failing)
+    monkeypatch.setattr(codec_on, "ENABLED", True)
+    with pytest.raises(OSError, match="injected"):
+        _port_fuse(sims, output_chunksize=64)
+    assert calls and not called
