@@ -50,9 +50,12 @@ Phases, one printed line or block each:
 4. the 3D main path through ``fusion.fuse``: 32 x 32 tiles of 64^3 uint16,
    overlap 12, output (64, 1676, 1676) uint16; a cold and a warm call, both
    streamed through banded kernel calls on three CUDA streams (its 537 MB of
-   tiles are above ``STREAM_BYTES``), with the streams' busy times; then the
-   monolithic tier on the same tiles, split into plan, upload, kernel and
-   download, and held against the streamed output; the whole output against
+   tiles are above ``STREAM_BYTES``), with the streams' busy times, the
+   device tile cache emptied before the warm call (the cold call seeds it);
+   then the monolithic tier on the same tiles, the cache emptied again, split
+   into plan, upload, kernel and download, and held against the streamed
+   output; the streamed call once more, every batch gathered from the stack
+   the monolithic call cached (0 bytes up, bit-equal); the whole output against
    the plain version, run on the card band by band through ``origin``; the
    kernel's launch on arguments checked once, warm and on a cold L2 (a
    256 MB buffer zeroed before each launch), beside the wrapper's own call;
@@ -60,8 +63,8 @@ Phases, one printed line or block each:
    version on the same checked arguments, and timed;
 5. the north star zarr -> zarr: the same 1024 tiles, each written as its own
    zarr v2 array by the port's writer under ``.bench_large/``, opened lazily
-   and fused with ``output_chunksize=128`` into an OME-Zarr, cold and warm:
-   bands, views a band, batches, bytes each way, the streams' busy times,
+   and fused with ``output_chunksize=128`` into an OME-Zarr, cold and warm
+   (the device tile cache emptied before each): bands, views a band, batches, bytes each way, the streams' busy times,
    wall time and output Mvox/s; level 0 read back and held against the
    monolithic output of phase 4, the multiscales metadata and every pyramid
    level checked; about 1 GB of disk, removed after the API phase. Then the
@@ -75,7 +78,18 @@ Phases, one printed line or block each:
    a call served from the packed upload stash (0 bytes up), the lazy zarr
    tiles fused twice into a host array (the repeat reads no tile) beside the
    same call without the codec, and the monolithic tier through the codec;
-   every output bit-equal to phase 4's. Then the
+   every output bit-equal to phase 4's. Then the ``cache:`` lines (each with
+   the card's name and power limit), reuse across ``fuse()`` calls from an
+   empty device tile cache: the cold streamed call that seeds the cache (the
+   seeded entry's bytes) beside one with the cache's budget at 0 (the peak
+   device memory of each), the warm repeat from the resident stack (0 bytes
+   up, 0 tile reads, every batch a gather, the streams' spans, kernel 1's
+   launches), the lazy zarr tiles into a zarr store twice (the repeat reads
+   no tile), a pass stopped at its deadline and its retry from the
+   upload-resume stash (the stash's bytes on the card, fewer bytes up, the
+   stash retired), the monolithic tier cold and again (the repeat's plan
+   stage from the plan cache); every output bit-equal to phase 4's, and a
+   failed seeding fails the phase. Then the
    ``zarr3:`` lines (each with the card's name and power limit): the same
    tiles into an NGFF 0.5 OME-Zarr (zarr v3), level 0 in chunks of 128 and
    shards of (64, 512, 512), cold and warm, the streaming bands aligned to
@@ -112,7 +126,9 @@ Phases, one printed line or block each:
    events), held within the reference's shear tolerance of the exact
    kernels' output of the same views;
 6. the same as 4 for a 2D slide-scan mosaic: 32 x 32 tiles of 512^2 uint16,
-   overlap 64;
+   overlap 64; after phase 7's 2D slide scan, the last ``cache:`` line: its
+   cold call (caches emptied) and its repeat, the repeat's plan stage from
+   the plan cache, bit-equal, kernel 3 launched in both;
 7. three affine main paths through ``fusion.fuse``, one per exact-affine
    kernel: four (256, 512, 512) uint16 views rotated about y (y-decoupled
    kernel); a 4 x 4 grid of 256^3 uint16 tiles under affine-resolved
@@ -330,7 +346,10 @@ Phases, one printed line or block each:
    (``api_launches``), the ``slabs:`` phase's warm fuse
    (``slab_launches``), the ``readers:`` phase's warm calls on data a
    reader delivered (``readers_launches``) and the mesh phase's sharded
-   runs (``mesh_launches``) and the service phase (``service_launches``).
+   runs (``mesh_launches``), the service phase (``service_launches``) and
+   the calls that read a cache (``cache_launches``: the cache phase's
+   repeats and the 3D main path's resident repeat for kernel 1, the 2D main
+   path's resident repeat for kernel 2, the affine repeat for kernel 3).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises and
 the script exits non-zero without that line; without a CUDA device it exits
@@ -777,6 +796,9 @@ def main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, ndim, n, tile, over
 
     band = []
     tf._launch = keep_middle_band
+    # the cold call seeded the device tile cache: it is emptied, so that
+    # this call reads and uploads its tiles as a first call does
+    tcore.clear_device_tile_cache()
     try:
         t0 = time.perf_counter()
         fused = fuse(sims, transform_key=KEY)
@@ -792,9 +814,11 @@ def main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, ndim, n, tile, over
         raise AssertionError(f"{label}: kernel launches {launches}, other kernel {other.launches}, "
                              f"streaming {stream}")
 
-    # the monolithic tier on the same tiles, split into its stages
+    # the monolithic tier on the same tiles, split into its stages (the
+    # cache emptied again, so that the split has its upload)
     saved = tcore.STREAM_BYTES
     tcore.STREAM_BYTES = 1 << 62
+    tcore.clear_device_tile_cache()
     try:
         with StageTimer(torch, tcore, tf, tea) as st:
             t0 = time.perf_counter()
@@ -813,6 +837,22 @@ def main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, ndim, n, tile, over
         raise AssertionError(
             f"{label}: streamed output differs from the monolithic one by {stream_err}")
 
+    # the streamed path again, with the stack the monolithic call left in
+    # the device tile cache: every batch a gather on the card
+    tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+    t0 = time.perf_counter()
+    again = fuse(sims, transform_key=KEY).data
+    torch.cuda.synchronize()
+    resident_s = time.perf_counter() - t0
+    resident = dict(tstream.last_telemetry)
+    resident_launches = wrapper.launches
+    if (not np.array_equal(again, fused.data) or resident["up_bytes"]
+            or resident["up_batches_resident"] != resident["batches"]
+            or resident_launches != resident["bands_total"] or other.launches):
+        raise AssertionError(f"{label}: the resident repeat launched {resident_launches}, "
+                             f"streaming {resident}, equal {np.array_equal(again, fused.data)}")
+    del again
+
     if out.shape != expect or out.dtype != np.uint16:
         raise AssertionError(f"{label}: output {out.shape} {out.dtype}, expected {expect} uint16")
     # a window in the middle of tile (5, 5), away from every overlap and
@@ -827,12 +867,18 @@ def main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, ndim, n, tile, over
     if not np.array_equal(out[win], sims[5 * n + 5].data[twin]):
         raise AssertionError(f"{label}: interior of tile (5, 5) is not the tile")
     log(f"{label}: output {out.shape} {out.dtype}, cold fuse {cold_s:.3f} s, "
-        f"warm fuse {warm_s:.3f} s (streamed), launches {launches}")
+        f"warm fuse {warm_s:.3f} s (streamed, the device tile cache emptied first), "
+        f"launches {launches}")
     log(f"{label}: streaming " + json.dumps({
         k: (round(v, 3) if isinstance(v, float) else v) for k, v in stream.items()
     }) + f"; {stream_diff} voxels differ from the monolithic output (max {stream_err})")
-    log(f"{label}: monolithic warm fuse {mono_s:.3f} s, split "
-        + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    log(f"{label}: monolithic warm fuse {mono_s:.3f} s (the device tile cache emptied first), "
+        "split " + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    log(f"{label}: resident repeat (streamed, every batch gathered from the stack the "
+        f"monolithic call cached) {resident_s:.3f} s, up {resident['up_bytes']} bytes, "
+        f"{resident['up_batches_resident']} of {resident['batches']} batches resident, stream "
+        f"spans ms up {resident['up_ms']} compute {resident['compute_ms']} down "
+        f"{resident['down_ms']}, launches {resident_launches}, bit-equal to the warm call True")
 
     # the kernel at the main-path shapes: the launch alone, on arguments
     # checked and packed once, warm and on a cold L2; beside it the wrapper's
@@ -920,6 +966,9 @@ def main_path(np, torch, tsi, tcore, tf, tea, tstream, fuse, ndim, n, tile, over
         "wrapper_ms": wrapper_ms,
         "cold_fuse_s": cold_s,
         "warm_fuse_s": warm_s,
+        "resident_fuse_s": resident_s,
+        "resident_launches": int(resident_launches),
+        "resident_stream": resident,
         "stream": stream,
         "stream_vs_mono_max_counts": stream_err,
         "stream_vs_mono_voxels": stream_diff,
@@ -1049,8 +1098,11 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
             _zarr_format=tcore.ngff_utils._zarr_format,
         )
         for run in ("cold", "warm"):
-            # the warm run is this path's run: counts set to 0 just before
+            # the warm run is this path's run: counts set to 0 just before,
+            # and the device tile cache the cold run seeded emptied, so that
+            # it reads its tiles
             tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+            tcore.clear_device_tile_cache()
             t0 = time.perf_counter()
             res = fuse(lazy, transform_key=KEY, output_chunksize=128, output_zarr_url=out_url)
             torch.cuda.synchronize()
@@ -1102,7 +1154,8 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
             f"up {r['up_bytes'] / 1e6:.1f} MB, down {r['down_bytes'] / 1e6:.1f} MB, "
             "stream spans ms "
             + " ".join(f"{k} {r[k + '_ms']}" for k in ("up", "compute", "down"))
-            + " (each the summed span, first to last event, of its stage's work)")
+            + " (each the summed span, first to last event, of its stage's work; the device "
+            "tile cache emptied before the run)")
     log(f"{label}: tiles written in {write_s:.2f} s, a 256 MiB file at {disk_mb_s:.0f} MB/s, "
         f"levels {levels}, {disk / 1e6:.0f} MB on disk, "
         f"level 0 vs in-memory {n_diff} voxels differ (max {err} counts); {card_line()}")
@@ -1328,6 +1381,7 @@ def link_phase(np, torch, tcore, tf, tstream, fuse, sims, mono, streamed, lazy):
         try:
             lc.ENABLED = False
             res["lazy_plain"] = streamed_call("(f) lazy zarr tiles, codec off", lazy, streamed)
+            tcore.clear_device_tile_cache()  # the call above seeded it
             lc.ENABLED = True
             res["lazy_first"] = streamed_call("(f) lazy zarr tiles, codec on", lazy, streamed)
             n_reads = len(reads)
@@ -1366,6 +1420,235 @@ def link_phase(np, torch, tcore, tf, tstream, fuse, sims, mono, streamed, lazy):
     res["launches"] = res["streamed_warm"]["launches"]
     res["phase_s"] = time.perf_counter() - t_phase
     say(f"phase {res['phase_s']:.1f} s")
+    return res
+
+
+def cache_phase(np, torch, tcore, tf, tea, tstream, fuse, sims, mono, streamed, lazy, work):
+    """Phase 5c, reuse across fuse() calls (ROADMAP item 15) on the 3D north
+    star, from an empty device tile cache: (a) a cold streamed call that
+    keeps no batches (the cache's budget set to 0) beside one that keeps
+    them and seeds the cache, with the peak device memory of each; (b) the
+    warm repeat, every batch gathered from the resident stack; (c) the lazy
+    zarr tiles into a zarr store twice, the repeat reading no tile; (d) a
+    pass past its deadline and its retry from the upload-resume stash; (e)
+    the monolithic tier cold and again, the repeat taking its plan and
+    tables from the plan cache. The streamed outputs are held bit for bit to
+    phase 4's streamed output, the monolithic ones to its monolithic output
+    and the zarr repeat to its cold store; a failed seeding (its
+    RuntimeWarning) fails the phase. Returns the results with the launches
+    of kernel 1 over (b)-(e)."""
+    import warnings
+
+    from multiview_stitcher_torch.io import zarr_backend
+    from multiview_stitcher_torch.utils import misc
+
+    card = card_line()
+    say = lambda msg: log(f"{card}: cache: {msg}")  # noqa: E731
+    t_phase = time.perf_counter()
+    res = {}
+    key = tcore._DeviceTileCache.key_for(sims, misc.resolve_device(None))
+    stack_bytes = sum(s.data.nbytes for s in sims)
+    reads = []
+    materialize = tcore._materialize_tiles
+
+    def counting(*a, **k):
+        reads.append(1)
+        return materialize(*a, **k)
+
+    def streamed_call(label, data, want, **kw):
+        tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+        n_reads = len(reads)
+        t0 = time.perf_counter()
+        out = fuse(data, transform_key=KEY, **kw).data
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tele = dict(tstream.last_telemetry)
+        r = {"wall_s": wall, "launches": tf.fuse_translation_3d.launches,
+             "tile_reads": len(reads) - n_reads, **tele}
+        if want is not None:
+            r["bit_equal"] = bool(np.array_equal(out, want))
+            if not r["bit_equal"]:
+                raise AssertionError(f"cache: {label} differs from phase 4's output")
+        if (r["launches"] != tele["bands_total"] or tele["bands_done"] != tele["bands_total"]
+                or tf.fuse_translation_2d.launches):
+            raise AssertionError(f"cache: {label} launched {r['launches']} for "
+                                 f"{tele['bands_total']} bands")
+        return r
+
+    def spans(r):
+        return (f"stream spans ms up {r['up_ms']} compute {r['compute_ms']} down "
+                f"{r['down_ms']}, fuse_translation_3d launches {r['launches']}")
+
+    saved_budget, saved_stream = tcore.TILE_CACHE_BYTES, tcore.STREAM_BYTES
+    tcore._materialize_tiles = counting
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message="device tile cache seeding failed",
+                                    category=RuntimeWarning)
+            # (a) cold, without and with retention
+            peaks = {}
+            for run, budget in (("no_retention", 0), ("cold", saved_budget)):
+                tcore.clear_device_tile_cache()
+                torch.cuda.empty_cache()
+                tcore.TILE_CACHE_BYTES = budget
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                res[run] = streamed_call(f"(a) {run}", sims, streamed)
+                peaks[run] = torch.cuda.max_memory_allocated() - base
+                res[run]["peak_bytes"] = peaks[run]
+            tcore.TILE_CACHE_BYTES = saved_budget
+            seeded = tcore._device_tile_cache.get(key)
+            if seeded is None:
+                raise AssertionError("cache: the cold call seeded no stack")
+            seeded_bytes = seeded.numel() * seeded.element_size()
+            if seeded_bytes != stack_bytes or not res["cold"]["up_bytes"]:
+                raise AssertionError(f"cache: seeded {seeded_bytes} bytes of {stack_bytes}")
+            del seeded
+            say(f"(a) cold streamed call from an empty cache: wall {res['cold']['wall_s']:.3f} "
+                f"s, {res['cold']['tile_reads']} batch reads, up "
+                f"{res['cold']['up_bytes'] / 1e6:.1f} MB, seeded entry {seeded_bytes / 1e6:.1f} MB; "
+                f"peak device memory above the phase's base {peaks['cold'] / 1e6:.1f} MB keeping "
+                f"the batches, {peaks['no_retention'] / 1e6:.1f} MB with the cache's budget at 0 "
+                f"(wall {res['no_retention']['wall_s']:.3f} s); both bit-equal to phase 4")
+
+            # (b) the warm repeat from the resident stack
+            r = res["resident"] = streamed_call("(b) resident repeat", sims, streamed)
+            if (r["up_bytes"] or r["tile_reads"] or r["up_batches_resident"] != r["batches"]):
+                raise AssertionError(f"cache: the resident repeat {r}")
+            say(f"(b) warm repeat from the resident stack: wall {r['wall_s']:.3f} s, up "
+                f"{r['up_bytes']} bytes, {r['up_batches_resident']} of {r['batches']} batches "
+                f"resident, {r['tile_reads']} tile reads, {spans(r)}, bit-equal to phase 4 "
+                f"{r['bit_equal']}")
+
+            # (c) the lazy tiles into a zarr store, twice
+            url = str(work / "cache.ome.zarr")
+            levels = {}
+            for run in ("zarr_cold", "zarr_repeat"):
+                res[run] = streamed_call(f"(c) {run}", lazy, None, output_chunksize=128,
+                                         output_zarr_url=url)
+                levels[run] = np.asarray(zarr_backend.open_zarr_array(url + "/0"))
+            r = res["zarr_repeat"]
+            r["bit_equal"] = bool(np.array_equal(levels["zarr_repeat"], levels["zarr_cold"]))
+            vs_streamed = int(np.count_nonzero(levels["zarr_cold"] != streamed))
+            if (not r["bit_equal"] or r["tile_reads"] or r["up_bytes"]
+                    or not res["zarr_cold"]["tile_reads"]):
+                raise AssertionError(f"cache: the zarr repeat read {r['tile_reads']} batches, "
+                                     f"level 0 equal {r['bit_equal']}")
+            del levels
+            say(f"(c) zarr->zarr: cold {res['zarr_cold']['wall_s']:.3f} s with "
+                f"{res['zarr_cold']['tile_reads']} batch reads, repeat {r['wall_s']:.3f} s with "
+                f"{r['tile_reads']} tile reads and {r['up_bytes']} bytes up, {spans(r)}; level 0 "
+                f"of the repeat bit-equal to the cold one {r['bit_equal']}, {vs_streamed} voxels "
+                "differ from phase 4's streamed output")
+
+            # (d) a pass past its deadline, then its retry. The deadline
+            # counts the pass's set-up too, so it grows until a pass stops
+            # with some uploads done
+            for frac in (0.3, 0.45, 0.6, 0.75, 0.9):
+                tcore.clear_device_tile_cache()
+                tstream.STREAM_DEADLINE_S = frac * res["cold"]["elapsed_s"]
+                try:
+                    fuse(sims, transform_key=KEY)
+                except tstream.StreamingDeadlineError as e:
+                    partial = dict(e.telemetry)
+                else:
+                    raise AssertionError("cache: the pass did not stop at its deadline")
+                finally:
+                    tstream.STREAM_DEADLINE_S = None
+                torch.cuda.synchronize()
+                entry = tstream._upload_stash.get("entry")
+                if entry is not None:
+                    break
+            else:
+                raise AssertionError("cache: no aborted pass left an upload-resume stash")
+            n_stashed = len(entry["batches"])
+            stash_bytes = sum(d.numel() * d.element_size() for d, _, _ in entry["batches"].values())
+            del entry
+            r = res["retry"] = streamed_call("(d) retry", sims, streamed)
+            if (r["up_batches_reused"] != n_stashed or r["up_bytes"] >= res["cold"]["up_bytes"]
+                    or "entry" in tstream._upload_stash or tcore._device_tile_cache.get(key) is None):
+                raise AssertionError(f"cache: the retry reused {r['up_batches_reused']} of "
+                                     f"{n_stashed} stashed batches, stash left "
+                                     f"{'entry' in tstream._upload_stash}")
+            res["aborted"] = {k: partial[k] for k in ("bands_done", "bands_total", "up_bytes",
+                                                      "elapsed_s", "deadline_s")}
+            res["aborted"].update(stashed_batches=n_stashed, stash_bytes=stash_bytes)
+            say(f"(d) a pass stopped at its {partial['deadline_s']:.3f} s deadline after "
+                f"{partial['bands_done']} of {partial['bands_total']} bands stashed "
+                f"{n_stashed} of {r['batches']} batches, {stash_bytes / 1e6:.1f} MB on the card; "
+                f"the retry reused them, up {r['up_bytes'] / 1e6:.1f} MB against "
+                f"{res['cold']['up_bytes'] / 1e6:.1f} MB cold, wall {r['wall_s']:.3f} s, seeded "
+                f"the cache and retired the stash, bit-equal to phase 4 {r['bit_equal']}")
+
+            # (e) the monolithic tier, cold and again
+            tcore.STREAM_BYTES = 1 << 62
+            tcore.clear_device_tile_cache()
+            for run in ("mono_cold", "mono_repeat"):
+                tf.fuse_translation_3d.launches = 0
+                with StageTimer(torch, tcore, tf, tea) as st:
+                    t0 = time.perf_counter()
+                    out = fuse(sims, transform_key=KEY).data
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    split = st.split_ms(t0, t1)
+                same = bool(np.array_equal(out, mono))
+                res[run] = {"wall_s": t1 - t0, "launches": tf.fuse_translation_3d.launches,
+                            "bit_equal": same, **split}
+                if not same or res[run]["launches"] < 1:
+                    raise AssertionError(f"cache: {run} differs from phase 4's monolithic output")
+            del out
+            cold, rep = res["mono_cold"], res["mono_repeat"]
+            say(f"(e) monolithic: plan {cold['plan_ms']:.3f} ms cold (caches emptied), "
+                f"{rep['plan_ms']:.3f} ms repeat; wall {cold['wall_s']:.3f} / "
+                f"{rep['wall_s']:.3f} s, split of the repeat "
+                + json.dumps({k: round(v, 3) for k, v in rep.items() if k.endswith("_ms")})
+                + f", launches {rep['launches']}, both bit-equal to phase 4 True")
+    finally:
+        tcore._materialize_tiles = materialize
+        tcore.TILE_CACHE_BYTES, tcore.STREAM_BYTES = saved_budget, saved_stream
+        tstream._upload_stash.clear()
+        torch.cuda.empty_cache()
+    res["launches"] = sum(res[k]["launches"] for k in ("resident", "zarr_repeat", "retry",
+                                                        "mono_repeat"))
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase {res['phase_s']:.1f} s, fuse_translation_3d launches over the repeats "
+        f"{res['launches']}")
+    return res
+
+
+def affine_plan_repeat(np, torch, tcore, tf, tea, fuse, sims, chunksize):
+    """The cache phase's last part, on phase 7's 2D slide scan: a cold call
+    (the caches emptied first) and its repeat, which takes its chunk plan
+    from the plan cache and its tiles from the device tile cache; the plan
+    stage of each, both outputs bit-equal, kernel 3 launched in both.
+    Returns the results with the repeat's launches."""
+    card = card_line()
+    res = {}
+    tcore.clear_device_tile_cache()
+    outs = []
+    for run in ("cold", "repeat"):
+        tea.exact_affine_batch_2d.launches = 0
+        with StageTimer(torch, tcore, tf, tea) as st:
+            t0 = time.perf_counter()
+            outs.append(fuse(sims, transform_key=KEY, output_chunksize=chunksize).data)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            split = st.split_ms(t0, t1)
+        # read after the timer has put the wrapper back
+        res[run] = {"wall_s": t1 - t0, "launches": tea.exact_affine_batch_2d.launches, **split}
+        if res[run]["launches"] < 2:
+            raise AssertionError(f"cache: the affine {run} launched kernel 3 "
+                                 f"{res[run]['launches']} times")
+    same = bool(np.array_equal(outs[0], outs[1]))
+    del outs
+    if not same:
+        raise AssertionError("cache: the affine repeat differs from its cold call")
+    cold, rep = res["cold"], res["repeat"]
+    log(f"{card}: cache: (f) 2d slide scan, per-tile affines: plan {cold['plan_ms']:.3f} ms "
+        f"cold (caches emptied), {rep['plan_ms']:.3f} ms repeat; wall {cold['wall_s']:.3f} / "
+        f"{rep['wall_s']:.3f} s, exact_affine_batch_2d launches {cold['launches']} / "
+        f"{rep['launches']}, repeat bit-equal to the cold call {same}")
+    res["launches"] = rep["launches"]
     return res
 
 
@@ -3736,11 +4019,13 @@ def zarr3_phase(np, torch, tf, tstream, fuse, lazy, work, v2_url, v2_warm_s,
                 shards=ZARR3_SHARDS):
     """``zarr3:`` lines: phase 5's 1024 lazy zarr tiles fused zarr -> zarr
     into an NGFF 0.5 OME-Zarr (zarr v3), level 0 in chunks of 128 and shards
-    of ``ZARR3_SHARDS``, cold and warm; the streaming tier's bands align to
+    of ``ZARR3_SHARDS``, cold and warm (the device tile cache emptied before
+    each); the streaming tier's bands align to
     whole shards. Held: every level bit-equal to phase 5's v2 store at
     ``v2_url``, the group's ``ome`` attributes at version 0.5, level 0
     sharded; printed: the files of each store and the warm time beside
     phase 5's. ``shards`` is level 0's shard shape."""
+    from multiview_stitcher_torch.fusion import _core as tcore
     from multiview_stitcher_torch.io import zarr_backend
 
     label = "zarr3"
@@ -3750,6 +4035,8 @@ def zarr3_phase(np, torch, tf, tstream, fuse, lazy, work, v2_url, v2_warm_s,
     runs = {}
     for run in ("cold", "warm"):
         tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+        # each run reads its tiles, as phase 5's warm run does
+        tcore.clear_device_tile_cache()
         t0 = time.perf_counter()
         res = fuse(lazy, transform_key=KEY, output_chunksize=128, output_zarr_url=out_url,
                    zarr_options=opts)
@@ -5688,6 +5975,9 @@ def main() -> int:
     try:
         # the link codec on the same tiles, in memory and lazy
         link = link_phase(np, torch, tcore, tf, tstream, fuse, sims3, mono3, streamed3, lazy3)
+        # reuse across calls: the resident stack, seeding, the resume stash, plans
+        cache = cache_phase(np, torch, tcore, tf, tea, tstream, fuse, sims3, mono3, streamed3,
+                            lazy3, work)
         del streamed3
         # the same tiles into NGFF 0.5, sharded, against phase 5's store
         t_phase = time.perf_counter()
@@ -5750,6 +6040,9 @@ def main() -> int:
         affine[kind] = affine_main_path(
             np, torch, tcore, tf, tea, fuse, label, sims, chunksize, kind
         )
+        if kind == "2d":
+            cache["affine_2d"] = affine_plan_repeat(np, torch, tcore, tf, tea, fuse, sims,
+                                                    chunksize)
 
         def exact_part():
             # the fullest batch of one more warm call, through the sharded helper
@@ -5842,7 +6135,13 @@ def main() -> int:
         k["mesh_launches"] = mesh.launches[k["name"]]
         k["service_launches"] = service_launches[k["name"]]
         k["link_launches"] = link["launches"] if k["name"] == "fuse_translation_3d" else 0
-    detail = {"3d": r3, "2d": r2, "zarr": zarr, "link": link, "zarr3": zarr3, "api": api, "slabs": slabs,
+        k["cache_launches"] = {
+            "fuse_translation_3d": cache["launches"] + r3["resident_launches"],
+            "fuse_translation_2d": r2["resident_launches"],
+            "exact_affine_batch_2d": cache["affine_2d"]["launches"],
+        }.get(k["name"], 0)
+    detail = {"3d": r3, "2d": r2, "zarr": zarr, "link": link, "cache": cache, "zarr3": zarr3,
+              "api": api, "slabs": slabs,
               "shear": shear, **{f"affine_{k}": v for k, v in affine.items()},
               "general": general, "multiscale": multiscale, "beads": beads, "deconv": deconv,
               "stitch": stitched, "metrics": quality, "readers": readers, "mesh": mesh.out,

@@ -76,6 +76,7 @@ reference. The sharded output equals the unsharded one bit for bit.
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import os
 import time
@@ -717,10 +718,26 @@ _device_tile_cache = _DeviceTileCache()
 tile_upload_bytes = 0
 
 
+# fusion plans of geometry-identical fuse() calls, least recent insertion
+# first: each holds the views' parameter matrices ("sparams"), the chunk plan
+# once a chunked tier asked for it, and the host tables a tier prepared from
+# it under "prep:*" keys
+_plan_cache: dict = {}
+_PLAN_CACHE_MAX = 16
+
+
+def _plan_cache_insert(key, plan) -> None:
+    while len(_plan_cache) >= _PLAN_CACHE_MAX:
+        _plan_cache.pop(next(iter(_plan_cache)))
+    _plan_cache[key] = plan
+
+
 def clear_device_tile_cache() -> None:
-    """Drop every tile stack the device tile cache holds, and the streaming
-    tier's packed upload stash."""
+    """Drop every tile stack the device tile cache holds, the streaming
+    tier's upload-resume and packed upload stashes, and the cached fusion
+    plans."""
     _device_tile_cache.clear()
+    _plan_cache.clear()
     _streaming._upload_stash.clear()
 
 
@@ -892,20 +909,31 @@ def _execute_fusion_plan_translation(
     ndim = len(sdims)
     out_shape = tuple(int(output_stack_properties["shape"][d]) for d in sdims)
     tile_shape = _kernel_tile_shape(ndim, out_shape)
-    with profiling.stage("fuse.plan"):
-        views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
-        if scales is not None:
-            scale_arr = np.asarray(scales, dtype=np.float64)
-            # the per-dim max stands where the reference sized its windows;
-            # the kernels read the true per-view scales
-            scale = tuple(float(x) for x in scale_arr.max(axis=0))
-        else:
-            scale_arr = np.asarray(scale, dtype=np.float64)
-        offs, extents, wdiags, woffs, wgrids = translation_kernel_params(
-            plan, views_bb, output_stack_properties, sdims,
-            blending_widths, shrink_distance, scale_arr,
-        )
-        view_idx = tile_view_lists(offs, extents, scale_arr, out_shape, tile_shape)
+    if scales is not None:
+        scale_arr = np.asarray(scales, dtype=np.float64)
+        # the per-dim max stands where the reference sized its windows;
+        # the kernels read the true per-view scales
+        scale = tuple(float(x) for x in scale_arr.max(axis=0))
+    else:
+        scale_arr = np.asarray(scale, dtype=np.float64)
+    # the tables are kept on the (cached) plan: a repeat call skips them
+    prep_key = (
+        "prep:pallas", tuple(tile_shape), tuple(scale),
+        None if scales is None else scale_arr.tobytes(),
+        json.dumps(blending_widths, sort_keys=True, default=float),
+        json.dumps(shrink_distance, sort_keys=True, default=float),
+    )
+    if prep_key not in plan:
+        with profiling.stage("fuse.plan"):
+            views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
+            tables = translation_kernel_params(
+                plan, views_bb, output_stack_properties, sdims,
+                blending_widths, shrink_distance, scale_arr,
+            )
+            plan[prep_key] = (
+                tables, tile_view_lists(tables[0], tables[1], scale_arr, out_shape, tile_shape)
+            )
+    tables, view_idx = plan[prep_key]
 
     fuse_fn = (
         translation_fusion.fuse_translation_3d
@@ -919,7 +947,6 @@ def _execute_fusion_plan_translation(
         tile_shape=tile_shape, K=view_idx.shape[-1], out_dtype=_torch_dtype(out.dtype),
         scale=kscale, scales=None if scales is None else np.asarray(scales, np.float32),
     )
-    tables = (offs, extents, wdiags, woffs, wgrids)
     if not mesh_utils.is_sharded(mesh):
         tiles = _tiles_to_device(field_sims, device)
         _download(fuse_fn(tiles, view_idx, *tables, out_shape=out_shape, **kw), out)
@@ -946,7 +973,7 @@ def _execute_fusion_plan_translation(
 
 
 def _fuse_translation_views(
-    param_mats,
+    plan,
     field_sims,
     output_stack_properties,
     sdims,
@@ -968,7 +995,6 @@ def _fuse_translation_views(
     when neither takes the call (lazy tiles above :data:`TILES_MAX_BYTES`
     that do not band: the chunked tiers read them as host slabs). A failed
     streaming run raises."""
-    plan = {"sparams": param_mats}
     tiles_in_memory = all(not si_utils._is_lazy(s.data) for s in field_sims)
     tiles_fit_on_device = _tiles_fit_on_device(field_sims)
     stream_worthy = (
@@ -1661,20 +1687,30 @@ def _execute_fusion_plan_batched(
     stack_shape = None if route != "exact" or host_slabs else tuple(
         max(int(s.data.shape[i]) for s in field_sims) for i in range(ndim)
     )
-    params = exact_kernel_params(
-        entries, field_sims, plan["sparams"], sdims, S_max, O_max, stack_shape,
-        use_bw, blending_widths, shrink_distance,
+    # the tables are kept on the (cached) plan: a repeat call skips them
+    prep_key = (
+        "prep:exact", stack_shape, bool(use_bw), batch_size,
+        json.dumps(blending_widths, sort_keys=True, default=float),
+        json.dumps(shrink_distance, sort_keys=True, default=float),
     )
+    if prep_key not in plan:
+        params = exact_kernel_params(
+            entries, field_sims, plan["sparams"], sdims, S_max, O_max, stack_shape,
+            use_bw, blending_widths, shrink_distance,
+        )
+        plan[prep_key] = (params, [
+            _build_exact_batch(params[i0 : i0 + batch_size], K_max, ndim, use_bw)
+            for i0 in range(0, len(entries), batch_size)
+        ])
+    params, tables = plan[prep_key]
     bundle = _plan_shear_bundle(params, S_max, O_max, use_bw) if shear else None
     if bundle is not None:
         route = "shear"
     if route == "exact":
         kind = _exact_kind(ndim, params, use_bw)
-    batches = [
-        (entries[i0 : i0 + batch_size],
-         _build_exact_batch(params[i0 : i0 + batch_size], K_max, ndim, use_bw))
-        for i0 in range(0, len(entries), batch_size)
-    ]
+    batches = list(zip(
+        (entries[i0 : i0 + batch_size] for i0 in range(0, len(entries), batch_size)), tables
+    ))
     if host_slabs:
         dtype = np.dtype(field_sims[0].data.dtype)
         pad = {"gather": "nan", "exact": None, "shear": "edge"}[route]
@@ -1789,38 +1825,13 @@ def _resample_tiles(tiles, view_idx, diags, offs, wgrids, wdiags, woffs, valid, 
     return data_t, bw
 
 
-def _execute_fusion_plan_tiles(
-    plan,
-    field_sims,
-    output_stack_properties,
-    sdims,
-    *,
-    mode,
-    use_bw,
-    blending_widths,
-    shrink_distance,
-    out,
-    device,
-    mesh=None,
-):
-    """The reference's tiles tier for axis-aligned plans of equal-shape
-    tiles: the whole tiles sit on the device once (the device tile cache, as
-    float32), and each chunk's views are resampled from them by the
-    separable axis-aligned resample, blended over the views and cast on the
-    device. Chunks go in batches of ``MAX_BATCH_ELEMENTS // (K_max *
-    prod(O_max))``; the fused chunks are assembled on the device and
-    downloaded once. With a sharded ``mesh`` (the reference's
-    ``_fuse_chunks_tiles_map_kernel_sharded``) each entry fuses its
-    contiguous slice of the chunks (:func:`~.parallel.mesh.shard_parts`:
-    the reference's split of the chunk axis padded to a mesh multiple, the
-    padding chunks not fused) from its device's tile stack."""
+def _tiles_tier_tables(plan, entries, field_sims, output_stack_properties, sdims, K_max, O_max,
+                       use_bw, blending_widths, shrink_distance):
+    """The tiles tier's host tables over the non-empty ``entries`` of a chunk
+    plan: (C, K_max) view indices, pixel maps and blending-weight grids, and
+    which slots hold a view."""
     ndim = len(sdims)
-    entries = [e for e in plan["per_chunk_entries"] if e["views"]]
-    if not entries:
-        return
     views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
-    K_max = max(len(e["views"]) for e in entries)
-    O_max = tuple(max(int(e["output_bb_overlap"]["shape"][d]) for e in entries) for d in sdims)
     osp_spacing = np.array([output_stack_properties["spacing"][d] for d in sdims])
     C = len(entries)
     view_idx = np.zeros((C, K_max), dtype=np.int64)
@@ -1858,6 +1869,53 @@ def _execute_fusion_plan_tiles(
                 wgrids[ci, vi] = g
                 wdiags[ci, vi] = np.diag(wm)
                 woffs[ci, vi] = wo
+    return view_idx, diags, offs, wgrids, wdiags, woffs, valid
+
+
+def _execute_fusion_plan_tiles(
+    plan,
+    field_sims,
+    output_stack_properties,
+    sdims,
+    *,
+    mode,
+    use_bw,
+    blending_widths,
+    shrink_distance,
+    out,
+    device,
+    mesh=None,
+):
+    """The reference's tiles tier for axis-aligned plans of equal-shape
+    tiles: the whole tiles sit on the device once (the device tile cache, as
+    float32), and each chunk's views are resampled from them by the
+    separable axis-aligned resample, blended over the views and cast on the
+    device. Chunks go in batches of ``MAX_BATCH_ELEMENTS // (K_max *
+    prod(O_max))``; the fused chunks are assembled on the device and
+    downloaded once. With a sharded ``mesh`` (the reference's
+    ``_fuse_chunks_tiles_map_kernel_sharded``) each entry fuses its
+    contiguous slice of the chunks (:func:`~.parallel.mesh.shard_parts`:
+    the reference's split of the chunk axis padded to a mesh multiple, the
+    padding chunks not fused) from its device's tile stack."""
+    ndim = len(sdims)
+    entries = [e for e in plan["per_chunk_entries"] if e["views"]]
+    if not entries:
+        return
+    K_max = max(len(e["views"]) for e in entries)
+    O_max = tuple(max(int(e["output_bb_overlap"]["shape"][d]) for e in entries) for d in sdims)
+    C = len(entries)
+    # the tables are kept on the (cached) plan: a repeat call skips them
+    prep_key = (
+        "prep:tiles", O_max, bool(use_bw),
+        json.dumps(blending_widths, sort_keys=True, default=float),
+        json.dumps(shrink_distance, sort_keys=True, default=float),
+    )
+    if prep_key not in plan:
+        plan[prep_key] = _tiles_tier_tables(
+            plan, entries, field_sims, output_stack_properties, sdims, K_max, O_max, use_bw,
+            blending_widths, shrink_distance,
+        )
+    view_idx, diags, offs, wgrids, wdiags, woffs, valid = plan[prep_key]
 
     out_dtype = _torch_dtype(out.dtype)
     out_device = mesh_utils.indexed_device(device)
@@ -2148,7 +2206,7 @@ def _execute_fusion_plan_host(
 
 
 def _execute_fusion_plan(
-    param_mats,
+    plan,
     field_sims,
     output_stack_properties,
     sdims,
@@ -2180,8 +2238,13 @@ def _execute_fusion_plan(
     host tier. Lazy tiles above :data:`TILES_MAX_BYTES` that do not band skip
     the monolithic translation and the tiles tier, and the batched and host
     tiers read them as host slabs, window by window. A sharded ``mesh``
-    splits the translation and the tiles tier over its entries."""
+    splits the translation and the tiles tier over its entries.
+
+    ``plan`` is the call's entry of the plan cache (``fuse()`` keys it):
+    ``{"sparams": [...]}`` at first, the chunk plan added the first time a
+    chunked tier needs it, so that a repeat call plans nothing."""
     ndim = len(sdims)
+    param_mats = plan["sparams"]
     builtin_mode = _BUILTIN_FUSION_MODES.get(fusion_func)
     builtin = builtin_mode is not None and weights_func is None and not fusion_func_kwargs
     untrimmed = _untrimmed(trim_overlap, overlap_in_pixels, sdims)
@@ -2195,33 +2258,34 @@ def _execute_fusion_plan(
             else _views_output_scales_per_view(field_sims, output_stack_properties, sdims)
         )
         if (scale is not None or scales is not None) and _fuse_translation_views(
-            param_mats, field_sims, output_stack_properties, sdims,
+            plan, field_sims, output_stack_properties, sdims,
             scale=scale, scales=scales, blending_widths=blending_widths,
             shrink_distance=shrink_distance, out=out, device=device,
             output_chunksize=output_chunksize, mesh=mesh,
         ):
             return
 
-    with profiling.stage("fuse.plan"):
-        views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
-        chunk_bbs, block_indices = mv_graph.get_chunk_bbs(
-            output_stack_properties, output_chunksize
-        )
-        plan = _build_spatial_fusion_plan(
-            sparams=param_mats,
-            views_bb=views_bb,
-            output_stack_properties=output_stack_properties,
-            output_chunksize=output_chunksize,
-            output_chunk_bbs=chunk_bbs,
-            output_chunk_bbs_with_overlap=[
-                _extend_bb(bb, overlap_in_pixels) for bb in chunk_bbs
-            ],
-            block_indices=block_indices,
-            overlap_in_pixels=overlap_in_pixels,
-            interpolation_order=interpolation_order,
-            sdims=sdims,
-            extra_source_margin_in_pixels=_shear_source_margin(ndim),
-        )
+    if "per_chunk_entries" not in plan:
+        with profiling.stage("fuse.plan"):
+            views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
+            chunk_bbs, block_indices = mv_graph.get_chunk_bbs(
+                output_stack_properties, output_chunksize
+            )
+            plan.update(_build_spatial_fusion_plan(
+                sparams=param_mats,
+                views_bb=views_bb,
+                output_stack_properties=output_stack_properties,
+                output_chunksize=output_chunksize,
+                output_chunk_bbs=chunk_bbs,
+                output_chunk_bbs_with_overlap=[
+                    _extend_bb(bb, overlap_in_pixels) for bb in chunk_bbs
+                ],
+                block_indices=block_indices,
+                overlap_in_pixels=overlap_in_pixels,
+                interpolation_order=interpolation_order,
+                sdims=sdims,
+                extra_source_margin_in_pixels=_shear_source_margin(ndim),
+            ))
     common = dict(blending_widths=blending_widths, shrink_distance=shrink_distance,
                   out=out, device=device)
     if not builtin:
@@ -2503,6 +2567,28 @@ def fuse(
                 si_utils.get_affine_from_sim(s, transform_key=transform_key).squeeze()
             )
             param_mats.append(m[0] if m.ndim == 3 else m)
+        # plans are cached module-wide, keyed on the geometry (the reference's
+        # key): a repeat call over the same views, output and chunking plans
+        # nothing
+        plan_key = (
+            tuple(np.asarray(m).tobytes() for m in param_mats),
+            tuple(
+                (
+                    tuple(s.data.shape),
+                    tuple(float(si_utils.get_spacing_from_sim(s)[d]) for d in sdims),
+                    tuple(float(si_utils.get_origin_from_sim(s)[d]) for d in sdims),
+                )
+                for s in field_sims
+            ),
+            json.dumps(output_stack_properties, sort_keys=True, default=float),
+            tuple(sorted(output_chunksize.items())),
+            tuple(sorted(overlap_in_pixels.items())),
+            int(interpolation_order),
+            _shear_source_margin(ndim),
+        )
+        if plan_key not in _plan_cache:
+            _plan_cache_insert(plan_key, {"sparams": param_mats})
+        plan = _plan_cache[plan_key]
         ns_idx = tuple(
             int(np.where(ns_coord_lists[nd] == c)[0][0]) for nd, c in zip(nsdims, combo)
         )
@@ -2511,7 +2597,7 @@ def fuse(
             else _PrefixedSink(output_array, ns_idx)
         )
         _execute_fusion_plan(
-            param_mats,
+            plan,
             field_sims,
             output_stack_properties,
             sdims,

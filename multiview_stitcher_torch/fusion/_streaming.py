@@ -13,7 +13,8 @@ Views stay on the device only while a band needs them (a sliding window of
 upload batches), so the inputs need not fit on the device.
 
 On a CUDA device the pipeline runs on three streams: uploads on one, the
-kernel on the caller's compute stream, downloads on a third, joined by
+kernel on the caller's compute stream, downloads on a third (the two side
+streams are the same for every pass on a device), joined by
 events (``stream.wait_event``). Reader threads read each batch of tiles into
 a pinned host buffer and start its upload (``copy_(non_blocking=True)``); a
 buffer is filled again only after the event of its last copy has completed.
@@ -38,17 +39,31 @@ device buffers in the packed upload stash, within :data:`UPLOAD_STASH_BYTES`:
 a later pass over the same inputs and batch layout rebuilds every batch from
 it on the device (``link_codec.reassemble_packed``) and reads and uploads no
 tile. The stash entry dies with the in-memory source arrays and with
-``fusion._core.clear_device_tile_cache()``. Left for later (ROADMAP.md, item
-15): seeding the device tile cache after a pass, and the unpacked resume
-stash that exists for it.
+``fusion._core.clear_device_tile_cache()``.
+
+Reuse across calls, as in the reference. When the device tile cache holds
+the views' stack, each "upload" is a gather of the batch's rows on the
+device (``up_batches_resident``), ordered like an upload on the upload
+stream. Otherwise a pass whose tiles fit the cache's budget keeps every
+upload batch; once it completes, :func:`_reorder_concat` puts the batches
+back in view order and the stack seeds the cache (a failure warns and the
+call goes on). A pass that fails or passes its deadline (``deadline_s``, else
+:data:`STREAM_DEADLINE_S`) leaves its completed uploads in the upload-resume
+stash, which serves the next pass over the same inputs and batch layout
+(``up_batches_reused``) and is retired by a pass that seeds the cache; like
+the packed stash, it dies with the in-memory source arrays. An upload takes, in this order: the resume stash, the packed stash, the
+resident stack, a read and a copy.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import json
 import queue
 import threading
 import time
+import warnings
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 
@@ -62,6 +77,9 @@ from multiview_stitcher_torch.ops import link_codec
 # packed upload stash may hold, 0 to keep none (MVS_TPU_UPLOAD_STASH_BYTES)
 STREAM_DELTA = True
 UPLOAD_STASH_BYTES = 4 << 30
+# the wall-time bound of a pass that names none, in seconds (None: unbounded;
+# the reference's MVS_TPU_STREAM_DEADLINE_S)
+STREAM_DEADLINE_S = None
 
 # upload batches of about this many bytes of tiles, all of one shape
 _BATCH_BYTES = 8 << 20
@@ -80,15 +98,79 @@ _WRITER_THREADS = 3
 # still reports its progress
 last_telemetry: dict = {}
 
-# the packed upload stash: one entry, ``{"key", "batches"}``, whose batches map
-# a batch index to (``put_packed``'s record, the batch's maximum)
+# the stashes of upload batches, each one entry ``{"key", "batches"}``:
+# "entry", the upload-resume stash, maps a batch index to what an upload
+# returned (the device batch, its event, its maximum); "packed_entry", the
+# packed upload stash, to (``put_packed``'s record, the batch's maximum)
 _upload_stash: dict = {}
 
 
-def _drop_packed_entry(key) -> None:
-    entry = _upload_stash.get("packed_entry")
+def _drop_stash_entry(name, key) -> None:
+    entry = _upload_stash.get(name)
     if entry is not None and entry["key"] == key:
-        del _upload_stash["packed_entry"]
+        del _upload_stash[name]
+
+
+def _stash(name, key, batches, field_sims) -> None:
+    """Keep ``batches`` as the stash entry ``name``; the entry dies with any
+    of the in-memory source arrays."""
+    _upload_stash[name] = {"key": key, "batches": batches}
+    for s in field_sims:
+        if isinstance(s.data, np.ndarray):
+            weakref.finalize(s.data, _drop_stash_entry, name, key)
+
+
+@functools.cache
+def _warm_vml_cos() -> None:
+    """One ``torch.cos`` of one element, once a process, before the first
+    pass starts its threads (fault F7). On the CPU the first ``torch.cos`` of
+    a process (ATen's MKL vector-math route) gave, about once in ten runs,
+    one or more of its OpenMP threads' chunks results one ulp off what every
+    later call gives, when other threads ran torch ops (an int32 ``cumsum``
+    does it) at the same time; the plain translation version's cosine taper
+    then moved a band's output by up to 15 counts where every view's weight
+    is near 0."""
+    torch.cos(torch.zeros(1))
+
+
+# the upload and download streams of each CUDA device, kept across passes:
+# the caching allocator hands a block freed on a stream out again only on
+# that stream, so a pass on new streams could not reuse the memory of the
+# last pass's batches and would grow the reserved memory by a stack a pass
+_SIDE_STREAMS: dict = {}
+
+
+def _side_streams(device: torch.device) -> tuple:
+    """The (upload, download) streams of ``device``, made at first use."""
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = (torch.cuda.Stream(device), torch.cuda.Stream(device))
+    return _SIDE_STREAMS[device]
+
+
+def _signed_bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` viewed as its signed twin where it is unsigned: CUDA gathers
+    and ``index_copy_`` take no uint16."""
+    twin = link_codec._SIGNED_TWIN.get(t.dtype)
+    return t if twin is None else t.view(twin)
+
+
+def _reorder_concat(batches: list, order, V: int) -> torch.Tensor:
+    """The (V, *tile) stack in view order from a pass's upload batches
+    (``order[i]`` is the view of sorted position i; U views a batch, the
+    tail padded). The stack is allocated once and each batch's rows are
+    copied into their views' slots, the batch dropped from ``batches`` as it
+    goes, so that the peak holds one stack and the batches not yet copied."""
+    U = batches[0].shape[0]
+    stack = torch.empty((V,) + tuple(batches[0].shape[1:]), dtype=batches[0].dtype,
+                        device=batches[0].device)
+    bits = _signed_bits(stack)
+    for bi in range(len(batches)):
+        batch, batches[bi] = batches[bi], None
+        n = min(U, V - bi * U)
+        rows = torch.as_tensor(np.asarray(order[bi * U:bi * U + n], np.int64), device=stack.device)
+        bits.index_copy_(0, rows, _signed_bits(batch)[:n])
+        del batch
+    return stack
 
 
 class StreamingDeadlineError(RuntimeError):
@@ -180,6 +262,44 @@ def _band_view_lists(offs, extents, sorted_id, n_t, n_t_padded, tile_shape):
     return view_idx
 
 
+def _stream_tables(plan, field_sims, output_stack_properties, sdims, blending_widths,
+                   shrink_distance, tile_shape, axis_chunk):
+    """The band plan of a pass (:func:`plan_bands`) and its kernel tables, or
+    None where the layout does not band: the per-view tables sorted along
+    the band axis and padded by NV rows, so that every [lo_b, lo_b + NV)
+    slice is in range (no list names a pad row), and the view lists of the
+    whole output (:func:`_band_view_lists`)."""
+    from multiview_stitcher_torch import si_utils
+    from multiview_stitcher_torch.fusion import _core
+
+    ndim = len(sdims)
+    out_shape_full = tuple(int(output_stack_properties["shape"][d]) for d in sdims)
+    views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
+    # per-view kernel tables (original order; streaming runs at unit scale)
+    offs, extents, wdiags, woffs, wgrids = _core.translation_kernel_params(
+        plan, views_bb, output_stack_properties, sdims, blending_widths, shrink_distance,
+    )
+    bands = plan_bands(offs, extents, out_shape_full, tile_shape, axis_chunk)
+    if bands is None:
+        return None
+    a, H, B, order, NV = bands["axis"], bands["H"], bands["B"], bands["order"], bands["NV"]
+
+    def pad_rows(arr):
+        return np.concatenate([arr, np.zeros((NV,) + arr.shape[1:], arr.dtype)])
+
+    n_t = [-(-out_shape_full[d] // tile_shape[d]) for d in range(ndim)]
+    n_t_padded = list(n_t)
+    n_t_padded[a] = B * (H // tile_shape[a])
+    V = len(field_sims)
+    sorted_id = np.empty(V, dtype=np.int32)
+    sorted_id[order] = np.arange(V, dtype=np.int32)
+    return {
+        "bands": bands,
+        "sorted": tuple(pad_rows(t[order]) for t in (offs, extents, wdiags, woffs, wgrids)),
+        "view_idx": _band_view_lists(offs, extents, sorted_id, n_t, n_t_padded, tile_shape),
+    }
+
+
 class _Slot:
     def __init__(self, tensor: torch.Tensor):
         self.tensor = tensor
@@ -228,12 +348,13 @@ def execute_streaming(
     new numpy array), or None when the layout does not band usefully (the
     caller then runs the monolithic tier).
 
-    ``deadline_s`` bounds the wall time (None: unbounded): past it the band
-    loop stops submitting work, drains the bands in flight and raises
+    ``deadline_s`` bounds the wall time (None: :data:`STREAM_DEADLINE_S`,
+    unbounded when that is None too): past it the band loop stops submitting
+    work, drains the bands in flight and raises
     :class:`StreamingDeadlineError` with the partial telemetry. Any other
-    failure raises as it is.
+    failure raises as it is. Either leaves the completed uploads in the
+    upload-resume stash.
     """
-    from multiview_stitcher_torch import si_utils
     from multiview_stitcher_torch.fusion import _core
     from multiview_stitcher_torch.ops import translation_fusion
     from multiview_stitcher_torch.utils import profiling
@@ -248,25 +369,38 @@ def execute_streaming(
     if tile_shape is None:
         tile_shape = _core._kernel_tile_shape(ndim, out_shape_full)
     V = len(field_sims)
-    views_bb = [si_utils.get_stack_properties_from_sim(s) for s in field_sims]
 
-    with profiling.stage("fuse.plan"):
-        # per-view kernel tables (original order; streaming runs at unit scale)
-        offs, extents, wdiags, woffs, wgrids = _core.translation_kernel_params(
-            plan, views_bb, output_stack_properties, sdims, blending_widths, shrink_distance,
-        )
-        axis_chunk = None
-        shards = getattr(out_sink, "shards", None) if is_zarr_sink else None
-        if shards is not None:
-            # concurrent band writes must not share a shard file
-            axis_chunk = [int(x) for x in shards[-ndim:]]
-        elif is_zarr_sink and output_chunksize is not None:
-            # concurrent band writes must not share an output chunk
-            axis_chunk = [int(output_chunksize[d]) for d in sdims]
-        bands = plan_bands(offs, extents, out_shape_full, tile_shape, axis_chunk)
-    if bands is None:
+    axis_chunk = None
+    shards = getattr(out_sink, "shards", None) if is_zarr_sink else None
+    if shards is not None:
+        # concurrent band writes must not share a shard file
+        axis_chunk = [int(x) for x in shards[-ndim:]]
+    elif is_zarr_sink and output_chunksize is not None:
+        # concurrent band writes must not share an output chunk
+        axis_chunk = [int(output_chunksize[d]) for d in sdims]
+    # the tables are kept on the (cached) plan: a repeat call skips them
+    prep_key = (
+        "prep:stream", tuple(tile_shape), None if axis_chunk is None else tuple(axis_chunk),
+        json.dumps(blending_widths, sort_keys=True, default=float),
+        json.dumps(shrink_distance, sort_keys=True, default=float),
+    )
+    if prep_key not in plan:
+        with profiling.stage("fuse.plan"):
+            plan[prep_key] = _stream_tables(
+                plan, field_sims, output_stack_properties, sdims, blending_widths,
+                shrink_distance, tile_shape, axis_chunk,
+            )
+    tables = plan[prep_key]
+    if tables is None:
         return None
+    bands = tables["bands"]
+    offs_s, extents_s, wdiags_s, woffs_s, wgrids_s = tables["sorted"]
+    view_idx_g = tables["view_idx"]
+    K = view_idx_g.shape[-1]
 
+    if deadline_s is None:
+        deadline_s = STREAM_DEADLINE_S
+    _warm_vml_cos()
     t_begin = time.perf_counter()
 
     def remaining():
@@ -281,9 +415,32 @@ def execute_streaming(
     # views (the tail repeats its last tile, which no list references)
     tile = tuple(int(s) for s in field_sims[0].data.shape)
     dtype_in = np.dtype(field_sims[0].data.dtype)
-    U = max(1, -(-_BATCH_BYTES // (int(np.prod(tile)) * dtype_in.itemsize)))
+    tile_bytes = int(np.prod(tile)) * dtype_in.itemsize
+    U = max(1, -(-_BATCH_BYTES // tile_bytes))
     n_batches = -(-V // U)
     NB = -(-NV // U) + 1  # batches per assembly window
+    order_hash = hash(np.ascontiguousarray(order).tobytes())
+
+    # the device tile cache: a stack left by an earlier call serves every
+    # batch by a gather on the device; else a pass that uploads every batch
+    # and whose tiles fit the cache's budget keeps its batches to seed it,
+    # and resumes from the batches an aborted pass over the same inputs and
+    # layout left. Batches are submitted in order through the last band's
+    # window and its prefetch: an output that ends before the last views
+    # (a block, a window) never uploads them, and its pass seeds nothing
+    cache_key = _core._DeviceTileCache.key_for(field_sims, device)
+    resident = _core._device_tile_cache.get(cache_key)
+    uploads_all = int(lo[-1]) // U + NB - 1 + _PREFETCH_BATCHES >= n_batches - 1
+    retain_batches = (
+        resident is None and cache_key is not None and uploads_all
+        and V * tile_bytes <= _core._device_tile_cache.budget()
+    )
+    stash_key = (cache_key, U, tile, n_batches, order_hash) if retain_batches else None
+    stash_batches: dict = {}
+    if stash_key is not None:
+        entry = _upload_stash.get("entry")
+        if entry is not None and entry["key"] == stash_key:
+            stash_batches = entry["batches"]
 
     tele_lock = threading.Lock()
     tele = {
@@ -291,6 +448,7 @@ def execute_streaming(
         "voxels_written": 0, "elapsed_s": 0.0, "aborted": False, "deadline_s": deadline_s,
         "band_axis": int(a), "band_height": int(H), "nv": int(NV),
         "batches": int(n_batches), "batch_views": int(U),
+        "up_batches_reused": 0, "up_batches_resident": 0,
         "up_ms": None, "compute_ms": None, "down_ms": None,
     }
     global last_telemetry
@@ -302,35 +460,18 @@ def execute_streaming(
     if codec:
         tele.update(
             up_delta_batches=0, down_delta_bands=0, up_delta2_batches=0, down_delta2_bands=0,
-            up_delta3_batches=0, down_delta3_bands=0, up_batches_reused=0,
-            up_batches_reused_packed=0, wire_bits_per_vox=None,
+            up_delta3_batches=0, down_delta3_bands=0, up_batches_reused_packed=0,
+            wire_bits_per_vox=None,
         )
-        cache_key = _core._DeviceTileCache.key_for(field_sims, device)
         if cache_key is not None and UPLOAD_STASH_BYTES > 0:
-            packed_key = (cache_key, U, tile, n_batches, hash(np.ascontiguousarray(order).tobytes()))
+            packed_key = (cache_key, U, tile, n_batches, order_hash)
             entry = _upload_stash.get("packed_entry")
             if entry is not None and entry["key"] == packed_key:
                 packed_batches = entry["batches"]
     stash_is_new = not packed_batches
 
-    # sorted-view tables, padded by NV rows so every [lo_b, lo_b + NV) slice
-    # is in range (pad rows are never referenced: no list names them)
-    def pad_rows(arr):
-        return np.concatenate([arr, np.zeros((NV,) + arr.shape[1:], arr.dtype)])
-
-    offs_s, extents_s, wdiags_s, woffs_s, wgrids_s = (
-        pad_rows(t[order]) for t in (offs, extents, wdiags, woffs, wgrids)
-    )
     sims_s = [field_sims[i] for i in order]
-
-    n_t = [-(-out_shape_full[d] // tile_shape[d]) for d in range(ndim)]
     tpb = H // tile_shape[a]  # kernel tiles per band along the band axis
-    n_t_padded = list(n_t)
-    n_t_padded[a] = B * tpb
-    sorted_id = np.empty(V, dtype=np.int32)
-    sorted_id[order] = np.arange(V, dtype=np.int32)
-    view_idx_g = _band_view_lists(offs, extents, sorted_id, n_t, n_t_padded, tile_shape)
-    K = view_idx_g.shape[-1]
 
     fuse_fn = (
         translation_fusion.fuse_translation_2d if ndim == 2
@@ -343,8 +484,11 @@ def execute_streaming(
 
     if cuda:
         compute = torch.cuda.current_stream(device)
-        up_stream = torch.cuda.Stream(device)
-        dl_stream = torch.cuda.Stream(device)
+        up_stream, dl_stream = _side_streams(device)
+        if resident is not None:
+            # the stack may still be written by the call that seeded it
+            up_stream.wait_stream(compute)
+            resident.record_stream(up_stream)
     busy = {"up": [], "compute": [], "down": []}
 
     def on(stream):
@@ -371,7 +515,13 @@ def execute_streaming(
 
     def upload_batch(bi):
         """(device batch, its event, the batch's maximum: 0 unless the codec
-        is on and the dtype packs)."""
+        is on and the dtype packs), from the first of the resume stash, the
+        packed stash, the resident stack, and a read and an upload."""
+        resumed = stash_batches.get(bi)
+        if resumed is not None:
+            with tele_lock:
+                tele["up_batches_reused"] += 1
+            return resumed
         stashed = packed_batches.get(bi)
         if stashed is not None:
             rec, bmax = stashed
@@ -386,6 +536,21 @@ def execute_streaming(
                     busy["up"].append((e0, done))
             return dev, done, bmax
         vs = range(bi * U, min((bi + 1) * U, V))
+        if resident is not None:
+            # the batch's views in sorted order, the tail repeating the last
+            rows = np.full(U, order[vs[-1]], np.int64)
+            rows[:len(vs)] = order[vs.start:vs.stop]
+            with on(up_stream if cuda else None):
+                e0 = mark()
+                dev = _signed_bits(resident)[torch.as_tensor(rows, device=device)].view(
+                    resident.dtype)
+                done = mark()
+            with tele_lock:
+                tele["up_batches_resident"] += 1
+                if cuda:
+                    busy["up"].append((e0, done))
+            # with the codec, the band downloads take the dtype's full width
+            return dev, done, np.iinfo(dtype_in).max if codec and packable else 0
         slot = up_bufs.acquire()
         copied = None  # the event of the copy out of the slot (without the codec)
         try:
@@ -565,14 +730,23 @@ def execute_streaming(
                     write_futs.append(writers.submit(write_band, b, slot, d1, h_true))
             del fused, band_tiles, window
 
-            # drop device batches no later band reaches
-            if b + 1 < B:
+            # drop device batches no later band reaches, unless they seed
+            # the tile cache
+            if not retain_batches and b + 1 < B:
                 keep_from = int(lo[b + 1]) // U
                 for bi in [k for k in futs if k < keep_from]:
                     del futs[bi]
 
         for f in write_futs:
             f.result()
+
+    # every upload the readers completed (the pool's exit waited for them,
+    # those queued past an abort too) resumes or seeds
+    if retain_batches:
+        for bi, f in futs.items():
+            if f.exception() is None:
+                stash_batches.setdefault(bi, f.result())
+    futs.clear()
 
     if cuda:
         torch.cuda.synchronize(device)
@@ -587,10 +761,9 @@ def execute_streaming(
             )
         if packed_batches and stash_is_new:
             # kept after a failed band or an aborted pass too: its uploads serve the next
-            _upload_stash["packed_entry"] = {"key": packed_key, "batches": packed_batches}
-            for s in field_sims:
-                if isinstance(s.data, np.ndarray):
-                    weakref.finalize(s.data, _drop_packed_entry, packed_key)
+            _stash("packed_entry", packed_key, packed_batches, field_sims)
+    if (errors or tele["aborted"]) and stash_batches:
+        _stash("entry", stash_key, stash_batches, field_sims)
     if errors:
         raise errors[0]
     if tele["aborted"]:
@@ -601,4 +774,25 @@ def execute_streaming(
             f"in {tele['elapsed_s']:.1f}s",
             tele,
         )
+    if retain_batches:
+        try:
+            batches = []
+            for bi in range(n_batches):
+                dev, done, _ = stash_batches.pop(bi)
+                if cuda:
+                    # made on the upload stream, reordered on the compute stream
+                    compute.wait_event(done)
+                    dev.record_stream(compute)
+                batches.append(dev)
+            del dev
+            _core._device_tile_cache.put(cache_key, _reorder_concat(batches, order, V),
+                                         field_sims)
+        except Exception as e:  # noqa: BLE001 - the fused output stands
+            warnings.warn(
+                f"device tile cache seeding failed ({type(e).__name__}: {e}); repeat passes "
+                "fall back to the packed upload stash.",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        _upload_stash.pop("entry", None)
     return out

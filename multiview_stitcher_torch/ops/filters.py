@@ -155,11 +155,13 @@ def nan_gaussian_filter(ar: torch.Tensor, sigma, mode: str = "reflect",
     return torch.where(nan_mask, torch.nan, vv / ww)
 
 
-def uniform_filter(data: torch.Tensor, size: int, ndim: int = None) -> torch.Tensor:
+def uniform_filter(data: torch.Tensor, size: int, ndim: int = None,
+                   mode: str = "reflect") -> torch.Tensor:
     """Box filter of odd ``size`` over the last ``ndim`` axes (all axes by
-    default), reflecting at the borders. Each axis is one average pool, which
-    sums the window and divides by its size (the reference's separable
-    correlation with taps ``1/size`` agrees to a rounding of the last bit)."""
+    default), padded at the borders in scipy's ``mode`` ("constant" pads
+    zeros). Each axis is one average pool, which sums the window and divides
+    by its size (the reference's separable correlation with taps ``1/size``
+    agrees to a rounding of the last bit)."""
     if size % 2 != 1:
         raise ValueError(f"uniform_filter takes odd sizes, got {size}")
     ndim = data.dim() if ndim is None else ndim
@@ -170,7 +172,7 @@ def uniform_filter(data: torch.Tensor, size: int, ndim: int = None) -> torch.Ten
     out = data.reshape((-1, 1) + tuple(data.shape[data.dim() - ndim:]))
     for ax in range(ndim):
         axis = 2 + ax
-        out = _pad_axis(out, axis, r, r, "reflect", None)
+        out = _pad_axis(out, axis, r, r, mode, 0.0)
         kernel = [1] * ndim
         kernel[ax] = size
         out = _POOLS[ndim](out, kernel_size=tuple(kernel), stride=1)

@@ -45,13 +45,26 @@ def _per_item(v: torch.Tensor, ndim: int) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * ndim)
 
 
-def rescale_intensity(im: torch.Tensor, ndim: int) -> torch.Tensor:
-    """Each item rescaled linearly from [nanmin, nanmax] to [0, 1] (NaN
-    stays NaN; a constant item maps to 0)."""
-    lo, hi = nanmin(im), nanmax(im)
-    denom = hi - lo
-    denom = torch.where(denom == 0, 1.0, denom)
-    return (im - _per_item(lo, ndim)) / _per_item(denom, ndim)
+def rescale_intensity(im: torch.Tensor, ndim: int, in_range=None,
+                      out_range=(0.0, 1.0)) -> torch.Tensor:
+    """Each item rescaled linearly from ``in_range`` (by default its own
+    [nanmin, nanmax]) to ``out_range`` (NaN stays NaN; an empty range
+    divides by 1). A given range's width is taken in float64 and rounded
+    once, as the reference takes it."""
+    if in_range is None:
+        lo, hi = nanmin(im), nanmax(im)
+        denom = hi - lo
+        denom = torch.where(denom == 0, 1.0, denom)
+        scaled = (im - _per_item(lo, ndim)) / _per_item(denom, ndim)
+    else:
+        width = float(in_range[1]) - float(in_range[0])
+        scaled = (im - torch.tensor(float(in_range[0]), dtype=im.dtype, device=im.device)) / (
+            torch.tensor(width if width != 0 else 1.0, dtype=im.dtype, device=im.device))
+    if tuple(out_range) == (0.0, 1.0):
+        return scaled
+    span = float(out_range[1]) - float(out_range[0])
+    return scaled * torch.tensor(span, dtype=im.dtype, device=im.device) + torch.tensor(
+        float(out_range[0]), dtype=im.dtype, device=im.device)
 
 
 def _unravel(flat_idx: torch.Tensor, shape) -> torch.Tensor:

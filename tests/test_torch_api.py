@@ -90,8 +90,6 @@ LEFT_OUT = {
 # TPU's VMEM windows and output tile, and Pallas's interpret mode, which the
 # CUDA kernels do not take: they stage their own windows)
 PARAMS_LEFT_OUT = {
-    ("ops.filters", "uniform_filter"): {"mode"},
-    ("ops.phase_correlation", "rescale_intensity"): {"in_range", "out_range"},
     ("parallel.pipeline", "sharded_fuse_chunks_exact"): {"win", "wwin", "tile", "interpret"},
 }
 # JAX defaults the port does not share, with the reason

@@ -90,6 +90,22 @@ def test_extremum_filters_match_jax(mode, shape):
                 np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_uniform_filter_modes_match_jax(mode, shape):
+    """``mode=``, the JAX default "reflect" included, on axes shorter than
+    the window (z of 5 at size 7)."""
+    x = _data(shape, 4)
+    for size in (3, 7):
+        ref = np.asarray(jfilters.uniform_filter(x, size, mode=mode))
+        got = tfilters.uniform_filter(torch.from_numpy(x), size, mode=mode).numpy()
+        np.testing.assert_allclose(got, ref, **TOL)
+    batch = np.stack([x, x * 2])
+    got = tfilters.uniform_filter(torch.from_numpy(batch), 5, len(shape), mode=mode)
+    np.testing.assert_allclose(
+        got[1].numpy(), np.asarray(jfilters.uniform_filter(batch[1], 5, mode=mode)), **TOL)
+
+
 def test_filters_take_leading_batch_axes():
     """``ndim`` filters the trailing axes of each item, as the reference's
     vmap over views does."""

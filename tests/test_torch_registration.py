@@ -12,6 +12,7 @@ reference is NaN); link qualities within 1e-3; resolved parameters within
 
 import random
 
+import jax.numpy as jnp
 import networkx as nx
 import numpy as np
 import pytest
@@ -177,6 +178,23 @@ def test_separable_axis_aligned_resample_matches_jax(ndim):
                                                     (7, 9, 6)[-ndim:])
     ref = jresample.separable_axis_aligned_resample(data[0], scaled, offsets[2], (7, 9, 6)[-ndim:])
     _assert_maps_close(got[0], ref)
+
+
+@pytest.mark.parametrize("in_range,out_range", [
+    (None, (0.0, 1.0)), (None, (-1.0, 3.5)), ((10.0, 60.0), (0.0, 1.0)),
+    ((10.0, 60.0), (100.0, 200.0)), ((7.0, 7.0), (0.0, 1.0)), ((0.3, 0.1), (0.0, 255.0)),
+])
+def test_rescale_intensity_ranges_match_jax(in_range, out_range):
+    """``in_range`` / ``out_range`` as the reference takes them (an empty
+    input range divides by 1), NaN kept, on each item of a batch."""
+    rng = np.random.default_rng(44)
+    batch = (rng.random((3, 12, 10)) * 80).astype(np.float32)
+    batch[1, 2:4, 3] = np.nan
+    got = tpc.rescale_intensity(_t(batch), 2, in_range, out_range).numpy()
+    for i in range(len(batch)):
+        ref = np.asarray(jpc.rescale_intensity(jnp.asarray(batch[i]), in_range, out_range))
+        np.testing.assert_array_equal(np.isnan(got[i]), np.isnan(ref))
+        np.testing.assert_allclose(got[i], ref, rtol=1e-6, atol=1e-5)
 
 
 @pytest.mark.parametrize("ndim", [1, 2, 3])

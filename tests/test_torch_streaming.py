@@ -699,15 +699,18 @@ def _gaussian_sims(n=6, tile=48, overlap=12):
 
 
 _CODEC_KEYS = ("up_delta_batches", "down_delta_bands", "up_delta2_batches", "down_delta2_bands",
-               "up_delta3_batches", "down_delta3_bands", "up_batches_reused",
-               "up_batches_reused_packed", "wire_bits_per_vox")
+               "up_delta3_batches", "down_delta3_bands", "up_batches_reused_packed",
+               "wire_bits_per_vox")
 
 
 def test_codec_streaming_telemetry(codec_on, monkeypatch):
     sims = _grid_sims(n=6, tile=48, overlap=12)
     ref = _jax_ref("grid_6", sims)
     plain, tele_off = _codec_fuse(codec_on, monkeypatch, _to_port(sims), enabled=False)
-    assert not set(_CODEC_KEYS) & set(tele_off)  # off: today's telemetry
+    assert not set(_CODEC_KEYS) & set(tele_off)  # off: no codec keys
+    # the reuse counters are there codec on or off, as in the reference
+    assert tele_off["up_batches_reused"] == tele_off["up_batches_resident"] == 0
+    tcore.clear_device_tile_cache()  # the call above seeded it
     out, tele = _codec_fuse(codec_on, monkeypatch, _to_port(sims))
     assert set(_CODEC_KEYS) <= set(tele)
     assert tele["bands_done"] == tele["bands_total"] > 0 and not tele["aborted"]
@@ -794,6 +797,7 @@ def test_codec_zarr_to_zarr_repeat_reads_no_tile(codec_on, monkeypatch, tmp_path
     _, psims = _zarr_tiles(tmp_path, sims)
     kw = dict(output_chunksize=64)
     ref = _port_fuse(psims, **kw)
+    tcore.clear_device_tile_cache()  # the call above seeded it
     monkeypatch.setattr(codec_on, "ENABLED", True)
     for run in ("cold", "repeat"):
         url = str(tmp_path / f"{run}.zarr")
@@ -826,3 +830,302 @@ def test_codec_failure_raises_from_fuse(which, codec_on, monkeypatch):
     with pytest.raises(OSError, match="injected"):
         _port_fuse(sims, output_chunksize=64)
     assert calls and not called
+
+
+# ---------------------------------------------------------------------------
+# reuse across calls: the resident stack, seeding, the resume stash
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def streams(monkeypatch, jax_streams):
+    """The port streams test-sized grids; its caches start empty."""
+    monkeypatch.setattr(tcore, "STREAM_BYTES", 0)
+    tcore.clear_device_tile_cache()
+    yield
+    tcore.clear_device_tile_cache()
+
+
+def _count_reads(monkeypatch):
+    reads = []
+    materialize = tcore._materialize_tiles
+    monkeypatch.setattr(tcore, "_materialize_tiles",
+                        lambda *a, **k: (reads.append(1), materialize(*a, **k))[1])
+    return reads
+
+
+class _FakeClock:
+    """``time.perf_counter`` advancing 0.5 s a call: a 2 s deadline trips
+    after the first band."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 0.5
+        return self.t
+
+
+def _aborted_pass(sims, **kw):
+    import time as time_mod
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(time_mod, "perf_counter", _FakeClock())
+        mp.setattr(tstream, "STREAM_DEADLINE_S", 2)
+        with pytest.raises(tstream.StreamingDeadlineError):
+            _port_fuse(sims, output_chunksize=64, **kw)
+
+
+def test_streaming_seeds_device_tile_cache(streams, monkeypatch):
+    """The reference's test of the same name: a pass keeps its batches and
+    seeds the device tile cache, and the next fuse() gathers every batch
+    from the resident stack, reading and uploading no tile."""
+    sims = _grid_sims(n=4)
+    jran = _spy_streaming(monkeypatch, jstream)
+    ref = np.asarray(jfuse(sims, transform_key=KEY).data)
+    assert jran == [True]
+    psims = _to_port(sims)
+    ran = _spy_streaming(monkeypatch, tstream)
+    reads = _count_reads(monkeypatch)
+    first = _port_fuse(psims)
+    tele = dict(tstream.last_telemetry)
+    assert reads and tele["up_bytes"] > 0 and tele["up_batches_resident"] == 0
+    stack = tcore._device_tile_cache.get(tcore._DeviceTileCache.key_for(psims, "cpu"))
+    np.testing.assert_array_equal(stack.numpy(), np.stack([np.asarray(s.data) for s in sims]))
+    reads.clear()
+    second = _port_fuse(psims)
+    tele = tstream.last_telemetry
+    assert ran == [True, True] and not reads and tele["up_bytes"] == 0
+    assert tele["up_batches_resident"] == tele["batches"] and tele["up_batches_reused"] == 0
+    np.testing.assert_array_equal(first, second)
+    _assert_close(first, ref)
+
+
+def test_streaming_abort_stashes_uploads_for_resume(streams, monkeypatch):
+    """The reference's test of the same name: a pass past its deadline
+    (``STREAM_DEADLINE_S``, a fake clock) leaves its completed uploads in
+    the resume stash; the retry reuses them, uploads less, completes
+    bit-equal, seeds the cache and retires the stash."""
+    # two tiles a batch: 18 batches, of which the first band's window and
+    # prefetch submit about 13 before the deadline trips
+    monkeypatch.setattr(tstream, "_BATCH_BYTES", 2 * 48 * 48 * 2)
+    sims = _grid_sims(n=6, tile=48, overlap=12)
+    psims = _to_port(sims)
+    clean = _port_fuse(psims, output_chunksize=64)
+    control_up = tstream.last_telemetry["up_bytes"]
+    assert control_up > 0
+    tcore.clear_device_tile_cache()
+    assert tstream._upload_stash == {}
+    _aborted_pass(psims)
+    entry = tstream._upload_stash.get("entry")
+    assert entry is not None and 0 < len(entry["batches"]) < tstream.last_telemetry["batches"]
+    n_stashed = len(entry["batches"])
+    resumed = _port_fuse(psims, output_chunksize=64)
+    tele = tstream.last_telemetry
+    assert tele["up_batches_reused"] == n_stashed and tele["up_bytes"] < control_up
+    np.testing.assert_array_equal(resumed, clean)
+    assert tstream._upload_stash == {}
+    again = _port_fuse(psims, output_chunksize=64)
+    assert tstream.last_telemetry["up_bytes"] == 0
+    np.testing.assert_array_equal(again, clean)
+    _assert_close(clean, _jax_ref("grid_6", sims))
+
+
+def test_the_resume_stash_dies_with_the_views_arrays(streams, monkeypatch):
+    import gc
+
+    monkeypatch.setattr(tstream, "_BATCH_BYTES", 2 * 48 * 48 * 2)
+    psims = _to_port(_grid_sims(n=6, tile=48, overlap=12, seed=5))
+    _aborted_pass(psims)
+    assert "entry" in tstream._upload_stash
+    del psims
+    gc.collect()
+    assert "entry" not in tstream._upload_stash
+
+
+def test_packed_stash_covers_tile_cache_seeding_failure(codec_on, monkeypatch):
+    """The reference's test of the same name: a seeding that fails warns and
+    the repeat pass is served by the packed stash, uploading nothing."""
+    monkeypatch.setattr(tstream, "_BATCH_BYTES", 6 * 48 * 48 * 2)
+
+    def boom(*a, **k):
+        raise RuntimeError("simulated reorder failure")
+
+    monkeypatch.setattr(tstream, "_reorder_concat", boom)
+    sims = _grid_sims(n=6, tile=48, overlap=12)
+    psims = _to_port(sims)
+    with pytest.warns(RuntimeWarning, match="seeding failed"):
+        out1, tele1 = _codec_fuse(codec_on, monkeypatch, psims)
+    assert tele1["up_bytes"] > 0 and "packed_entry" in tstream._upload_stash
+    assert not tcore._device_tile_cache._entries
+    with pytest.warns(RuntimeWarning, match="seeding failed"):
+        out2, tele2 = _codec_fuse(codec_on, monkeypatch, psims)
+    assert tele2["up_bytes"] == 0 and tele2["up_batches_reused_packed"] == tele2["batches"]
+    np.testing.assert_array_equal(out1, out2)
+    _assert_close(out1, _jax_ref("grid_6", sims))
+
+
+def test_uploads_take_the_resume_stash_then_the_packed_stash_then_the_resident_stack(
+        codec_on, monkeypatch):
+    monkeypatch.setattr(tstream, "_BATCH_BYTES", 2 * 48 * 48 * 2)  # 18 batches
+    monkeypatch.setattr(codec_on, "ENABLED", True)
+    sims = _grid_sims(n=6, tile=48, overlap=12)
+    psims = _to_port(sims)
+    clean = _port_fuse(psims, output_chunksize=64)
+    n = tstream.last_telemetry["batches"]
+
+    def run():
+        np.testing.assert_array_equal(_port_fuse(psims, output_chunksize=64), clean)
+        tele = tstream.last_telemetry
+        return (tele["up_batches_reused"] - tele["up_batches_reused_packed"],
+                tele["up_batches_reused_packed"], tele["up_batches_resident"], tele["up_bytes"])
+
+    # the packed stash before the resident stack, then the resident stack alone
+    assert run() == (0, n, 0, 0)
+    del tstream._upload_stash["packed_entry"]
+    assert run() == (0, 0, n, 0)
+    # the resume stash before the packed stash, which holds the same batches
+    tcore.clear_device_tile_cache()
+    _aborted_pass(psims)
+    stashed = set(tstream._upload_stash["entry"]["batches"])
+    assert stashed == set(tstream._upload_stash["packed_entry"]["batches"])
+    unpacked, packed, resident, up = run()
+    assert (unpacked, packed, resident) == (len(stashed), 0, 0) and up > 0
+    assert "entry" not in tstream._upload_stash
+    _assert_close(clean, _jax_ref("grid_6", sims))
+
+
+def test_tiles_above_the_cache_budget_retain_and_seed_nothing(streams, monkeypatch):
+    monkeypatch.setattr(tstream, "_BATCH_BYTES", 20000)
+    sims = _grid_sims(n=6, tile=48, overlap=12)
+    psims = _to_port(sims)
+    monkeypatch.setattr(tcore, "TILE_CACHE_BYTES", 36 * 48 * 48 * 2 - 1)
+    reorders = []
+    reorder = tstream._reorder_concat
+    monkeypatch.setattr(tstream, "_reorder_concat",
+                        lambda *a, **k: (reorders.append(1), reorder(*a, **k))[1])
+    first = _port_fuse(psims, output_chunksize=64)
+    up = tstream.last_telemetry["up_bytes"]
+    assert up > 0 and not reorders
+    assert not tcore._device_tile_cache._entries and tstream._upload_stash == {}
+    second = _port_fuse(psims, output_chunksize=64)
+    tele = tstream.last_telemetry
+    assert tele["up_bytes"] == up and tele["up_batches_resident"] == tele["up_batches_reused"] == 0
+    np.testing.assert_array_equal(first, second)
+    _assert_close(first, _jax_ref("grid_6", sims))
+
+
+def test_a_pass_over_part_of_the_views_seeds_nothing(streams, monkeypatch):
+    """An output window that ends before the last views (as a block of
+    ``prepare_block_fusion`` does) never uploads their batches: the pass
+    keeps none and seeds nothing, warns nothing, and once a whole pass has
+    seeded the stack the window's repeat gathers from it."""
+    import warnings
+
+    rng = np.random.default_rng(21)
+    sims = _to_port([
+        si_utils.get_sim_from_array(rng.integers(0, 3000, (48, 48)).astype(np.uint16),
+                                    translation={"y": float(iy * 36), "x": float(ix * 36)})
+        for iy in range(12) for ix in range(2)
+    ])
+    osp = tcore.process_output_stack_properties(sims, transform_key=KEY)
+    window = {k: dict(v) for k, v in osp.items()}
+    window["shape"]["y"] = 200
+    monkeypatch.setattr(tstream, "_BATCH_BYTES", 1)  # one view a batch
+    ran = _spy_streaming(monkeypatch, tstream)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        part = _port_fuse(sims, output_stack_properties=window)
+    tele = tstream.last_telemetry
+    assert ran == [True] and tele["bands_total"] >= 3
+    assert not tcore._device_tile_cache._entries and tstream._upload_stash == {}
+    monkeypatch.setattr(tcore, "STREAM_BYTES", 1 << 40)
+    np.testing.assert_array_equal(part, _port_fuse(sims, output_stack_properties=window))
+    monkeypatch.setattr(tcore, "STREAM_BYTES", 0)
+    tcore.clear_device_tile_cache()
+    _port_fuse(sims)  # the whole output: every batch, seeded
+    assert tcore._device_tile_cache._entries
+    np.testing.assert_array_equal(_port_fuse(sims, output_stack_properties=window), part)
+    tele = tstream.last_telemetry
+    assert tele["up_bytes"] == 0 and tele["up_batches_resident"] > 0
+
+
+def test_lazy_zarr_repeat_reads_no_tile(streams, monkeypatch, tmp_path):
+    sims = _gaussian_sims()
+    _, psims = _zarr_tiles(tmp_path, sims)
+    reads = _count_reads(monkeypatch)
+    cold = _port_fuse(psims, output_chunksize=64)
+    assert reads
+    reads.clear()
+    repeat = _port_fuse(psims, output_chunksize=64)
+    tele = tstream.last_telemetry
+    assert not reads and tele["up_bytes"] == 0 and tele["up_batches_resident"] == tele["batches"]
+    np.testing.assert_array_equal(repeat, cold)
+    _assert_close(cold, _jax_ref("gaussian", sims))
+
+
+def test_3d_resident_repeat_equals_cold_and_monolithic(streams, monkeypatch):
+    sims = _to_port(_grid_sims(n=4, tile=32, overlap=8, ndim=3))
+    cold = _port_fuse(sims)
+    assert tstream.last_telemetry["up_bytes"] > 0
+    repeat = _port_fuse(sims)
+    tele = tstream.last_telemetry
+    assert tele["up_bytes"] == 0 and tele["up_batches_resident"] == tele["batches"]
+    monkeypatch.setattr(tcore, "STREAM_BYTES", 1 << 40)
+    up0 = tcore.tile_upload_bytes
+    mono_cached = _port_fuse(sims)
+    assert tcore.tile_upload_bytes == up0  # the monolithic tier takes the seeded stack
+    tcore.clear_device_tile_cache()
+    mono = _port_fuse(sims)
+    for out in (repeat, mono_cached, cold):
+        np.testing.assert_array_equal(out, mono)
+
+
+_F7_CHILD = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+import chip_smoke
+from multiview_stitcher_torch import si_utils as tsi
+from multiview_stitcher_torch.fusion import _core as tcore, _streaming as tstream, fuse
+from multiview_stitcher_torch.ops import link_codec
+
+sims = chip_smoke.grid_sims(np, tsi, 3, 6, 32, 12, seed=3)
+tcore.STREAM_BYTES = 0
+tstream._BATCH_BYTES = 4 * 32 ** 3 * 2
+link_codec._MIN_PACK_SIZE = 0
+link_codec.ENABLED = True
+streamed = fuse(sims, transform_key="affine_metadata", device="cpu").to_numpy()
+assert tstream.last_telemetry["bands_done"] == tstream.last_telemetry["bands_total"] >= 3
+link_codec.ENABLED = False
+tcore.STREAM_BYTES = 1 << 40
+torch.set_num_threads(1)
+plain = fuse(sims, transform_key="affine_metadata", device="cpu").to_numpy()
+print(int(np.abs(streamed.astype(np.int64) - plain.astype(np.int64)).max()))
+"""
+
+
+def test_first_coded_3d_streamed_call_of_a_process_is_bit_equal():
+    """Fault F7: the first coded 3D streamed call of a fresh process (reader
+    and writer threads running torch ops while the band loop computes) is
+    bit-equal to a single-threaded monolithic call on the same inputs."""
+    import os
+    import subprocess
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTEST")}
+    procs = [
+        subprocess.Popen([sys.executable, "-c", _F7_CHILD.format(root=root)], cwd=root, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for _ in range(3)
+    ]
+    try:
+        results = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (out, err) in zip(procs, results):
+        assert p.returncode == 0, err[-2000:]
+        assert out.split()[-1] == "0", out
