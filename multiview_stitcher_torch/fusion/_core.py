@@ -741,6 +741,7 @@ def clear_device_tile_cache() -> None:
     _streaming._upload_stash.clear()
 
 
+@profiling.stage("tiles.upload")
 def _tiles_to_device(field_sims, device, keep_nan: bool = False) -> torch.Tensor:
     """(V, *tile) stack of the views on ``device`` in their native dtype,
     from the device tile cache when it holds them, else uploaded and cached.
@@ -845,6 +846,7 @@ def _to_host(fused: torch.Tensor) -> np.ndarray:
     return fused.cpu().numpy()
 
 
+@profiling.stage("fuse.download")
 def _download(fused: torch.Tensor, out, row0: Optional[int] = None) -> None:
     """Copy the fused output into ``out``: a host array, a sink written by
     regions (:class:`_PrefixedSink`), or a tensor on a device (which takes a

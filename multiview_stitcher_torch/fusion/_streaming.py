@@ -53,6 +53,11 @@ stash, which serves the next pass over the same inputs and batch layout
 (``up_batches_reused``) and is retired by a pass that seeds the cache; like
 the packed stash, it dies with the in-memory source arrays. An upload takes, in this order: the resume stash, the packed stash, the
 resident stack, a read and a copy.
+
+A pass records the ``utils.profiling`` stages ``stream.pass`` (its start to
+its last ``elapsed_s`` stamp), ``stream.seed_cache`` (the seeding) and, from
+the worker threads, ``stream.read`` (a batch's tile reads) and
+``stream.write`` (a band's write to the sink).
 """
 
 from __future__ import annotations
@@ -401,358 +406,364 @@ def execute_streaming(
     if deadline_s is None:
         deadline_s = STREAM_DEADLINE_S
     _warm_vml_cos()
-    t_begin = time.perf_counter()
+    with profiling.stage("stream.pass"):
+        t_begin = time.perf_counter()
 
-    def remaining():
-        return None if deadline_s is None else max(
-            1.0, deadline_s - (time.perf_counter() - t_begin)
-        )
-
-    a, H, B = bands["axis"], bands["H"], bands["B"]
-    order, lo, NV = bands["order"], bands["lo"], bands["NV"]
-
-    # upload batching: about _BATCH_BYTES of tiles a batch, every batch of U
-    # views (the tail repeats its last tile, which no list references)
-    tile = tuple(int(s) for s in field_sims[0].data.shape)
-    dtype_in = np.dtype(field_sims[0].data.dtype)
-    tile_bytes = int(np.prod(tile)) * dtype_in.itemsize
-    U = max(1, -(-_BATCH_BYTES // tile_bytes))
-    n_batches = -(-V // U)
-    NB = -(-NV // U) + 1  # batches per assembly window
-    order_hash = hash(np.ascontiguousarray(order).tobytes())
-
-    # the device tile cache: a stack left by an earlier call serves every
-    # batch by a gather on the device; else a pass that uploads every batch
-    # and whose tiles fit the cache's budget keeps its batches to seed it,
-    # and resumes from the batches an aborted pass over the same inputs and
-    # layout left. Batches are submitted in order through the last band's
-    # window and its prefetch: an output that ends before the last views
-    # (a block, a window) never uploads them, and its pass seeds nothing
-    cache_key = _core._DeviceTileCache.key_for(field_sims, device)
-    resident = _core._device_tile_cache.get(cache_key)
-    uploads_all = int(lo[-1]) // U + NB - 1 + _PREFETCH_BATCHES >= n_batches - 1
-    retain_batches = (
-        resident is None and cache_key is not None and uploads_all
-        and V * tile_bytes <= _core._device_tile_cache.budget()
-    )
-    stash_key = (cache_key, U, tile, n_batches, order_hash) if retain_batches else None
-    stash_batches: dict = {}
-    if stash_key is not None:
-        entry = _upload_stash.get("entry")
-        if entry is not None and entry["key"] == stash_key:
-            stash_batches = entry["batches"]
-
-    tele_lock = threading.Lock()
-    tele = {
-        "bands_total": int(B), "bands_done": 0, "up_bytes": 0, "down_bytes": 0,
-        "voxels_written": 0, "elapsed_s": 0.0, "aborted": False, "deadline_s": deadline_s,
-        "band_axis": int(a), "band_height": int(H), "nv": int(NV),
-        "batches": int(n_batches), "batch_views": int(U),
-        "up_batches_reused": 0, "up_batches_resident": 0,
-        "up_ms": None, "compute_ms": None, "down_ms": None,
-    }
-    global last_telemetry
-    last_telemetry = tele
-    codec = link_codec.ENABLED
-    packable = link_codec.is_packable(dtype_in)
-    packed_key = None
-    packed_batches: dict = {}
-    if codec:
-        tele.update(
-            up_delta_batches=0, down_delta_bands=0, up_delta2_batches=0, down_delta2_bands=0,
-            up_delta3_batches=0, down_delta3_bands=0, up_batches_reused_packed=0,
-            wire_bits_per_vox=None,
-        )
-        if cache_key is not None and UPLOAD_STASH_BYTES > 0:
-            packed_key = (cache_key, U, tile, n_batches, order_hash)
-            entry = _upload_stash.get("packed_entry")
-            if entry is not None and entry["key"] == packed_key:
-                packed_batches = entry["batches"]
-    stash_is_new = not packed_batches
-
-    sims_s = [field_sims[i] for i in order]
-    tpb = H // tile_shape[a]  # kernel tiles per band along the band axis
-
-    fuse_fn = (
-        translation_fusion.fuse_translation_2d if ndim == 2
-        else translation_fusion.fuse_translation_3d
-    )
-    tdtype_in = _core._torch_dtype(dtype_in)
-    tdtype_out = _core._torch_dtype(out_dtype)
-    out = out_sink if out_sink is not None else np.zeros(out_shape_full, dtype=out_dtype)
-    band_out_shape = tuple(H if d == a else out_shape_full[d] for d in range(ndim))
-
-    if cuda:
-        compute = torch.cuda.current_stream(device)
-        up_stream, dl_stream = _side_streams(device)
-        if resident is not None:
-            # the stack may still be written by the call that seeded it
-            up_stream.wait_stream(compute)
-            resident.record_stream(up_stream)
-    busy = {"up": [], "compute": [], "down": []}
-
-    def on(stream):
-        return torch.cuda.stream(stream) if cuda else contextlib.nullcontext()
-
-    def mark():
-        """An event recorded on the current stream (None on the CPU)."""
-        if not cuda:
-            return None
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    up_bufs = _HostBuffers(_READER_THREADS + 2, (U,) + tile, tdtype_in, cuda)
-    band_bufs = _HostBuffers(_MAX_INFLIGHT_BANDS, band_out_shape, tdtype_out, cuda)
-    errors = []
-
-    def count_modes(info, way, unit):
-        # under tele_lock: the delta counters count every delta mode
-        if info.get("delta"):
-            tele[f"{way}_delta_{unit}"] += 1
-        if info.get("mode") in ("delta2", "delta3"):
-            tele[f"{way}_{info['mode']}_{unit}"] += 1
-
-    def upload_batch(bi):
-        """(device batch, its event, the batch's maximum: 0 unless the codec
-        is on and the dtype packs), from the first of the resume stash, the
-        packed stash, the resident stack, and a read and an upload."""
-        resumed = stash_batches.get(bi)
-        if resumed is not None:
-            with tele_lock:
-                tele["up_batches_reused"] += 1
-            return resumed
-        stashed = packed_batches.get(bi)
-        if stashed is not None:
-            rec, bmax = stashed
-            with on(up_stream if cuda else None):
-                e0 = mark()
-                dev = link_codec.reassemble_packed(rec)
-                done = mark()
-            with tele_lock:
-                tele["up_batches_reused"] += 1
-                tele["up_batches_reused_packed"] += 1
-                if cuda:
-                    busy["up"].append((e0, done))
-            return dev, done, bmax
-        vs = range(bi * U, min((bi + 1) * U, V))
-        if resident is not None:
-            # the batch's views in sorted order, the tail repeating the last
-            rows = np.full(U, order[vs[-1]], np.int64)
-            rows[:len(vs)] = order[vs.start:vs.stop]
-            with on(up_stream if cuda else None):
-                e0 = mark()
-                dev = _signed_bits(resident)[torch.as_tensor(rows, device=device)].view(
-                    resident.dtype)
-                done = mark()
-            with tele_lock:
-                tele["up_batches_resident"] += 1
-                if cuda:
-                    busy["up"].append((e0, done))
-            # with the codec, the band downloads take the dtype's full width
-            return dev, done, np.iinfo(dtype_in).max if codec and packable else 0
-        slot = up_bufs.acquire()
-        copied = None  # the event of the copy out of the slot (without the codec)
-        try:
-            host = slot.array
-            _core._materialize_tiles([sims_s[v] for v in vs], out=host[: len(vs)])
-            if np.issubdtype(dtype_in, np.floating):
-                np.nan_to_num(host[: len(vs)], copy=False)
-            host[len(vs):] = host[len(vs) - 1]
-            if not codec:
-                with on(up_stream if cuda else None):
-                    dev = torch.empty((U,) + tile, dtype=tdtype_in, device=device)
-                    e0 = mark()
-                    dev.copy_(slot.tensor, non_blocking=cuda)
-                    done = copied = mark()
-                nbytes, bmax = host.nbytes, 0
-            else:
-                # the tail's repeated tile changes neither the maximum nor the minimum
-                bmax = int(host.max(initial=0)) if packable else 0
-                bneg = (packable and np.issubdtype(dtype_in, np.signedinteger)
-                        and int(host.min()) < 0)
-                info = {}
-                rec = {} if packed_key is not None else None
-                with on(up_stream if cuda else None):
-                    e0 = mark()
-                    # put_packed has read the host buffer when it returns
-                    dev = link_codec.put_packed(
-                        host,
-                        nbits=16 if (not packable or bneg) else link_codec.nbits_for_max(bmax),
-                        delta=STREAM_DELTA and packable and not bneg, info=info,
-                        keep_packed=rec, device=device,
-                    )
-                    done = mark()
-                nbytes = info["bytes"]
-        finally:
-            up_bufs.release(slot, copied)
-        with tele_lock:
-            tele["up_bytes"] += nbytes
-            if cuda:
-                busy["up"].append((e0, done))
-            if codec:
-                count_modes(info, "up", "batches")
-                if rec:
-                    used = sum(r["packed_bytes"] for r, _ in packed_batches.values())
-                    if used + rec["packed_bytes"] <= UPLOAD_STASH_BYTES:
-                        packed_batches[bi] = (rec, bmax)
-        return dev, done, bmax
-
-    def write_band(b, slot, done, h_true, fused=None, nbits=None):
-        """Write band ``b`` to the sink: from its host slot once ``done``
-        has completed or, with the codec, fetched from ``fused`` by
-        ``link_codec.fetch_packed`` on the download stream."""
-        try:
-            rows = tuple(slice(0, h_true) if d == a else slice(None) for d in range(ndim))
-            info = {}
-            if fused is not None:
-                src = slot.array if h_true == H else np.empty(slot.array[rows].shape,
-                                                             slot.array.dtype)
-                with on(dl_stream if cuda else None):
-                    d0 = mark()
-                    link_codec.fetch_packed(fused[rows], out=src, nbits=nbits,
-                                            delta=STREAM_DELTA, info=info)
-                    d1 = mark()
-                del fused  # its device memory is free while the sink is written
-            else:
-                if done is not None:
-                    done.synchronize()
-                src = slot.array[rows]
-            out[tuple(
-                slice(b * H, b * H + h_true) if d == a else slice(None) for d in range(ndim)
-            )] = src
-            with tele_lock:
-                if info:
-                    tele["down_bytes"] += info["bytes"]
-                    count_modes(info, "down", "bands")
-                    if cuda:
-                        busy["down"].append((d0, d1))
-                else:
-                    tele["down_bytes"] += src.nbytes
-                tele["voxels_written"] += src.size
-                tele["bands_done"] += 1
-                tele["elapsed_s"] = time.perf_counter() - t_begin
-        except Exception as e:  # noqa: BLE001 - raised by the band loop
-            errors.append(e)
-        finally:
-            band_bufs.release(slot)
-
-    zero_batch = None  # made only when a window runs past the last batch
-    max_seen = 0  # the largest batch maximum so far: the width of the band downloads
-    futs = {}
-    visible = set()  # batches the compute stream waits for already
-    next_submit = 0
-    with ThreadPoolExecutor(_READER_THREADS) as readers, \
-            ThreadPoolExecutor(_WRITER_THREADS) as writers:
-
-        def ensure_batches(through_bi):
-            # monotone submission: consumed batches never resubmit
-            nonlocal next_submit
-            target = min(through_bi + _PREFETCH_BATCHES, n_batches - 1)
-            while next_submit <= target:
-                futs[next_submit] = readers.submit(upload_batch, next_submit)
-                next_submit += 1
-
-        write_futs = []
-        for b in range(B):
-            if deadline_s is not None and time.perf_counter() - t_begin > deadline_s:
-                tele["aborted"] = True
-                break
-            lo_b = int(lo[b])
-            bi0 = lo_b // U
-            # the window always spans NB batches from bi0, not just the
-            # band's own view span
-            ensure_batches(min(n_batches - 1, bi0 + NB - 1))
-            window = []
-            try:
-                for bi in range(bi0, bi0 + NB):
-                    if bi >= n_batches:
-                        if zero_batch is None:
-                            with on(compute if cuda else None):
-                                zero_batch = torch.zeros((U,) + tile, dtype=tdtype_in, device=device)
-                        window.append(zero_batch)
-                        continue
-                    dev, done, bmax = futs[bi].result(timeout=remaining())
-                    max_seen = max(max_seen, bmax)
-                    if cuda and bi not in visible:
-                        compute.wait_event(done)
-                        dev.record_stream(compute)
-                        visible.add(bi)
-                    window.append(dev)
-                slot = band_bufs.acquire(timeout=remaining())
-            except (TimeoutError, queue.Empty):
-                # a stalled upload or download: abort instead of blocking
-                tele["aborted"] = True
-                break
-            if errors:
-                band_bufs.release(slot)
-                break
-
-            # the band origin goes to the kernel as an integer shift, so the
-            # per-pixel math is bitwise that of the monolithic call
-            y0 = b * H
-            origin = np.zeros((ndim,), np.int32)
-            origin[a] = y0
-            g_sl = tuple(
-                slice(b * tpb, (b + 1) * tpb) if d == a else slice(None) for d in range(ndim)
+        def remaining():
+            return None if deadline_s is None else max(
+                1.0, deadline_s - (time.perf_counter() - t_begin)
             )
-            vi_g = view_idx_g[g_sl]
-            vi_b = np.where((vi_g >= lo_b) & (vi_g < lo_b + NV), vi_g - lo_b, -1).astype(np.int32)
-            with on(compute if cuda else None):
-                c0 = mark()
-                start = lo_b - bi0 * U
-                band_tiles = torch.cat(window, dim=0)[start:start + NV]
-                fused = fuse_fn(
-                    band_tiles, vi_b,
-                    offs_s[lo_b:lo_b + NV], extents_s[lo_b:lo_b + NV],
-                    wdiags_s[lo_b:lo_b + NV], woffs_s[lo_b:lo_b + NV],
-                    wgrids_s[lo_b:lo_b + NV],
-                    out_shape=band_out_shape, tile_shape=tuple(tile_shape), K=K,
-                    out_dtype=tdtype_out, origin=origin,
-                )
-                c1 = mark()
-            h_true = min(H, out_shape_full[a] - y0)
-            with on(dl_stream if cuda else None):
-                if cuda:
-                    dl_stream.wait_event(c1)
-                    fused.record_stream(dl_stream)
-                    busy["compute"].append((c0, c1))
-                if codec:
-                    nbits = link_codec.nbits_for_max(max_seen) if packable else None
-                    write_futs.append(writers.submit(write_band, b, slot, None, h_true, fused,
-                                                     nbits))
-                else:
-                    d0 = mark()
-                    slot.tensor.copy_(fused, non_blocking=cuda)
-                    d1 = mark()
+
+        a, H, B = bands["axis"], bands["H"], bands["B"]
+        order, lo, NV = bands["order"], bands["lo"], bands["NV"]
+
+        # upload batching: about _BATCH_BYTES of tiles a batch, every batch of U
+        # views (the tail repeats its last tile, which no list references)
+        tile = tuple(int(s) for s in field_sims[0].data.shape)
+        dtype_in = np.dtype(field_sims[0].data.dtype)
+        tile_bytes = int(np.prod(tile)) * dtype_in.itemsize
+        U = max(1, -(-_BATCH_BYTES // tile_bytes))
+        n_batches = -(-V // U)
+        NB = -(-NV // U) + 1  # batches per assembly window
+        order_hash = hash(np.ascontiguousarray(order).tobytes())
+
+        # the device tile cache: a stack left by an earlier call serves every
+        # batch by a gather on the device; else a pass that uploads every batch
+        # and whose tiles fit the cache's budget keeps its batches to seed it,
+        # and resumes from the batches an aborted pass over the same inputs and
+        # layout left. Batches are submitted in order through the last band's
+        # window and its prefetch: an output that ends before the last views
+        # (a block, a window) never uploads them, and its pass seeds nothing
+        cache_key = _core._DeviceTileCache.key_for(field_sims, device)
+        resident = _core._device_tile_cache.get(cache_key)
+        uploads_all = int(lo[-1]) // U + NB - 1 + _PREFETCH_BATCHES >= n_batches - 1
+        retain_batches = (
+            resident is None and cache_key is not None and uploads_all
+            and V * tile_bytes <= _core._device_tile_cache.budget()
+        )
+        stash_key = (cache_key, U, tile, n_batches, order_hash) if retain_batches else None
+        stash_batches: dict = {}
+        if stash_key is not None:
+            entry = _upload_stash.get("entry")
+            if entry is not None and entry["key"] == stash_key:
+                stash_batches = entry["batches"]
+
+        tele_lock = threading.Lock()
+        tele = {
+            "bands_total": int(B), "bands_done": 0, "up_bytes": 0, "down_bytes": 0,
+            "voxels_written": 0, "elapsed_s": 0.0, "aborted": False, "deadline_s": deadline_s,
+            "band_axis": int(a), "band_height": int(H), "nv": int(NV),
+            "batches": int(n_batches), "batch_views": int(U),
+            "up_batches_reused": 0, "up_batches_resident": 0,
+            "up_ms": None, "compute_ms": None, "down_ms": None,
+        }
+        global last_telemetry
+        last_telemetry = tele
+        codec = link_codec.ENABLED
+        packable = link_codec.is_packable(dtype_in)
+        packed_key = None
+        packed_batches: dict = {}
+        if codec:
+            tele.update(
+                up_delta_batches=0, down_delta_bands=0, up_delta2_batches=0, down_delta2_bands=0,
+                up_delta3_batches=0, down_delta3_bands=0, up_batches_reused_packed=0,
+                wire_bits_per_vox=None,
+            )
+            if cache_key is not None and UPLOAD_STASH_BYTES > 0:
+                packed_key = (cache_key, U, tile, n_batches, order_hash)
+                entry = _upload_stash.get("packed_entry")
+                if entry is not None and entry["key"] == packed_key:
+                    packed_batches = entry["batches"]
+        stash_is_new = not packed_batches
+
+        sims_s = [field_sims[i] for i in order]
+        tpb = H // tile_shape[a]  # kernel tiles per band along the band axis
+
+        fuse_fn = (
+            translation_fusion.fuse_translation_2d if ndim == 2
+            else translation_fusion.fuse_translation_3d
+        )
+        tdtype_in = _core._torch_dtype(dtype_in)
+        tdtype_out = _core._torch_dtype(out_dtype)
+        out = out_sink if out_sink is not None else np.zeros(out_shape_full, dtype=out_dtype)
+        band_out_shape = tuple(H if d == a else out_shape_full[d] for d in range(ndim))
+
+        if cuda:
+            compute = torch.cuda.current_stream(device)
+            up_stream, dl_stream = _side_streams(device)
+            if resident is not None:
+                # the stack may still be written by the call that seeded it
+                up_stream.wait_stream(compute)
+                resident.record_stream(up_stream)
+        busy = {"up": [], "compute": [], "down": []}
+
+        def on(stream):
+            return torch.cuda.stream(stream) if cuda else contextlib.nullcontext()
+
+        def mark():
+            """An event recorded on the current stream (None on the CPU)."""
+            if not cuda:
+                return None
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+
+        up_bufs = _HostBuffers(_READER_THREADS + 2, (U,) + tile, tdtype_in, cuda)
+        band_bufs = _HostBuffers(_MAX_INFLIGHT_BANDS, band_out_shape, tdtype_out, cuda)
+        errors = []
+
+        def count_modes(info, way, unit):
+            # under tele_lock: the delta counters count every delta mode
+            if info.get("delta"):
+                tele[f"{way}_delta_{unit}"] += 1
+            if info.get("mode") in ("delta2", "delta3"):
+                tele[f"{way}_{info['mode']}_{unit}"] += 1
+
+        def upload_batch(bi):
+            """(device batch, its event, the batch's maximum: 0 unless the codec
+            is on and the dtype packs), from the first of the resume stash, the
+            packed stash, the resident stack, and a read and an upload."""
+            resumed = stash_batches.get(bi)
+            if resumed is not None:
+                with tele_lock:
+                    tele["up_batches_reused"] += 1
+                return resumed
+            stashed = packed_batches.get(bi)
+            if stashed is not None:
+                rec, bmax = stashed
+                with on(up_stream if cuda else None):
+                    e0 = mark()
+                    dev = link_codec.reassemble_packed(rec)
+                    done = mark()
+                with tele_lock:
+                    tele["up_batches_reused"] += 1
+                    tele["up_batches_reused_packed"] += 1
                     if cuda:
-                        busy["down"].append((d0, d1))
-                    write_futs.append(writers.submit(write_band, b, slot, d1, h_true))
-            del fused, band_tiles, window
+                        busy["up"].append((e0, done))
+                return dev, done, bmax
+            vs = range(bi * U, min((bi + 1) * U, V))
+            if resident is not None:
+                # the batch's views in sorted order, the tail repeating the last
+                rows = np.full(U, order[vs[-1]], np.int64)
+                rows[:len(vs)] = order[vs.start:vs.stop]
+                with on(up_stream if cuda else None):
+                    e0 = mark()
+                    dev = _signed_bits(resident)[torch.as_tensor(rows, device=device)].view(
+                        resident.dtype)
+                    done = mark()
+                with tele_lock:
+                    tele["up_batches_resident"] += 1
+                    if cuda:
+                        busy["up"].append((e0, done))
+                # with the codec, the band downloads take the dtype's full width
+                return dev, done, np.iinfo(dtype_in).max if codec and packable else 0
+            slot = up_bufs.acquire()
+            copied = None  # the event of the copy out of the slot (without the codec)
+            try:
+                host = slot.array
+                with profiling.stage("stream.read"):
+                    _core._materialize_tiles([sims_s[v] for v in vs], out=host[: len(vs)])
+                    if np.issubdtype(dtype_in, np.floating):
+                        np.nan_to_num(host[: len(vs)], copy=False)
+                    host[len(vs):] = host[len(vs) - 1]
+                if not codec:
+                    with on(up_stream if cuda else None):
+                        dev = torch.empty((U,) + tile, dtype=tdtype_in, device=device)
+                        e0 = mark()
+                        dev.copy_(slot.tensor, non_blocking=cuda)
+                        done = copied = mark()
+                    nbytes, bmax = host.nbytes, 0
+                else:
+                    # the tail's repeated tile changes neither the maximum nor the minimum
+                    bmax = int(host.max(initial=0)) if packable else 0
+                    bneg = (packable and np.issubdtype(dtype_in, np.signedinteger)
+                            and int(host.min()) < 0)
+                    info = {}
+                    rec = {} if packed_key is not None else None
+                    with on(up_stream if cuda else None):
+                        e0 = mark()
+                        # put_packed has read the host buffer when it returns
+                        dev = link_codec.put_packed(
+                            host,
+                            nbits=16 if (not packable or bneg) else link_codec.nbits_for_max(bmax),
+                            delta=STREAM_DELTA and packable and not bneg, info=info,
+                            keep_packed=rec, device=device,
+                        )
+                        done = mark()
+                    nbytes = info["bytes"]
+            finally:
+                up_bufs.release(slot, copied)
+            with tele_lock:
+                tele["up_bytes"] += nbytes
+                if cuda:
+                    busy["up"].append((e0, done))
+                if codec:
+                    count_modes(info, "up", "batches")
+                    if rec:
+                        used = sum(r["packed_bytes"] for r, _ in packed_batches.values())
+                        if used + rec["packed_bytes"] <= UPLOAD_STASH_BYTES:
+                            packed_batches[bi] = (rec, bmax)
+            return dev, done, bmax
 
-            # drop device batches no later band reaches, unless they seed
-            # the tile cache
-            if not retain_batches and b + 1 < B:
-                keep_from = int(lo[b + 1]) // U
-                for bi in [k for k in futs if k < keep_from]:
-                    del futs[bi]
+        def write_band(b, slot, done, h_true, fused=None, nbits=None):
+            """Write band ``b`` to the sink: from its host slot once ``done``
+            has completed or, with the codec, fetched from ``fused`` by
+            ``link_codec.fetch_packed`` on the download stream."""
+            try:
+                rows = tuple(slice(0, h_true) if d == a else slice(None) for d in range(ndim))
+                info = {}
+                if fused is not None:
+                    src = slot.array if h_true == H else np.empty(slot.array[rows].shape,
+                                                                 slot.array.dtype)
+                    with on(dl_stream if cuda else None):
+                        d0 = mark()
+                        link_codec.fetch_packed(fused[rows], out=src, nbits=nbits,
+                                                delta=STREAM_DELTA, info=info)
+                        d1 = mark()
+                    del fused  # its device memory is free while the sink is written
+                else:
+                    if done is not None:
+                        done.synchronize()
+                    src = slot.array[rows]
+                with profiling.stage("stream.write"):
+                    out[tuple(
+                        slice(b * H, b * H + h_true) if d == a else slice(None)
+                        for d in range(ndim)
+                    )] = src
+                with tele_lock:
+                    if info:
+                        tele["down_bytes"] += info["bytes"]
+                        count_modes(info, "down", "bands")
+                        if cuda:
+                            busy["down"].append((d0, d1))
+                    else:
+                        tele["down_bytes"] += src.nbytes
+                    tele["voxels_written"] += src.size
+                    tele["bands_done"] += 1
+                    tele["elapsed_s"] = time.perf_counter() - t_begin
+            except Exception as e:  # noqa: BLE001 - raised by the band loop
+                errors.append(e)
+            finally:
+                band_bufs.release(slot)
 
-        for f in write_futs:
-            f.result()
+        zero_batch = None  # made only when a window runs past the last batch
+        max_seen = 0  # the largest batch maximum so far: the width of the band downloads
+        futs = {}
+        visible = set()  # batches the compute stream waits for already
+        next_submit = 0
+        with ThreadPoolExecutor(_READER_THREADS) as readers, \
+                ThreadPoolExecutor(_WRITER_THREADS) as writers:
 
-    # every upload the readers completed (the pool's exit waited for them,
-    # those queued past an abort too) resumes or seeds
-    if retain_batches:
-        for bi, f in futs.items():
-            if f.exception() is None:
-                stash_batches.setdefault(bi, f.result())
-    futs.clear()
+            def ensure_batches(through_bi):
+                # monotone submission: consumed batches never resubmit
+                nonlocal next_submit
+                target = min(through_bi + _PREFETCH_BATCHES, n_batches - 1)
+                while next_submit <= target:
+                    futs[next_submit] = readers.submit(upload_batch, next_submit)
+                    next_submit += 1
 
-    if cuda:
-        torch.cuda.synchronize(device)
-        for stage, pairs in busy.items():
-            tele[f"{stage}_ms"] = float(sum(e0.elapsed_time(e1) for e0, e1 in pairs))
-    tele["elapsed_s"] = time.perf_counter() - t_begin
+            write_futs = []
+            for b in range(B):
+                if deadline_s is not None and time.perf_counter() - t_begin > deadline_s:
+                    tele["aborted"] = True
+                    break
+                lo_b = int(lo[b])
+                bi0 = lo_b // U
+                # the window always spans NB batches from bi0, not just the
+                # band's own view span
+                ensure_batches(min(n_batches - 1, bi0 + NB - 1))
+                window = []
+                try:
+                    for bi in range(bi0, bi0 + NB):
+                        if bi >= n_batches:
+                            if zero_batch is None:
+                                with on(compute if cuda else None):
+                                    zero_batch = torch.zeros((U,) + tile, dtype=tdtype_in,
+                                                             device=device)
+                            window.append(zero_batch)
+                            continue
+                        dev, done, bmax = futs[bi].result(timeout=remaining())
+                        max_seen = max(max_seen, bmax)
+                        if cuda and bi not in visible:
+                            compute.wait_event(done)
+                            dev.record_stream(compute)
+                            visible.add(bi)
+                        window.append(dev)
+                    slot = band_bufs.acquire(timeout=remaining())
+                except (TimeoutError, queue.Empty):
+                    # a stalled upload or download: abort instead of blocking
+                    tele["aborted"] = True
+                    break
+                if errors:
+                    band_bufs.release(slot)
+                    break
+
+                # the band origin goes to the kernel as an integer shift, so the
+                # per-pixel math is bitwise that of the monolithic call
+                y0 = b * H
+                origin = np.zeros((ndim,), np.int32)
+                origin[a] = y0
+                g_sl = tuple(
+                    slice(b * tpb, (b + 1) * tpb) if d == a else slice(None) for d in range(ndim)
+                )
+                vi_g = view_idx_g[g_sl]
+                vi_b = np.where((vi_g >= lo_b) & (vi_g < lo_b + NV), vi_g - lo_b,
+                                -1).astype(np.int32)
+                with on(compute if cuda else None):
+                    c0 = mark()
+                    start = lo_b - bi0 * U
+                    band_tiles = torch.cat(window, dim=0)[start:start + NV]
+                    fused = fuse_fn(
+                        band_tiles, vi_b,
+                        offs_s[lo_b:lo_b + NV], extents_s[lo_b:lo_b + NV],
+                        wdiags_s[lo_b:lo_b + NV], woffs_s[lo_b:lo_b + NV],
+                        wgrids_s[lo_b:lo_b + NV],
+                        out_shape=band_out_shape, tile_shape=tuple(tile_shape), K=K,
+                        out_dtype=tdtype_out, origin=origin,
+                    )
+                    c1 = mark()
+                h_true = min(H, out_shape_full[a] - y0)
+                with on(dl_stream if cuda else None):
+                    if cuda:
+                        dl_stream.wait_event(c1)
+                        fused.record_stream(dl_stream)
+                        busy["compute"].append((c0, c1))
+                    if codec:
+                        nbits = link_codec.nbits_for_max(max_seen) if packable else None
+                        write_futs.append(writers.submit(write_band, b, slot, None, h_true, fused,
+                                                         nbits))
+                    else:
+                        d0 = mark()
+                        slot.tensor.copy_(fused, non_blocking=cuda)
+                        d1 = mark()
+                        if cuda:
+                            busy["down"].append((d0, d1))
+                        write_futs.append(writers.submit(write_band, b, slot, d1, h_true))
+                del fused, band_tiles, window
+
+                # drop device batches no later band reaches, unless they seed
+                # the tile cache
+                if not retain_batches and b + 1 < B:
+                    keep_from = int(lo[b + 1]) // U
+                    for bi in [k for k in futs if k < keep_from]:
+                        del futs[bi]
+
+            for f in write_futs:
+                f.result()
+
+        # every upload the readers completed (the pool's exit waited for them,
+        # those queued past an abort too) resumes or seeds
+        if retain_batches:
+            for bi, f in futs.items():
+                if f.exception() is None:
+                    stash_batches.setdefault(bi, f.result())
+        futs.clear()
+
+        if cuda:
+            torch.cuda.synchronize(device)
+            for stage, pairs in busy.items():
+                tele[f"{stage}_ms"] = float(sum(e0.elapsed_time(e1) for e0, e1 in pairs))
+        tele["elapsed_s"] = time.perf_counter() - t_begin
     if codec:
         if tele["voxels_written"]:
             # wire bits per fused output voxel, both ways
@@ -775,24 +786,25 @@ def execute_streaming(
             tele,
         )
     if retain_batches:
-        try:
-            batches = []
-            for bi in range(n_batches):
-                dev, done, _ = stash_batches.pop(bi)
-                if cuda:
-                    # made on the upload stream, reordered on the compute stream
-                    compute.wait_event(done)
-                    dev.record_stream(compute)
-                batches.append(dev)
-            del dev
-            _core._device_tile_cache.put(cache_key, _reorder_concat(batches, order, V),
-                                         field_sims)
-        except Exception as e:  # noqa: BLE001 - the fused output stands
-            warnings.warn(
-                f"device tile cache seeding failed ({type(e).__name__}: {e}); repeat passes "
-                "fall back to the packed upload stash.",
-                RuntimeWarning,
-                stacklevel=2,
-            )
-        _upload_stash.pop("entry", None)
+        with profiling.stage("stream.seed_cache"):
+            try:
+                batches = []
+                for bi in range(n_batches):
+                    dev, done, _ = stash_batches.pop(bi)
+                    if cuda:
+                        # made on the upload stream, reordered on the compute stream
+                        compute.wait_event(done)
+                        dev.record_stream(compute)
+                    batches.append(dev)
+                del dev
+                _core._device_tile_cache.put(cache_key, _reorder_concat(batches, order, V),
+                                             field_sims)
+            except Exception as e:  # noqa: BLE001 - the fused output stands
+                warnings.warn(
+                    f"device tile cache seeding failed ({type(e).__name__}: {e}); repeat "
+                    "passes fall back to the packed upload stash.",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+            _upload_stash.pop("entry", None)
     return out

@@ -34,6 +34,7 @@ from multiview_stitcher_torch.io import zarr_backend
 from multiview_stitcher_torch.msi_utils import Msim
 from multiview_stitcher_torch.param_utils import XAffine
 from multiview_stitcher_torch.si_utils import Sim
+from multiview_stitcher_torch.utils import profiling
 
 # the group attribute that holds an msim's named transforms: the reference
 # package's key, so that stores interoperate
@@ -94,6 +95,7 @@ def _zarr_format(ngff_version: str) -> int:
     return 2 if ngff_version == "0.4" else 3
 
 
+@profiling.stage("fuse.pyramid")
 def _build_levels(output_zarr_url, dims, spatial_shape, zarr_format, layout,
                   downscale_factors_per_spatial_dim=None):
     """Build pyramid levels 1 and up of the OME-Zarr at ``output_zarr_url``

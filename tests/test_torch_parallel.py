@@ -215,12 +215,14 @@ def test_register_and_fuse_record_the_jax_stage_names():
         # a geometry no other test fuses, so the JAX plan cache misses
         fus.fuse(sims, transform_key=KEY, output_spacing={"y": 1.25, "x": 1.25}, **kw)
         names[name] = (reg_names, set(prof.get_stage_times()))
-    assert names["port"] == names["jax"]
-    assert names["port"][0] == {
+    # register() records the JAX package's stages exactly; the port's fuse()
+    # adds its host-copy stages (utils.profiling) to the JAX package's
+    assert names["port"][0] == names["jax"][0] == {
         "register.adjacency_graph", "register.pairwise_registrations",
         "register.groupwise_resolution",
     }
-    assert names["port"][1] == {"fuse.plan"}
+    assert names["jax"][1] == {"fuse.plan"}
+    assert names["port"][1] == names["jax"][1] | {"tiles.upload", "fuse.download"}
 
 
 # ---------------------------------------------------------------------------
