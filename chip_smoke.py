@@ -46,7 +46,14 @@ Phases, one printed line or block each:
    and the exact-affine kernels int16 and float64 sources (cast to float32
    on the card); ``fuse`` keeps int16 and float64 views in their dtype on
    both tiers, and boolean views boolean on the translation tier, against
-   ``fuse(device="cpu")``;
+   ``fuse(device="cpu")``; then the ``pyramid:`` lines: the pyramid's block
+   means (``ops.pyramid.coarsen_mean``) against their plain version on the
+   card and ``msi_utils._coarsen_mean`` on the host, uint8 and uint16, on
+   small cases that trim, a leading ``c`` dim, factors up to 4 and the
+   largest factor products, then on the six blocks of the benchmark's zarr
+   job (level 0 (101, 1306, 1306) uint16 at (1, 2, 2)), each timed beside
+   its byte bound and the plain version, the first also on a cold L2 and
+   with its host copies each way;
 4. the 3D main path through ``fusion.fuse``: 32 x 32 tiles of 64^3 uint16,
    overlap 12, output (64, 1676, 1676) uint16; a cold and a warm call, both
    streamed through banded kernel calls on three CUDA streams (its 537 MB of
@@ -395,6 +402,19 @@ def exact_ops(ndim, voxels, inside):
 F32_RTOL, F32_ATOL, UINT_COUNTS = 1e-4, 1e-3, 1
 # exact-affine kernel against its plain version, on data in [0, 100)
 EXACT_ATOL = 5e-3
+
+# the blocks a zarr job of the benchmark's 3D grid reduces, all at (1, 2, 2):
+# level 0 (101, 1306, 1306) uint16 cut into level 1's 512-wide blocks, then
+# the one block of level 2 and of level 3
+PYRAMID_BLOCKS = ((101, 1024, 1024), (101, 1024, 282), (101, 282, 1024), (101, 282, 282),
+                  (101, 652, 652), (101, 326, 326))
+# (shape, factors) of the small cases: odd shapes that trim, a leading c dim,
+# 2D and 1D data, and the largest factor products (max * n = 2^32 - 1)
+PYRAMID_SMALL = (((7, 37, 41), (1, 2, 2)), ((7, 37, 41), (2, 2, 2)), ((7, 37, 41), (1, 2, 3)),
+                 ((7, 37, 41), (1, 1, 4)), ((2, 5, 19, 23), (1, 2, 2, 3)),
+                 ((3, 33, 47), (1, 3, 2)), ((45, 61), (2, 4)), ((99,), (4,)),
+                 ((4, 64, 16), (1, 1, 1)), ((5, 16, 96), (1, 2, 3)), ((5, 16, 128), (2, 1, 4)),
+                 ((3, 40, 1030), (1, 2, 5)))
 
 
 def log(msg):
@@ -1061,6 +1081,7 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
     from multiview_stitcher_torch import msi_utils
     from multiview_stitcher_torch.fusion import _core as tcore
     from multiview_stitcher_torch.io import zarr_backend
+    from multiview_stitcher_torch.ops import pyramid as tpyr
 
     label = "3d zarr->zarr"
     shutil.rmtree(work, ignore_errors=True)
@@ -1102,6 +1123,7 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
             # and the device tile cache the cold run seeded emptied, so that
             # it reads its tiles
             tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+            tpyr.coarsen_mean.launches = 0
             tcore.clear_device_tile_cache()
             t0 = time.perf_counter()
             res = fuse(lazy, transform_key=KEY, output_chunksize=128, output_zarr_url=out_url)
@@ -1109,6 +1131,7 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
             runs[run] = {"wall_s": time.perf_counter() - t0, "pyramid_s": pyramid_s[-1],
                          **tstream.last_telemetry}
         launches = tf.fuse_translation_3d.launches
+        pyramid_launches = tpyr.coarsen_mean.launches
         tele = runs["warm"]
         if (launches < 3 or launches != tele["bands_total"] or tele["bands_done"] != launches
                 or tf.fuse_translation_2d.launches):
@@ -1135,6 +1158,10 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
         if fmt != 2 or len(datasets) != len(shapes) or len(shapes) < 2:
             raise AssertionError(f"{label}: {len(datasets)} levels in the metadata, expected "
                                  f"{len(shapes)}")
+        # one launch a block of every level after level 0 (512-wide blocks)
+        want = sum(int(np.prod([-(-n // 512) for n in shp.values()])) for shp in shapes[1:])
+        if pyramid_launches != want:
+            raise AssertionError(f"{label}: {pyramid_launches} pyramid launches, expected {want}")
         level1 = np.asarray(zarr_backend.open_zarr_array(out_url + "/1"))
         if not np.array_equal(level1, msi_utils._coarsen_mean(level0, (1, 2, 2))):
             raise AssertionError(f"{label}: level 1 is not the block mean of level 0")
@@ -1157,12 +1184,96 @@ def zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims, mono, work):
             + " (each the summed span, first to last event, of its stage's work; the device "
             "tile cache emptied before the run)")
     log(f"{label}: tiles written in {write_s:.2f} s, a 256 MiB file at {disk_mb_s:.0f} MB/s, "
-        f"levels {levels}, {disk / 1e6:.0f} MB on disk, "
+        f"levels {levels} ({pyramid_launches} pyramid launches), {disk / 1e6:.0f} MB on disk, "
         f"level 0 vs in-memory {n_diff} voxels differ (max {err} counts); {card_line()}")
-    return {"launches": int(launches), "max_abs_err": err, "voxels_differ": n_diff,
+    return {"launches": int(launches), "pyramid_launches": int(pyramid_launches),
+            "max_abs_err": err, "voxels_differ": n_diff,
             "tiles_write_s": write_s, "disk_write_mb_s": disk_mb_s,
             "levels": [list(x) for x in levels], "disk_bytes": disk,
             "out_mvox": mvox, **{run: r for run, r in runs.items()}}, lazy
+
+
+def pyramid_phase(np, torch):
+    """Phase 3b, the pyramid's block means (``ops.pyramid.coarsen_mean``):
+    each small case of ``PYRAMID_SMALL`` in uint8 and uint16, and the
+    largest factor product of each dtype on all-max data, against the plain
+    version on the card and ``msi_utils._coarsen_mean`` on the host, bit for
+    bit; then each block of ``PYRAMID_BLOCKS`` (uint16, random counts),
+    checked the same way and timed by CUDA events beside its byte bound
+    (input read once, output written once) and the plain version; the first
+    block also on a cold L2 and with its pageable host copies each way, as
+    ``io.ngff_utils._build_levels`` makes them."""
+    from multiview_stitcher_torch import msi_utils
+    from multiview_stitcher_torch.ops import pyramid as tpyr
+
+    rng = np.random.default_rng(22)
+    dev = torch.device("cuda")
+    worst = [0]
+
+    def check(host, factors, label):
+        x = torch.from_numpy(host).to(dev)
+        got = tpyr.coarsen_mean(x, factors)
+        torch.cuda.synchronize()
+        plain = tpyr.coarsen_mean_plain(x, factors)
+        ref = msi_utils._coarsen_mean(host, factors)
+        err = max(max_err(got.cpu().numpy(), plain.cpu().numpy(), np),
+                  max_err(got.cpu().numpy(), ref, np))
+        if err or got.dtype != x.dtype or tuple(got.shape) != ref.shape:
+            raise AssertionError(f"pyramid: {label} differs from the plain version by {err}")
+        worst[0] = max(worst[0], err)
+        return x
+
+    launches0 = tpyr.coarsen_mean.launches
+    n_small = 0
+    for dtype in (np.uint8, np.uint16):
+        top = np.iinfo(dtype).max
+        for shape, factors in PYRAMID_SMALL:
+            check(rng.integers(0, top, shape, dtype=dtype, endpoint=True), factors,
+                  f"{np.dtype(dtype).name} {shape} at {factors}")
+            n_small += 1
+        shape, factors = (((2, 3, 2 * 65537 + 5), (1, 1, 65537)) if dtype == np.uint16
+                          else ((1, 257, 65537 + 3), (1, 257, 65537)))
+        check(np.full(shape, top, dtype), factors, f"all-max {np.dtype(dtype).name} at {factors}")
+        n_small += 1
+    log(f"pyramid: {n_small} small cases bit-equal to the plain version and to "
+        f"msi_utils._coarsen_mean; {card_line()}")
+
+    blocks = []
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    for i, shape in enumerate(PYRAMID_BLOCKS):
+        host = rng.integers(0, 4000, shape, dtype=np.uint16)
+        x = check(host, (1, 2, 2), f"block {shape}")
+        out_bytes = 2 * (shape[0] * (shape[1] // 2) * (shape[2] // 2))
+        bound_ms = (x.nbytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        r = {"shape": list(shape), "bound_ms": bound_ms,
+             "ms": time_kernel_ms(torch, tpyr.coarsen_mean, (x, (1, 2, 2)), {}, 50),
+             "plain_ms": time_kernel_ms(torch, tpyr.coarsen_mean_plain, (x, (1, 2, 2)), {}, 3)}
+        r["share"] = r["bound_ms"] / r["ms"]
+        if i == 0:
+            r["cold_ms"] = time_kernel_ms(torch, tpyr.coarsen_mean, (x, (1, 2, 2)), {}, 20,
+                                          flush=flush)
+            out = tpyr.coarsen_mean(x, (1, 2, 2))
+            r["h2d_ms"] = best_s(lambda: (torch.from_numpy(host).to(dev),
+                                          torch.cuda.synchronize()), reps=3)[0] * 1e3
+            r["d2h_ms"] = best_s(lambda: out.cpu().numpy(), reps=3)[0] * 1e3
+        log(f"pyramid: block {shape} uint16 at (1, 2, 2): kernel {r['ms']:.4f} ms"
+            + (f" (cold L2 {r['cold_ms']:.4f} ms)" if "cold_ms" in r else "")
+            + f", bound {bound_ms:.4f} ms (bytes), {100 * r['share']:.1f} % of it; plain "
+            f"{r['plain_ms']:.3f} ms"
+            + (f"; host copies {r['h2d_ms']:.1f} ms up, {r['d2h_ms']:.1f} ms down (pageable)"
+               if "h2d_ms" in r else ""))
+        blocks.append(r)
+        del x, host
+    del flush
+    torch.cuda.empty_cache()
+    job_ms = sum(b["ms"] for b in blocks)
+    log(f"pyramid: the zarr job's six blocks {job_ms:.4f} ms of kernel, bound "
+        f"{sum(b['bound_ms'] for b in blocks):.4f} ms; {tpyr.coarsen_mean.launches - launches0} "
+        f"launches in these checks and timings; {card_line()}")
+    main = blocks[0]
+    return {"bench_launches": tpyr.coarsen_mean.launches - launches0, "max_abs_err": worst[0],
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "job_ms": job_ms, "blocks": blocks}
 
 
 def best_s(fn, reps=2):
@@ -5955,6 +6066,7 @@ def main() -> int:
     small_err = check_small_cases(np, torch, tsi, tcore, tf)
     exact_err = check_exact_small_cases(np, torch, tea)
     f1_err = check_f1_fuse(np, torch, tsi, tf, tea, fuse)
+    pyramid = pyramid_phase(np, torch)
     small_s = time.perf_counter() - t_small
     log(f"small cases: {small_s:.1f} s")
     from multiview_stitcher_torch import msi_utils as tmsi
@@ -6140,7 +6252,13 @@ def main() -> int:
             "fuse_translation_2d": r2["resident_launches"],
             "exact_affine_batch_2d": cache["affine_2d"]["launches"],
         }.get(k["name"], 0)
-    detail = {"3d": r3, "2d": r2, "zarr": zarr, "link": link, "cache": cache, "zarr3": zarr3,
+    # its main-path run is the zarr north star's warm run (counter set to 0
+    # just before it); the timed repetitions' count stays in the detail
+    kernels.append({"name": "coarsen_mean", "route": "cuda",
+                    "source": "multiview_stitcher_torch/csrc/pyramid.cu", "replaces": None,
+                    **{k: pyramid[k] for k in keys if k != "launches"},
+                    "launches": zarr["pyramid_launches"]})
+    detail = {"3d": r3, "2d": r2, "pyramid": pyramid, "zarr": zarr, "link": link, "cache": cache, "zarr3": zarr3,
               "api": api, "slabs": slabs,
               "shear": shear, **{f"affine_{k}": v for k, v in affine.items()},
               "general": general, "multiscale": multiscale, "beads": beads, "deconv": deconv,

@@ -2625,6 +2625,7 @@ def fuse(
             stack_properties=sink_stack_properties,
             ngff_version=ngff_version,
             c_coords=ns_coord_lists.get("c"),
+            device=device,
         )
         out_sim = ngff_utils.read_sim_from_ome_zarr(output_zarr_url)
     else:

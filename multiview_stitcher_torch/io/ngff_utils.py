@@ -28,10 +28,12 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from multiview_stitcher_torch import msi_utils, param_utils, si_utils
 from multiview_stitcher_torch.io import zarr_backend
 from multiview_stitcher_torch.msi_utils import Msim
+from multiview_stitcher_torch.ops import pyramid as tpyramid
 from multiview_stitcher_torch.param_utils import XAffine
 from multiview_stitcher_torch.si_utils import Sim
 from multiview_stitcher_torch.utils import profiling
@@ -95,13 +97,24 @@ def _zarr_format(ngff_version: str) -> int:
     return 2 if ngff_version == "0.4" else 3
 
 
+def _averages_on_card(device, dtype) -> bool:
+    """Whether :func:`_build_levels` averages its blocks with the CUDA kernel
+    of ``ops.pyramid``: on a CUDA device, for ``uint8`` and ``uint16`` data."""
+    return (device is not None and torch.device(device).type == "cuda"
+            and np.dtype(dtype) in (np.uint8, np.uint16))
+
+
 @profiling.stage("fuse.pyramid")
 def _build_levels(output_zarr_url, dims, spatial_shape, zarr_format, layout,
-                  downscale_factors_per_spatial_dim=None):
+                  downscale_factors_per_spatial_dim=None, device=None):
     """Build pyramid levels 1 and up of the OME-Zarr at ``output_zarr_url``
     from its level 0, block by block from the level before (never a whole
     level in memory): ``layout(shape)`` gives a level's (chunks, shards),
     and a block is one shard (or chunk), so that no block shares a file.
+    With a CUDA ``device``, ``uint8`` and ``uint16`` blocks are averaged
+    there by ``ops.pyramid.coarsen_mean`` (exact integer sums, bit-equal to
+    ``msi_utils._coarsen_mean``); other dtypes, and every call on the CPU or
+    without a device, take ``msi_utils._coarsen_mean`` on the host.
     Returns the plan's absolute factors."""
     dims = tuple(dims)
     sdims = [d for d in dims if d in si_utils.SPATIAL_DIMS]
@@ -111,6 +124,7 @@ def _build_levels(output_zarr_url, dims, spatial_shape, zarr_format, layout,
     )
     prev = zarr_backend.open_zarr_array(f"{output_zarr_url}/0")
     prev_shape = prev.shape
+    on_card = _averages_on_card(device, prev.dtype)
     for level in range(1, len(res_shapes)):
         rel = res_rel_factors[level]
         factors = [rel.get(d, 1) if d in sdims else 1 for d in dims]
@@ -137,7 +151,12 @@ def _build_levels(output_zarr_url, dims, spatial_shape, zarr_format, layout,
                 slice(out_sl[i].start * factors[i], out_sl[i].stop * factors[i])
                 for i in range(len(dims))
             )
-            arr[out_sl] = msi_utils._coarsen_mean(np.asarray(prev[in_sl]), factors)
+            block = np.asarray(prev[in_sl])
+            if on_card:
+                arr[out_sl] = tpyramid.coarsen_mean(
+                    torch.from_numpy(block).to(device), factors).cpu().numpy()
+            else:
+                arr[out_sl] = msi_utils._coarsen_mean(block, factors)
         prev = arr
         prev_shape = new_shape
     return res_abs_factors
@@ -201,13 +220,16 @@ def finalize_ome_zarr_levels(
     block_size: int = 512,
     time_transform: Optional[dict] = None,
     channel_windows: Optional[List[tuple]] = None,
+    device=None,
 ):
     """Complete an OME-Zarr whose level 0 was written chunk by chunk: build
     each pyramid level block by block from the one before (never a whole
     level in memory; chunks of ``block_size``, unsharded, zarr v2 for NGFF
     0.4 and v3 for 0.5) and write the multiscales and omero metadata.
     ``channel_windows``: per channel, the (start, end) of its omero window
-    (by default (0, 65535))."""
+    (by default (0, 65535)). ``device``: a CUDA device averages unsigned
+    integer levels on the card (:func:`_build_levels`); by default the
+    host does."""
     zarr_format = _zarr_format(ngff_version)
     dims = tuple(dims)
     nsdims = [d for d in dims if d not in si_utils.SPATIAL_DIMS]
@@ -218,7 +240,7 @@ def finalize_ome_zarr_levels(
     res_abs_factors = _build_levels(
         output_zarr_url, dims,
         {d: int(stack_properties["shape"][d]) for d in dims if d in si_utils.SPATIAL_DIMS},
-        zarr_format, layout, downscale_factors_per_spatial_dim,
+        zarr_format, layout, downscale_factors_per_spatial_dim, device=device,
     )
     _write_ngff_attrs(output_zarr_url, dims, stack_properties, res_abs_factors, ngff_version,
                       c_coords=c_coords, time_transform=time_transform,

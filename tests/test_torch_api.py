@@ -58,7 +58,8 @@ from multiview_stitcher_tpu.utils import misc as jmisc
 KEY = jsi.DEFAULT_TRANSFORM_KEY
 
 # every module of the port with a counterpart of the same name in the JAX
-# package (the port's own modules: convert, ops._build, ops.translation_fusion)
+# package (the port's own modules: convert, ops._build, ops.pyramid,
+# ops.translation_fusion)
 PORTED_MODULES = [
     "", "convert", "detection", "fusion", "fusion._core", "fusion._streaming",
     "fusion.mv_deconv", "io", "io.codecs", "io.czi_utils", "io.fallback", "io.imaris_utils",
@@ -74,7 +75,7 @@ PORTED_MODULES = [
     "transformation", "transforms", "utils", "utils.misc", "utils.profiling", "vis_utils",
     "weights", "zarr_utils",
 ]
-PORT_ONLY = {"convert", "ops._build", "ops.translation_fusion"}
+PORT_ONLY = {"convert", "ops._build", "ops.pyramid", "ops.translation_fusion"}
 
 # public names of the JAX modules the port leaves out, with the item that
 # covers them
