@@ -1393,20 +1393,22 @@ def _fuse_chunk_batch_kernel_exact(
             "tile_idx": np.reshape(tile_idx, BK),
             "starts": np.reshape(starts, (BK, ndim)),
         }
-    data_t = resample(
-        data, np.reshape(mats, (BK, ndim, ndim)), np.reshape(offs, (BK, ndim)),
-        np.reshape(extents, (BK, ndim)), out_shape, cval=float("nan"),
-        valid=flat_valid, **src,
-    ).reshape((B, K) + tuple(out_shape))
-    bw = None
-    if use_bw:
-        wg = torch.as_tensor(wgrids, dtype=torch.float32, device=data.device)
-        bw = resample(
-            wg.reshape((BK,) + (5,) * ndim), np.reshape(wmats, (BK, ndim, ndim)),
-            np.reshape(woffs, (BK, ndim)), np.full((BK, ndim), 5.0, np.float32),
-            out_shape, cval=0.0, valid=flat_valid,
+    with profiling.stage("batched.resample"):
+        data_t = resample(
+            data, np.reshape(mats, (BK, ndim, ndim)), np.reshape(offs, (BK, ndim)),
+            np.reshape(extents, (BK, ndim)), out_shape, cval=float("nan"),
+            valid=flat_valid, **src,
         ).reshape((B, K) + tuple(out_shape))
-    return _blend_batch(data_t, bw, mode, use_bw, out_dtype)
+        bw = None
+        if use_bw:
+            wg = torch.as_tensor(wgrids, dtype=torch.float32, device=data.device)
+            bw = resample(
+                wg.reshape((BK,) + (5,) * ndim), np.reshape(wmats, (BK, ndim, ndim)),
+                np.reshape(woffs, (BK, ndim)), np.full((BK, ndim), 5.0, np.float32),
+                out_shape, cval=0.0, valid=flat_valid,
+            ).reshape((B, K) + tuple(out_shape))
+    with profiling.stage("batched.blend"):
+        return _blend_batch(data_t, bw, mode, use_bw, out_dtype)
 
 
 def _fuse_chunk_batch_kernel_exact_devtiles(
@@ -1458,16 +1460,18 @@ def _fuse_chunk_batch_kernel_gather(stack, t, S_max, out_shape, mode, use_bw, ou
     B, K = t["valid"].shape
     ndim = len(out_shape)
     BK = B * K
-    data_t, bw = _resample_views(
-        stack, t["tile_idx"].reshape(BK), t["starts"].reshape(BK, ndim),
-        t["extents"].reshape(BK, ndim).astype(np.int64), S_max,
-        t["mats"].reshape(BK, ndim, ndim), t["offs"].reshape(BK, ndim),
-        t["wgrids"].reshape((BK,) + (5,) * ndim), t["wmats"].reshape(BK, ndim, ndim),
-        t["woffs"].reshape(BK, ndim), t["valid"].reshape(BK), out_shape, use_bw,
-    )
+    with profiling.stage("batched.resample"):
+        data_t, bw = _resample_views(
+            stack, t["tile_idx"].reshape(BK), t["starts"].reshape(BK, ndim),
+            t["extents"].reshape(BK, ndim).astype(np.int64), S_max,
+            t["mats"].reshape(BK, ndim, ndim), t["offs"].reshape(BK, ndim),
+            t["wgrids"].reshape((BK,) + (5,) * ndim), t["wmats"].reshape(BK, ndim, ndim),
+            t["woffs"].reshape(BK, ndim), t["valid"].reshape(BK), out_shape, use_bw,
+        )
     split = (B, K) + tuple(out_shape)
-    return _blend_batch(data_t.reshape(split), None if bw is None else bw.reshape(split),
-                        mode, use_bw, out_dtype)
+    with profiling.stage("batched.blend"):
+        return _blend_batch(data_t.reshape(split), None if bw is None else bw.reshape(split),
+                            mode, use_bw, out_dtype)
 
 
 def _shear_tier_enabled() -> bool:
@@ -1561,25 +1565,28 @@ def _fuse_chunk_batch_kernel_shear(slabs, t, bundle, out_shape, mode, use_bw, ou
     mats = t["mats"].reshape(BK, ndim, ndim)
     offs = t["offs"].reshape(BK, ndim)
     keep = torch.as_tensor(valid, device=dev).reshape((BK,) + (1,) * ndim)
-    data_t = shear_ops.shear_resample_batch(
-        slabs, coeffs(ctx, mats, offs), mats, offs, t["extents"].reshape(BK, ndim), plan,
-        float("nan"),
-    )
-    data_t = torch.where(keep, data_t, torch.nan)
-    bw = None
-    if use_bw:
-        wmats = 4.0 * t["wmats"].reshape(BK, ndim, ndim)
-        woffs = 4.0 * t["woffs"].reshape(BK, ndim)
-        wg = shear_ops.refine_grid(
-            torch.as_tensor(t["wgrids"].reshape((BK,) + (5,) * ndim), device=dev), 4, ndim=ndim
+    with profiling.stage("batched.resample"):
+        data_t = shear_ops.shear_resample_batch(
+            slabs, coeffs(ctx, mats, offs), mats, offs, t["extents"].reshape(BK, ndim), plan,
+            float("nan"),
         )
-        bw = shear_ops.shear_resample_batch(
-            wg, coeffs(wctx, wmats, woffs), wmats, woffs, np.full((BK, ndim), 17.0, np.float32),
-            wplan, 0.0,
-        ) * keep
-        bw = bw.reshape((B, K) + tuple(out_shape))
+        data_t = torch.where(keep, data_t, torch.nan)
+        bw = None
+        if use_bw:
+            wmats = 4.0 * t["wmats"].reshape(BK, ndim, ndim)
+            woffs = 4.0 * t["woffs"].reshape(BK, ndim)
+            wg = shear_ops.refine_grid(
+                torch.as_tensor(t["wgrids"].reshape((BK,) + (5,) * ndim), device=dev), 4,
+                ndim=ndim,
+            )
+            bw = shear_ops.shear_resample_batch(
+                wg, coeffs(wctx, wmats, woffs), wmats, woffs,
+                np.full((BK, ndim), 17.0, np.float32), wplan, 0.0,
+            ) * keep
+            bw = bw.reshape((B, K) + tuple(out_shape))
     split = (B, K) + tuple(out_shape)
-    return _blend_batch(data_t.reshape(split), bw, mode, use_bw, out_dtype)
+    with profiling.stage("batched.blend"):
+        return _blend_batch(data_t.reshape(split), bw, mode, use_bw, out_dtype)
 
 
 def _untrimmed_axis_positions(plan, sdims, overlap_in_pixels):
@@ -1634,6 +1641,14 @@ def _float_views_may_hold_nan(field_sims) -> bool:
     return any(
         si_utils._is_lazy(s.data) or bool(np.isnan(s.data).any()) for s in field_sims
     )
+
+
+# what the last batched-tier call ran: its route ("exact", "gather" or
+# "shear"), the exact kernel's kind ("2d", "sepy" or "general", else None),
+# whether it read host slabs, its batches and chunks, the most views of a
+# chunk (K_max), the largest source window (S_max) and the bytes of the tile
+# stack it read on the device (0 with host slabs)
+last_batched_telemetry: dict = {}
 
 
 def _execute_fusion_plan_batched(
@@ -1696,14 +1711,15 @@ def _execute_fusion_plan_batched(
         json.dumps(shrink_distance, sort_keys=True, default=float),
     )
     if prep_key not in plan:
-        params = exact_kernel_params(
-            entries, field_sims, plan["sparams"], sdims, S_max, O_max, stack_shape,
-            use_bw, blending_widths, shrink_distance,
-        )
-        plan[prep_key] = (params, [
-            _build_exact_batch(params[i0 : i0 + batch_size], K_max, ndim, use_bw)
-            for i0 in range(0, len(entries), batch_size)
-        ])
+        with profiling.stage("batched.tables"):
+            params = exact_kernel_params(
+                entries, field_sims, plan["sparams"], sdims, S_max, O_max, stack_shape,
+                use_bw, blending_widths, shrink_distance,
+            )
+            plan[prep_key] = (params, [
+                _build_exact_batch(params[i0 : i0 + batch_size], K_max, ndim, use_bw)
+                for i0 in range(0, len(entries), batch_size)
+            ])
     params, tables = plan[prep_key]
     bundle = _plan_shear_bundle(params, S_max, O_max, use_bw) if shear else None
     if bundle is not None:
@@ -1737,6 +1753,12 @@ def _execute_fusion_plan_batched(
         tiles = _tiles_to_device(field_sims, device, keep_nan=True).to(torch.float32)
     else:
         tiles = _tiles_to_device(field_sims, device)
+    last_batched_telemetry.clear()
+    last_batched_telemetry.update(
+        route=route, kind=kind if route == "exact" else None, host_slabs=host_slabs,
+        batches=len(batches), chunks=len(entries), K_max=K_max, S_max=S_max,
+        stack_bytes=0 if host_slabs else tiles.numel() * tiles.element_size(),
+    )
     out_dtype = _torch_dtype(out.dtype)
     out_dev = torch.zeros(out.shape, dtype=out_dtype, device=device)
     untrimmed_pos = (
@@ -1784,9 +1806,10 @@ def _execute_fusion_plan_batched(
             fused = _fuse_chunk_batch_kernel_shear(
                 slabs, t, bundle, O_max, mode, use_bw, out_dtype
             )
-        for bi, entry in enumerate(batch):
-            src, dst = _chunk_regions(entry, output_stack_properties, sdims, untrimmed_pos)
-            out_dev[dst] = fused[bi][src]
+        with profiling.stage("batched.blend"):
+            for bi, entry in enumerate(batch):
+                src, dst = _chunk_regions(entry, output_stack_properties, sdims, untrimmed_pos)
+                out_dev[dst] = fused[bi][src]
     _download(out_dev, out)
 
 

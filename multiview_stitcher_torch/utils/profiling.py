@@ -14,8 +14,12 @@ wait for the fused output and its copy out) and, writing an OME-Zarr,
 ``stream.pass`` (its band loop and waits), ``stream.seed_cache`` (the tile
 stack it leaves in the device tile cache) and, on its worker threads,
 ``stream.read`` (a batch's tile reads) and ``stream.write`` (a band's write to
-the sink). Stages of one thread do not enclose one another, except that
-``register.*`` encloses what registration calls.
+the sink). The batched tier records ``batched.tables`` (its kernel tables, on
+a plan that has none yet), ``batched.resample`` (a batch's resample of its
+views' data and blending grids) and ``batched.blend`` (a batch's blend over
+the views, its cast, and the copy of its chunks into the output). Stages of
+one thread do not enclose one another, except that ``register.*`` encloses
+what registration calls.
 
 While a ``torch.profiler`` records on the calling thread, a stage is also a
 ``record_function`` range of its name, so that the trace shows the program's
