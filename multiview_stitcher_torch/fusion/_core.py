@@ -75,6 +75,7 @@ reference. The sharded output equals the unsharded one bit for bit.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import logging
@@ -716,6 +717,18 @@ _device_tile_cache = _DeviceTileCache()
 # bytes of tiles that _tiles_to_device copied to a device, over the process
 # (with the link codec on, the bytes on the wire)
 tile_upload_bytes = 0
+# what the latest copies did, under "upload" (a _tiles_to_device call that
+# missed the tile cache) and "download" (a _download): "route" ("staged"
+# where any of it went through the device's pinned staging ring, else
+# "direct"), "bytes" (of the host data), and the ring's "pieces" and "slots"
+# (0 on the direct route)
+last_copy_telemetry: dict = {}
+# bytes that went through the staging rings over the process, each way
+ring_bytes = {"upload": 0, "download": 0}
+# host threads that copy each staged piece between its slot and the host
+# arrays (numpy copies release the GIL), so that the first touch of a fresh
+# output's pages, which sets the pace of one thread, is spread over the cores
+_COPY_THREADS = max(1, min(8, os.cpu_count() or 1))
 
 
 # fusion plans of geometry-identical fuse() calls, least recent insertion
@@ -741,6 +754,167 @@ def clear_device_tile_cache() -> None:
     _streaming._upload_stash.clear()
 
 
+def _host_parts(dst: np.ndarray, src: np.ndarray, n: int) -> list:
+    """``(dst, src)`` cut into at most ``n`` pairs of blocks along their
+    first axis, or their second where the first is shorter than ``n``."""
+    axis = 1 if dst.ndim > 1 and dst.shape[0] < n else 0
+    cuts = np.linspace(0, dst.shape[axis], min(n, dst.shape[axis]) + 1).astype(np.int64)
+    at = (slice(None),) * axis
+    return [(dst[at + (slice(a, b),)], src[at + (slice(a, b),)])
+            for a, b in zip(cuts[:-1], cuts[1:]) if b > a]
+
+
+def _copy_on(stream, dst: torch.Tensor, src: torch.Tensor):
+    """``dst.copy_(src)``: queued on the CUDA side ``stream``, returning the
+    event recorded after it, or at once where ``stream`` is None."""
+    if stream is None:
+        dst.copy_(src)
+        return None
+    with torch.cuda.stream(stream):
+        dst.copy_(src, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+    return event
+
+
+def _upload_route(sims, device: torch.device, slot_bytes: int) -> str:
+    """``"staged"`` where a group of equal-shape views goes up through the
+    staging ring: in-memory numpy views of more than one slot's bytes, a row
+    (an index of their first axis) within a slot, bound for a CUDA device
+    with the link codec off; else ``"direct"``."""
+    data = [s.data for s in sims]
+    if (device.type != "cuda" or link_codec.ENABLED
+            or not all(isinstance(d, np.ndarray) and d.ndim for d in data)):
+        return "direct"
+    row = np.dtype(data[0].dtype).itemsize * int(np.prod(data[0].shape[1:]))
+    return "staged" if len(data) * data[0].shape[0] * row > slot_bytes >= row else "direct"
+
+
+def _upload_staged(sims, device: torch.device, keep_nan: bool, ring) -> tuple:
+    """The (V, *tile) stack of equal-shape in-memory views on ``device``,
+    made there and filled through ``ring`` (``_streaming._Ring``): no host
+    stack. A piece is a range of the stack's rows (an index of the views'
+    first axis, the views one after another) of at most one slot; it is
+    copied from the views into a slot on :data:`_COPY_THREADS` host
+    threads, in the first view's dtype, given ``nan_to_num`` there where it
+    is float and not ``keep_nan``, then copied into its place in the stack,
+    on a CUDA device on the upload side stream with the slot's event
+    recorded after it; a slot is filled again only after its event. The
+    compute stream waits for the side stream before it reads the stack.
+    Returns the stack and the number of pieces."""
+    data = [s.data for s in sims]
+    shape = tuple(int(x) for x in data[0].shape)
+    dtype = np.dtype(data[0].dtype)
+    Z = shape[0]
+    row = dtype.itemsize * int(np.prod(shape[1:]))
+    per = ring.slot_bytes // row
+    rows = len(data) * Z
+    nan = np.issubdtype(dtype, np.floating) and not keep_nan
+    stack = torch.empty((len(data),) + shape, dtype=_torch_dtype(dtype), device=device)
+    flat = stack.view(-1).view(torch.uint8)
+    side = None
+    if device.type == "cuda":
+        compute = torch.cuda.current_stream(device)
+        side = _streaming._side_streams(device)[0]
+        # the stack's memory is free only in the compute stream's order
+        side.wait_stream(compute)
+
+    def fill(part):
+        np.copyto(*part, casting="unsafe")
+        if nan:
+            np.nan_to_num(part[0], copy=False)
+
+    pieces = 0
+    with ring.lock, ThreadPoolExecutor(_COPY_THREADS) as pool:
+        try:
+            for r0 in range(0, rows, per):
+                r1 = min(rows, r0 + per)
+                nb = (r1 - r0) * row
+                slot, event = ring.acquire(), None
+                try:
+                    host = slot.array[:nb].view(dtype).reshape((r1 - r0,) + shape[1:])
+                    parts = []
+                    for v in range(r0 // Z, -(-r1 // Z)):
+                        a, b = max(r0, v * Z), min(r1, (v + 1) * Z)
+                        parts += _host_parts(host[a - r0:b - r0], data[v][a - v * Z:b - v * Z],
+                                             _COPY_THREADS)
+                    list(pool.map(fill, parts))
+                    event = _copy_on(side, flat[r0 * row:r1 * row], slot.tensor[:nb])
+                finally:
+                    ring.release(slot, event)
+                pieces += 1
+        finally:
+            if side is not None:
+                compute.wait_stream(side)
+    ring_bytes["upload"] += rows * row
+    return stack, pieces
+
+
+def _download_route(fused: torch.Tensor, out, slot_bytes: int) -> str:
+    """``"staged"`` where :func:`_download` goes through the staging ring:
+    a CUDA result of more than one slot's bytes with the link codec off,
+    into a writable C-contiguous host array of its shape and dtype; else
+    ``"direct"``."""
+    staged = (
+        fused.is_cuda and not link_codec.ENABLED and isinstance(out, np.ndarray)
+        and out.flags.c_contiguous and out.flags.writeable
+        and out.shape == tuple(fused.shape) and out.dtype == si_utils.numpy_dtype(fused.dtype)
+        and fused.numel() * fused.element_size() > slot_bytes
+    )
+    return "staged" if staged else "direct"
+
+
+def _download_staged(fused: torch.Tensor, out: np.ndarray, ring) -> int:
+    """Copy ``fused`` into ``out``, a C-contiguous host array of its shape
+    and dtype, through ``ring`` (``_streaming._Ring``), piece by piece of at
+    most one slot's bytes: each piece into a slot, on a CUDA device on the
+    download side stream after the compute stream's work, then, once that
+    copy's event has completed, from the slot into its range of ``out`` on
+    :data:`_COPY_THREADS` host threads while the next pieces cross. Returns,
+    with the number of pieces, when ``out`` is complete."""
+    src = fused.contiguous().view(-1).view(torch.uint8)
+    dst = out.reshape(-1).view(np.uint8)
+    side = None
+    if fused.is_cuda:
+        side = _streaming._side_streams(mesh_utils.indexed_device(fused.device))[1]
+        side.wait_stream(torch.cuda.current_stream(fused.device))
+    inflight = collections.deque()  # (slot, event, first byte) in order
+    pieces = 0
+    with ring.lock, ThreadPoolExecutor(_COPY_THREADS) as pool:
+
+        def land():
+            slot, event, b0 = inflight.popleft()
+            try:
+                if event is not None:
+                    event.synchronize()
+                n = min(ring.slot_bytes, dst.size - b0)
+                list(pool.map(lambda p: np.copyto(*p),
+                              _host_parts(dst[b0:b0 + n], slot.array[:n], _COPY_THREADS)))
+            finally:
+                ring.release(slot, event)
+
+        try:
+            for b0 in range(0, dst.size, ring.slot_bytes):
+                if len(inflight) == ring.n:
+                    land()
+                slot = ring.acquire()
+                n = min(ring.slot_bytes, dst.size - b0)
+                try:
+                    event = _copy_on(side, slot.tensor[:n], src[b0:b0 + n])
+                except BaseException:
+                    ring.release(slot)
+                    raise
+                inflight.append((slot, event, b0))
+                pieces += 1
+            while inflight:
+                land()
+        finally:
+            for slot, event, _ in inflight:
+                ring.release(slot, event)
+    ring_bytes["download"] += dst.size
+    return pieces
+
+
 @profiling.stage("tiles.upload")
 def _tiles_to_device(field_sims, device, keep_nan: bool = False) -> torch.Tensor:
     """(V, *tile) stack of the views on ``device`` in their native dtype,
@@ -755,7 +929,16 @@ def _tiles_to_device(field_sims, device, keep_nan: bool = False) -> torch.Tensor
     extents, the gather tiers read inside each view's own shape. With
     ``link_codec.ENABLED`` a group of a dtype that packs crosses through
     ``link_codec.put_packed`` at the width of its maximum (16 bits where
-    it holds negative values)."""
+    it holds negative values).
+
+    The staged route: a group of in-memory numpy views bound for a CUDA
+    device with the link codec off, of more than one slot of the device's
+    pinned staging ring (``_streaming._staging_ring``) and a row (an index
+    of the first axis) within one, is made on the device and filled
+    through the ring (:func:`_upload_staged`), with no host stack and no
+    copy from pageable memory (:func:`_upload_route` decides). Lazy views,
+    the link codec, CPU devices and groups of one slot or less take the
+    direct route above. :data:`last_copy_telemetry` says which was taken."""
     global tile_upload_bytes
     key = _DeviceTileCache.key_for(field_sims, device)
     floating = any(np.issubdtype(np.dtype(s.data.dtype), np.floating) for s in field_sims)
@@ -765,10 +948,22 @@ def _tiles_to_device(field_sims, device, keep_nan: bool = False) -> torch.Tensor
     hit = _device_tile_cache.get(key)
     if hit is not None:
         return hit
+    tele = {"route": "direct", "bytes": 0, "pieces": 0, "slots": 0}
 
     def put(sims):
         global tile_upload_bytes
+        if _upload_route(sims, torch.device(device), _streaming._RING_SLOT_BYTES) == "staged":
+            target = mesh_utils.indexed_device(device)
+            ring = _streaming._staging_ring(target)
+            dev, pieces = _upload_staged(sims, target, keep_nan, ring)
+            nbytes = dev.numel() * dev.element_size()
+            tile_upload_bytes += nbytes
+            tele.update(route="staged", bytes=tele["bytes"] + nbytes,
+                        pieces=tele["pieces"] + pieces,
+                        slots=max(tele["slots"], min(pieces, ring.n)))
+            return dev
         stack = _materialize_tiles(sims)
+        tele["bytes"] += stack.nbytes
         if np.issubdtype(stack.dtype, np.floating) and not keep_nan:
             stack = np.nan_to_num(stack)
         if not (link_codec.ENABLED and link_codec.is_packable(stack.dtype)):
@@ -801,6 +996,7 @@ def _tiles_to_device(field_sims, device, keep_nan: bool = False) -> torch.Tensor
             for slot, i in enumerate(idxs):
                 tiles[i] = _edge_pad(dev[slot], max_shape)
     _device_tile_cache.put(key, tiles, field_sims)
+    last_copy_telemetry["upload"] = tele
     return tiles
 
 
@@ -853,7 +1049,19 @@ def _download(fused: torch.Tensor, out, row0: Optional[int] = None) -> None:
     copy between devices, no download). With ``row0``, ``fused`` is the
     band of ``out`` from row ``row0`` on. With ``link_codec.ENABLED`` the
     host copies come through ``link_codec.fetch_packed``, straight into a
-    C-contiguous host array of the tensor's dtype."""
+    C-contiguous host array of the tensor's dtype.
+
+    The staged route: a CUDA result of more than one slot of the device's
+    pinned staging ring (``_streaming._staging_ring``), bound for a
+    writable C-contiguous host array of its shape and dtype (a ``row0``
+    band of one too) with the link codec off, comes down through the ring
+    (:func:`_download_staged`): no copy into pageable memory, and the
+    output's pages first touched on several host threads
+    (:func:`_download_route` decides). Sinks, device tensors, other arrays,
+    the link codec and results of one slot or less take the direct route.
+    :data:`last_copy_telemetry` says which was taken."""
+    nbytes = fused.numel() * fused.element_size()
+    last_copy_telemetry["download"] = {"route": "direct", "bytes": nbytes, "pieces": 0, "slots": 0}
     if row0 is not None:
         rows = slice(row0, row0 + fused.shape[0])
         if isinstance(out, (np.ndarray, torch.Tensor)):
@@ -861,7 +1069,12 @@ def _download(fused: torch.Tensor, out, row0: Optional[int] = None) -> None:
         else:
             out[(rows,) + (slice(None),) * (fused.dim() - 1)] = _to_host(fused)
             return
-    if isinstance(out, torch.Tensor):
+    if _download_route(fused, out, _streaming._RING_SLOT_BYTES) == "staged":
+        ring = _streaming._staging_ring(mesh_utils.indexed_device(fused.device))
+        pieces = _download_staged(fused, out, ring)
+        last_copy_telemetry["download"].update(
+            route="staged", pieces=pieces, slots=min(pieces, ring.n))
+    elif isinstance(out, torch.Tensor):
         out.copy_(fused)
     elif not isinstance(out, np.ndarray):
         out[(slice(None),) * fused.dim()] = _to_host(fused)

@@ -333,6 +333,37 @@ class _HostBuffers:
         self._free.put(slot)
 
 
+# the pinned staging ring of each CUDA device, kept across calls like the
+# side streams: _RING_SLOTS byte slots of _RING_SLOT_BYTES, through which
+# fusion._core stages its large uploads and downloads (sizes from a sweep on
+# an H100, PERF.md). It is staging memory, not a cache: no slot holds data
+# from one copy to the next
+_RING_SLOTS = 3
+_RING_SLOT_BYTES = 64 << 20
+_RINGS: dict = {}
+_RINGS_LOCK = threading.Lock()
+
+
+class _Ring(_HostBuffers):
+    """``n`` host slots of ``slot_bytes`` bytes. A staged copy holds
+    ``lock`` from its first slot to its last: it keeps several slots in
+    flight, and two copies sharing the slots could each wait for one that
+    the other holds."""
+
+    def __init__(self, n, slot_bytes, pinned):
+        super().__init__(n, (slot_bytes,), torch.uint8, pinned)
+        self.n, self.slot_bytes = n, slot_bytes
+        self.lock = threading.Lock()
+
+
+def _staging_ring(device: torch.device) -> _Ring:
+    """The pinned staging ring of ``device``, made at first use."""
+    with _RINGS_LOCK:
+        if device not in _RINGS:
+            _RINGS[device] = _Ring(_RING_SLOTS, _RING_SLOT_BYTES, pinned=True)
+        return _RINGS[device]
+
+
 def execute_streaming(
     plan,
     field_sims,
