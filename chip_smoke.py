@@ -76,16 +76,12 @@ Phases, one printed line or block each:
    monolithic output of phase 4, the multiscales metadata and every pyramid
    level checked; about 1 GB of disk, removed after the API phase. Then the
    ``link:`` lines (each with the card's name and power limit): the link
-   codec (``ops.link_codec``, off by default) on the same tiles: the host
-   half's rates, native and numpy, on one 8 MB upload batch; the torch
-   half's times on the card (CUDA events) on that batch; ``put_packed`` and
-   ``fetch_packed`` of the 537 MB stack beside one pinned copy each way; the
-   streamed north star with ``ENABLED = True`` cold and warm (wire bytes,
-   modes, wire bits a voxel, the streams' busy times, kernel 1's launches),
-   a call served from the packed upload stash (0 bytes up), the lazy zarr
-   tiles fused twice into a host array (the repeat reads no tile) beside the
-   same call without the codec, and the monolithic tier through the codec;
-   every output bit-equal to phase 4's. Then the ``cache:`` lines (each with
+   codec (``ops.link_codec``, a library that neither fusion nor registration
+   calls) on the same tiles: the host half's rates, native and numpy, on one
+   8 MB upload batch; the torch half's times on the card (CUDA events) on
+   that batch; ``put_packed`` and ``fetch_packed`` of the 537 MB stack
+   beside one pinned copy each way, each round trip bit-equal. Then the
+   ``cache:`` lines (each with
    the card's name and power limit), reuse across ``fuse()`` calls from an
    empty device tile cache: the cold streamed call that seeds the cache (the
    seeded entry's bytes) beside one with the cache's budget at 0 (the peak
@@ -655,7 +651,8 @@ EXACT_WRAPPERS = (
 
 class StageTimer:
     """Splits one fuse() call into plan, upload, kernel, blend and download
-    by wrapping the stages that fusion._core calls; the kernel wrappers stay
+    by wrapping the stages that fusion._core calls (the copies are
+    residency's); the kernel wrappers stay
     untouched, so their launch counts stay true. A stage that runs several
     times in the call (the exact-affine tier's launches and blends) sums."""
 
@@ -684,8 +681,10 @@ class StageTimer:
         return wrapped
 
     def __enter__(self):
+        from multiview_stitcher_torch import residency
+
         tcore, tf, tea = self.tcore, self.tf, self.tea
-        self._saved = (tcore._tiles_to_device, tcore._download, tcore.translation_fusion,
+        self._saved = (residency.tiles_to_device, residency.download, tcore.translation_fusion,
                        tcore._blend_batch)
         self._saved_exact = {n: getattr(tea, n) for n in EXACT_WRAPPERS}
 
@@ -703,8 +702,8 @@ class StageTimer:
             elif k["cval"] == 0 and self.kernel_call is not None and self.weights_call is None:
                 self.weights_call = (a, k)  # the weights launch that follows it
 
-        tcore._tiles_to_device = self._timed("upload", tcore._tiles_to_device, mark)
-        tcore._download = self._timed("download", tcore._download)
+        residency.tiles_to_device = self._timed("upload", residency.tiles_to_device, mark)
+        residency.download = self._timed("download", residency.download)
         tcore._blend_batch = self._timed("blend", tcore._blend_batch)
         tcore.translation_fusion = types.SimpleNamespace(
             TILE_SHAPE_2D=tf.TILE_SHAPE_2D,
@@ -718,8 +717,10 @@ class StageTimer:
         return self
 
     def __exit__(self, *exc):
+        from multiview_stitcher_torch import residency
+
         tcore = self.tcore
-        (tcore._tiles_to_device, tcore._download, tcore.translation_fusion,
+        (residency.tiles_to_device, residency.download, tcore.translation_fusion,
          tcore._blend_batch) = self._saved
         for n, fn in self._saved_exact.items():
             setattr(self.tea, n, fn)
@@ -1305,18 +1306,13 @@ def same_u16(torch, a, b) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
-def link_phase(np, torch, tcore, tf, tstream, fuse, sims, mono, streamed, lazy):
-    """Phase 5b, the link codec (``ops.link_codec``) on the 3D north star's
-    tiles: (a) the host half's rates, native and numpy, on one 8 MB upload
-    batch; (b) the torch half's times on the card on the same batch; (c)
-    ``put_packed`` / ``fetch_packed`` of the whole 537 MB tile stack beside
-    one pinned copy each way; (d) the streamed north star with the codec
-    on, cold and warm; (e) a call served from the packed upload stash; (f)
-    the lazy zarr tiles fused twice into a host array with the stash,
-    beside the call without the codec; (g) the monolithic tier with the
-    codec. Every output is held bit for bit: (d)-(f) to phase 4's streamed
-    output, (g) to its monolithic one. ``link_codec.ENABLED`` is set back
-    to False however the phase ends."""
+def link_phase(np, torch, sims):
+    """Phase 5b, the link codec (``ops.link_codec``, a library that neither
+    fusion nor registration calls) on the 3D north star's tiles: (a) the
+    host half's rates, native and numpy, on one 8 MB upload batch; (b) the
+    torch half's times on the card on the same batch; (c) ``put_packed`` /
+    ``fetch_packed`` of the whole 537 MB tile stack beside one pinned copy
+    each way. Every round trip is held bit for bit."""
     from multiview_stitcher_torch.ops import link_codec as lc
     from multiview_stitcher_torch.utils import misc
 
@@ -1436,99 +1432,6 @@ def link_phase(np, torch, tcore, tf, tstream, fuse, sims, mono, streamed, lazy):
     res["stack"] = {"mb": tile_mb, "put_s": put_s, "put": info_up, "copy_up_ms": copy_up_s * 1e3,
                     "fetch_s": fetch_s, "fetch": info_down, "copy_down_ms": copy_down_s * 1e3}
     del tiles
-
-    def streamed_call(label, data, want, **kw):
-        tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
-        t0 = time.perf_counter()
-        out = fuse(data, transform_key=KEY, **kw).data
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        tele = dict(tstream.last_telemetry)
-        launches = tf.fuse_translation_3d.launches
-        same = bool(np.array_equal(out, want))
-        r = {"wall_s": wall, "launches": launches, "bit_equal": same, **tele}
-        modes = {way: {m: tele.get(f"{way}_{m}_{unit}", 0)
-                       for m in ("delta", "delta2", "delta3")}
-                 for way, unit in (("up", "batches"), ("down", "bands"))}
-        say(f"{label}: wall {wall:.3f} s, up {tele['up_bytes'] / 1e6:.1f} MB, down "
-            f"{tele['down_bytes'] / 1e6:.1f} MB, wire {tele.get('wire_bits_per_vox')} bits/vox, "
-            f"batches {tele['batches']} (delta-family counts {modes['up']}, reused "
-            f"{tele.get('up_batches_reused_packed')} from the stash), bands {tele['bands_total']} "
-            f"({modes['down']}), stream spans ms up {tele['up_ms']} compute "
-            f"{tele['compute_ms']} down {tele['down_ms']}, fuse_translation_3d launches "
-            f"{launches}, bit-equal {same}")
-        if not same or launches != tele["bands_total"] or tf.fuse_translation_2d.launches:
-            raise AssertionError(f"link: {label} differs or launched {launches} for "
-                                 f"{tele['bands_total']} bands")
-        return r
-
-    saved = tcore.STREAM_BYTES
-    lc.ENABLED = True
-    try:
-        # (d) the streamed north star, cold and warm (the stash emptied first)
-        tcore.clear_device_tile_cache()
-        res["streamed_cold"] = streamed_call("(d) streamed 3D, codec on, cold", sims, streamed)
-        tcore.clear_device_tile_cache()
-        res["streamed_warm"] = streamed_call("(d) streamed 3D, codec on, warm", sims, streamed)
-        # (e) the next call rebuilds every batch from the packed stash
-        stash = streamed_call("(e) streamed 3D, from the packed stash", sims, streamed)
-        if stash["up_bytes"] != 0 or stash["up_batches_reused_packed"] != stash["batches"]:
-            raise AssertionError(f"link: the stash call moved {stash['up_bytes']} bytes up, "
-                                 f"{stash['up_batches_reused_packed']} of {stash['batches']} "
-                                 "batches from the stash")
-        res["streamed_stash"] = stash
-        tcore.clear_device_tile_cache()
-
-        # (f) the lazy zarr tiles into a host array: without the codec, then
-        # twice with it (the repeat from the stash reads no tile)
-        reads = []
-        materialize = tcore._materialize_tiles
-
-        def counting(*a, **k):
-            reads.append(1)
-            return materialize(*a, **k)
-
-        tcore._materialize_tiles = counting
-        try:
-            lc.ENABLED = False
-            res["lazy_plain"] = streamed_call("(f) lazy zarr tiles, codec off", lazy, streamed)
-            tcore.clear_device_tile_cache()  # the call above seeded it
-            lc.ENABLED = True
-            res["lazy_first"] = streamed_call("(f) lazy zarr tiles, codec on", lazy, streamed)
-            n_reads = len(reads)
-            res["lazy_repeat"] = streamed_call("(f) lazy zarr tiles, codec on, repeat", lazy,
-                                               streamed)
-            repeat_reads = len(reads) - n_reads
-        finally:
-            tcore._materialize_tiles = materialize
-        if repeat_reads or res["lazy_repeat"]["up_bytes"]:
-            raise AssertionError(f"link: the lazy repeat read {repeat_reads} batches")
-        say(f"(f) lazy repeat {res['lazy_repeat']['wall_s']:.3f} s against "
-            f"{res['lazy_plain']['wall_s']:.3f} s without the codec, 0 tile reads")
-        tcore.clear_device_tile_cache()
-
-        # (g) the monolithic tier: _tiles_to_device and _download through the codec
-        tcore.STREAM_BYTES = 1 << 62
-        tf.fuse_translation_3d.launches = 0
-        up0 = tcore.tile_upload_bytes
-        t0 = time.perf_counter()
-        got = fuse(sims, transform_key=KEY).data
-        torch.cuda.synchronize()
-        mono_s = time.perf_counter() - t0
-        up = tcore.tile_upload_bytes - up0
-        same = bool(np.array_equal(got, mono))
-        say(f"(g) monolithic, codec on: wall {mono_s:.3f} s, {up / 1e6:.1f} MB up on the wire, "
-            f"fuse_translation_3d launches {tf.fuse_translation_3d.launches}, bit-equal {same}")
-        if not same or tf.fuse_translation_3d.launches < 1:
-            raise AssertionError("link: the monolithic output through the codec differs")
-        res["mono"] = {"wall_s": mono_s, "up_bytes": up, "bit_equal": same}
-    finally:
-        # the device tile cache holds the stack again, as phase 4 left it
-        lc.ENABLED = False
-        tcore.STREAM_BYTES = saved
-        tstream._upload_stash.clear()
-        torch.cuda.empty_cache()
-    res["launches"] = res["streamed_warm"]["launches"]
     res["phase_s"] = time.perf_counter() - t_phase
     say(f"phase {res['phase_s']:.1f} s")
     return res
@@ -1550,6 +1453,7 @@ def cache_phase(np, torch, tcore, tf, tea, tstream, fuse, sims, mono, streamed, 
     of kernel 1 over (b)-(e)."""
     import warnings
 
+    from multiview_stitcher_torch import residency
     from multiview_stitcher_torch.io import zarr_backend
     from multiview_stitcher_torch.utils import misc
 
@@ -1557,10 +1461,10 @@ def cache_phase(np, torch, tcore, tf, tea, tstream, fuse, sims, mono, streamed, 
     say = lambda msg: log(f"{card}: cache: {msg}")  # noqa: E731
     t_phase = time.perf_counter()
     res = {}
-    key = tcore._DeviceTileCache.key_for(sims, misc.resolve_device(None))
+    key = residency.device_tile_cache.key_for(sims, misc.resolve_device(None))
     stack_bytes = sum(s.data.nbytes for s in sims)
     reads = []
-    materialize = tcore._materialize_tiles
+    materialize = residency.materialize_tiles
 
     def counting(*a, **k):
         reads.append(1)
@@ -1590,8 +1494,8 @@ def cache_phase(np, torch, tcore, tf, tea, tstream, fuse, sims, mono, streamed, 
         return (f"stream spans ms up {r['up_ms']} compute {r['compute_ms']} down "
                 f"{r['down_ms']}, fuse_translation_3d launches {r['launches']}")
 
-    saved_budget, saved_stream = tcore.TILE_CACHE_BYTES, tcore.STREAM_BYTES
-    tcore._materialize_tiles = counting
+    saved_budget, saved_stream = residency.TILE_CACHE_BYTES, tcore.STREAM_BYTES
+    residency.materialize_tiles = counting
     try:
         with warnings.catch_warnings():
             warnings.filterwarnings("error", message="device tile cache seeding failed",
@@ -1601,14 +1505,14 @@ def cache_phase(np, torch, tcore, tf, tea, tstream, fuse, sims, mono, streamed, 
             for run, budget in (("no_retention", 0), ("cold", saved_budget)):
                 tcore.clear_device_tile_cache()
                 torch.cuda.empty_cache()
-                tcore.TILE_CACHE_BYTES = budget
+                residency.TILE_CACHE_BYTES = budget
                 base = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
                 res[run] = streamed_call(f"(a) {run}", sims, streamed)
                 peaks[run] = torch.cuda.max_memory_allocated() - base
                 res[run]["peak_bytes"] = peaks[run]
-            tcore.TILE_CACHE_BYTES = saved_budget
-            seeded = tcore._device_tile_cache.get(key)
+            residency.TILE_CACHE_BYTES = saved_budget
+            seeded = residency.device_tile_cache.get(key)
             if seeded is None:
                 raise AssertionError("cache: the cold call seeded no stack")
             seeded_bytes = seeded.numel() * seeded.element_size()
@@ -1667,20 +1571,20 @@ def cache_phase(np, torch, tcore, tf, tea, tstream, fuse, sims, mono, streamed, 
                 finally:
                     tstream.STREAM_DEADLINE_S = None
                 torch.cuda.synchronize()
-                entry = tstream._upload_stash.get("entry")
-                if entry is not None:
+                entry = dict(tstream._upload_stash)
+                if entry:
                     break
             else:
                 raise AssertionError("cache: no aborted pass left an upload-resume stash")
             n_stashed = len(entry["batches"])
-            stash_bytes = sum(d.numel() * d.element_size() for d, _, _ in entry["batches"].values())
+            stash_bytes = sum(d.numel() * d.element_size() for d, _ in entry["batches"].values())
             del entry
             r = res["retry"] = streamed_call("(d) retry", sims, streamed)
             if (r["up_batches_reused"] != n_stashed or r["up_bytes"] >= res["cold"]["up_bytes"]
-                    or "entry" in tstream._upload_stash or tcore._device_tile_cache.get(key) is None):
+                    or tstream._upload_stash or residency.device_tile_cache.get(key) is None):
                 raise AssertionError(f"cache: the retry reused {r['up_batches_reused']} of "
                                      f"{n_stashed} stashed batches, stash left "
-                                     f"{'entry' in tstream._upload_stash}")
+                                     f"{bool(tstream._upload_stash)}")
             res["aborted"] = {k: partial[k] for k in ("bands_done", "bands_total", "up_bytes",
                                                       "elapsed_s", "deadline_s")}
             res["aborted"].update(stashed_batches=n_stashed, stash_bytes=stash_bytes)
@@ -1715,8 +1619,8 @@ def cache_phase(np, torch, tcore, tf, tea, tstream, fuse, sims, mono, streamed, 
                 + json.dumps({k: round(v, 3) for k, v in rep.items() if k.endswith("_ms")})
                 + f", launches {rep['launches']}, both bit-equal to phase 4 True")
     finally:
-        tcore._materialize_tiles = materialize
-        tcore.TILE_CACHE_BYTES, tcore.STREAM_BYTES = saved_budget, saved_stream
+        residency.materialize_tiles = materialize
+        residency.TILE_CACHE_BYTES, tcore.STREAM_BYTES = saved_budget, saved_stream
         tstream._upload_stash.clear()
         torch.cuda.empty_cache()
     res["launches"] = sum(res[k]["launches"] for k in ("resident", "zarr_repeat", "retry",
@@ -2396,6 +2300,8 @@ def time_grid_sample_ms(np, torch, tiles, args, kw, ndim):
 
 def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, kind):
     """Phase 7: one affine main path through fuse(), checked and timed."""
+    from multiview_stitcher_torch import residency
+
     names = {"2d": EXACT_WRAPPERS[0], "sepy": EXACT_WRAPPERS[1], "general": EXACT_WRAPPERS[2]}
     wrapper = getattr(tea, names[kind])
     plain = getattr(tea, names[kind] + "_plain")
@@ -2463,14 +2369,14 @@ def affine_main_path(np, torch, tcore, tf, tea, fuse, label, sims, chunksize, ki
         raise AssertionError(f"{label}: fused output differs from the plain-version run by {err}")
     # a repeat call reads the stack from the device tile cache: no upload,
     # the same output
-    uploaded = tcore.tile_upload_bytes
+    uploaded = residency.tile_upload_bytes
     t0 = time.perf_counter()
     again = fuse(sims, transform_key=KEY, output_chunksize=chunksize).data
     torch.cuda.synchronize()
     repeat_s = time.perf_counter() - t0
-    if tcore.tile_upload_bytes != uploaded or not np.array_equal(again, out):
+    if residency.tile_upload_bytes != uploaded or not np.array_equal(again, out):
         raise AssertionError(
-            f"{label}: the repeat fuse uploaded {tcore.tile_upload_bytes - uploaded} bytes, "
+            f"{label}: the repeat fuse uploaded {residency.tile_upload_bytes - uploaded} bytes, "
             f"output equal: {np.array_equal(again, out)}"
         )
     del again
@@ -2574,17 +2480,18 @@ class GeneralTimer(StageTimer):
     """Splits one fuse() call of the general fusion path into plan, upload,
     resample (views and blending weights), weights (the weights function),
     reduce (the blend of the builtin functions, or the fusion function) and
-    download, by wrapping the stages fusion._core calls (CUDA events, summed
-    over the call); and counts the calls of each, and of the tiers' units of
-    work (host-tier chunks, gather batches). No kernel wrapper is touched."""
+    download, by wrapping the stages fusion._core calls, its own and
+    residency's copies (CUDA events, summed over the call); and counts the
+    calls of each, and of the tiers' units of work (host-tier chunks, gather
+    batches). No kernel wrapper is touched."""
 
     STAGES = {
-        "_tiles_to_device": "upload",
+        "tiles_to_device": "upload",
         "_resample_views": "resample",
         "_resample_tiles": "resample",
         "_reduce_views": "reduce",
         "func_ignore_nan_warning": "reduce",
-        "_download": "download",
+        "download": "download",
         "_fuse_views": None,
         "_fuse_chunk_batch_kernel_gather": None,
         "_execute_fusion_plan_tiles": None,
@@ -2610,14 +2517,18 @@ class GeneralTimer(StageTimer):
         return functools.wraps(func)(self._counted("weights", func))
 
     def __enter__(self):
-        self._saved = {n: getattr(self.tcore, n) for n in self.STAGES}
-        for n, fn in self._saved.items():
-            setattr(self.tcore, n, self._counted(n, fn))
+        from multiview_stitcher_torch import residency
+
+        self._saved = {}
+        for n in self.STAGES:
+            owner = residency if hasattr(residency, n) else self.tcore
+            self._saved[n] = (owner, getattr(owner, n))
+            setattr(owner, n, self._counted(n, self._saved[n][1]))
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self._saved.items():
-            setattr(self.tcore, n, fn)
+        for n, (owner, fn) in self._saved.items():
+            setattr(owner, n, fn)
         return False
 
     def split_ms(self, t_start, t_end):
@@ -3844,6 +3755,7 @@ def stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n, tile, overlap):
     from multiview_stitcher_torch import param_resolution as tpr
     from multiview_stitcher_torch import param_utils as tpu
     from multiview_stitcher_torch import registration as treg
+    from multiview_stitcher_torch import residency
     from multiview_stitcher_torch import stitch as tstitch
 
     label = "stitch"
@@ -3894,12 +3806,12 @@ def stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n, tile, overlap):
     del cold
     # the main path's run: counts set to 0 just before, read just after
     tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
-    uploaded = tcore.tile_upload_bytes
+    uploaded = residency.tile_upload_bytes
     msims, fused, warm_s, register_s, fuse_s, g_pairs = run()
     launches = tf.fuse_translation_3d.launches
     reg_tel = dict(treg.last_telemetry)
     stream = dict(tstream.last_telemetry)
-    tile_bytes = tcore.tile_upload_bytes - uploaded
+    tile_bytes = residency.tile_upload_bytes - uploaded
     if launches < 1 or tf.fuse_translation_2d.launches:
         raise AssertionError(f"{label}: fuse_translation_3d launches {launches}, 2d "
                              f"{tf.fuse_translation_2d.launches}")
@@ -4233,6 +4145,7 @@ def slabs_phase(np, torch, tsi, tcore, tea, tf, fuse, work, shape=SLAB_SHAPE,
     output and, on a ``window`` of the output, of ``device="cpu"``; no tile
     stacked or uploaded; kernel 4 against its plain version on the fullest
     slab batch. Returns (results, the slab launches of the five wrappers)."""
+    from multiview_stitcher_torch import residency
     from multiview_stitcher_torch.io import zarr_backend
 
     label = "slabs"
@@ -4266,7 +4179,7 @@ def slabs_phase(np, torch, tsi, tcore, tea, tf, fuse, work, shape=SLAB_SHAPE,
             tsi.set_sim_affine(sim, s.transforms[KEY].data, transform_key=KEY)
             lazy.append(sim)
         write_s = time.perf_counter() - t0
-        uploaded = tcore.tile_upload_bytes
+        uploaded = residency.tile_upload_bytes
         runs = {}
         for run in ("cold", "warm"):
             tcore.clear_device_tile_cache()
@@ -4291,9 +4204,9 @@ def slabs_phase(np, torch, tsi, tcore, tea, tf, fuse, work, shape=SLAB_SHAPE,
             raise AssertionError(f"{label}: launches {launched}, expected kernel 4 only")
         tele = runs["warm"]
         if (tele["tier"], tele["route"]) != ("batched", "exact") or (
-                tcore.tile_upload_bytes != uploaded):
+                residency.tile_upload_bytes != uploaded):
             raise AssertionError(f"{label}: route {tele['tier']}/{tele['route']}, tile bytes "
-                                 f"uploaded {tcore.tile_upload_bytes - uploaded}")
+                                 f"uploaded {residency.tile_upload_bytes - uploaded}")
         top = max(int(s.data.max()) for s in sims)
         if out.dtype != np.uint16 or out.ndim != 3 or int(out.max()) > top or not out.any():
             raise AssertionError(f"{label}: output {out.shape} {out.dtype}")
@@ -4741,6 +4654,7 @@ def readers_mosaic(np, torch, tsi, tcore, tf, tstream, fuse, work, say, n=READER
     from multiview_stitcher_torch import io as tio
     from multiview_stitcher_torch import msi_utils as tmsi
     from multiview_stitcher_torch import registration as treg
+    from multiview_stitcher_torch import residency
     from multiview_stitcher_torch import stitch as tstitch
     from multiview_stitcher_torch.io import czi_utils as tczi
 
@@ -4804,7 +4718,7 @@ def readers_mosaic(np, torch, tsi, tcore, tf, tstream, fuse, work, say, n=READER
     del cold
     # this path's run: counts set to 0 just before, read just after
     tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
-    uploaded = tcore.tile_upload_bytes
+    uploaded = residency.tile_upload_bytes
     t0 = time.perf_counter()
     lazy = tio.read_mosaic_into_sims(path)
     open_s = time.perf_counter() - t0
@@ -4812,7 +4726,7 @@ def readers_mosaic(np, torch, tsi, tcore, tf, tstream, fuse, work, say, n=READER
     warm = dict(spans)
     launches = tf.fuse_translation_2d.launches
     reg_tel, stream = dict(treg.last_telemetry), dict(tstream.last_telemetry)
-    tile_bytes = tcore.tile_upload_bytes - uploaded
+    tile_bytes = residency.tile_upload_bytes - uploaded
     if launches < 1 or tf.fuse_translation_3d.launches:
         raise AssertionError(f"readers: fuse_translation_2d launches {launches}, 3d "
                              f"{tf.fuse_translation_3d.launches}")
@@ -6085,8 +5999,8 @@ def main() -> int:
     work = REPO / ".bench_large" / "chip_smoke_zarr"
     zarr, lazy3 = zarr_north_star(np, torch, tsi, tf, tstream, fuse, sims3, mono3, work)
     try:
-        # the link codec on the same tiles, in memory and lazy
-        link = link_phase(np, torch, tcore, tf, tstream, fuse, sims3, mono3, streamed3, lazy3)
+        # the link codec's round trips on the same tiles
+        link = link_phase(np, torch, sims3)
         # reuse across calls: the resident stack, seeding, the resume stash, plans
         cache = cache_phase(np, torch, tcore, tf, tea, tstream, fuse, sims3, mono3, streamed3,
                             lazy3, work)
@@ -6246,7 +6160,6 @@ def main() -> int:
         k["readers_launches"] = readers_launches[k["name"]]
         k["mesh_launches"] = mesh.launches[k["name"]]
         k["service_launches"] = service_launches[k["name"]]
-        k["link_launches"] = link["launches"] if k["name"] == "fuse_translation_3d" else 0
         k["cache_launches"] = {
             "fuse_translation_3d": cache["launches"] + r3["resident_launches"],
             "fuse_translation_2d": r2["resident_launches"],

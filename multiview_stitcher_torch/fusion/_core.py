@@ -49,7 +49,7 @@ from them on the host, pack them into slabs and upload those, a batch or a
 chunk ahead of the computation (the host-slab route, :func:`_iter_slabs`,
 counted in :data:`last_slab_telemetry`); no tile stack is made. Otherwise
 every tier reads its tile stack through the device tile cache
-(:class:`_DeviceTileCache`): a
+(``residency.device_tile_cache``): a
 repeat ``fuse()`` over the same source arrays, or a ``fuse()`` after
 ``registration.register(..., device_tiles=True)`` has uploaded them, uploads
 nothing; float views that the gather route or the host tier read with their
@@ -75,14 +75,11 @@ reference. The sharded output equals the unsharded one bit for bit.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import json
-import logging
 import os
 import time
 import warnings
-import weakref
 from concurrent.futures import ThreadPoolExecutor
 from itertools import product
 from typing import Callable, Dict, Optional, Sequence, Union
@@ -90,10 +87,10 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from multiview_stitcher_torch import msi_utils, mv_graph, param_utils, si_utils, weights
+from multiview_stitcher_torch import msi_utils, mv_graph, param_utils, residency, si_utils, weights
 from multiview_stitcher_torch.fusion import _streaming
 from multiview_stitcher_torch.io import ngff_utils, zarr_backend
-from multiview_stitcher_torch.ops import exact_affine, link_codec
+from multiview_stitcher_torch.ops import exact_affine
 from multiview_stitcher_torch.ops import resample as resample_ops
 from multiview_stitcher_torch.ops import translation_fusion
 from multiview_stitcher_torch.parallel import mesh as mesh_utils
@@ -101,8 +98,6 @@ from multiview_stitcher_torch.utils import misc as misc_utils
 from multiview_stitcher_torch.utils import profiling
 
 BoundingBox = Dict[str, Dict[str, Union[float, int]]]
-
-logger = logging.getLogger(__name__)
 
 # the translation tier streams tiles that hold more than STREAM_BYTES, and
 # tiles that are not in memory whatever their size; lazy tiles above
@@ -113,12 +108,6 @@ TILES_MAX_BYTES = 2 << 30
 # the batched and tiles tiers resample at most this many view voxels at once
 # (chunks in a batch x view slots x the largest window)
 MAX_BATCH_ELEMENTS = 2**25
-# lazy tiles are read by this many threads, each read retried this many times
-# on a transient IO error
-_READ_WORKERS = 16
-_READ_RETRIES = 2
-# the device tile cache holds at most this many bytes of tile stacks
-TILE_CACHE_BYTES = 2 << 30
 
 
 def max_fusion(transformed_views):
@@ -450,59 +439,6 @@ def tile_view_lists(offs, extents, scale_arr, out_shape, tile_shape):
     return view_idx
 
 
-def _edge_pad(view: torch.Tensor, shape) -> torch.Tensor:
-    """Pad ``view`` at its far ends to ``shape`` by repeating its last
-    row/column/plane (numpy's ``mode="edge"``), for any dtype."""
-    out = view.new_empty(shape)
-    out[tuple(slice(0, s) for s in view.shape)] = view
-    for d, (s, m) in enumerate(zip(view.shape, shape)):
-        if m > s:
-            src = [slice(None)] * len(shape)
-            dst = [slice(None)] * len(shape)
-            src[d], dst[d] = slice(s - 1, s), slice(s, m)
-            out[tuple(dst)] = out[tuple(src)]
-    return out
-
-
-def _read_retrying(read, label):
-    """``read()``, retried up to ``_READ_RETRIES`` times, after a short
-    backoff, on a transient IO error; any other error surfaces at once."""
-    for attempt in range(_READ_RETRIES + 1):
-        try:
-            return read()
-        except (OSError, TimeoutError) as e:
-            if attempt == _READ_RETRIES:
-                raise
-            logger.warning(
-                "lazy %s read failed (%s: %s), retry %d/%d",
-                label, type(e).__name__, e, attempt + 1, _READ_RETRIES,
-            )
-            time.sleep(0.2 * 2**attempt)
-
-
-def _materialize_tiles(field_sims, out=None) -> np.ndarray:
-    """(V, *tile) array of equal-shape tiles (into ``out`` when given).
-    Lazy tiles are read in parallel by a thread pool (file reads release the
-    GIL; one at a time, 1000 small tiles pay each read's latency), each read
-    through :func:`_read_retrying`."""
-    V = len(field_sims)
-    if out is None:
-        shape = tuple(field_sims[0].data.shape)
-        out = np.empty((V,) + shape, dtype=np.dtype(field_sims[0].data.dtype))
-    lazy = [si_utils._is_lazy(s.data) for s in field_sims]
-    if not any(lazy):
-        for i, s in enumerate(field_sims):
-            out[i] = s.data
-        return out
-
-    def fetch(i):
-        out[i] = _read_retrying(lambda: np.asarray(field_sims[i].data), f"tile {i}")
-
-    with ThreadPoolExecutor(max_workers=min(_READ_WORKERS, V)) as ex:
-        list(ex.map(fetch, range(V)))
-    return out
-
-
 # what the most recent run of the host-slab route did: the tier and route,
 # units (batches or chunks), windows and their bytes read, bytes uploaded,
 # tile bytes of the views, the seconds spent reading windows and packing
@@ -524,11 +460,6 @@ def _pad_beyond(slab, extent, value=None) -> None:
             slab[tuple(dst)] = slab[tuple(src)] if value is None else value
 
 
-# unsigned dtypes whose copies run on their signed twins' bits (not every
-# device copies them)
-_SIGNED_TWIN = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
-
-
 def _iter_slabs(units, field_sims, dtype, pad, device):
     """The host-slab route's reads and uploads: for each unit, a ``(shape,
     windows)`` pair whose windows are ``(position, iview, starts, stops)``,
@@ -541,24 +472,25 @@ def _iter_slabs(units, field_sims, dtype, pad, device):
 
     A reader thread reads the next unit while the caller computes on this
     one: the windows of a unit, each cut into pieces along its first axis,
-    are read by ``_READ_WORKERS`` threads (:func:`_read_retrying`) into one
-    host buffer, pinned on a CUDA device, one window after another with no
-    padding; the buffer is uploaded on a stream of its own, where each
-    window is copied into its place in the slab and padded, and the slab is
-    handed to the caller's stream through an event. A buffer is refilled
+    are read by ``residency.READ_WORKERS`` threads
+    (``residency.read_retrying``) into one host buffer, pinned on a CUDA
+    device, one window after another with no padding; the buffer is
+    uploaded on a stream of its own, where each window is copied into its
+    place in the slab and padded, and the slab is handed to the caller's
+    stream through an event. A buffer is refilled
     only after its upload has completed. Nothing reads more than a window,
     nothing but the windows crosses to the device, and the tiles are never
     stacked. Counts go to :data:`last_slab_telemetry`."""
     if not units:
         return
     cuda = device.type == "cuda"
-    tdtype = _torch_dtype(dtype)
+    tdtype = residency.torch_dtype(dtype)
 
     def extent(window):
         return [int(b) - int(a) for a, b in zip(window[2], window[3])]
 
     cap = max(sum(int(np.prod(extent(w))) for w in windows) for _, windows in units)
-    bufs = _streaming._HostBuffers(3, (cap,), tdtype, cuda)
+    bufs = residency.HostBuffers(3, (cap,), tdtype, cuda)
     tele = last_slab_telemetry
     if cuda:
         compute = torch.cuda.current_stream(device)
@@ -568,7 +500,7 @@ def _iter_slabs(units, field_sims, dtype, pad, device):
         """Each window's read cut along its first axis, at multiples of the
         array's chunks where it has them, into enough pieces for every
         reader (a batch of few views would leave most of them idle)."""
-        per = max(1, -(-_READ_WORKERS // len(windows)))
+        per = max(1, -(-residency.READ_WORKERS // len(windows)))
         out = []
         for (pos, iview, starts, stops), off in zip(windows, offsets):
             a, b = int(starts[0]), int(stops[0])
@@ -586,11 +518,12 @@ def _iter_slabs(units, field_sims, dtype, pad, device):
         sl = tuple(slice(int(a), int(b)) for a, b in zip(starts, stops))
         data = field_sims[iview].data
         dest = flat[off:off + int(np.prod(ext))].reshape(ext)[at:at + int(stops[0] - starts[0])]
+        label = f"window of view {iview}"
         if isinstance(data, zarr_backend.LazyZarrArray):
             # straight from the chunk files into the host buffer
-            _read_retrying(lambda: data[sl].read(out=dest), f"window of view {iview}")
+            residency.read_retrying(lambda: data[sl].read(out=dest), label)
         else:
-            dest[...] = _read_retrying(lambda: np.asarray(data[sl]), f"window of view {iview}")
+            dest[...] = residency.read_retrying(lambda: np.asarray(data[sl]), label)
         return dest.nbytes
 
     def load(unit, pool):
@@ -614,8 +547,7 @@ def _iter_slabs(units, field_sims, dtype, pad, device):
             slab = torch.empty(shape, dtype=tdtype, device=device)
             if pad == "nan":
                 slab.fill_(float("nan"))
-            bits = _SIGNED_TWIN.get(tdtype)
-            dst, src = (slab, packed) if bits is None else (slab.view(bits), packed.view(bits))
+            dst, src = residency.signed_bits(slab), residency.signed_bits(packed)
             for w, off in zip(windows, offsets):
                 ext = extent(w)
                 region = dst[w[0]][tuple(slice(0, e) for e in ext)]
@@ -633,7 +565,7 @@ def _iter_slabs(units, field_sims, dtype, pad, device):
         tele["units"] += 1
         return slab, done if cuda else None
 
-    with ThreadPoolExecutor(_READ_WORKERS) as pool, ThreadPoolExecutor(1) as loader:
+    with ThreadPoolExecutor(residency.READ_WORKERS) as pool, ThreadPoolExecutor(1) as loader:
         fut = loader.submit(load, units[0], pool)
         for i in range(len(units)):
             dev, done = fut.result()
@@ -653,84 +585,6 @@ def _slab_telemetry_start(tier, route, field_sims) -> None:
     )
 
 
-class _DeviceTileCache:
-    """LRU cache of tile stacks resident on a device, keyed on their source
-    arrays, within :data:`TILE_CACHE_BYTES`.
-
-    In-memory tiles are keyed by the identity of each source numpy array
-    with its address, shape, dtype and a sample of its content (so that an
-    array changed in place misses); lazy zarr tiles by their array's path
-    and selection. An entry dies with any of its in-memory source arrays
-    (the cache holds them weakly), so an id is never reused under a live
-    entry and the cache keeps no tiles of sims that are gone."""
-
-    def __init__(self):
-        self._entries: dict = {}  # key -> (tiles, bytes), least recent first
-
-    @staticmethod
-    def _fingerprint(arr: np.ndarray) -> int:
-        flat = arr.reshape(-1)
-        step = max(1, flat.size // 4096)
-        return hash(flat[::step].tobytes())
-
-    @staticmethod
-    def key_for(field_sims, device):
-        """The cache key of these views' stack on ``device``; None where a
-        source cannot be identified (it is then not cached)."""
-        parts = [str(mesh_utils.indexed_device(device))]
-        for s in field_sims:
-            data = s.data
-            if isinstance(data, np.ndarray):
-                parts.append(("np", id(data), data.__array_interface__["data"][0],
-                              data.shape, str(data.dtype), _DeviceTileCache._fingerprint(data)))
-            elif isinstance(data, zarr_backend.LazyZarrArray):
-                parts.append(("zarr", str(data._array.path), data._sel, str(data.dtype)))
-            else:
-                return None
-        return tuple(parts)
-
-    def budget(self) -> int:
-        return TILE_CACHE_BYTES
-
-    def get(self, key):
-        if key is None or key not in self._entries:
-            return None
-        self._entries[key] = self._entries.pop(key)
-        return self._entries[key][0]
-
-    def put(self, key, tiles: torch.Tensor, field_sims) -> None:
-        nbytes = tiles.numel() * tiles.element_size()
-        if key is None or nbytes > self.budget():
-            return
-        while self._entries and sum(b for _, b in self._entries.values()) + nbytes > self.budget():
-            self._entries.pop(next(iter(self._entries)))
-        self._entries[key] = (tiles, nbytes)
-        for s in field_sims:
-            if isinstance(s.data, np.ndarray):
-                weakref.finalize(s.data, self._entries.pop, key, None)
-
-    def clear(self) -> None:
-        self._entries.clear()
-
-
-_device_tile_cache = _DeviceTileCache()
-# bytes of tiles that _tiles_to_device copied to a device, over the process
-# (with the link codec on, the bytes on the wire)
-tile_upload_bytes = 0
-# what the latest copies did, under "upload" (a _tiles_to_device call that
-# missed the tile cache) and "download" (a _download): "route" ("staged"
-# where any of it went through the device's pinned staging ring, else
-# "direct"), "bytes" (of the host data), and the ring's "pieces" and "slots"
-# (0 on the direct route)
-last_copy_telemetry: dict = {}
-# bytes that went through the staging rings over the process, each way
-ring_bytes = {"upload": 0, "download": 0}
-# host threads that copy each staged piece between its slot and the host
-# arrays (numpy copies release the GIL), so that the first touch of a fresh
-# output's pages, which sets the pace of one thread, is spread over the cores
-_COPY_THREADS = max(1, min(8, os.cpu_count() or 1))
-
-
 # fusion plans of geometry-identical fuse() calls, least recent insertion
 # first: each holds the views' parameter matrices ("sparams"), the chunk plan
 # once a chunked tier asked for it, and the host tables a tier prepared from
@@ -747,263 +601,10 @@ def _plan_cache_insert(key, plan) -> None:
 
 def clear_device_tile_cache() -> None:
     """Drop every tile stack the device tile cache holds, the streaming
-    tier's upload-resume and packed upload stashes, and the cached fusion
-    plans."""
-    _device_tile_cache.clear()
+    tier's upload-resume stash, and the cached fusion plans."""
+    residency.device_tile_cache.clear()
     _plan_cache.clear()
     _streaming._upload_stash.clear()
-
-
-def _host_parts(dst: np.ndarray, src: np.ndarray, n: int) -> list:
-    """``(dst, src)`` cut into at most ``n`` pairs of blocks along their
-    first axis, or their second where the first is shorter than ``n``."""
-    axis = 1 if dst.ndim > 1 and dst.shape[0] < n else 0
-    cuts = np.linspace(0, dst.shape[axis], min(n, dst.shape[axis]) + 1).astype(np.int64)
-    at = (slice(None),) * axis
-    return [(dst[at + (slice(a, b),)], src[at + (slice(a, b),)])
-            for a, b in zip(cuts[:-1], cuts[1:]) if b > a]
-
-
-def _copy_on(stream, dst: torch.Tensor, src: torch.Tensor):
-    """``dst.copy_(src)``: queued on the CUDA side ``stream``, returning the
-    event recorded after it, or at once where ``stream`` is None."""
-    if stream is None:
-        dst.copy_(src)
-        return None
-    with torch.cuda.stream(stream):
-        dst.copy_(src, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-    return event
-
-
-def _upload_route(sims, device: torch.device, slot_bytes: int) -> str:
-    """``"staged"`` where a group of equal-shape views goes up through the
-    staging ring: in-memory numpy views of more than one slot's bytes, a row
-    (an index of their first axis) within a slot, bound for a CUDA device
-    with the link codec off; else ``"direct"``."""
-    data = [s.data for s in sims]
-    if (device.type != "cuda" or link_codec.ENABLED
-            or not all(isinstance(d, np.ndarray) and d.ndim for d in data)):
-        return "direct"
-    row = np.dtype(data[0].dtype).itemsize * int(np.prod(data[0].shape[1:]))
-    return "staged" if len(data) * data[0].shape[0] * row > slot_bytes >= row else "direct"
-
-
-def _upload_staged(sims, device: torch.device, keep_nan: bool, ring) -> tuple:
-    """The (V, *tile) stack of equal-shape in-memory views on ``device``,
-    made there and filled through ``ring`` (``_streaming._Ring``): no host
-    stack. A piece is a range of the stack's rows (an index of the views'
-    first axis, the views one after another) of at most one slot; it is
-    copied from the views into a slot on :data:`_COPY_THREADS` host
-    threads, in the first view's dtype, given ``nan_to_num`` there where it
-    is float and not ``keep_nan``, then copied into its place in the stack,
-    on a CUDA device on the upload side stream with the slot's event
-    recorded after it; a slot is filled again only after its event. The
-    compute stream waits for the side stream before it reads the stack.
-    Returns the stack and the number of pieces."""
-    data = [s.data for s in sims]
-    shape = tuple(int(x) for x in data[0].shape)
-    dtype = np.dtype(data[0].dtype)
-    Z = shape[0]
-    row = dtype.itemsize * int(np.prod(shape[1:]))
-    per = ring.slot_bytes // row
-    rows = len(data) * Z
-    nan = np.issubdtype(dtype, np.floating) and not keep_nan
-    stack = torch.empty((len(data),) + shape, dtype=_torch_dtype(dtype), device=device)
-    flat = stack.view(-1).view(torch.uint8)
-    side = None
-    if device.type == "cuda":
-        compute = torch.cuda.current_stream(device)
-        side = _streaming._side_streams(device)[0]
-        # the stack's memory is free only in the compute stream's order
-        side.wait_stream(compute)
-
-    def fill(part):
-        np.copyto(*part, casting="unsafe")
-        if nan:
-            np.nan_to_num(part[0], copy=False)
-
-    pieces = 0
-    with ring.lock, ThreadPoolExecutor(_COPY_THREADS) as pool:
-        try:
-            for r0 in range(0, rows, per):
-                r1 = min(rows, r0 + per)
-                nb = (r1 - r0) * row
-                slot, event = ring.acquire(), None
-                try:
-                    host = slot.array[:nb].view(dtype).reshape((r1 - r0,) + shape[1:])
-                    parts = []
-                    for v in range(r0 // Z, -(-r1 // Z)):
-                        a, b = max(r0, v * Z), min(r1, (v + 1) * Z)
-                        parts += _host_parts(host[a - r0:b - r0], data[v][a - v * Z:b - v * Z],
-                                             _COPY_THREADS)
-                    list(pool.map(fill, parts))
-                    event = _copy_on(side, flat[r0 * row:r1 * row], slot.tensor[:nb])
-                finally:
-                    ring.release(slot, event)
-                pieces += 1
-        finally:
-            if side is not None:
-                compute.wait_stream(side)
-    ring_bytes["upload"] += rows * row
-    return stack, pieces
-
-
-def _download_route(fused: torch.Tensor, out, slot_bytes: int) -> str:
-    """``"staged"`` where :func:`_download` goes through the staging ring:
-    a CUDA result of more than one slot's bytes with the link codec off,
-    into a writable C-contiguous host array of its shape and dtype; else
-    ``"direct"``."""
-    staged = (
-        fused.is_cuda and not link_codec.ENABLED and isinstance(out, np.ndarray)
-        and out.flags.c_contiguous and out.flags.writeable
-        and out.shape == tuple(fused.shape) and out.dtype == si_utils.numpy_dtype(fused.dtype)
-        and fused.numel() * fused.element_size() > slot_bytes
-    )
-    return "staged" if staged else "direct"
-
-
-def _download_staged(fused: torch.Tensor, out: np.ndarray, ring) -> int:
-    """Copy ``fused`` into ``out``, a C-contiguous host array of its shape
-    and dtype, through ``ring`` (``_streaming._Ring``), piece by piece of at
-    most one slot's bytes: each piece into a slot, on a CUDA device on the
-    download side stream after the compute stream's work, then, once that
-    copy's event has completed, from the slot into its range of ``out`` on
-    :data:`_COPY_THREADS` host threads while the next pieces cross. Returns,
-    with the number of pieces, when ``out`` is complete."""
-    src = fused.contiguous().view(-1).view(torch.uint8)
-    dst = out.reshape(-1).view(np.uint8)
-    side = None
-    if fused.is_cuda:
-        side = _streaming._side_streams(mesh_utils.indexed_device(fused.device))[1]
-        side.wait_stream(torch.cuda.current_stream(fused.device))
-    inflight = collections.deque()  # (slot, event, first byte) in order
-    pieces = 0
-    with ring.lock, ThreadPoolExecutor(_COPY_THREADS) as pool:
-
-        def land():
-            slot, event, b0 = inflight.popleft()
-            try:
-                if event is not None:
-                    event.synchronize()
-                n = min(ring.slot_bytes, dst.size - b0)
-                list(pool.map(lambda p: np.copyto(*p),
-                              _host_parts(dst[b0:b0 + n], slot.array[:n], _COPY_THREADS)))
-            finally:
-                ring.release(slot, event)
-
-        try:
-            for b0 in range(0, dst.size, ring.slot_bytes):
-                if len(inflight) == ring.n:
-                    land()
-                slot = ring.acquire()
-                n = min(ring.slot_bytes, dst.size - b0)
-                try:
-                    event = _copy_on(side, slot.tensor[:n], src[b0:b0 + n])
-                except BaseException:
-                    ring.release(slot)
-                    raise
-                inflight.append((slot, event, b0))
-                pieces += 1
-            while inflight:
-                land()
-        finally:
-            for slot, event, _ in inflight:
-                ring.release(slot, event)
-    ring_bytes["download"] += dst.size
-    return pieces
-
-
-@profiling.stage("tiles.upload")
-def _tiles_to_device(field_sims, device, keep_nan: bool = False) -> torch.Tensor:
-    """(V, *tile) stack of the views on ``device`` in their native dtype,
-    from the device tile cache when it holds them, else uploaded and cached.
-
-    Lazy tiles are read first (:func:`_materialize_tiles`); float tiles get
-    ``nan_to_num`` before the upload, unless ``keep_nan`` (the gather tiers,
-    where NaN marks invalid pixels; a float stack with NaN kept is cached
-    apart, an integer stack is the same either way). Mixed tile shapes are
-    uploaded as they are, one group per shape, and edge-padded on the device
-    to the common maximum shape; the kernels mask each view by its true
-    extents, the gather tiers read inside each view's own shape. With
-    ``link_codec.ENABLED`` a group of a dtype that packs crosses through
-    ``link_codec.put_packed`` at the width of its maximum (16 bits where
-    it holds negative values).
-
-    The staged route: a group of in-memory numpy views bound for a CUDA
-    device with the link codec off, of more than one slot of the device's
-    pinned staging ring (``_streaming._staging_ring``) and a row (an index
-    of the first axis) within one, is made on the device and filled
-    through the ring (:func:`_upload_staged`), with no host stack and no
-    copy from pageable memory (:func:`_upload_route` decides). Lazy views,
-    the link codec, CPU devices and groups of one slot or less take the
-    direct route above. :data:`last_copy_telemetry` says which was taken."""
-    global tile_upload_bytes
-    key = _DeviceTileCache.key_for(field_sims, device)
-    floating = any(np.issubdtype(np.dtype(s.data.dtype), np.floating) for s in field_sims)
-    if key is not None and keep_nan and floating:
-        # only float stacks differ with NaN kept; integer ones share the entry
-        key = key + ("keep_nan",)
-    hit = _device_tile_cache.get(key)
-    if hit is not None:
-        return hit
-    tele = {"route": "direct", "bytes": 0, "pieces": 0, "slots": 0}
-
-    def put(sims):
-        global tile_upload_bytes
-        if _upload_route(sims, torch.device(device), _streaming._RING_SLOT_BYTES) == "staged":
-            target = mesh_utils.indexed_device(device)
-            ring = _streaming._staging_ring(target)
-            dev, pieces = _upload_staged(sims, target, keep_nan, ring)
-            nbytes = dev.numel() * dev.element_size()
-            tile_upload_bytes += nbytes
-            tele.update(route="staged", bytes=tele["bytes"] + nbytes,
-                        pieces=tele["pieces"] + pieces,
-                        slots=max(tele["slots"], min(pieces, ring.n)))
-            return dev
-        stack = _materialize_tiles(sims)
-        tele["bytes"] += stack.nbytes
-        if np.issubdtype(stack.dtype, np.floating) and not keep_nan:
-            stack = np.nan_to_num(stack)
-        if not (link_codec.ENABLED and link_codec.is_packable(stack.dtype)):
-            tile_upload_bytes += stack.nbytes
-            return torch.from_numpy(stack).to(device)
-        negative = np.issubdtype(stack.dtype, np.signedinteger) and int(stack.min()) < 0
-        info = {}
-        dev = link_codec.put_packed(
-            stack, nbits=16 if negative else link_codec.nbits_for_max(int(stack.max(initial=0))),
-            info=info, device=device,
-        )
-        tile_upload_bytes += info["bytes"]
-        return dev
-
-    shapes = [tuple(int(x) for x in s.data.shape) for s in field_sims]
-    if len(set(shapes)) == 1:
-        tiles = put(field_sims)
-    else:
-        max_shape = tuple(max(s[i] for s in shapes) for i in range(len(shapes[0])))
-        groups: dict = {}
-        for i, shp in enumerate(shapes):
-            groups.setdefault(shp, []).append(i)
-        tiles = None
-        for idxs in groups.values():
-            dev = put([field_sims[i] for i in idxs])
-            if tiles is None:
-                tiles = torch.empty(
-                    (len(field_sims),) + max_shape, dtype=dev.dtype, device=dev.device
-                )
-            for slot, i in enumerate(idxs):
-                tiles[i] = _edge_pad(dev[slot], max_shape)
-    _device_tile_cache.put(key, tiles, field_sims)
-    last_copy_telemetry["upload"] = tele
-    return tiles
-
-
-def _torch_dtype(dtype) -> torch.dtype:
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
 class _PrefixedSink:
@@ -1032,61 +633,6 @@ class _PrefixedSink:
         if not isinstance(slices, tuple):
             slices = (slices,)
         self.array[self.prefix + slices] = value
-
-
-def _to_host(fused: torch.Tensor) -> np.ndarray:
-    """``fused`` as a host array: through ``link_codec.fetch_packed`` with
-    the link codec on."""
-    if link_codec.ENABLED:
-        return link_codec.fetch_packed(fused)
-    return fused.cpu().numpy()
-
-
-@profiling.stage("fuse.download")
-def _download(fused: torch.Tensor, out, row0: Optional[int] = None) -> None:
-    """Copy the fused output into ``out``: a host array, a sink written by
-    regions (:class:`_PrefixedSink`), or a tensor on a device (which takes a
-    copy between devices, no download). With ``row0``, ``fused`` is the
-    band of ``out`` from row ``row0`` on. With ``link_codec.ENABLED`` the
-    host copies come through ``link_codec.fetch_packed``, straight into a
-    C-contiguous host array of the tensor's dtype.
-
-    The staged route: a CUDA result of more than one slot of the device's
-    pinned staging ring (``_streaming._staging_ring``), bound for a
-    writable C-contiguous host array of its shape and dtype (a ``row0``
-    band of one too) with the link codec off, comes down through the ring
-    (:func:`_download_staged`): no copy into pageable memory, and the
-    output's pages first touched on several host threads
-    (:func:`_download_route` decides). Sinks, device tensors, other arrays,
-    the link codec and results of one slot or less take the direct route.
-    :data:`last_copy_telemetry` says which was taken."""
-    nbytes = fused.numel() * fused.element_size()
-    last_copy_telemetry["download"] = {"route": "direct", "bytes": nbytes, "pieces": 0, "slots": 0}
-    if row0 is not None:
-        rows = slice(row0, row0 + fused.shape[0])
-        if isinstance(out, (np.ndarray, torch.Tensor)):
-            out = out[rows]
-        else:
-            out[(rows,) + (slice(None),) * (fused.dim() - 1)] = _to_host(fused)
-            return
-    if _download_route(fused, out, _streaming._RING_SLOT_BYTES) == "staged":
-        ring = _streaming._staging_ring(mesh_utils.indexed_device(fused.device))
-        pieces = _download_staged(fused, out, ring)
-        last_copy_telemetry["download"].update(
-            route="staged", pieces=pieces, slots=min(pieces, ring.n))
-    elif isinstance(out, torch.Tensor):
-        out.copy_(fused)
-    elif not isinstance(out, np.ndarray):
-        out[(slice(None),) * fused.dim()] = _to_host(fused)
-    elif link_codec.ENABLED:
-        if out.flags.c_contiguous and out.dtype == si_utils.numpy_dtype(fused.dtype):
-            link_codec.fetch_packed(fused, out=out)
-        else:
-            out[...] = link_codec.fetch_packed(fused)
-    elif out.flags.c_contiguous:
-        torch.from_numpy(out).copy_(fused)
-    else:
-        out[...] = fused.cpu().numpy()
 
 
 def _kernel_tile_shape(ndim, out_shape) -> tuple:
@@ -1159,12 +705,12 @@ def _execute_fusion_plan_translation(
     if ndim == 3:
         kscale = (int(np.ceil(scale[0])),) + tuple(scale[1:])
     kw = dict(
-        tile_shape=tile_shape, K=view_idx.shape[-1], out_dtype=_torch_dtype(out.dtype),
+        tile_shape=tile_shape, K=view_idx.shape[-1], out_dtype=residency.torch_dtype(out.dtype),
         scale=kscale, scales=None if scales is None else np.asarray(scales, np.float32),
     )
     if not mesh_utils.is_sharded(mesh):
-        tiles = _tiles_to_device(field_sims, device)
-        _download(fuse_fn(tiles, view_idx, *tables, out_shape=out_shape, **kw), out)
+        tiles = residency.tiles_to_device(field_sims, device)
+        residency.download(fuse_fn(tiles, view_idx, *tables, out_shape=out_shape, **kw), out)
         return
     n_t0 = view_idx.shape[0]
     pad = (-n_t0) % mesh.size
@@ -1173,7 +719,7 @@ def _execute_fusion_plan_translation(
     )
     b_t0 = (n_t0 + pad) // mesh.size
     rows = b_t0 * tile_shape[0]
-    replicas = {d: _tiles_to_device(field_sims, d) for d in mesh.distinct_devices}
+    replicas = {d: residency.tiles_to_device(field_sims, d) for d in mesh.distinct_devices}
     bands = [
         fuse_fn(
             replicas[d], view_idx[k * b_t0:(k + 1) * b_t0], *tables,
@@ -1184,7 +730,7 @@ def _execute_fusion_plan_translation(
     for k, band in enumerate(bands):
         n = min(rows, out_shape[0] - k * rows)
         if n > 0:
-            _download(band[:n], out, row0=k * rows)
+            residency.download(band[:n], out, row0=k * rows)
 
 
 def _fuse_translation_views(
@@ -1957,22 +1503,22 @@ def _execute_fusion_plan_batched(
         ]
         sources = _iter_slabs(units, field_sims, dtype, pad, device)
     elif route == "exact":
-        tiles = _tiles_to_device(field_sims, device)
+        tiles = residency.tiles_to_device(field_sims, device)
         if tiles.is_cuda:
             # read as float32 once for all launches where the kernels do not
             # read the dtype (the wrappers would cast it at every launch)
             tiles = exact_affine.kernel_input(tiles)
     elif route == "gather":
-        tiles = _tiles_to_device(field_sims, device, keep_nan=True).to(torch.float32)
+        tiles = residency.tiles_to_device(field_sims, device, keep_nan=True).to(torch.float32)
     else:
-        tiles = _tiles_to_device(field_sims, device)
+        tiles = residency.tiles_to_device(field_sims, device)
     last_batched_telemetry.clear()
     last_batched_telemetry.update(
         route=route, kind=kind if route == "exact" else None, host_slabs=host_slabs,
         batches=len(batches), chunks=len(entries), K_max=K_max, S_max=S_max,
         stack_bytes=0 if host_slabs else tiles.numel() * tiles.element_size(),
     )
-    out_dtype = _torch_dtype(out.dtype)
+    out_dtype = residency.torch_dtype(out.dtype)
     out_dev = torch.zeros(out.shape, dtype=out_dtype, device=device)
     untrimmed_pos = (
         _untrimmed_axis_positions(plan, sdims, overlap_in_pixels)
@@ -2023,7 +1569,7 @@ def _execute_fusion_plan_batched(
             for bi, entry in enumerate(batch):
                 src, dst = _chunk_regions(entry, output_stack_properties, sdims, untrimmed_pos)
                 out_dev[dst] = fused[bi][src]
-    _download(out_dev, out)
+    residency.download(out_dev, out)
 
 
 # ---------------------------------------------------------------------------
@@ -2155,14 +1701,14 @@ def _execute_fusion_plan_tiles(
         )
     view_idx, diags, offs, wgrids, wdiags, woffs, valid = plan[prep_key]
 
-    out_dtype = _torch_dtype(out.dtype)
+    out_dtype = residency.torch_dtype(out.dtype)
     out_device = mesh_utils.indexed_device(device)
     parts = (
         mesh_utils.shard_parts(C, mesh) if mesh_utils.is_sharded(mesh)
         else [(slice(0, C), out_device)]
     )
     replicas = {
-        d: _tiles_to_device(field_sims, d).to(torch.float32) for d in dict.fromkeys(
+        d: residency.tiles_to_device(field_sims, d).to(torch.float32) for d in dict.fromkeys(
             d for _, d in parts
         )
     }
@@ -2186,7 +1732,7 @@ def _execute_fusion_plan_tiles(
             for bi, entry in enumerate(entries[sl]):
                 src, dst = _chunk_regions(entry, output_stack_properties, sdims, None)
                 out_dev[dst] = fused[bi][src]
-    _download(out_dev, out)
+    residency.download(out_dev, out)
 
 
 # ---------------------------------------------------------------------------
@@ -2347,7 +1893,7 @@ def fuse_np(
         fusion_func=fusion_func, fusion_func_kwargs=fusion_func_kwargs,
         weights_func=weights_func, weights_func_kwargs=weights_func_kwargs,
         trim_overlap_in_pixels=trim_overlap_in_pixels, blending_widths=blending_widths,
-        shrink_distance=shrink_distance, out_dtype=_torch_dtype(sims[0].data.dtype),
+        shrink_distance=shrink_distance, out_dtype=residency.torch_dtype(sims[0].data.dtype),
     )
     return fused.cpu().numpy()
 
@@ -2402,8 +1948,8 @@ def _execute_fusion_plan_host(
             device,
         )
     else:
-        stack = _tiles_to_device(field_sims, device, keep_nan=True).to(torch.float32)
-    out_dtype = _torch_dtype(out.dtype)
+        stack = residency.tiles_to_device(field_sims, device, keep_nan=True).to(torch.float32)
+    out_dtype = residency.torch_dtype(out.dtype)
     out_dev = torch.zeros(out.shape, dtype=out_dtype, device=device)
     untrimmed = _untrimmed(trim_overlap, overlap_in_pixels, sdims)
     untrimmed_pos = (
@@ -2435,7 +1981,7 @@ def _execute_fusion_plan_host(
             # the window is trimmed to the chunk already
             _, dst = _chunk_regions(entry, output_stack_properties, sdims, None)
         out_dev[dst] = fused
-    _download(out_dev, out)
+    residency.download(out_dev, out)
 
 
 # ---------------------------------------------------------------------------
@@ -2767,7 +2313,8 @@ def fuse(
     out_dtype = np.dtype(sims_in[0].dtype)
     ome_zarr = zarr_options.get("ome_zarr", True)
     if output_zarr_url is None and output_on_backend:
-        output_array = torch.zeros(out_full_shape, dtype=_torch_dtype(out_dtype), device=device)
+        output_array = torch.zeros(out_full_shape, dtype=residency.torch_dtype(out_dtype),
+                                   device=device)
     elif output_zarr_url is None:
         output_array = np.zeros(out_full_shape, dtype=out_dtype)
     else:

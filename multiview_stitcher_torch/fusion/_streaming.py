@@ -29,17 +29,8 @@ The band plan is the reference's exactly (:func:`plan_bands`), and each band
 is fused by one kernel call with an integer ``origin``, so a band is bitwise
 what the monolithic call computes for its rows.
 
-With ``ops.link_codec.ENABLED`` set, each upload batch crosses as packed bands
-(``link_codec.put_packed``, its width from the batch's maximum, the delta
-candidates where :data:`STREAM_DELTA` allows and the data is not negative),
-each fused band comes down the same way (``link_codec.fetch_packed``, its width
-from the largest batch maximum seen so far), and the telemetry counts wire
-bytes and the modes shipped. A pass then also keeps each upload's packed
-device buffers in the packed upload stash, within :data:`UPLOAD_STASH_BYTES`:
-a later pass over the same inputs and batch layout rebuilds every batch from
-it on the device (``link_codec.reassemble_packed``) and reads and uploads no
-tile. The stash entry dies with the in-memory source arrays and with
-``fusion._core.clear_device_tile_cache()``.
+The views' residency and host copies are ``residency``'s: the device tile
+cache, the lazy reads, the host buffers and the side streams.
 
 Reuse across calls, as in the reference. When the device tile cache holds
 the views' stack, each "upload" is a gather of the batch's rows on the
@@ -50,9 +41,10 @@ back in view order and the stack seeds the cache (a failure warns and the
 call goes on). A pass that fails or passes its deadline (``deadline_s``, else
 :data:`STREAM_DEADLINE_S`) leaves its completed uploads in the upload-resume
 stash, which serves the next pass over the same inputs and batch layout
-(``up_batches_reused``) and is retired by a pass that seeds the cache; like
-the packed stash, it dies with the in-memory source arrays. An upload takes, in this order: the resume stash, the packed stash, the
-resident stack, a read and a copy.
+(``up_batches_reused``) and is retired by a pass that seeds the cache; it
+dies with the in-memory source arrays and with
+``fusion._core.clear_device_tile_cache()``. An upload takes, in this order:
+the resume stash, the resident stack, a read and a copy.
 
 A pass records the ``utils.profiling`` stages ``stream.pass`` (its start to
 its last ``elapsed_s`` stamp), ``stream.seed_cache`` (the seeding) and, from
@@ -75,13 +67,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from multiview_stitcher_torch.ops import link_codec
+from multiview_stitcher_torch import residency
 
-# with the link codec on: whether uploads and band downloads try its delta
-# transforms (the reference's MVS_TPU_STREAM_DELTA), and the device bytes the
-# packed upload stash may hold, 0 to keep none (MVS_TPU_UPLOAD_STASH_BYTES)
-STREAM_DELTA = True
-UPLOAD_STASH_BYTES = 4 << 30
 # the wall-time bound of a pass that names none, in seconds (None: unbounded;
 # the reference's MVS_TPU_STREAM_DEADLINE_S)
 STREAM_DEADLINE_S = None
@@ -103,26 +90,25 @@ _WRITER_THREADS = 3
 # still reports its progress
 last_telemetry: dict = {}
 
-# the stashes of upload batches, each one entry ``{"key", "batches"}``:
-# "entry", the upload-resume stash, maps a batch index to what an upload
-# returned (the device batch, its event, its maximum); "packed_entry", the
-# packed upload stash, to (``put_packed``'s record, the batch's maximum)
+# the upload-resume stash, empty or one entry ``{"key", "batches"}``:
+# "batches" maps a batch index to what an upload returned (the device batch
+# and its event)
 _upload_stash: dict = {}
 
 
-def _drop_stash_entry(name, key) -> None:
-    entry = _upload_stash.get(name)
-    if entry is not None and entry["key"] == key:
-        del _upload_stash[name]
+def _drop_stash_entry(key) -> None:
+    if _upload_stash.get("key") == key:
+        _upload_stash.clear()
 
 
-def _stash(name, key, batches, field_sims) -> None:
-    """Keep ``batches`` as the stash entry ``name``; the entry dies with any
-    of the in-memory source arrays."""
-    _upload_stash[name] = {"key": key, "batches": batches}
+def _stash(key, batches, field_sims) -> None:
+    """Keep ``batches`` as the stash's entry; the entry dies with any of the
+    in-memory source arrays."""
+    _upload_stash.clear()
+    _upload_stash.update(key=key, batches=batches)
     for s in field_sims:
         if isinstance(s.data, np.ndarray):
-            weakref.finalize(s.data, _drop_stash_entry, name, key)
+            weakref.finalize(s.data, _drop_stash_entry, key)
 
 
 @functools.cache
@@ -138,27 +124,6 @@ def _warm_vml_cos() -> None:
     torch.cos(torch.zeros(1))
 
 
-# the upload and download streams of each CUDA device, kept across passes:
-# the caching allocator hands a block freed on a stream out again only on
-# that stream, so a pass on new streams could not reuse the memory of the
-# last pass's batches and would grow the reserved memory by a stack a pass
-_SIDE_STREAMS: dict = {}
-
-
-def _side_streams(device: torch.device) -> tuple:
-    """The (upload, download) streams of ``device``, made at first use."""
-    if device not in _SIDE_STREAMS:
-        _SIDE_STREAMS[device] = (torch.cuda.Stream(device), torch.cuda.Stream(device))
-    return _SIDE_STREAMS[device]
-
-
-def _signed_bits(t: torch.Tensor) -> torch.Tensor:
-    """``t`` viewed as its signed twin where it is unsigned: CUDA gathers
-    and ``index_copy_`` take no uint16."""
-    twin = link_codec._SIGNED_TWIN.get(t.dtype)
-    return t if twin is None else t.view(twin)
-
-
 def _reorder_concat(batches: list, order, V: int) -> torch.Tensor:
     """The (V, *tile) stack in view order from a pass's upload batches
     (``order[i]`` is the view of sorted position i; U views a batch, the
@@ -168,12 +133,12 @@ def _reorder_concat(batches: list, order, V: int) -> torch.Tensor:
     U = batches[0].shape[0]
     stack = torch.empty((V,) + tuple(batches[0].shape[1:]), dtype=batches[0].dtype,
                         device=batches[0].device)
-    bits = _signed_bits(stack)
+    bits = residency.signed_bits(stack)
     for bi in range(len(batches)):
         batch, batches[bi] = batches[bi], None
         n = min(U, V - bi * U)
         rows = torch.as_tensor(np.asarray(order[bi * U:bi * U + n], np.int64), device=stack.device)
-        bits.index_copy_(0, rows, _signed_bits(batch)[:n])
+        bits.index_copy_(0, rows, residency.signed_bits(batch)[:n])
         del batch
     return stack
 
@@ -305,65 +270,6 @@ def _stream_tables(plan, field_sims, output_stack_properties, sdims, blending_wi
     }
 
 
-class _Slot:
-    def __init__(self, tensor: torch.Tensor):
-        self.tensor = tensor
-        self.array = tensor.numpy()
-        self.event = None  # the event of the last copy from or to it
-
-
-class _HostBuffers:
-    """A pool of host buffers of one shape: pinned on a CUDA device. A slot is
-    filled again only after the event of its last copy has completed."""
-
-    def __init__(self, n, shape, dtype, pinned):
-        self._free = queue.Queue()
-        for _ in range(n):
-            self._free.put(_Slot(torch.empty(shape, dtype=dtype, pin_memory=pinned)))
-
-    def acquire(self, timeout=None) -> _Slot:
-        slot = self._free.get(timeout=timeout)
-        if slot.event is not None:
-            slot.event.synchronize()
-            slot.event = None
-        return slot
-
-    def release(self, slot: _Slot, event=None) -> None:
-        slot.event = event
-        self._free.put(slot)
-
-
-# the pinned staging ring of each CUDA device, kept across calls like the
-# side streams: _RING_SLOTS byte slots of _RING_SLOT_BYTES, through which
-# fusion._core stages its large uploads and downloads (sizes from a sweep on
-# an H100, PERF.md). It is staging memory, not a cache: no slot holds data
-# from one copy to the next
-_RING_SLOTS = 3
-_RING_SLOT_BYTES = 64 << 20
-_RINGS: dict = {}
-_RINGS_LOCK = threading.Lock()
-
-
-class _Ring(_HostBuffers):
-    """``n`` host slots of ``slot_bytes`` bytes. A staged copy holds
-    ``lock`` from its first slot to its last: it keeps several slots in
-    flight, and two copies sharing the slots could each wait for one that
-    the other holds."""
-
-    def __init__(self, n, slot_bytes, pinned):
-        super().__init__(n, (slot_bytes,), torch.uint8, pinned)
-        self.n, self.slot_bytes = n, slot_bytes
-        self.lock = threading.Lock()
-
-
-def _staging_ring(device: torch.device) -> _Ring:
-    """The pinned staging ring of ``device``, made at first use."""
-    with _RINGS_LOCK:
-        if device not in _RINGS:
-            _RINGS[device] = _Ring(_RING_SLOTS, _RING_SLOT_BYTES, pinned=True)
-        return _RINGS[device]
-
-
 def execute_streaming(
     plan,
     field_sims,
@@ -465,19 +371,17 @@ def execute_streaming(
         # layout left. Batches are submitted in order through the last band's
         # window and its prefetch: an output that ends before the last views
         # (a block, a window) never uploads them, and its pass seeds nothing
-        cache_key = _core._DeviceTileCache.key_for(field_sims, device)
-        resident = _core._device_tile_cache.get(cache_key)
+        cache_key = residency.device_tile_cache.key_for(field_sims, device)
+        resident = residency.device_tile_cache.get(cache_key)
         uploads_all = int(lo[-1]) // U + NB - 1 + _PREFETCH_BATCHES >= n_batches - 1
         retain_batches = (
             resident is None and cache_key is not None and uploads_all
-            and V * tile_bytes <= _core._device_tile_cache.budget()
+            and V * tile_bytes <= residency.device_tile_cache.budget()
         )
         stash_key = (cache_key, U, tile, n_batches, order_hash) if retain_batches else None
         stash_batches: dict = {}
-        if stash_key is not None:
-            entry = _upload_stash.get("entry")
-            if entry is not None and entry["key"] == stash_key:
-                stash_batches = entry["batches"]
+        if stash_key is not None and _upload_stash.get("key") == stash_key:
+            stash_batches = _upload_stash["batches"]
 
         tele_lock = threading.Lock()
         tele = {
@@ -490,22 +394,6 @@ def execute_streaming(
         }
         global last_telemetry
         last_telemetry = tele
-        codec = link_codec.ENABLED
-        packable = link_codec.is_packable(dtype_in)
-        packed_key = None
-        packed_batches: dict = {}
-        if codec:
-            tele.update(
-                up_delta_batches=0, down_delta_bands=0, up_delta2_batches=0, down_delta2_bands=0,
-                up_delta3_batches=0, down_delta3_bands=0, up_batches_reused_packed=0,
-                wire_bits_per_vox=None,
-            )
-            if cache_key is not None and UPLOAD_STASH_BYTES > 0:
-                packed_key = (cache_key, U, tile, n_batches, order_hash)
-                entry = _upload_stash.get("packed_entry")
-                if entry is not None and entry["key"] == packed_key:
-                    packed_batches = entry["batches"]
-        stash_is_new = not packed_batches
 
         sims_s = [field_sims[i] for i in order]
         tpb = H // tile_shape[a]  # kernel tiles per band along the band axis
@@ -514,14 +402,14 @@ def execute_streaming(
             translation_fusion.fuse_translation_2d if ndim == 2
             else translation_fusion.fuse_translation_3d
         )
-        tdtype_in = _core._torch_dtype(dtype_in)
-        tdtype_out = _core._torch_dtype(out_dtype)
+        tdtype_in = residency.torch_dtype(dtype_in)
+        tdtype_out = residency.torch_dtype(out_dtype)
         out = out_sink if out_sink is not None else np.zeros(out_shape_full, dtype=out_dtype)
         band_out_shape = tuple(H if d == a else out_shape_full[d] for d in range(ndim))
 
         if cuda:
             compute = torch.cuda.current_stream(device)
-            up_stream, dl_stream = _side_streams(device)
+            up_stream, dl_stream = residency.side_streams(device)
             if resident is not None:
                 # the stack may still be written by the call that seeded it
                 up_stream.wait_stream(compute)
@@ -539,39 +427,18 @@ def execute_streaming(
             ev.record()
             return ev
 
-        up_bufs = _HostBuffers(_READER_THREADS + 2, (U,) + tile, tdtype_in, cuda)
-        band_bufs = _HostBuffers(_MAX_INFLIGHT_BANDS, band_out_shape, tdtype_out, cuda)
+        up_bufs = residency.HostBuffers(_READER_THREADS + 2, (U,) + tile, tdtype_in, cuda)
+        band_bufs = residency.HostBuffers(_MAX_INFLIGHT_BANDS, band_out_shape, tdtype_out, cuda)
         errors = []
 
-        def count_modes(info, way, unit):
-            # under tele_lock: the delta counters count every delta mode
-            if info.get("delta"):
-                tele[f"{way}_delta_{unit}"] += 1
-            if info.get("mode") in ("delta2", "delta3"):
-                tele[f"{way}_{info['mode']}_{unit}"] += 1
-
         def upload_batch(bi):
-            """(device batch, its event, the batch's maximum: 0 unless the codec
-            is on and the dtype packs), from the first of the resume stash, the
-            packed stash, the resident stack, and a read and an upload."""
+            """(device batch, its event), from the first of the resume stash,
+            the resident stack, and a read and an upload."""
             resumed = stash_batches.get(bi)
             if resumed is not None:
                 with tele_lock:
                     tele["up_batches_reused"] += 1
                 return resumed
-            stashed = packed_batches.get(bi)
-            if stashed is not None:
-                rec, bmax = stashed
-                with on(up_stream if cuda else None):
-                    e0 = mark()
-                    dev = link_codec.reassemble_packed(rec)
-                    done = mark()
-                with tele_lock:
-                    tele["up_batches_reused"] += 1
-                    tele["up_batches_reused_packed"] += 1
-                    if cuda:
-                        busy["up"].append((e0, done))
-                return dev, done, bmax
             vs = range(bi * U, min((bi + 1) * U, V))
             if resident is not None:
                 # the batch's views in sorted order, the tail repeating the last
@@ -579,96 +446,51 @@ def execute_streaming(
                 rows[:len(vs)] = order[vs.start:vs.stop]
                 with on(up_stream if cuda else None):
                     e0 = mark()
-                    dev = _signed_bits(resident)[torch.as_tensor(rows, device=device)].view(
-                        resident.dtype)
+                    dev = residency.signed_bits(resident)[
+                        torch.as_tensor(rows, device=device)].view(resident.dtype)
                     done = mark()
                 with tele_lock:
                     tele["up_batches_resident"] += 1
                     if cuda:
                         busy["up"].append((e0, done))
-                # with the codec, the band downloads take the dtype's full width
-                return dev, done, np.iinfo(dtype_in).max if codec and packable else 0
+                return dev, done
             slot = up_bufs.acquire()
-            copied = None  # the event of the copy out of the slot (without the codec)
+            done = None  # the event of the copy out of the slot
             try:
                 host = slot.array
                 with profiling.stage("stream.read"):
-                    _core._materialize_tiles([sims_s[v] for v in vs], out=host[: len(vs)])
+                    residency.materialize_tiles([sims_s[v] for v in vs], out=host[: len(vs)])
                     if np.issubdtype(dtype_in, np.floating):
                         np.nan_to_num(host[: len(vs)], copy=False)
                     host[len(vs):] = host[len(vs) - 1]
-                if not codec:
-                    with on(up_stream if cuda else None):
-                        dev = torch.empty((U,) + tile, dtype=tdtype_in, device=device)
-                        e0 = mark()
-                        dev.copy_(slot.tensor, non_blocking=cuda)
-                        done = copied = mark()
-                    nbytes, bmax = host.nbytes, 0
-                else:
-                    # the tail's repeated tile changes neither the maximum nor the minimum
-                    bmax = int(host.max(initial=0)) if packable else 0
-                    bneg = (packable and np.issubdtype(dtype_in, np.signedinteger)
-                            and int(host.min()) < 0)
-                    info = {}
-                    rec = {} if packed_key is not None else None
-                    with on(up_stream if cuda else None):
-                        e0 = mark()
-                        # put_packed has read the host buffer when it returns
-                        dev = link_codec.put_packed(
-                            host,
-                            nbits=16 if (not packable or bneg) else link_codec.nbits_for_max(bmax),
-                            delta=STREAM_DELTA and packable and not bneg, info=info,
-                            keep_packed=rec, device=device,
-                        )
-                        done = mark()
-                    nbytes = info["bytes"]
+                with on(up_stream if cuda else None):
+                    dev = torch.empty((U,) + tile, dtype=tdtype_in, device=device)
+                    e0 = mark()
+                    dev.copy_(slot.tensor, non_blocking=cuda)
+                    done = mark()
             finally:
-                up_bufs.release(slot, copied)
+                up_bufs.release(slot, done)
             with tele_lock:
-                tele["up_bytes"] += nbytes
+                tele["up_bytes"] += host.nbytes
                 if cuda:
                     busy["up"].append((e0, done))
-                if codec:
-                    count_modes(info, "up", "batches")
-                    if rec:
-                        used = sum(r["packed_bytes"] for r, _ in packed_batches.values())
-                        if used + rec["packed_bytes"] <= UPLOAD_STASH_BYTES:
-                            packed_batches[bi] = (rec, bmax)
-            return dev, done, bmax
+            return dev, done
 
-        def write_band(b, slot, done, h_true, fused=None, nbits=None):
-            """Write band ``b`` to the sink: from its host slot once ``done``
-            has completed or, with the codec, fetched from ``fused`` by
-            ``link_codec.fetch_packed`` on the download stream."""
+        def write_band(b, slot, done, h_true):
+            """Write band ``b`` to the sink from its host slot once ``done``
+            has completed."""
             try:
                 rows = tuple(slice(0, h_true) if d == a else slice(None) for d in range(ndim))
-                info = {}
-                if fused is not None:
-                    src = slot.array if h_true == H else np.empty(slot.array[rows].shape,
-                                                                 slot.array.dtype)
-                    with on(dl_stream if cuda else None):
-                        d0 = mark()
-                        link_codec.fetch_packed(fused[rows], out=src, nbits=nbits,
-                                                delta=STREAM_DELTA, info=info)
-                        d1 = mark()
-                    del fused  # its device memory is free while the sink is written
-                else:
-                    if done is not None:
-                        done.synchronize()
-                    src = slot.array[rows]
+                if done is not None:
+                    done.synchronize()
+                src = slot.array[rows]
                 with profiling.stage("stream.write"):
                     out[tuple(
                         slice(b * H, b * H + h_true) if d == a else slice(None)
                         for d in range(ndim)
                     )] = src
                 with tele_lock:
-                    if info:
-                        tele["down_bytes"] += info["bytes"]
-                        count_modes(info, "down", "bands")
-                        if cuda:
-                            busy["down"].append((d0, d1))
-                    else:
-                        tele["down_bytes"] += src.nbytes
+                    tele["down_bytes"] += src.nbytes
                     tele["voxels_written"] += src.size
                     tele["bands_done"] += 1
                     tele["elapsed_s"] = time.perf_counter() - t_begin
@@ -678,7 +500,6 @@ def execute_streaming(
                 band_bufs.release(slot)
 
         zero_batch = None  # made only when a window runs past the last batch
-        max_seen = 0  # the largest batch maximum so far: the width of the band downloads
         futs = {}
         visible = set()  # batches the compute stream waits for already
         next_submit = 0
@@ -713,8 +534,7 @@ def execute_streaming(
                                                              device=device)
                             window.append(zero_batch)
                             continue
-                        dev, done, bmax = futs[bi].result(timeout=remaining())
-                        max_seen = max(max_seen, bmax)
+                        dev, done = futs[bi].result(timeout=remaining())
                         if cuda and bi not in visible:
                             compute.wait_event(done)
                             dev.record_stream(compute)
@@ -759,17 +579,12 @@ def execute_streaming(
                         dl_stream.wait_event(c1)
                         fused.record_stream(dl_stream)
                         busy["compute"].append((c0, c1))
-                    if codec:
-                        nbits = link_codec.nbits_for_max(max_seen) if packable else None
-                        write_futs.append(writers.submit(write_band, b, slot, None, h_true, fused,
-                                                         nbits))
-                    else:
-                        d0 = mark()
-                        slot.tensor.copy_(fused, non_blocking=cuda)
-                        d1 = mark()
-                        if cuda:
-                            busy["down"].append((d0, d1))
-                        write_futs.append(writers.submit(write_band, b, slot, d1, h_true))
+                    d0 = mark()
+                    slot.tensor.copy_(fused, non_blocking=cuda)
+                    d1 = mark()
+                    if cuda:
+                        busy["down"].append((d0, d1))
+                    write_futs.append(writers.submit(write_band, b, slot, d1, h_true))
                 del fused, band_tiles, window
 
                 # drop device batches no later band reaches, unless they seed
@@ -795,17 +610,8 @@ def execute_streaming(
             for stage, pairs in busy.items():
                 tele[f"{stage}_ms"] = float(sum(e0.elapsed_time(e1) for e0, e1 in pairs))
         tele["elapsed_s"] = time.perf_counter() - t_begin
-    if codec:
-        if tele["voxels_written"]:
-            # wire bits per fused output voxel, both ways
-            tele["wire_bits_per_vox"] = (
-                8.0 * (tele["up_bytes"] + tele["down_bytes"]) / tele["voxels_written"]
-            )
-        if packed_batches and stash_is_new:
-            # kept after a failed band or an aborted pass too: its uploads serve the next
-            _stash("packed_entry", packed_key, packed_batches, field_sims)
     if (errors or tele["aborted"]) and stash_batches:
-        _stash("entry", stash_key, stash_batches, field_sims)
+        _stash(stash_key, stash_batches, field_sims)
     if errors:
         raise errors[0]
     if tele["aborted"]:
@@ -821,21 +627,21 @@ def execute_streaming(
             try:
                 batches = []
                 for bi in range(n_batches):
-                    dev, done, _ = stash_batches.pop(bi)
+                    dev, done = stash_batches.pop(bi)
                     if cuda:
                         # made on the upload stream, reordered on the compute stream
                         compute.wait_event(done)
                         dev.record_stream(compute)
                     batches.append(dev)
                 del dev
-                _core._device_tile_cache.put(cache_key, _reorder_concat(batches, order, V),
-                                             field_sims)
+                residency.device_tile_cache.put(cache_key, _reorder_concat(batches, order, V),
+                                                field_sims)
             except Exception as e:  # noqa: BLE001 - the fused output stands
                 warnings.warn(
                     f"device tile cache seeding failed ({type(e).__name__}: {e}); repeat "
-                    "passes fall back to the packed upload stash.",
+                    "passes read and upload the tiles again.",
                     RuntimeWarning,
                     stacklevel=2,
                 )
-            _upload_stash.pop("entry", None)
+            _upload_stash.clear()
     return out

@@ -32,11 +32,9 @@ each, and on a CUDA device each band crosses through pinned memory on a copy
 stream of its own, ordered after the caller's stream by events. On the CPU
 the same code runs with plain copies.
 
-The port's four call sites (the streaming tier's uploads, band downloads
-and packed upload stash; the monolithic tier's tile upload and download;
-registration's host crops) take the codec only when :data:`ENABLED` is set:
-the codec is lossless, so every output is the same either way, and only the
-bytes on the link and the time change.
+The codec is a library: neither fusion nor registration sends data through
+it. On an H100, PCIe moves pinned tiles to the card far faster than the host
+packs them (PERF.md, ``link:`` lines of chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -46,10 +44,6 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-# whether the four call sites send data through the codec. Off: PCIe moves
-# pinned tiles to an H100 far faster than the host packs them (PERF.md,
-# ``link:`` lines of chip_smoke.py)
-ENABLED = False
 # the candidates of the self-deciding choice; each ships only when it packs
 # smaller (the reference's MVS_TPU_LINK_DELTA, _DELTA2 and _DELTA3)
 DELTA = True

@@ -16,7 +16,7 @@ present), each expands into its 4^ndim sign and wrap candidates, and the
 candidates are scored by SSIM over the union (or intersection) box, with the
 Spearman correlation of the winner as the link quality. Crops come from the
 host, or are cut on the device from a resident tile stack (the device tile
-cache of ``fusion._core``, which ``fuse`` reads too), so that ``stitch``
+cache of ``residency``, which ``fuse`` reads too), so that ``stitch``
 uploads each tile once: that serves views without ``t`` registered at level
 0.
 
@@ -53,13 +53,13 @@ from multiview_stitcher_torch import (
     mv_graph,
     param_resolution,
     param_utils,
+    residency,
     si_utils,
     transformation,
     transforms,
 )
 from multiview_stitcher_torch.msi_utils import Msim
 from multiview_stitcher_torch.ops import image_metrics as im_metrics
-from multiview_stitcher_torch.ops import link_codec
 from multiview_stitcher_torch.ops import phase_correlation as pc_ops
 from multiview_stitcher_torch.ops import resample as resample_ops
 from multiview_stitcher_torch.parallel import mesh as mesh_utils
@@ -935,8 +935,7 @@ def _crop_const_flags(f_crops, m_crops):
 def _host_crops_to_device(refs, bucket_shape, device):
     """Upload a batch of host crops: as uint16 where all are integers in its
     range, with the NaN pad rebuilt on the device, else as NaN-padded
-    float32. With ``link_codec.ENABLED`` a uint16 batch crosses through
-    ``link_codec.put_packed``. Returns (crops, bytes on the wire)."""
+    float32. Returns (crops, bytes uploaded)."""
     arrs = [r.arr for r in refs]
     B = len(arrs)
     as_uint16 = all(
@@ -950,14 +949,10 @@ def _host_crops_to_device(refs, bucket_shape, device):
         host = np.full((B,) + tuple(bucket_shape), np.nan, dtype=np.float32)
     for b, a in enumerate(arrs):
         host[b][tuple(slice(0, s) for s in a.shape)] = a
-    if not (as_uint16 and link_codec.ENABLED):
-        dev = torch.from_numpy(host).to(device)
-        if as_uint16:
-            dev = _renan_crops(dev, [r.shape for r in refs])
-        return dev, host.nbytes
-    info = {}
-    dev = link_codec.put_packed(host, info=info, device=device)
-    return _renan_crops(dev, [r.shape for r in refs]), info["bytes"]
+    dev = torch.from_numpy(host).to(device)
+    if as_uint16:
+        dev = _renan_crops(dev, [r.shape for r in refs])
+    return dev, host.nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -1274,8 +1269,6 @@ def _try_batched_phase_correlation(msims, edges, register_kwargs, device, teleme
     per-edge results, stacked over ``t`` for views with a ``t`` dim, or None
     where the call is not the default phase correlation with its plain
     kwargs (the per-pair path takes it)."""
-    from multiview_stitcher_torch.fusion import _core as fusion_core
-
     kwargs = dict(register_kwargs)
     pairwise_reg_func = kwargs.pop("pairwise_reg_func", phase_correlation_registration)
     reg_func_kwargs = dict(kwargs.pop("pairwise_reg_func_kwargs", None) or {})
@@ -1304,15 +1297,15 @@ def _try_batched_phase_correlation(msims, edges, register_kwargs, device, teleme
     field_sims = [msi_utils.get_sim_from_msim(m) for m in msims]
     use_dev = device_tiles is not False and not has_t
     if use_dev:
-        key = fusion_core._DeviceTileCache.key_for(field_sims, device)
-        resident = fusion_core._device_tile_cache.get(key) is not None
+        key = residency.device_tile_cache.key_for(field_sims, device)
+        resident = residency.device_tile_cache.get(key) is not None
         if device_tiles is None and not resident:
             use_dev = False
         elif not resident:
             total = sum(
                 int(np.prod(s.data.shape)) * np.dtype(s.data.dtype).itemsize for s in field_sims
             )
-            if key is None or total > fusion_core._device_tile_cache.budget():
+            if key is None or total > residency.device_tile_cache.budget():
                 use_dev = False
         if use_dev:
             for s in field_sims:
@@ -1412,14 +1405,14 @@ def _try_batched_phase_correlation(msims, edges, register_kwargs, device, teleme
 
     unit_results = {}
     replicas = {}
-    tile_bytes_before = fusion_core.tile_upload_bytes
+    tile_bytes_before = residency.tile_upload_bytes
     telemetry["plan_s"] = time.perf_counter() - t_plan
     t_upload = time.perf_counter()
     if use_dev:
         # one upload a device, or a hit of the stack a fuse() or register()
         # left; a failed upload raises
         devices = mesh.distinct_devices if mesh_utils.is_sharded(mesh) else (device,)
-        replicas = {d: fusion_core._tiles_to_device(field_sims, d) for d in devices}
+        replicas = {d: residency.tiles_to_device(field_sims, d) for d in devices}
     else:
         # host crops, with the constant guard before batching
         kept = []
@@ -1438,7 +1431,7 @@ def _try_batched_phase_correlation(msims, edges, register_kwargs, device, teleme
         units = kept
     telemetry["upload_s"] = time.perf_counter() - t_upload
     telemetry["device_tiles"] = bool(use_dev)
-    telemetry["tile_upload_bytes"] = fusion_core.tile_upload_bytes - tile_bytes_before
+    telemetry["tile_upload_bytes"] = residency.tile_upload_bytes - tile_bytes_before
 
     upsample_factor = reg_func_kwargs.get("upsample_factor")
     region_mode = reg_func_kwargs.get("disambiguate_region_mode")

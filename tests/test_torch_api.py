@@ -59,7 +59,7 @@ KEY = jsi.DEFAULT_TRANSFORM_KEY
 
 # every module of the port with a counterpart of the same name in the JAX
 # package (the port's own modules: convert, ops._build, ops.pyramid,
-# ops.translation_fusion)
+# ops.translation_fusion, residency)
 PORTED_MODULES = [
     "", "convert", "detection", "fusion", "fusion._core", "fusion._streaming",
     "fusion.mv_deconv", "io", "io.codecs", "io.czi_utils", "io.fallback", "io.imaris_utils",
@@ -70,12 +70,12 @@ PORTED_MODULES = [
     "parallel.pipeline", "param_resolution",
     "param_resolution.global_optimization", "param_resolution.linear_two_pass",
     "param_resolution.shortest_paths", "param_resolution.utils", "param_utils",
-    "registration", "registration_plugins", "sample_data", "service", "service.bridge",
-    "service.session", "service.specs", "service.worker", "si_utils", "stitch",
+    "registration", "registration_plugins", "residency", "sample_data", "service",
+    "service.bridge", "service.session", "service.specs", "service.worker", "si_utils", "stitch",
     "transformation", "transforms", "utils", "utils.misc", "utils.profiling", "vis_utils",
     "weights", "zarr_utils",
 ]
-PORT_ONLY = {"convert", "ops._build", "ops.pyramid", "ops.translation_fusion"}
+PORT_ONLY = {"convert", "ops._build", "ops.pyramid", "ops.translation_fusion", "residency"}
 
 # public names of the JAX modules the port leaves out, with the item that
 # covers them
@@ -123,7 +123,7 @@ def test_every_port_module_with_a_counterpart_is_checked():
     found = set()
     for m in pkgutil.walk_packages(tpkg.__path__, tpkg.__name__ + "."):
         found.add(m.name[len(tpkg.__name__) + 1:])
-    assert found - PORT_ONLY == set(PORTED_MODULES) - {"", "convert"}
+    assert found - PORT_ONLY == set(PORTED_MODULES) - {""} - PORT_ONLY
 
 
 @pytest.mark.parametrize("name", PORTED_MODULES)
@@ -191,6 +191,35 @@ def test_package_all_and_aliases():
 def test_fusion_package_exports_match_jax():
     exported = {k for k, v in vars(jfusion).items() if callable(v) and not k.startswith("_")}
     assert exported <= set(vars(tfusion))
+
+
+def _imported_modules(module) -> set:
+    """The package modules that ``module``'s source imports, anywhere in it."""
+    import ast
+
+    tree = ast.parse(inspect.getsource(module))
+    found = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            found.add(node.module)
+            found |= {f"{node.module}.{a.name}" for a in node.names}
+    return {m for m in found if m.startswith(tpkg.__name__ + ".")}
+
+
+def test_residency_sits_below_fusion_and_registration():
+    """``residency`` holds the views' residency and host copies for fusion
+    and registration: it imports neither, and registration reaches the tile
+    cache through it, not through ``fusion._core``."""
+    from multiview_stitcher_torch import residency
+
+    pkg = tpkg.__name__
+    below = _imported_modules(residency)
+    assert not {m for m in below if m.startswith(f"{pkg}.fusion")}, below
+    assert f"{pkg}.registration" not in below
+    assert f"{pkg}.residency" in _imported_modules(treg)
+    assert f"{pkg}.fusion._core" not in _imported_modules(treg)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ import torch
 
 from multiview_stitcher_torch import convert
 from multiview_stitcher_torch import mv_graph as tmv
+from multiview_stitcher_torch import residency
 from multiview_stitcher_torch import si_utils as tsi
 from multiview_stitcher_torch.fusion import _core as tcore
 from multiview_stitcher_torch.fusion import fuse as tfuse
@@ -337,7 +338,7 @@ def test_slab_batches_equal_device_resident_batches(name):
         entries, sims, plan["sparams"], sdims, S_max, O_max, sims[0].data.shape, True, None, 0,
     )
     t = tcore._build_exact_batch(params, K_max, ndim, True)
-    tiles = tcore._tiles_to_device(sims, torch.device("cpu"))
+    tiles = residency.tiles_to_device(sims, torch.device("cpu"))
     kind = tcore._exact_kind(ndim, params, True)
     tables = (t["mats"], t["offs"], t["extents"], t["wgrids"], t["wmats"], t["woffs"], t["valid"])
     dev = tcore._fuse_chunk_batch_kernel_exact_devtiles(
@@ -467,7 +468,7 @@ def test_fuse_affine_refuses_what_needs_the_gather_tier(tmp_path, monkeypatch):
         tsi.set_sim_affine(sim, s.transforms[KEY].data, transform_key=KEY)
         lazy.append(sim)
     monkeypatch.setattr(tcore, "TILES_MAX_BYTES", 0)
-    uploaded = tcore.tile_upload_bytes
+    uploaded = residency.tile_upload_bytes
     for kw in ({}, {"interpolation_order": 3}, {"overlap_in_pixels": 4, "trim_overlap": False}):
         ref = np.asarray(jfuse(clean, transform_key=KEY, output_chunksize=cs, **kw).data)
         tcore.last_slab_telemetry.clear()
@@ -477,7 +478,7 @@ def test_fuse_affine_refuses_what_needs_the_gather_tier(tmp_path, monkeypatch):
         tele = tcore.last_slab_telemetry
         assert (tele["tier"], tele["route"]) == ("batched", "gather")
         assert tele["units"] >= 1 and 0 < tele["window_bytes"] <= tele["upload_bytes"]
-    assert tcore.tile_upload_bytes == uploaded
+    assert residency.tile_upload_bytes == uploaded
 
 
 def test_a_failing_kernel_raises_and_nothing_retries(monkeypatch):

@@ -1,4 +1,4 @@
-"""Host copies through the pinned staging ring of ``fusion._core``.
+"""Host copies through the pinned staging ring of ``residency``.
 
 A large upload of in-memory views is made on the device and filled piece by
 piece through a few host slots (``_upload_staged``), and a large download
@@ -18,11 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from multiview_stitcher_torch import si_utils
+from multiview_stitcher_torch import residency, si_utils
 from multiview_stitcher_torch.fusion import _core as tcore
-from multiview_stitcher_torch.fusion import _streaming
 from multiview_stitcher_torch.io import zarr_backend
-from multiview_stitcher_torch.ops import link_codec
 
 CPU = torch.device("cpu")
 # a name only: deciding a route reads the device's type and touches no card
@@ -30,7 +28,7 @@ CUDA = torch.device("cuda", 0)
 
 
 def _ring(slots=3, slot_bytes=64):
-    return _streaming._Ring(slots, slot_bytes, pinned=False)
+    return residency._Ring(slots, slot_bytes, pinned=False)
 
 
 def _sims(arrays):
@@ -40,7 +38,7 @@ def _sims(arrays):
 def _direct_stack(arrays, keep_nan=False) -> np.ndarray:
     """What the direct route uploads: the host stack, NaN replaced in float
     data unless ``keep_nan``."""
-    stack = tcore._materialize_tiles(_sims(arrays))
+    stack = residency.materialize_tiles(_sims(arrays))
     if np.issubdtype(stack.dtype, np.floating) and not keep_nan:
         stack = np.nan_to_num(stack)
     return stack
@@ -86,10 +84,10 @@ UPLOADS = {
 @pytest.mark.parametrize("case", list(UPLOADS))
 def test_staged_upload_equals_the_direct_stack(case):
     views, slot_bytes, pieces = UPLOADS[case]
-    stack, n = tcore._upload_staged(_sims(views), CPU, False, _ring(2, slot_bytes))
+    stack, n = residency._upload_staged(_sims(views), CPU, False, _ring(2, slot_bytes))
     assert n == pieces
     direct = _direct_stack(views)
-    assert stack.shape == direct.shape and stack.dtype == tcore._torch_dtype(direct.dtype)
+    assert stack.shape == direct.shape and stack.dtype == residency.torch_dtype(direct.dtype)
     np.testing.assert_array_equal(_bytes(stack), _bytes(direct))
 
 
@@ -97,7 +95,7 @@ def test_staged_upload_equals_the_direct_stack(case):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_staged_upload_of_float_views_with_nan(keep_nan, dtype):
     views = _with_nan(_rng_views(3, (7, 3, 5), dtype, seed=1))
-    stack, _ = tcore._upload_staged(_sims(views), CPU, keep_nan, _ring(3, 160))
+    stack, _ = residency._upload_staged(_sims(views), CPU, keep_nan, _ring(3, 160))
     np.testing.assert_array_equal(_bytes(stack), _bytes(_direct_stack(views, keep_nan)))
     assert bool(torch.isnan(stack).any()) == keep_nan
     assert bool(torch.isinf(stack).any()) == keep_nan
@@ -118,7 +116,7 @@ def test_staged_download_equals_the_direct_copy(case):
     shape, dtype, slot_bytes, pieces = DOWNLOADS[case]
     fused = (torch.arange(int(np.prod(shape))) * 7919 % 65521).reshape(shape).to(dtype)
     out = np.zeros(shape, dtype=si_utils.numpy_dtype(dtype))
-    assert tcore._download_staged(fused, out, _ring(2, slot_bytes)) == pieces
+    assert residency._download_staged(fused, out, _ring(2, slot_bytes)) == pieces
     np.testing.assert_array_equal(out, fused.numpy())
 
 
@@ -127,16 +125,16 @@ def test_a_poisoned_ring_holds_nothing_that_reaches_a_copy():
     by earlier copies of other data, leave no trace in the next ones."""
     ring = _ring(3, 64)
     views = _rng_views(3, (5, 3, 4), np.uint16, seed=2)
-    tcore._upload_staged(_sims(views), CPU, False, ring)
+    residency._upload_staged(_sims(views), CPU, False, ring)
     for slot in list(ring._free.queue):
         slot.array[...] = 0xA5
     views = _rng_views(3, (5, 3, 4), np.uint16, seed=3)
-    stack, _ = tcore._upload_staged(_sims(views), CPU, False, ring)
+    stack, _ = residency._upload_staged(_sims(views), CPU, False, ring)
     np.testing.assert_array_equal(stack.numpy(), _direct_stack(views))
     for slot in list(ring._free.queue):
         slot.array[...] = 0x5A
     out = np.zeros(stack.shape, np.uint16)
-    tcore._download_staged(stack, out, ring)
+    residency._download_staged(stack, out, ring)
     np.testing.assert_array_equal(out, _direct_stack(views))
     assert ring._free.qsize() == ring.n
 
@@ -153,7 +151,8 @@ class _Unreadable:
 def test_a_failed_piece_returns_its_slot():
     ring = _ring(2, 64)
     with pytest.raises(OSError):
-        tcore._upload_staged(_sims([np.zeros((4, 8), np.uint16), _Unreadable()]), CPU, False, ring)
+        residency._upload_staged(_sims([np.zeros((4, 8), np.uint16), _Unreadable()]), CPU, False,
+                                 ring)
     assert ring._free.qsize() == ring.n
 
 
@@ -167,9 +166,9 @@ def test_threads_sharing_a_ring_each_get_their_own_bytes():
         try:
             for j in range(4):
                 views = _rng_views(3, (5, 2, 3), np.uint16, seed=100 * k + j)
-                stack, _ = tcore._upload_staged(_sims(views), CPU, False, ring)
+                stack, _ = residency._upload_staged(_sims(views), CPU, False, ring)
                 out = np.zeros(stack.shape, np.uint16)
-                tcore._download_staged(stack, out, ring)
+                residency._download_staged(stack, out, ring)
                 if not np.array_equal(out, _direct_stack(views)):
                     errors.append(k)
         except Exception as e:  # reported by the assertion below
@@ -194,9 +193,9 @@ def _tiny_ring_everywhere(monkeypatch, slot_bytes=64):
     """Route every copy through a small host ring, as a CUDA device's
     copies of more than a slot would go."""
     ring = _ring(3, slot_bytes)
-    monkeypatch.setattr(_streaming, "_staging_ring", lambda device: ring)
-    monkeypatch.setattr(tcore, "_upload_route", lambda sims, device, slot_bytes: "staged")
-    monkeypatch.setattr(tcore, "_download_route", lambda fused, out, slot_bytes: "staged")
+    monkeypatch.setattr(residency, "_staging_ring", lambda device: ring)
+    monkeypatch.setattr(residency, "_upload_route", lambda sims, device, slot_bytes: "staged")
+    monkeypatch.setattr(residency, "_download_route", lambda fused, out, slot_bytes: "staged")
     return ring
 
 
@@ -208,13 +207,13 @@ def test_a_mixed_shape_group_staged_equals_the_direct_stack(monkeypatch):
     arrays = [a for pair in zip(_rng_views(2, (4, 3, 5), np.uint16, seed=4),
                                 _rng_views(2, (3, 3, 4), np.uint16, seed=5)) for a in pair]
     tcore.clear_device_tile_cache()
-    direct = tcore._tiles_to_device(_real_sims(arrays), "cpu")
-    assert tcore.last_copy_telemetry["upload"]["route"] == "direct"
+    direct = residency.tiles_to_device(_real_sims(arrays), "cpu")
+    assert residency.last_copy_telemetry["upload"]["route"] == "direct"
     tcore.clear_device_tile_cache()
     _tiny_ring_everywhere(monkeypatch)
-    staged = tcore._tiles_to_device(_real_sims(arrays), "cpu")
+    staged = residency.tiles_to_device(_real_sims(arrays), "cpu")
     tcore.clear_device_tile_cache()
-    tele = tcore.last_copy_telemetry["upload"]
+    tele = residency.last_copy_telemetry["upload"]
     assert tele["route"] == "staged"
     assert tele["bytes"] == sum(a.nbytes for a in arrays)
     # two groups: 8 rows of 30 bytes and 6 of 24, two rows a slot
@@ -225,28 +224,27 @@ def test_a_mixed_shape_group_staged_equals_the_direct_stack(monkeypatch):
 def test_the_row0_band_download_staged_equals_the_direct_one(monkeypatch):
     fused = (torch.arange(5 * 6 * 7) % 251).reshape(5, 6, 7).to(torch.uint16)
     direct = np.zeros((10, 6, 7), np.uint16)
-    tcore._download(fused, direct, row0=3)
-    assert tcore.last_copy_telemetry["download"]["route"] == "direct"
+    residency.download(fused, direct, row0=3)
+    assert residency.last_copy_telemetry["download"]["route"] == "direct"
     _tiny_ring_everywhere(monkeypatch)
     staged = np.zeros((10, 6, 7), np.uint16)
-    tcore._download(fused, staged, row0=3)
-    tele = tcore.last_copy_telemetry["download"]
+    residency.download(fused, staged, row0=3)
+    tele = residency.last_copy_telemetry["download"]
     assert tele == {"route": "staged", "bytes": fused.numel() * 2, "pieces": 7, "slots": 3}
     np.testing.assert_array_equal(staged, direct)
     assert not staged[:3].any() and not staged[8:].any()
 
 
-def test_the_upload_route_engages_only_on_large_in_memory_views_for_a_cuda_device(monkeypatch):
+def test_the_upload_route_engages_only_on_large_in_memory_views_for_a_cuda_device():
     big = _sims(_rng_views(3, (4, 8), np.uint16))  # 192 bytes, rows of 16
-    assert tcore._upload_route(big, CUDA, 64) == "staged"
-    assert tcore._upload_route(big, CPU, 64) == "direct"
-    assert tcore._upload_route(big, CUDA, 192) == "direct"  # one slot or less
-    assert tcore._upload_route(big, CUDA, 8) == "direct"  # a row exceeds a slot
-    assert tcore._upload_route(_sims([np.zeros((0, 8), np.uint16)] * 3), CUDA, 64) == "direct"
+    assert residency._upload_route(big, CUDA, 64) == "staged"
+    assert residency._upload_route(big, CPU, 64) == "direct"
+    assert residency._upload_route(big, CUDA, 192) == "direct"  # one slot or less
+    assert residency._upload_route(big, CUDA, 8) == "direct"  # a row exceeds a slot
+    assert residency._upload_route(_sims([np.zeros((0, 8), np.uint16)] * 3), CUDA, 64) == "direct"
     lazy = zarr_backend.LazyZarrArray.__new__(zarr_backend.LazyZarrArray)
-    assert tcore._upload_route(big[:2] + [types.SimpleNamespace(data=lazy)], CUDA, 64) == "direct"
-    monkeypatch.setattr(link_codec, "ENABLED", True)
-    assert tcore._upload_route(big, CUDA, 64) == "direct"
+    lazy_sims = big[:2] + [types.SimpleNamespace(data=lazy)]
+    assert residency._upload_route(lazy_sims, CUDA, 64) == "direct"
 
 
 def _fake_cuda_result(shape, dtype):
@@ -256,35 +254,33 @@ def _fake_cuda_result(shape, dtype):
                                  numel=host.numel, element_size=host.element_size)
 
 
-def test_the_download_route_engages_only_on_large_cuda_results_into_host_arrays(monkeypatch):
+def test_the_download_route_engages_only_on_large_cuda_results_into_host_arrays():
     fused = _fake_cuda_result((4, 8), torch.uint16)  # 64 bytes
     out = np.zeros((4, 8), np.uint16)
-    assert tcore._download_route(fused, out, 32) == "staged"
-    assert tcore._download_route(fused, out, 64) == "direct"  # one slot or less
-    assert tcore._download_route(torch.zeros(4, 8, dtype=torch.uint16), out, 32) == "direct"
-    assert tcore._download_route(fused, torch.zeros(4, 8, dtype=torch.uint16), 32) == "direct"
-    assert tcore._download_route(fused, tcore._PrefixedSink(np.zeros((1, 4, 8), np.uint16), (0,)),
-                                 32) == "direct"
-    assert tcore._download_route(fused, np.zeros((8, 4), np.uint16).T, 32) == "direct"
-    assert tcore._download_route(fused, np.zeros((4, 8), np.int32), 32) == "direct"
+    assert residency._download_route(fused, out, 32) == "staged"
+    assert residency._download_route(fused, out, 64) == "direct"  # one slot or less
+    assert residency._download_route(torch.zeros(4, 8, dtype=torch.uint16), out, 32) == "direct"
+    assert residency._download_route(fused, torch.zeros(4, 8, dtype=torch.uint16), 32) == "direct"
+    sink = tcore._PrefixedSink(np.zeros((1, 4, 8), np.uint16), (0,))
+    assert residency._download_route(fused, sink, 32) == "direct"
+    assert residency._download_route(fused, np.zeros((8, 4), np.uint16).T, 32) == "direct"
+    assert residency._download_route(fused, np.zeros((4, 8), np.int32), 32) == "direct"
     readonly = np.zeros((4, 8), np.uint16)
     readonly.flags.writeable = False
-    assert tcore._download_route(fused, readonly, 32) == "direct"
-    monkeypatch.setattr(link_codec, "ENABLED", True)
-    assert tcore._download_route(fused, out, 32) == "direct"
+    assert residency._download_route(fused, readonly, 32) == "direct"
 
 
 def test_copies_on_the_cpu_sinks_and_device_tensors_report_the_direct_route():
     arrays = _rng_views(2, (3, 300, 200), np.uint16)
     tcore.clear_device_tile_cache()
-    tiles = tcore._tiles_to_device(_real_sims(arrays), "cpu")
+    tiles = residency.tiles_to_device(_real_sims(arrays), "cpu")
     tcore.clear_device_tile_cache()
-    assert tcore.last_copy_telemetry["upload"] == {
+    assert residency.last_copy_telemetry["upload"] == {
         "route": "direct", "bytes": 2 * 3 * 300 * 200 * 2, "pieces": 0, "slots": 0}
     for out in (np.zeros(tiles.shape, np.uint16), torch.zeros_like(tiles),
                 tcore._PrefixedSink(np.zeros((1,) + tuple(tiles.shape), np.uint16), (0,))):
-        tcore._download(tiles, out)
-        assert tcore.last_copy_telemetry["download"] == {
+        residency.download(tiles, out)
+        assert residency.last_copy_telemetry["download"] == {
             "route": "direct", "bytes": tiles.numel() * 2, "pieces": 0, "slots": 0}
         got = out.array[0] if isinstance(out, tcore._PrefixedSink) else out
         np.testing.assert_array_equal(np.asarray(got), tiles.numpy())
@@ -304,8 +300,8 @@ def _card():
 @pytest.mark.card
 def test_staged_copies_on_the_card_equal_the_direct_route():
     device = _card()
-    ring = _streaming._staging_ring(device)
-    before = dict(tcore.ring_bytes)
+    ring = residency._staging_ring(device)
+    before = dict(residency.ring_bytes)
     # five views of rows of 521216 bytes, over three slots' rows and an odd
     # remainder: every piece but the last a slot's whole rows, several
     # across the views' boundaries
@@ -323,28 +319,28 @@ def test_staged_copies_on_the_card_equal_the_direct_route():
         arrays = _rng_views(5, shape, np.uint16, seed=seed)
         sims = [si_utils.get_sim_from_array(a, dims=["z", "y", "x"]) for a in arrays]
         tcore.clear_device_tile_cache()
-        stack = tcore._tiles_to_device(sims, device)
+        stack = residency.tiles_to_device(sims, device)
         tcore.clear_device_tile_cache()
-        assert tcore.last_copy_telemetry["upload"] == {
+        assert residency.last_copy_telemetry["upload"] == {
             "route": "staged", "bytes": nbytes, "pieces": pieces_up,
             "slots": min(pieces_up, ring.n)}
         assert torch.equal(stack.cpu(), torch.from_numpy(np.stack(arrays)))
         # the download: the stack, shifted so it differs from the upload
         fused = (stack.view(torch.int16) + 3).view(torch.uint16).view(rows, *shape[1:])
         out = np.zeros(fused.shape, np.uint16)
-        tcore._download(fused, out)
-        assert tcore.last_copy_telemetry["download"] == {
+        residency.download(fused, out)
+        assert residency.last_copy_telemetry["download"] == {
             "route": "staged", "bytes": nbytes, "pieces": pieces_down,
             "slots": min(pieces_down, ring.n)}
         np.testing.assert_array_equal(out, fused.cpu().numpy())
         # and a band of a larger host array
         band = np.zeros((7 + rows,) + shape[1:], np.uint16)
-        tcore._download(fused, band, row0=7)
+        residency.download(fused, band, row0=7)
         np.testing.assert_array_equal(band[7:], out)
         assert not band[:7].any()
-    assert tcore.ring_bytes["upload"] - before["upload"] == 2 * nbytes
-    assert tcore.ring_bytes["download"] - before["download"] == 4 * nbytes
-    assert _streaming._staging_ring(device) is ring
+    assert residency.ring_bytes["upload"] - before["upload"] == 2 * nbytes
+    assert residency.ring_bytes["download"] - before["download"] == 4 * nbytes
+    assert residency._staging_ring(device) is ring
     assert ring.n * ring.slot_bytes <= 256 * 10**6
 
 
@@ -360,20 +356,20 @@ def test_fuse_of_rotated_views_is_the_same_with_the_ring_and_without(monkeypatch
               "psf_sigma_px": 0.85, "dtype": "uint16"}
     views = multiview.make_views(config, 2**31 + 11, "cpu")
     # slots of 4 KiB: the 64 KiB of views and the fused volume cross in pieces
-    monkeypatch.setattr(_streaming, "_RING_SLOT_BYTES", 4096)
-    monkeypatch.setattr(_streaming, "_RINGS", {})
+    monkeypatch.setattr(residency, "_RING_SLOT_BYTES", 4096)
+    monkeypatch.setattr(residency, "_RINGS", {})
 
     def run():
         tcore.clear_device_tile_cache()
         out = fuse(multiview.to_sims(views, jobkit.KEY), transform_key=jobkit.KEY,
                    device=device, output_spacing={"z": 1.0, "y": 1.0, "x": 1.0})
-        return np.asarray(out.data), {k: dict(v) for k, v in tcore.last_copy_telemetry.items()}
+        return np.asarray(out.data), {k: dict(v) for k, v in residency.last_copy_telemetry.items()}
 
     staged, tele = run()
     assert tele["upload"]["route"] == "staged" and tele["download"]["route"] == "staged"
     assert tele["upload"]["bytes"] == views.views.nbytes
-    monkeypatch.setattr(tcore, "_upload_route", lambda sims, device, slot_bytes: "direct")
-    monkeypatch.setattr(tcore, "_download_route", lambda fused, out, slot_bytes: "direct")
+    monkeypatch.setattr(residency, "_upload_route", lambda sims, device, slot_bytes: "direct")
+    monkeypatch.setattr(residency, "_download_route", lambda fused, out, slot_bytes: "direct")
     direct, tele = run()
     assert tele["upload"]["route"] == "direct" and tele["download"]["route"] == "direct"
     np.testing.assert_array_equal(staged, direct)

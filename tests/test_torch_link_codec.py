@@ -1,6 +1,5 @@
 """The port's link codec (``multiview_stitcher_torch.ops.link_codec``) against
-the JAX package's, and its call sites in the monolithic tier and in
-registration.
+the JAX package's.
 
 Each test of tests/test_link_codec.py has its counterpart here, on the same
 inputs made from a seed with numpy: the port's torch half (``*_torch``) is
@@ -19,16 +18,8 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter
 
-from multiview_stitcher_torch import convert
-from multiview_stitcher_torch import registration as treg
-from multiview_stitcher_torch import si_utils as tsi
-from multiview_stitcher_torch.fusion import _core as tcore
-from multiview_stitcher_torch.fusion import fuse as tfuse
 from multiview_stitcher_torch.ops import link_codec as tl
-from multiview_stitcher_tpu import sample_data, si_utils
 from multiview_stitcher_tpu.ops import link_codec as jl
-
-KEY = si_utils.DEFAULT_TRANSFORM_KEY
 
 
 def _put(arr, **kw):
@@ -262,10 +253,9 @@ def test_fetch_packed_delta_noisy_falls_back_to_plain():
 
 def test_delta_defaults_on_as_module_constants(monkeypatch):
     """The candidates default on (the codec ships one only where it packs
-    smaller) and the codec itself off, as module constants: the port reads
-    none of the reference's MVS_TPU_LINK_* variables."""
-    assert (tl.DELTA, tl.DELTA2, tl.DELTA3, tl.STREAMS, tl.ENABLED) == (True, True, True, 32,
-                                                                          False)
+    smaller), as module constants: the port reads none of the reference's
+    MVS_TPU_LINK_* variables."""
+    assert (tl.DELTA, tl.DELTA2, tl.DELTA3, tl.STREAMS) == (True, True, True, 32)
     vals = _ramp(1 << 20, 1).reshape(1024, 1024)
     for var in ("MVS_TPU_LINK_DELTA", "MVS_TPU_LINK_DELTA2", "MVS_TPU_LINK_DELTA3"):
         monkeypatch.setenv(var, "0")
@@ -646,78 +636,3 @@ def test_entry_points_default_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             tl.put_packed(arr)
-
-
-# ---------------------------------------------------------------------------
-# the monolithic tier and registration with the codec on
-# ---------------------------------------------------------------------------
-
-
-def _smooth_grid(ndim, n, tile, overlap, seed):
-    rng = np.random.default_rng(seed)
-    sdims = ["z", "y", "x"][-ndim:]
-    step = tile - overlap
-    sims = []
-    for idx in np.ndindex((n, n)):
-        data = _smooth_3d((tile,) * ndim, seed=int(rng.integers(1 << 30)), scale=3000.0,
-                          sigma=1.5)
-        tr = {"y": float(idx[0] * step), "x": float(idx[1] * step)}
-        if ndim == 3:
-            tr["z"] = 0.0
-        sims.append(tsi.get_sim_from_array(data, dims=sdims, translation=tr))
-    return sims
-
-
-@pytest.mark.parametrize("ndim", [2, 3])
-def test_monolithic_tier_through_the_codec_is_bit_equal(ndim, monkeypatch):
-    """_tiles_to_device and _download through the codec: the same output as
-    without it, fewer bytes up, and every transfer packed."""
-    monkeypatch.setattr(tl, "_MIN_PACK_SIZE", 0)
-    monkeypatch.setattr(tcore, "STREAM_BYTES", 1 << 40)
-    sims = _smooth_grid(ndim, 3, 48 if ndim == 2 else 32, 12 if ndim == 2 else 8, seed=ndim)
-    tcore.clear_device_tile_cache()
-    before = tcore.tile_upload_bytes
-    plain = tfuse(sims, transform_key=KEY, device="cpu").to_numpy()
-    raw_up = tcore.tile_upload_bytes - before
-    calls = []
-    fetch = tl.fetch_packed
-
-    def spy(*a, **k):
-        calls.append(1)
-        return fetch(*a, **k)
-
-    monkeypatch.setattr(tl, "ENABLED", True)
-    monkeypatch.setattr(tl, "fetch_packed", spy)
-    tcore.clear_device_tile_cache()
-    before = tcore.tile_upload_bytes
-    got = tfuse(sims, transform_key=KEY, device="cpu").to_numpy()
-    assert tcore.tile_upload_bytes - before < raw_up
-    assert calls
-    np.testing.assert_array_equal(got, plain)
-    tcore.clear_device_tile_cache()
-
-
-def _port_sims(sims):
-    return [
-        convert.sim_from_numpy(s.data, s.dims, s.spacing, s.origin,
-                               {k: v.data for k, v in s.transforms.items()}, coords=s.coords)
-        for s in sims
-    ]
-
-
-def test_register_host_crops_through_the_codec(monkeypatch):
-    """register() over host crops with the codec on: the same parameters,
-    and the crops' bytes on the wire counted."""
-    monkeypatch.setattr(tl, "_MIN_PACK_SIZE", 0)
-    sims = sample_data.generate_tiled_dataset(ndim=2, N_c=1, N_t=1, tiles_x=3, tiles_y=3,
-                                              tile_size=30, overlap=6)
-    sims = _port_sims([s.isel({"c": 0, "t": 0}) for s in sims])
-    kw = dict(transform_key=KEY, device_tiles=False, device="cpu")
-    ref = treg.register(sims, **kw)
-    raw = treg.last_telemetry["crop_upload_bytes"]
-    monkeypatch.setattr(tl, "ENABLED", True)
-    got = treg.register(sims, **kw)
-    assert treg.last_telemetry["device_tiles"] is False
-    assert 0 < treg.last_telemetry["crop_upload_bytes"] < raw
-    for p, r in zip(got, ref):
-        np.testing.assert_array_equal(np.asarray(p.data), np.asarray(r.data))

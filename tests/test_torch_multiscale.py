@@ -15,6 +15,7 @@ from multiview_stitcher_torch import convert
 from multiview_stitcher_torch import msi_utils as tmsi
 from multiview_stitcher_torch import param_utils as tpu
 from multiview_stitcher_torch import registration as treg
+from multiview_stitcher_torch import residency
 from multiview_stitcher_torch import si_utils as tsi
 from multiview_stitcher_torch import zarr_utils as tzu
 from multiview_stitcher_torch.fusion import _core as tcore
@@ -506,10 +507,10 @@ def test_fuse_of_msims_reads_the_level_0_stack_a_registration_left(monkeypatch):
     treg.register(tm, transform_key=KEY, new_transform_key="reg", device_tiles=True,
                   device="cpu")
     assert treg.last_telemetry["device_tiles"] is True
-    before = tcore.tile_upload_bytes
+    before = residency.tile_upload_bytes
     fused = tfuse(tm, transform_key="reg", device="cpu")
     coarse = sum(m.sims[k].data.nbytes for m in tm for k in range(1, len(m.sims)))
-    assert tcore.tile_upload_bytes - before == coarse
+    assert residency.tile_upload_bytes - before == coarse
     assert len(fused.sims) >= 2
     tcore.clear_device_tile_cache()
 

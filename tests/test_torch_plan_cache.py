@@ -19,7 +19,7 @@ import jax
 import numpy as np
 import pytest
 
-from multiview_stitcher_torch import convert
+from multiview_stitcher_torch import convert, residency
 from multiview_stitcher_torch import si_utils as tsi
 from multiview_stitcher_torch.fusion import _core as tcore
 from multiview_stitcher_torch.fusion import _streaming as tstream
@@ -258,7 +258,7 @@ def test_clear_device_tile_cache_empties_the_plan_cache(caches, monkeypatch):
     _port(sims)
     assert tcore._plan_cache
     tcore.clear_device_tile_cache()
-    assert tcore._plan_cache == {} and tcore._device_tile_cache._entries == {}
+    assert tcore._plan_cache == {} and residency.device_tile_cache._entries == {}
     planned = _spy(monkeypatch, _PLANNERS)
     _port(sims)
     assert planned["translation_kernel_params"] == 1

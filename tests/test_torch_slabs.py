@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 
+from multiview_stitcher_torch import residency
 from multiview_stitcher_torch import si_utils as tsi
 from multiview_stitcher_torch import weights as tweights
 from multiview_stitcher_torch.fusion import _core as tcore
@@ -46,12 +47,12 @@ def _host_slabs(monkeypatch):
     def no_stack(*a, **k):
         raise AssertionError("the host-slab route stacked whole tiles")
 
-    monkeypatch.setattr(tcore, "_materialize_tiles", no_stack)
+    monkeypatch.setattr(residency, "materialize_tiles", no_stack)
     jcore.clear_device_tile_cache()
     tcore.clear_device_tile_cache()
-    uploaded = tcore.tile_upload_bytes
+    uploaded = residency.tile_upload_bytes
     yield
-    assert tcore.tile_upload_bytes == uploaded
+    assert residency.tile_upload_bytes == uploaded
     jcore.clear_device_tile_cache()
 
 

@@ -5,7 +5,7 @@ stack and fuses under the resolved transforms; it is held to the JAX
 ``stitch()`` (Pallas in interpret mode) on the same uint16 grids within 1
 count (truncation ties of the weighted average). A ``fuse()`` after
 ``register(device_tiles=True)`` reads the stack the registration uploaded:
-0 tile bytes are uploaded (counted by ``fusion._core.tile_upload_bytes``)
+0 tile bytes are uploaded (counted by ``residency.tile_upload_bytes``)
 and the output is bit-equal to a ``fuse()`` that uploads.
 """
 
@@ -18,6 +18,7 @@ import torch
 from multiview_stitcher_torch import convert
 from multiview_stitcher_torch import msi_utils as tmsi
 from multiview_stitcher_torch import registration as treg
+from multiview_stitcher_torch import residency
 from multiview_stitcher_torch import weights as tweights
 from multiview_stitcher_torch.fusion import _core as tcore
 from multiview_stitcher_torch.fusion import fuse as tfuse
@@ -84,21 +85,21 @@ def test_stitch_writes_the_resolved_transforms_and_fuses_under_them():
 
 def test_fuse_after_register_with_device_tiles_uploads_nothing():
     sims = _to_port(_grid(2))
-    before = tcore.tile_upload_bytes
+    before = residency.tile_upload_bytes
     treg.register(sims, transform_key=KEY, new_transform_key="reg", device_tiles=True,
                   device="cpu")
-    uploaded = tcore.tile_upload_bytes - before
+    uploaded = residency.tile_upload_bytes - before
     assert uploaded == sum(s.data.nbytes for s in sims)
     assert treg.last_telemetry["tile_upload_bytes"] == uploaded
-    before = tcore.tile_upload_bytes
+    before = residency.tile_upload_bytes
     first = tfuse(sims, transform_key=KEY, device="cpu")
-    assert tcore.tile_upload_bytes == before
+    assert residency.tile_upload_bytes == before
     second = tfuse(sims, transform_key=KEY, device="cpu")
-    assert tcore.tile_upload_bytes == before
+    assert residency.tile_upload_bytes == before
     np.testing.assert_array_equal(first.data, second.data)
     tcore.clear_device_tile_cache()
     third = tfuse(sims, transform_key=KEY, device="cpu")
-    assert tcore.tile_upload_bytes - before == uploaded
+    assert residency.tile_upload_bytes - before == uploaded
     np.testing.assert_array_equal(third.data, first.data)
 
 
@@ -114,12 +115,12 @@ def test_general_fuse_after_register_with_device_tiles_uploads_nothing(tier):
         {"weights_func": tweights.content_based} if tier == "host"
         else {"fusion_func": tcore.max_fusion}
     )
-    before = tcore.tile_upload_bytes
+    before = residency.tile_upload_bytes
     first = tfuse(sims, transform_key=KEY, device="cpu", **kw)
-    assert tcore.tile_upload_bytes == before
+    assert residency.tile_upload_bytes == before
     tcore.clear_device_tile_cache()
     again = tfuse(sims, transform_key=KEY, device="cpu", **kw)
-    assert tcore.tile_upload_bytes - before == sum(s.data.nbytes for s in sims)
+    assert residency.tile_upload_bytes - before == sum(s.data.nbytes for s in sims)
     np.testing.assert_array_equal(again.data, first.data)
 
 
@@ -129,11 +130,11 @@ def test_register_auto_device_tiles_uses_the_stack_only_when_resident():
     assert treg.last_telemetry["device_tiles"] is False
     assert treg.last_telemetry["crop_upload_bytes"] > 0
     tfuse(sims, transform_key=KEY, device="cpu")  # leaves the stack resident
-    before = tcore.tile_upload_bytes
+    before = residency.tile_upload_bytes
     treg.register(sims, transform_key=KEY, device="cpu")
     assert treg.last_telemetry["device_tiles"] is True
     assert treg.last_telemetry["crop_upload_bytes"] == 0
-    assert tcore.tile_upload_bytes == before
+    assert residency.tile_upload_bytes == before
 
 
 def test_device_tile_cache_keys_on_the_source_arrays(monkeypatch):
@@ -145,25 +146,25 @@ def test_device_tile_cache_keys_on_the_source_arrays(monkeypatch):
     ]
     sims = _to_port(sims)
     cpu = torch.device("cpu")
-    first = tcore._tiles_to_device(sims, cpu)
-    assert tcore._tiles_to_device(sims, cpu) is first
+    first = residency.tiles_to_device(sims, cpu)
+    assert residency.tiles_to_device(sims, cpu) is first
     # the same arrays under new sims hit; another array of equal content misses
-    assert tcore._tiles_to_device([s.copy() for s in sims], cpu) is first
+    assert residency.tiles_to_device([s.copy() for s in sims], cpu) is first
     other = [s.copy(data=s.data.copy()) for s in sims]
-    assert tcore._tiles_to_device(other, cpu) is not first
+    assert residency.tiles_to_device(other, cpu) is not first
     # a source array changed in place misses
     sims[0].data[0, 0] += 1
-    changed = tcore._tiles_to_device(sims, cpu)
+    changed = residency.tiles_to_device(sims, cpu)
     assert changed is not first and int(changed[0, 0, 0]) == int(sims[0].data[0, 0])
     # an entry dies with its source arrays
-    n = len(tcore._device_tile_cache._entries)
+    n = len(residency.device_tile_cache._entries)
     del other
     gc.collect()
-    assert len(tcore._device_tile_cache._entries) == n - 1
+    assert len(residency.device_tile_cache._entries) == n - 1
     # a stack over the budget is not cached
-    monkeypatch.setattr(tcore, "TILE_CACHE_BYTES", 64)
+    monkeypatch.setattr(residency, "TILE_CACHE_BYTES", 64)
     tcore.clear_device_tile_cache()
-    assert tcore._tiles_to_device(sims, cpu) is not tcore._tiles_to_device(sims, cpu)
+    assert residency.tiles_to_device(sims, cpu) is not residency.tiles_to_device(sims, cpu)
 
 
 def test_msim_transforms_follow_jax():

@@ -27,6 +27,7 @@ import tensorstore as ts
 import torch
 
 from multiview_stitcher_torch import convert, msi_utils as tmsi
+from multiview_stitcher_torch import residency
 from multiview_stitcher_torch import si_utils as tsi
 from multiview_stitcher_torch.fusion import _core as tcore
 from multiview_stitcher_torch.fusion import _streaming as tstream
@@ -301,7 +302,7 @@ def test_lazy_tiles_that_do_not_band_take_the_monolithic_tier(tmp_path, monkeypa
 
 
 def test_lazy_tile_reads_retry_transient_errors_only(monkeypatch):
-    monkeypatch.setattr(tcore.time, "sleep", lambda s: None)
+    monkeypatch.setattr(residency.time, "sleep", lambda s: None)
     data = np.arange(12, dtype=np.uint16).reshape(3, 4)
 
     class Flaky:
@@ -319,11 +320,11 @@ def test_lazy_tile_reads_retry_transient_errors_only(monkeypatch):
     def sims(failures, error):
         return [tsi.get_sim_from_array(Flaky(failures, error), dims=("y", "x"))]
 
-    np.testing.assert_array_equal(tcore._materialize_tiles(sims(2, OSError("reset")))[0], data)
+    np.testing.assert_array_equal(residency.materialize_tiles(sims(2, OSError("reset")))[0], data)
     with pytest.raises(OSError):
-        tcore._materialize_tiles(sims(3, OSError("reset")))  # one more than the retries
+        residency.materialize_tiles(sims(3, OSError("reset")))  # one more than the retries
     with pytest.raises(ValueError):
-        tcore._materialize_tiles(sims(1, ValueError("not transient")))
+        residency.materialize_tiles(sims(1, ValueError("not transient")))
 
 
 # ---------------------------------------------------------------------------
@@ -450,6 +451,22 @@ def test_a_failing_band_write_raises_and_nothing_falls_back(tmp_path, monkeypatc
     with pytest.raises(OSError, match="injected"):
         _port_fuse(_zarr_tiles(tmp_path, sims)[1], output_chunksize=64,
                    output_zarr_url=str(tmp_path / "out.zarr"))
+    assert not called
+
+
+def test_a_failing_batch_read_raises_and_nothing_falls_back(streams, monkeypatch):
+    """A batch whose read fails on a reader thread raises from fuse():
+    nothing falls back to another tier and nothing hangs."""
+    sims = _to_port(_grid_sims(n=6))
+    called = []
+    monkeypatch.setattr(tcore, "_execute_fusion_plan_translation", lambda *a, **k: called.append(1))
+
+    def failing_read(*a, **k):
+        raise OSError("injected batch read failure")
+
+    monkeypatch.setattr(residency, "materialize_tiles", failing_read)
+    with pytest.raises(OSError, match="injected"):
+        _port_fuse(sims, output_chunksize=64)
     assert not called
 
 
@@ -580,7 +597,7 @@ def test_cast_matches_jnp_astype(dtype):
                   65535.9, 70000.1, 3e9, -3e9, 2147483520.0, 5e9, 1e19, 2e19, -1e19,
                   np.inf, -np.inf, np.nan], np.float32)
     ref = np.asarray(jnp.nan_to_num(jnp.asarray(x)).astype(jnp.dtype(dtype)))
-    got = ttf._cast(torch.from_numpy(x), tcore._torch_dtype(np.dtype(dtype))).numpy()
+    got = ttf._cast(torch.from_numpy(x), residency.torch_dtype(np.dtype(dtype))).numpy()
     assert got.dtype == ref.dtype == np.dtype(dtype)
     np.testing.assert_array_equal(got, ref)
 
@@ -629,12 +646,18 @@ def test_fuse_keeps_int16_and_float64_as_the_reference(tier, dtype, monkeypatch)
 
 
 # ---------------------------------------------------------------------------
-# the link codec on the streaming tier (the reference's codec cases of
-# tests/test_streaming_fusion.py), with ops.link_codec.ENABLED patched in.
-# The codec is lossless: each output is bit-equal to the port's without it,
-# and within the file's 1 count of the reference (truncation ties of the
-# plain version against the reference's kernel, with or without the codec)
+# reuse across calls: the resident stack, seeding, the resume stash
 # ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def streams(monkeypatch, jax_streams):
+    """The port streams test-sized grids; its caches start empty."""
+    monkeypatch.setattr(tcore, "STREAM_BYTES", 0)
+    tcore.clear_device_tile_cache()
+    yield
+    tcore.clear_device_tile_cache()
+
 
 _JAX_REFS: dict = {}
 
@@ -645,41 +668,6 @@ def _jax_ref(name, sims):
         jcore.clear_device_tile_cache()
         _JAX_REFS[name] = np.asarray(jfuse(sims, transform_key=KEY, output_chunksize=64).data)
     return _JAX_REFS[name]
-
-
-@pytest.fixture
-def codec_on(monkeypatch, jax_streams):
-    """The port streams test-sized grids through the codec; test-sized
-    batches and bands sit under the codec's 1 MiB threshold, which is
-    lowered so that they pack."""
-    from multiview_stitcher_torch.ops import link_codec as tl
-
-    monkeypatch.setattr(tcore, "STREAM_BYTES", 0)
-    monkeypatch.setattr(tl, "_MIN_PACK_SIZE", 0)
-    tcore.clear_device_tile_cache()
-    yield tl
-    tcore.clear_device_tile_cache()
-
-
-def _codec_fuse(tl, monkeypatch, sims, enabled=True, **kw):
-    monkeypatch.setattr(tl, "ENABLED", enabled)
-    try:
-        return _port_fuse(sims, output_chunksize=64, **kw), dict(tstream.last_telemetry)
-    finally:
-        monkeypatch.setattr(tl, "ENABLED", False)
-
-
-def _smooth_ramp_sims(n=6, tile=48, overlap=12):
-    """Smooth ramps and small noise: residuals fit 8 bits, the values 12."""
-    step = tile - overlap
-    yy, xx = np.mgrid[0:tile, 0:tile]
-    rng = np.random.default_rng(3)
-    return [
-        si_utils.get_sim_from_array(
-            (1024 + 2 * (yy + xx) + rng.integers(0, 4, (tile, tile))).astype(np.uint16),
-            dims=["y", "x"], translation={"y": float(idx[0] * step), "x": float(idx[1] * step)})
-        for idx in np.ndindex((n, n))
-    ]
 
 
 def _gaussian_sims(n=6, tile=48, overlap=12):
@@ -698,158 +686,10 @@ def _gaussian_sims(n=6, tile=48, overlap=12):
     return sims
 
 
-_CODEC_KEYS = ("up_delta_batches", "down_delta_bands", "up_delta2_batches", "down_delta2_bands",
-               "up_delta3_batches", "down_delta3_bands", "up_batches_reused_packed",
-               "wire_bits_per_vox")
-
-
-def test_codec_streaming_telemetry(codec_on, monkeypatch):
-    sims = _grid_sims(n=6, tile=48, overlap=12)
-    ref = _jax_ref("grid_6", sims)
-    plain, tele_off = _codec_fuse(codec_on, monkeypatch, _to_port(sims), enabled=False)
-    assert not set(_CODEC_KEYS) & set(tele_off)  # off: no codec keys
-    # the reuse counters are there codec on or off, as in the reference
-    assert tele_off["up_batches_reused"] == tele_off["up_batches_resident"] == 0
-    tcore.clear_device_tile_cache()  # the call above seeded it
-    out, tele = _codec_fuse(codec_on, monkeypatch, _to_port(sims))
-    assert set(_CODEC_KEYS) <= set(tele)
-    assert tele["bands_done"] == tele["bands_total"] > 0 and not tele["aborted"]
-    assert tele["up_bytes"] > 0 and tele["down_bytes"] > 0
-    assert tele["voxels_written"] == out.size and tele["elapsed_s"] > 0
-    assert tele["wire_bits_per_vox"] == pytest.approx(
-        8.0 * (tele["up_bytes"] + tele["down_bytes"]) / out.size)
-    # values under 3000 pack at 12 bits each way
-    raw_bits = 8.0 * (tele_off["up_bytes"] + tele_off["down_bytes"]) / out.size
-    assert tele["wire_bits_per_vox"] < raw_bits
-    np.testing.assert_array_equal(out, plain)
-    _assert_close(out, ref)
-
-
-def test_codec_streaming_smooth_data_ships_delta(codec_on, monkeypatch):
-    monkeypatch.setattr(tstream, "_BATCH_BYTES", 6 * 48 * 48 * 2)
-    sims = _smooth_ramp_sims()
-    out, tele = _codec_fuse(codec_on, monkeypatch, _to_port(sims))
-    assert tele["up_delta_batches"] > 0 and tele["down_delta_bands"] > 0
-    up_vox = sum(int(np.prod(s.data.shape)) for s in sims)
-    assert tele["up_bytes"] < codec_on.packed_byte_count(up_vox, 12)
-    assert tele["down_bytes"] < codec_on.packed_byte_count(out.size, 12)
-    monkeypatch.setattr(tstream, "STREAM_DELTA", False)
-    monkeypatch.setattr(codec_on, "DELTA", False)
-    tcore.clear_device_tile_cache()
-    out_plain, tele_plain = _codec_fuse(codec_on, monkeypatch, _to_port(sims))
-    assert tele_plain["up_delta_batches"] == tele_plain["down_delta_bands"] == 0
-    assert tele_plain["up_bytes"] > tele["up_bytes"]
-    np.testing.assert_array_equal(out, out_plain)
-    _assert_close(out, _jax_ref("smooth_ramp", sims))
-
-
-def test_codec_streaming_smooth_data_ships_delta2(codec_on, monkeypatch):
-    monkeypatch.setattr(tstream, "_BATCH_BYTES", 6 * 48 * 48 * 2)
-    sims = _gaussian_sims()
-    out, tele = _codec_fuse(codec_on, monkeypatch, _to_port(sims))
-    assert tele["down_delta2_bands"] > 0
-    assert tele["down_delta_bands"] >= tele["down_delta2_bands"]
-    monkeypatch.setattr(codec_on, "DELTA2", False)
-    tcore.clear_device_tile_cache()
-    out_d1, tele_d1 = _codec_fuse(codec_on, monkeypatch, _to_port(sims))
-    assert tele_d1["down_delta2_bands"] == tele_d1["up_delta2_batches"] == 0
-    assert tele["up_bytes"] + tele["down_bytes"] <= tele_d1["up_bytes"] + tele_d1["down_bytes"]
-    np.testing.assert_array_equal(out, out_d1)
-    off, _ = _codec_fuse(codec_on, monkeypatch, _to_port(sims), enabled=False)
-    np.testing.assert_array_equal(out, off)
-    _assert_close(out, _jax_ref("gaussian", sims))
-
-
-def test_packed_upload_stash_makes_repeat_pass_download_only(codec_on, monkeypatch):
-    import gc
-
-    monkeypatch.setattr(tstream, "_BATCH_BYTES", 6 * 48 * 48 * 2)
-    sims = _to_port(_grid_sims(n=6, tile=48, overlap=12))
-    out1, tele1 = _codec_fuse(codec_on, monkeypatch, sims)
-    assert tele1["up_bytes"] > 0 and tele1["up_batches_reused_packed"] == 0
-    assert "packed_entry" in tstream._upload_stash
-    reads = []
-    materialize = tcore._materialize_tiles
-    monkeypatch.setattr(tcore, "_materialize_tiles", lambda *a, **k: (reads.append(1),
-                                                                     materialize(*a, **k))[1])
-    out2, tele2 = _codec_fuse(codec_on, monkeypatch, sims)
-    assert tele2["up_bytes"] == 0 and not reads
-    assert tele2["up_batches_reused_packed"] == tele2["up_batches_reused"] == tele2["batches"]
-    np.testing.assert_array_equal(out1, out2)
-    _assert_close(out1, _jax_ref("grid_6", _grid_sims(n=6, tile=48, overlap=12)))
-    # the entry dies with the views' arrays
-    del sims
-    gc.collect()
-    assert "packed_entry" not in tstream._upload_stash
-    # a budget of 0 keeps no stash
-    monkeypatch.setattr(tstream, "UPLOAD_STASH_BYTES", 0)
-    sims = _to_port(_grid_sims(n=6, tile=48, overlap=12))
-    out3, tele3 = _codec_fuse(codec_on, monkeypatch, sims)
-    assert tele3["up_bytes"] > 0 and "packed_entry" not in tstream._upload_stash
-    np.testing.assert_array_equal(out1, out3)
-
-
-def test_codec_zarr_to_zarr_repeat_reads_no_tile(codec_on, monkeypatch, tmp_path):
-    """Lazy zarr tiles through the codec into a zarr sink, twice: the same
-    store as without the codec, and the repeat serves every batch from the
-    packed stash without reading a tile."""
-    sims = _gaussian_sims()
-    _, psims = _zarr_tiles(tmp_path, sims)
-    kw = dict(output_chunksize=64)
-    ref = _port_fuse(psims, **kw)
-    tcore.clear_device_tile_cache()  # the call above seeded it
-    monkeypatch.setattr(codec_on, "ENABLED", True)
-    for run in ("cold", "repeat"):
-        url = str(tmp_path / f"{run}.zarr")
-        got = tfuse(psims, transform_key=KEY, device="cpu", output_zarr_url=url, **kw)
-        np.testing.assert_array_equal(np.asarray(got.data), ref)
-    tele = tstream.last_telemetry
-    assert tele["up_bytes"] == 0 and tele["up_batches_reused_packed"] == tele["batches"]
-    _assert_close(ref, _jax_ref("gaussian", sims))
-
-
-@pytest.mark.parametrize("which", ["put_packed", "fetch_packed"])
-def test_codec_failure_raises_from_fuse(which, codec_on, monkeypatch):
-    """An upload or band download that fails inside the codec raises from
-    fuse() (nothing falls back to another tier) and nothing hangs."""
-    sims = _to_port(_grid_sims(n=6, tile=48, overlap=12))
-    called = []
-    monkeypatch.setattr(tcore, "_execute_fusion_plan_translation",
-                        lambda *a, **k: called.append(1))
-    calls = []
-    orig = getattr(codec_on, which)
-
-    def failing(*a, **k):
-        calls.append(1)
-        if len(calls) == (1 if which == "put_packed" else 2):
-            raise OSError(f"injected {which} failure")
-        return orig(*a, **k)
-
-    monkeypatch.setattr(codec_on, which, failing)
-    monkeypatch.setattr(codec_on, "ENABLED", True)
-    with pytest.raises(OSError, match="injected"):
-        _port_fuse(sims, output_chunksize=64)
-    assert calls and not called
-
-
-# ---------------------------------------------------------------------------
-# reuse across calls: the resident stack, seeding, the resume stash
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def streams(monkeypatch, jax_streams):
-    """The port streams test-sized grids; its caches start empty."""
-    monkeypatch.setattr(tcore, "STREAM_BYTES", 0)
-    tcore.clear_device_tile_cache()
-    yield
-    tcore.clear_device_tile_cache()
-
-
 def _count_reads(monkeypatch):
     reads = []
-    materialize = tcore._materialize_tiles
-    monkeypatch.setattr(tcore, "_materialize_tiles",
+    materialize = residency.materialize_tiles
+    monkeypatch.setattr(residency, "materialize_tiles",
                         lambda *a, **k: (reads.append(1), materialize(*a, **k))[1])
     return reads
 
@@ -890,7 +730,7 @@ def test_streaming_seeds_device_tile_cache(streams, monkeypatch):
     first = _port_fuse(psims)
     tele = dict(tstream.last_telemetry)
     assert reads and tele["up_bytes"] > 0 and tele["up_batches_resident"] == 0
-    stack = tcore._device_tile_cache.get(tcore._DeviceTileCache.key_for(psims, "cpu"))
+    stack = residency.device_tile_cache.get(residency.device_tile_cache.key_for(psims, "cpu"))
     np.testing.assert_array_equal(stack.numpy(), np.stack([np.asarray(s.data) for s in sims]))
     reads.clear()
     second = _port_fuse(psims)
@@ -917,8 +757,8 @@ def test_streaming_abort_stashes_uploads_for_resume(streams, monkeypatch):
     tcore.clear_device_tile_cache()
     assert tstream._upload_stash == {}
     _aborted_pass(psims)
-    entry = tstream._upload_stash.get("entry")
-    assert entry is not None and 0 < len(entry["batches"]) < tstream.last_telemetry["batches"]
+    entry = tstream._upload_stash
+    assert entry and 0 < len(entry["batches"]) < tstream.last_telemetry["batches"]
     n_stashed = len(entry["batches"])
     resumed = _port_fuse(psims, output_chunksize=64)
     tele = tstream.last_telemetry
@@ -937,15 +777,16 @@ def test_the_resume_stash_dies_with_the_views_arrays(streams, monkeypatch):
     monkeypatch.setattr(tstream, "_BATCH_BYTES", 2 * 48 * 48 * 2)
     psims = _to_port(_grid_sims(n=6, tile=48, overlap=12, seed=5))
     _aborted_pass(psims)
-    assert "entry" in tstream._upload_stash
+    assert tstream._upload_stash["batches"]
     del psims
     gc.collect()
-    assert "entry" not in tstream._upload_stash
+    assert tstream._upload_stash == {}
 
 
-def test_packed_stash_covers_tile_cache_seeding_failure(codec_on, monkeypatch):
-    """The reference's test of the same name: a seeding that fails warns and
-    the repeat pass is served by the packed stash, uploading nothing."""
+def test_a_tile_cache_seeding_failure_warns_and_the_output_stands(streams, monkeypatch):
+    """A seeding that fails warns, the fused output stands, nothing is
+    cached or stashed, and the repeat pass reads and uploads every batch
+    again."""
     monkeypatch.setattr(tstream, "_BATCH_BYTES", 6 * 48 * 48 * 2)
 
     def boom(*a, **k):
@@ -954,21 +795,24 @@ def test_packed_stash_covers_tile_cache_seeding_failure(codec_on, monkeypatch):
     monkeypatch.setattr(tstream, "_reorder_concat", boom)
     sims = _grid_sims(n=6, tile=48, overlap=12)
     psims = _to_port(sims)
+    reads = _count_reads(monkeypatch)
     with pytest.warns(RuntimeWarning, match="seeding failed"):
-        out1, tele1 = _codec_fuse(codec_on, monkeypatch, psims)
-    assert tele1["up_bytes"] > 0 and "packed_entry" in tstream._upload_stash
-    assert not tcore._device_tile_cache._entries
+        out1 = _port_fuse(psims, output_chunksize=64)
+    tele1 = dict(tstream.last_telemetry)
+    assert tele1["up_bytes"] > 0 and len(reads) == tele1["batches"]
+    assert not residency.device_tile_cache._entries and tstream._upload_stash == {}
+    reads.clear()
     with pytest.warns(RuntimeWarning, match="seeding failed"):
-        out2, tele2 = _codec_fuse(codec_on, monkeypatch, psims)
-    assert tele2["up_bytes"] == 0 and tele2["up_batches_reused_packed"] == tele2["batches"]
+        out2 = _port_fuse(psims, output_chunksize=64)
+    tele2 = tstream.last_telemetry
+    assert tele2["up_bytes"] == tele1["up_bytes"] and len(reads) == tele2["batches"]
+    assert tele2["up_batches_reused"] == tele2["up_batches_resident"] == 0
     np.testing.assert_array_equal(out1, out2)
     _assert_close(out1, _jax_ref("grid_6", sims))
 
 
-def test_uploads_take_the_resume_stash_then_the_packed_stash_then_the_resident_stack(
-        codec_on, monkeypatch):
+def test_uploads_take_the_resume_stash_then_the_resident_stack(streams, monkeypatch):
     monkeypatch.setattr(tstream, "_BATCH_BYTES", 2 * 48 * 48 * 2)  # 18 batches
-    monkeypatch.setattr(codec_on, "ENABLED", True)
     sims = _grid_sims(n=6, tile=48, overlap=12)
     psims = _to_port(sims)
     clean = _port_fuse(psims, output_chunksize=64)
@@ -977,21 +821,20 @@ def test_uploads_take_the_resume_stash_then_the_packed_stash_then_the_resident_s
     def run():
         np.testing.assert_array_equal(_port_fuse(psims, output_chunksize=64), clean)
         tele = tstream.last_telemetry
-        return (tele["up_batches_reused"] - tele["up_batches_reused_packed"],
-                tele["up_batches_reused_packed"], tele["up_batches_resident"], tele["up_bytes"])
+        return tele["up_batches_reused"], tele["up_batches_resident"], tele["up_bytes"]
 
-    # the packed stash before the resident stack, then the resident stack alone
-    assert run() == (0, n, 0, 0)
-    del tstream._upload_stash["packed_entry"]
-    assert run() == (0, 0, n, 0)
-    # the resume stash before the packed stash, which holds the same batches
+    # the first call seeded the resident stack: every batch a gather
+    assert run() == (0, n, 0)
+    # the resume stash before a read: an aborted pass's batches are reused,
+    # the rest read and uploaded, and the pass seeds the stack again
     tcore.clear_device_tile_cache()
     _aborted_pass(psims)
-    stashed = set(tstream._upload_stash["entry"]["batches"])
-    assert stashed == set(tstream._upload_stash["packed_entry"]["batches"])
-    unpacked, packed, resident, up = run()
-    assert (unpacked, packed, resident) == (len(stashed), 0, 0) and up > 0
-    assert "entry" not in tstream._upload_stash
+    stashed = set(tstream._upload_stash["batches"])
+    assert 0 < len(stashed) < n
+    reused, resident, up = run()
+    assert (reused, resident) == (len(stashed), 0) and up > 0
+    assert tstream._upload_stash == {}
+    assert run() == (0, n, 0)
     _assert_close(clean, _jax_ref("grid_6", sims))
 
 
@@ -999,7 +842,7 @@ def test_tiles_above_the_cache_budget_retain_and_seed_nothing(streams, monkeypat
     monkeypatch.setattr(tstream, "_BATCH_BYTES", 20000)
     sims = _grid_sims(n=6, tile=48, overlap=12)
     psims = _to_port(sims)
-    monkeypatch.setattr(tcore, "TILE_CACHE_BYTES", 36 * 48 * 48 * 2 - 1)
+    monkeypatch.setattr(residency, "TILE_CACHE_BYTES", 36 * 48 * 48 * 2 - 1)
     reorders = []
     reorder = tstream._reorder_concat
     monkeypatch.setattr(tstream, "_reorder_concat",
@@ -1007,7 +850,7 @@ def test_tiles_above_the_cache_budget_retain_and_seed_nothing(streams, monkeypat
     first = _port_fuse(psims, output_chunksize=64)
     up = tstream.last_telemetry["up_bytes"]
     assert up > 0 and not reorders
-    assert not tcore._device_tile_cache._entries and tstream._upload_stash == {}
+    assert not residency.device_tile_cache._entries and tstream._upload_stash == {}
     second = _port_fuse(psims, output_chunksize=64)
     tele = tstream.last_telemetry
     assert tele["up_bytes"] == up and tele["up_batches_resident"] == tele["up_batches_reused"] == 0
@@ -1038,13 +881,13 @@ def test_a_pass_over_part_of_the_views_seeds_nothing(streams, monkeypatch):
         part = _port_fuse(sims, output_stack_properties=window)
     tele = tstream.last_telemetry
     assert ran == [True] and tele["bands_total"] >= 3
-    assert not tcore._device_tile_cache._entries and tstream._upload_stash == {}
+    assert not residency.device_tile_cache._entries and tstream._upload_stash == {}
     monkeypatch.setattr(tcore, "STREAM_BYTES", 1 << 40)
     np.testing.assert_array_equal(part, _port_fuse(sims, output_stack_properties=window))
     monkeypatch.setattr(tcore, "STREAM_BYTES", 0)
     tcore.clear_device_tile_cache()
     _port_fuse(sims)  # the whole output: every batch, seeded
-    assert tcore._device_tile_cache._entries
+    assert residency.device_tile_cache._entries
     np.testing.assert_array_equal(_port_fuse(sims, output_stack_properties=window), part)
     tele = tstream.last_telemetry
     assert tele["up_bytes"] == 0 and tele["up_batches_resident"] > 0
@@ -1072,9 +915,9 @@ def test_3d_resident_repeat_equals_cold_and_monolithic(streams, monkeypatch):
     tele = tstream.last_telemetry
     assert tele["up_bytes"] == 0 and tele["up_batches_resident"] == tele["batches"]
     monkeypatch.setattr(tcore, "STREAM_BYTES", 1 << 40)
-    up0 = tcore.tile_upload_bytes
+    up0 = residency.tile_upload_bytes
     mono_cached = _port_fuse(sims)
-    assert tcore.tile_upload_bytes == up0  # the monolithic tier takes the seeded stack
+    assert residency.tile_upload_bytes == up0  # the monolithic tier takes the seeded stack
     tcore.clear_device_tile_cache()
     mono = _port_fuse(sims)
     for out in (repeat, mono_cached, cold):
@@ -1089,16 +932,14 @@ sys.path.insert(0, {root!r})
 import chip_smoke
 from multiview_stitcher_torch import si_utils as tsi
 from multiview_stitcher_torch.fusion import _core as tcore, _streaming as tstream, fuse
-from multiview_stitcher_torch.ops import link_codec
 
 sims = chip_smoke.grid_sims(np, tsi, 3, 6, 32, 12, seed=3)
 tcore.STREAM_BYTES = 0
 tstream._BATCH_BYTES = 4 * 32 ** 3 * 2
-link_codec._MIN_PACK_SIZE = 0
-link_codec.ENABLED = True
+assert tstream._warm_vml_cos.cache_info().misses == 0
 streamed = fuse(sims, transform_key="affine_metadata", device="cpu").to_numpy()
 assert tstream.last_telemetry["bands_done"] == tstream.last_telemetry["bands_total"] >= 3
-link_codec.ENABLED = False
+assert tstream._warm_vml_cos.cache_info().misses == 1
 tcore.STREAM_BYTES = 1 << 40
 torch.set_num_threads(1)
 plain = fuse(sims, transform_key="affine_metadata", device="cpu").to_numpy()
@@ -1106,10 +947,11 @@ print(int(np.abs(streamed.astype(np.int64) - plain.astype(np.int64)).max()))
 """
 
 
-def test_first_coded_3d_streamed_call_of_a_process_is_bit_equal():
-    """Fault F7: the first coded 3D streamed call of a fresh process (reader
-    and writer threads running torch ops while the band loop computes) is
-    bit-equal to a single-threaded monolithic call on the same inputs."""
+def test_first_3d_streamed_call_of_a_process_is_bit_equal():
+    """Fault F7: the first 3D streamed call of a fresh process (reader and
+    writer threads running while the band loop computes) warms
+    ``torch.cos`` before its threads start and is bit-equal to a
+    single-threaded monolithic call on the same inputs."""
     import os
     import subprocess
     from pathlib import Path
