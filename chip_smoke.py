@@ -53,7 +53,14 @@ Phases, one printed line or block each:
    largest factor products, then on the six blocks of the benchmark's zarr
    job (level 0 (101, 1306, 1306) uint16 at (1, 2, 2)), each timed beside
    its byte bound and the plain version, the first also on a cold L2 and
-   with its host copies each way;
+   with its host copies each way; then the ``scoring:`` lines: the
+   registration's candidate scoring (``ops.candidate_scoring``) at the stitch
+   cell's bucket (4 pairs of 22 x 102 overlaps, 48 candidates a pair) and a
+   3D one (4 pairs of 20 x 100 x 100, 192 a pair) and the stitch phase's
+   nominal overlap (64 x 64 x 12), its scores within 1e-5 of the plain version
+   (-1 and -inf exactly) and its winners bit-equal, both launches timed
+   beside the larger of their byte and operation bounds and the plain
+   versions;
 4. the 3D main path through ``fusion.fuse``: 32 x 32 tiles of 64^3 uint16,
    overlap 12, output (64, 1676, 1676) uint16; a cold and a warm call, both
    streamed through banded kernel calls on three CUDA streams (its 537 MB of
@@ -411,6 +418,23 @@ PYRAMID_SMALL = (((7, 37, 41), (1, 2, 2)), ((7, 37, 41), (2, 2, 2)), ((7, 37, 41
                  ((3, 33, 47), (1, 3, 2)), ((45, 61), (2, 4)), ((99,), (4,)),
                  ((4, 64, 16), (1, 1, 1)), ((5, 16, 96), (1, 2, 3)), ((5, 16, 128), (2, 1, 4)),
                  ((3, 40, 1030), (1, 2, 5)))
+# the candidate scoring's buckets (pairs, crop shape): the stitch cell's
+# (4 pairs of 22 x 102 overlaps), a 3D one of 100 x 100 x 20 overlaps and one
+# of the stitch phase's nominal overlap (64^3 tiles, overlap 12 along x)
+SCORING_BUCKETS = (("2d", 4, (22, 102)), ("3d", 4, (20, 100, 100)),
+                   ("3d_grid", 4, (64, 64, 12)))
+# f32 operations of the candidate kernel (csrc/candidate_scoring.cu), each add,
+# multiply, divide, compare, min or max counted once (it uses no FMA): a
+# shifted pixel (a tap coordinate 5 an axis, nan_to_num 3 a tap, a mix 5, the
+# mask test 1; 2D 2 axes, 4 taps and 6 mixes, 3D 3, 8 and 14)
+SCORE_SHIFT_OPS = {2: 2 * 5 + 4 * 3 + 6 * 5 + 1, 3: 3 * 5 + 8 * 3 + 14 * 5 + 1}
+# beyond the shift: the first sweep's counts, boxes and extremes a pixel (3
+# NaN tests, 3 counts, 12 box bounds, 4 extremes); staging a halo pixel (two
+# nan_to_num and the box maximum's clamp and max); a box pixel of the winners'
+# maximum; one pixel's SSIM from its window means and its accumulation
+SCORE_SWEEP_OPS, SCORE_STAGE_OPS, SCORE_BOX_OPS, SCORE_SSIM_OPS = 22, 9, 4, 24
+# the kernel's tile of box-interior outputs, (z, y, x), by crop dimension
+SCORE_TILE = {2: (1, 16, 128), 3: (4, 8, 32)}
 
 
 def log(msg):
@@ -1275,6 +1299,166 @@ def pyramid_phase(np, torch):
     return {"bench_launches": tpyr.coarsen_mean.launches - launches0, "max_abs_err": worst[0],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "job_ms": job_ms, "blocks": blocks}
+
+
+def scoring_items(np, torch, tcs, im0, im1, t, keep):
+    """Each kept (pair, candidate) item's scoring box (lo, hi) and whether it
+    keeps a tenth of the moving crop, by the plain version's own helpers, in
+    groups of 64 items: what the candidate kernel's work follows."""
+    im0nm, ui, vp1, lo0, hi0, f1, m1 = tcs._pair_terms(im0, im1, None)
+    pi, ci = torch.nonzero(keep, as_tuple=True)
+    los, his, oks = [], [], []
+    for g in range(0, len(pi), 64):
+        p, c = pi[g:g + 64], ci[g:g + 64]
+        im1t = tcs._translate(f1[p], m1[p], t[p, c])
+        _, ok, lo, hi, _ = tcs._candidate_stats(im1t, im0nm[p], vp1[p], ui[p], lo0[p], hi0[p])
+        los.append(lo.cpu().numpy())
+        his.append(hi.cpu().numpy())
+        oks.append(ok.cpu().numpy())
+    return np.concatenate(los), np.concatenate(his), np.concatenate(oks)
+
+
+def scoring_ops(np, shape, lo, hi, frac_ok):
+    """The candidate kernel's f32 operations over items with boxes ``lo``,
+    ``hi`` (N, ndim) and ``frac_ok`` (N,), following its loops: every item
+    sweeps the crop once; an item that keeps a tenth of the moving crop and
+    fits a window stages each interior tile's halos and takes its window
+    passes (z in 3D, then y, then x) and each interior pixel's SSIM."""
+    ndim = len(shape)
+    n = int(np.prod(shape))
+    shift = SCORE_SHIFT_OPS[ndim]
+    tile = SCORE_TILE[ndim]
+    ops = len(lo) * n * (shift + SCORE_SWEEP_OPS)
+
+    def along(length, t, extra):
+        """Sum over the tiles along an axis of (tile extent + extra)."""
+        q, rem = divmod(length, t)
+        return q * (t + extra) + (rem + extra if rem else 0)
+
+    for lo_i, hi_i, ok in zip(lo, hi, frac_ok):
+        m = int((hi_i - lo_i + 1).min())
+        win_eff = min(m - (m - 1) % 2, 7)
+        if not ok or win_eff < 3:
+            continue
+        win = 7 if win_eff >= 7 else 5 if win_eff >= 5 else 3
+        r = win // 2
+        ext = [1] * (3 - ndim) + [int(h - l + 1 - 2 * r) for l, h in zip(lo_i, hi_i)]
+        rz = r if ndim == 3 else 0
+        z, z0 = along(ext[0], tile[0], 2 * rz), along(ext[0], tile[0], 0)
+        y, y0 = along(ext[1], tile[1], 2 * r), along(ext[1], tile[1], 0)
+        x, x0 = along(ext[2], tile[2], 2 * r), along(ext[2], tile[2], 0)
+        ops += z * y * x * (shift + SCORE_STAGE_OPS)
+        if ndim == 3:
+            ops += z0 * y * x * (8 * win + 5) + z0 * y0 * x * (5 * win + 5)
+        else:
+            ops += y0 * x * (8 * win + 5)
+        ops += ext[0] * ext[1] * ext[2] * (5 * win + 5 + SCORE_SSIM_OPS)
+    return ops
+
+
+def scoring_phase(np, torch, buckets=SCORING_BUCKETS):
+    """Phase 3c, the candidate scoring of the pairwise registration
+    (``ops.candidate_scoring``) at each bucket of ``SCORING_BUCKETS``: crops
+    of a smooth field, the moving one off by a fraction of a pixel, both
+    with NaN border rows as the overlap resample leaves them, rescaled as the
+    registration core rescales them; three proposals (the true shift, its
+    rounding and a pixel off) expanded into their sign and wrap candidates
+    (48 a pair in 2D, 192 in 3D) by the core's own expansion. The kernel's
+    scores against the plain version on the card (within 1e-5, -1 and -inf
+    exactly), the winners' shifted crops, masks and statistics bit for bit;
+    both launches timed by CUDA events beside the larger of their byte bound
+    (crops, shifts and flags read once, the outputs written once) and their
+    operation bound (``scoring_ops``, from each item's own box and window)
+    and the plain versions."""
+    from multiview_stitcher_torch import registration as treg
+    from multiview_stitcher_torch.ops import candidate_scoring as tcs
+    from multiview_stitcher_torch.ops import phase_correlation as pc_ops
+    from scipy import ndimage
+
+    rng = np.random.default_rng(27)
+    dev = torch.device("cuda")
+    launches0 = tcs.score_candidates.launches
+    out = {}
+    for label, B, shape in buckets:
+        ndim = len(shape)
+        ims0, ims1, proposals = [], [], []
+        for _ in range(B):
+            field = ndimage.gaussian_filter(rng.random(tuple(s + 16 for s in shape)), 1.5)
+            true = rng.uniform(-3, 3, ndim)
+            inner = tuple(slice(8, 8 + s) for s in shape)
+            ims0.append(field[inner])
+            ims1.append(ndimage.shift(field, -true, order=1, mode="nearest")[inner])
+            proposals.append([true, np.round(true), true + 1.0])
+        im0 = np.stack(ims0).astype(np.float32)
+        im1 = np.stack(ims1).astype(np.float32)
+        im0[:, :1] = np.nan
+        im1[:, -2:] = np.nan
+        im0 = pc_ops.rescale_intensity(torch.from_numpy(im0).to(dev), ndim)
+        im1 = pc_ops.rescale_intensity(torch.from_numpy(im1).to(dev), ndim)
+        props = torch.tensor(np.asarray(proposals), dtype=torch.float32, device=dev)
+        t, keep = treg._expand_candidates(props, torch.ones(props.shape[:2], dtype=torch.bool,
+                                                             device=dev), shape)
+        got = tcs.score_candidates(im0, im1, t, keep)
+        torch.cuda.synchronize()
+        ref = tcs.score_candidates_plain(im0, im1, t, keep)
+        g, r = got.cpu().numpy(), ref.cpu().numpy()
+        special = ~np.isfinite(r) | (r == -1.0)
+        err = float(np.abs(g[~special] - r[~special]).max(initial=0.0))
+        if not np.array_equal(g[special], r[special]) or err > 1e-5:
+            raise AssertionError(f"scoring: {label} scores differ from the plain version by {err}")
+        best = got.argmax(-1)
+        t_best = t[torch.arange(B, device=dev), best].contiguous()
+        won = tcs.shift_winners(im0, im1, t_best)
+        plain_won = tcs.shift_winners_plain(im0, im1, t_best)
+        img, pimg = won[0], plain_won[0]
+        if not (torch.equal(torch.isnan(img), torch.isnan(pimg))
+                and torch.equal(torch.nan_to_num(img).view(torch.int32),
+                                torch.nan_to_num(pimg).view(torch.int32))
+                and all(torch.equal(a, b) for a, b in zip(won[1:], plain_won[1:]))):
+            raise AssertionError(f"scoring: {label} winners differ from the plain version")
+        n_px = B * int(np.prod(shape))
+        crops = 2 * 4 * n_px
+        lo, hi, ok = scoring_items(np, torch, tcs, im0, im1, t, keep)
+        ops = scoring_ops(np, shape, lo, hi, ok)
+        w_lo, w_hi, _ = scoring_items(np, torch, tcs, im0, im1, t_best[:, None],
+                                      torch.ones((B, 1), dtype=torch.bool, device=dev))
+        w_box = int(np.clip(w_hi - w_lo + 1, 0, None).prod(-1).sum())
+        w_ops = (n_px * (SCORE_SHIFT_OPS[ndim] + SCORE_SWEEP_OPS)
+                 + w_box * (SCORE_SHIFT_OPS[ndim] + SCORE_BOX_OPS))
+        t_bytes = (crops + t.nbytes + keep.nbytes + got.nbytes) / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_OPS_PER_S * 1e3
+        w_bytes = (crops + t_best.nbytes + 5 * n_px + 5 * B) / HBM_BYTES_PER_S * 1e3
+        w_ops_ms = w_ops / FP32_OPS_PER_S * 1e3
+        r_ = {"pairs": B, "shape": list(shape), "candidates": int(t.shape[1]),
+              "kept": int(keep.sum()), "scored": int(np.isfinite(g).sum()),
+              "max_abs_err": err, "ops": ops, "bytes_ms": t_bytes, "ops_ms": t_ops,
+              "bound_ms": max(t_bytes, t_ops),
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "winners_ops": w_ops, "winners_bound_ms": max(w_bytes, w_ops_ms),
+              "winners_bound_by": "bytes" if w_bytes >= w_ops_ms else "operations",
+              "ms": time_kernel_ms(torch, tcs.score_candidates, (im0, im1, t, keep), {}, 50),
+              "winners_ms": time_kernel_ms(torch, tcs.shift_winners, (im0, im1, t_best), {}, 50),
+              "plain_ms": time_kernel_ms(torch, tcs.score_candidates_plain, (im0, im1, t, keep),
+                                         {}, 5),
+              "winners_plain_ms": time_kernel_ms(torch, tcs.shift_winners_plain,
+                                                 (im0, im1, t_best), {}, 5)}
+        r_["share"] = r_["bound_ms"] / r_["ms"]
+        log(f"scoring: {label} bucket of {B} pairs of {'x'.join(map(str, shape))}, "
+            f"{r_['candidates']} candidates a pair ({r_['kept']} kept, {r_['scored']} scored): "
+            f"kernel {r_['ms']:.4f} ms, bound {1e3 * r_['bound_ms']:.3f} us ({r_['bound_by']}: "
+            f"{ops:.4g} operations, {1e3 * t_ops:.3f} us; bytes {1e3 * t_bytes:.3f} us), "
+            f"{100 * r_['share']:.3f} % of it; plain {r_['plain_ms']:.3f} ms; winners kernel "
+            f"{r_['winners_ms']:.4f} ms (bound {1e3 * r_['winners_bound_ms']:.3f} us, "
+            f"{r_['winners_bound_by']}), plain "
+            f"{r_['winners_plain_ms']:.3f} ms; scores within {err:.2e} of the plain version, "
+            f"winners bit-equal; {card_line()}")
+        out[label] = r_
+    main = out[buckets[0][0]]
+    return {"bench_launches": tcs.score_candidates.launches - launches0,
+            "max_abs_err": max(v["max_abs_err"] for v in out.values()), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": None, "buckets": out}
 
 
 def best_s(fn, reps=2):
@@ -3757,6 +3941,7 @@ def stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n, tile, overlap):
     from multiview_stitcher_torch import registration as treg
     from multiview_stitcher_torch import residency
     from multiview_stitcher_torch import stitch as tstitch
+    from multiview_stitcher_torch.ops import candidate_scoring as tcs
 
     label = "stitch"
     t0 = time.perf_counter()
@@ -3806,9 +3991,11 @@ def stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n, tile, overlap):
     del cold
     # the main path's run: counts set to 0 just before, read just after
     tf.fuse_translation_2d.launches = tf.fuse_translation_3d.launches = 0
+    tcs.score_candidates.launches = 0
     uploaded = residency.tile_upload_bytes
     msims, fused, warm_s, register_s, fuse_s, g_pairs = run()
     launches = tf.fuse_translation_3d.launches
+    score_launches = tcs.score_candidates.launches
     reg_tel = dict(treg.last_telemetry)
     stream = dict(tstream.last_telemetry)
     tile_bytes = residency.tile_upload_bytes - uploaded
@@ -3818,6 +4005,10 @@ def stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n, tile, overlap):
     if not reg_tel["device_tiles"] or reg_tel["crop_upload_bytes"]:
         raise AssertionError(f"{label}: the registration did not cut its crops on the card: "
                              f"{reg_tel}")
+    if not score_launches == reg_tel.get("score_launches") == 2 * reg_tel["batches"] > 0:
+        raise AssertionError(f"{label}: score_candidates launches {score_launches}, registration "
+                             f"telemetry {reg_tel.get('score_launches')}, {reg_tel['batches']} "
+                             f"batches")
 
     # every pair's registered shift against the true one
     pert = meta - truth
@@ -3886,7 +4077,7 @@ def stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n, tile, overlap):
         f"{reg_tel['buckets']} crop-shape buckets, {reg_tel['batches']} batches; tiles uploaded "
         f"{tile_bytes} bytes by the registration (crops 0), {stream.get('up_bytes')} bytes by the "
         f"streamed fuse in {stream.get('bands_total')} bands; fuse_translation_3d launches "
-        f"{launches}")
+        f"{launches}, score_candidates launches {score_launches}")
     log(f"{label}: warm split " + json.dumps(
         {k: (None if v is None else round(v, 4)) for k, v in split.items()}))
     log(f"{label}: every pair's shift within {pair_err:.2g} px of the truth; offsets resolved by "
@@ -3897,6 +4088,7 @@ def stitch_phase(np, torch, tsi, tcore, tf, tstream, fuse, n, tile, overlap):
         f"{corner_cpu_s:.2f} s, max difference {corner_err:g} px")
     return {
         "launches": int(launches),
+        "score_launches": int(score_launches),
         "cold_stitch_s": cold_s,
         "warm_stitch_s": warm_s,
         **split,
@@ -5981,6 +6173,7 @@ def main() -> int:
     exact_err = check_exact_small_cases(np, torch, tea)
     f1_err = check_f1_fuse(np, torch, tsi, tf, tea, fuse)
     pyramid = pyramid_phase(np, torch)
+    scoring = scoring_phase(np, torch)
     small_s = time.perf_counter() - t_small
     log(f"small cases: {small_s:.1f} s")
     from multiview_stitcher_torch import msi_utils as tmsi
@@ -6171,7 +6364,13 @@ def main() -> int:
                     "source": "multiview_stitcher_torch/csrc/pyramid.cu", "replaces": None,
                     **{k: pyramid[k] for k in keys if k != "launches"},
                     "launches": zarr["pyramid_launches"]})
-    detail = {"3d": r3, "2d": r2, "pyramid": pyramid, "zarr": zarr, "link": link, "cache": cache, "zarr3": zarr3,
+    # its main-path launches: the stitch phase's warm stitch(), two a batch
+    kernels.append({"name": "score_candidates", "route": "cuda",
+                    "source": "multiview_stitcher_torch/csrc/candidate_scoring.cu",
+                    "replaces": None, **{k: scoring[k] for k in keys if k != "launches"},
+                    "launches": stitched["score_launches"]})
+    detail = {"3d": r3, "2d": r2, "pyramid": pyramid, "scoring": scoring, "zarr": zarr,
+              "link": link, "cache": cache, "zarr3": zarr3,
               "api": api, "slabs": slabs,
               "shear": shear, **{f"affine_{k}": v for k, v in affine.items()},
               "general": general, "multiscale": multiscale, "beads": beads, "deconv": deconv,

@@ -59,6 +59,7 @@ from multiview_stitcher_torch import (
     transforms,
 )
 from multiview_stitcher_torch.msi_utils import Msim
+from multiview_stitcher_torch.ops import candidate_scoring as cs_ops
 from multiview_stitcher_torch.ops import image_metrics as im_metrics
 from multiview_stitcher_torch.ops import phase_correlation as pc_ops
 from multiview_stitcher_torch.ops import resample as resample_ops
@@ -72,16 +73,14 @@ logger = logging.getLogger(__name__)
 
 # pairs registered in one batch (the reference's MAX_B)
 MAX_B = 512
-# candidate scoring handles (pair, candidate) items in groups whose float32
-# image temporaries hold at most this many bytes each
-SCORE_BYTES = 1 << 30
 
 # what the last register() call did, by stage: host seconds of the graph,
 # the pruning, the crop planning, the tile upload (or host crop reads) and
 # the resolution; the pairwise batches' seconds on the host clock and, on
 # CUDA, their device milliseconds; pairs, edges, (pair, timepoint) units,
 # buckets and batches; the levels registered at; the bytes of tiles and of
-# crops uploaded
+# crops uploaded; the candidate-scoring kernel's launches (two a batch on
+# CUDA, none on the CPU)
 last_telemetry: dict = {}
 
 
@@ -310,36 +309,23 @@ def link_quality_metric_func(im0, im1t, device=None):
     return float(im_metrics.masked_spearman(a, b, mask, 1))
 
 
-def _translate(im1_filled, im1_mask, t):
-    """Each item's moving image at a pure shift ``t`` (N, ndim), NaN where
-    the shifted image does not reach."""
-    ndim = t.shape[1]
-    shape = tuple(im1_filled.shape[1:])
-    ones = torch.ones(ndim, dtype=torch.float32, device=t.device)
-    data_t = resample_ops.separable_axis_aligned_resample(im1_filled, ones, t, shape, cval=np.nan)
-    mask_t = resample_ops.separable_axis_aligned_resample(im1_mask, ones, t, shape, cval=0.0)
-    return torch.where(mask_t >= 1.0 - 1e-4, data_t, torch.nan)
-
-
-def _candidate_stats(im1t, im0nm, valid_pixels1, use_intersection, lo0, hi0):
-    """Per item: the joint validity mask, whether it covers at least a tenth
-    of the moving image, the scoring box and the moving image's maximum in
-    it."""
-    ndim = im1t.dim() - 1
-    shape = tuple(im1t.shape[1:])
-    valid1 = ~torch.isnan(im1t)
-    mask = valid1 & ~im0nm
-    mask_sum = mask.reshape(mask.shape[0], -1).sum(-1)
-    frac_ok = (mask_sum > 0) & (
-        mask_sum.to(torch.float32) / torch.clamp_min(valid_pixels1.to(torch.float32), 1.0) >= 0.1
-    )
-    lo1, hi1 = im_metrics._bbox_bounds_from_mask(valid1, ndim)
-    ui = use_intersection[:, None]
-    lo = torch.where(ui, torch.maximum(lo0, lo1), torch.minimum(lo0, lo1))
-    hi = torch.where(ui, torch.minimum(hi0, hi1), torch.maximum(hi0, hi1))
-    box = im_metrics._box_mask(shape, lo, hi)
-    box_max = torch.where(box, torch.nan_to_num(im1t, nan=-torch.inf), -torch.inf)
-    return mask, frac_ok, lo, hi, box_max.reshape(box_max.shape[0], -1).amax(-1)
+def _expand_candidates(proposals: torch.Tensor, proposal_valid: torch.Tensor, shape: tuple):
+    """Each proposal (B, P, ndim) expanded per dim into {c, -c, S - c,
+    -c - S} (only c where c is 0): the candidates (B, P 4^ndim, ndim) and
+    which are kept (those of a valid proposal, below the largest crop extent
+    on every dim)."""
+    B, _, ndim = proposals.shape
+    dev = proposals.device
+    shape_arr = torch.tensor(shape, dtype=torch.float32, device=dev)
+    alt_idx = torch.tensor(list(np.ndindex((4,) * ndim)), device=dev)  # (n_alt, ndim)
+    c = proposals
+    alts = torch.stack([c, -c, -(c - shape_arr), -c - shape_arr], 2)  # (B, P, 4, ndim)
+    cands = alts[:, :, alt_idx, torch.arange(ndim, device=dev)[None, :]]  # (B, P, n_alt, ndim)
+    oks = ((alt_idx == 0)[None, None] | (c != 0.0)[:, :, None, :]).all(-1)
+    t_candidates = cands.reshape(B, -1, ndim)
+    cand_valid = (oks & proposal_valid[:, :, None]).reshape(B, -1)
+    cand_valid &= t_candidates.abs().amax(-1) < float(max(shape))
+    return t_candidates, cand_valid
 
 
 def _pcc_register_core_batch(im0_raw: torch.Tensor, im1_raw: torch.Tensor,
@@ -354,7 +340,9 @@ def _pcc_register_core_batch(im0_raw: torch.Tensor, im1_raw: torch.Tensor,
     is scored by SSIM (window 7, 5 or 3 as the box admits) over the union of
     the two images' valid boxes, or their intersection where NaN is present;
     the first best wins, and its Spearman correlation is the quality.
-    Candidates that cannot count (-inf in the reference) are not scored."""
+    Candidates that cannot count (-inf in the reference) are not scored. The
+    scoring and the winner's shift run in :mod:`ops.candidate_scoring`, one
+    kernel launch each on the card."""
     B = im0_raw.shape[0]
     ndim = im0_raw.dim() - 1
     shape = tuple(im0_raw.shape[1:])
@@ -364,7 +352,6 @@ def _pcc_register_core_batch(im0_raw: torch.Tensor, im1_raw: torch.Tensor,
     im0nm = torch.isnan(im0)
     im1nm = torch.isnan(im1)
     has_nans = im0nm.reshape(B, -1).any(-1) | im1nm.reshape(B, -1).any(-1)
-    valid_pixels1 = (~im1nm).reshape(B, -1).sum(-1)
     im0nn = torch.nan_to_num(im0)
     im1nn = torch.nan_to_num(im1)
 
@@ -380,75 +367,18 @@ def _pcc_register_core_batch(im0_raw: torch.Tensor, im1_raw: torch.Tensor,
         )[0]
     proposals = torch.stack([shift_phase, shift_plain, shift_masked], 1)  # (B, 3, ndim)
     proposal_valid = torch.tensor([True, True, False], device=dev)[None, :] | has_nans[:, None]
+    t_candidates, cand_valid = _expand_candidates(proposals, proposal_valid, shape)
 
-    shape_arr = torch.tensor(shape, dtype=torch.float32, device=dev)
-    alt_idx = torch.tensor(list(np.ndindex((4,) * ndim)), device=dev)  # (n_alt, ndim)
-    c = proposals
-    alts = torch.stack([c, -c, -(c - shape_arr), -c - shape_arr], 2)  # (B, 3, 4, ndim)
-    cands = alts[:, :, alt_idx, torch.arange(ndim, device=dev)[None, :]]  # (B, 3, n_alt, ndim)
-    oks = ((alt_idx == 0)[None, None] | (c != 0.0)[:, :, None, :]).all(-1)
-    t_candidates = cands.reshape(B, -1, ndim)
-    cand_valid = (oks & proposal_valid[:, :, None]).reshape(B, -1)
-    max_shift_per_dim = float(max(shape))
-    cand_valid &= t_candidates.abs().amax(-1) < max_shift_per_dim
-
-    data_range = torch.fmax(pc_ops.nanmax(im0), pc_ops.nanmax(im1)) - torch.fmin(
-        pc_ops.nanmin(im0), pc_ops.nanmin(im1)
-    )
-    im1_min = pc_ops.nanmin(im1)
-    lo0, hi0 = im_metrics._bbox_bounds_from_mask(~im0nm, ndim)
-    im0f = torch.nan_to_num(im0)
-    if region_mode is None:
-        use_intersection = has_nans
-    else:
-        use_intersection = torch.full((B,), region_mode == "intersection", device=dev)
-    im1_mask = (~im1nm).to(torch.float32)
-    im1_filled = torch.nan_to_num(im1)
-
-    # the kept (pair, candidate) items, scored in groups within SCORE_BYTES
-    pair_idx, cand_idx = torch.nonzero(cand_valid, as_tuple=True)
-    ssim_vals = torch.full((B, t_candidates.shape[1]), -torch.inf, device=dev)
-    fixed_maps: dict = {}
-    group = max(1, SCORE_BYTES // (4 * int(np.prod(shape))))
-    for g0 in range(0, len(pair_idx), group):
-        pi, ci = pair_idx[g0:g0 + group], cand_idx[g0:g0 + group]
-        t = t_candidates[pi, ci]
-        im1t = _translate(im1_filled[pi], im1_mask[pi], t)
-        _, frac_ok, lo, hi, box_max = _candidate_stats(
-            im1t, im0nm[pi], valid_pixels1[pi], use_intersection[pi], lo0[pi], hi0[pi]
-        )
-        min_shape = (hi - lo + 1).amin(-1)
-        win_eff = torch.clamp_max(min_shape - torch.remainder(min_shape - 1, 2), 7)
-        win = torch.where(win_eff >= 7, 7, torch.where(win_eff >= 5, 5, 3))
-        score = torch.full((len(pi),), -1.0, device=dev)
-        im1tf = torch.nan_to_num(im1t)
-        del im1t
-        for w in (3, 5, 7):
-            k = torch.nonzero((win == w) & (win_eff >= 3)).reshape(-1)
-            if not len(k):
-                continue
-            if w not in fixed_maps:
-                fixed_maps[w] = im_metrics.ssim_fixed_maps(im0f, w, ndim)
-            ux, uxx = fixed_maps[w]
-            pk = pi[k]
-            score[k] = im_metrics.ssim_mean_over_box_precomputed(
-                im0f[pk], ux[pk], uxx[pk], im1tf[k], lo[k], hi[k], w, data_range[pk], ndim
-            )
-        score = torch.where((win_eff < 3) | (box_max <= im1_min[pi]), -1.0, score)
-        ssim_vals[pi, ci] = torch.where(frac_ok, score, -torch.inf)
-
+    ssim_vals = cs_ops.score_candidates(im0, im1, t_candidates, cand_valid, region_mode)
     best = ssim_vals.argmax(-1)
     any_valid = torch.isfinite(ssim_vals).any(-1)
     t_best = torch.where(
         any_valid[:, None], t_candidates[torch.arange(B, device=dev), best], 0.0
     )
     # the Spearman link quality of the winner
-    im1t_best = _translate(im1_filled, im1_mask, t_best)
-    mask_b, frac_ok_b, _, _, box_max_b = _candidate_stats(
-        im1t_best, im0nm, valid_pixels1, use_intersection, lo0, hi0
-    )
+    im1t_best, mask_b, frac_ok_b, box_max_b = cs_ops.shift_winners(im0, im1, t_best, region_mode)
     quality = im_metrics.masked_spearman(im0, im1t_best - 1, mask_b, ndim)
-    quality = torch.where((box_max_b <= im1_min) | ~frac_ok_b, -1.0, quality)
+    quality = torch.where((box_max_b <= pc_ops.nanmin(im1)) | ~frac_ok_b, -1.0, quality)
     quality = torch.where(any_valid, quality, torch.nan)
     return t_best, quality
 
@@ -561,14 +491,15 @@ def _evaluate_candidates(im0, im1, t_candidates, im0nm, valid_pixels1: int, data
     quality of every candidate shift of ``im1`` against ``im0``, over the
     union or intersection of their valid boxes; -1 both where the candidate
     keeps under a tenth of the moving image's valid pixels. Candidates are
-    scored in groups within :data:`SCORE_BYTES`. Returns numpy arrays."""
+    scored in groups within :data:`ops.candidate_scoring.SCORE_BYTES`. Returns
+    numpy arrays."""
     ndim = im0.dim()
     shape = tuple(im0.shape)
     dev = im0.device
     lo0, hi0 = im_metrics._bbox_bounds_from_mask(~im0nm, ndim)
     im0f = torch.nan_to_num(im0)
     fixed_maps = {w: im_metrics.ssim_fixed_maps(im0f, w, ndim) for w in (3, 5, 7)}
-    group = max(1, SCORE_BYTES // (16 * int(np.prod(shape))))
+    group = max(1, cs_ops.SCORE_BYTES // (16 * int(np.prod(shape))))
     ssim_out, quality_out = [], []
     for g0 in range(0, len(t_candidates), group):
         t = torch.from_numpy(t_candidates[g0:g0 + group]).to(dev)
@@ -1440,6 +1371,7 @@ def _try_batched_phase_correlation(msims, edges, register_kwargs, device, teleme
         buckets.setdefault(unit.out_shape, []).append(unit)
 
     t_pairs = time.perf_counter()
+    score_launches = cs_ops.score_candidates.launches
     timed = device.type == "cuda"
     if timed:
         ev0 = torch.cuda.Event(enable_timing=True)
@@ -1484,6 +1416,7 @@ def _try_batched_phase_correlation(msims, edges, register_kwargs, device, teleme
     telemetry["units"] = len(edges) * len(t_coords)
     telemetry["levels"] = sorted(levels)
     telemetry["crop_upload_bytes"] = crop_bytes
+    telemetry["score_launches"] = cs_ops.score_candidates.launches - score_launches
 
     for chunk, shifts, qualities, const in pending:
         shifts = shifts.cpu().numpy()

@@ -58,13 +58,14 @@ from multiview_stitcher_tpu.utils import misc as jmisc
 KEY = jsi.DEFAULT_TRANSFORM_KEY
 
 # every module of the port with a counterpart of the same name in the JAX
-# package (the port's own modules: convert, ops._build, ops.pyramid,
-# ops.translation_fusion, residency)
+# package (the port's own modules: convert, ops._build, ops.candidate_scoring,
+# ops.pyramid, ops.translation_fusion, residency)
 PORTED_MODULES = [
     "", "convert", "detection", "fusion", "fusion._core", "fusion._streaming",
     "fusion.mv_deconv", "io", "io.codecs", "io.czi_utils", "io.fallback", "io.imaris_utils",
     "io.jpeg", "io.ngff_utils", "io.tif_utils", "io.virtual_ngff", "io.zarr_backend", "metrics",
-    "msi_utils", "mv_graph", "neuroglancer", "ops", "ops.exact_affine", "ops.filters",
+    "msi_utils", "mv_graph", "neuroglancer", "ops", "ops.candidate_scoring", "ops.exact_affine",
+    "ops.filters",
     "ops.image_metrics", "ops.link_codec", "ops.phase_correlation", "ops.resample", "ops.shear",
     "parallel", "parallel.executors", "parallel.mesh", "parallel.multihost",
     "parallel.pipeline", "param_resolution",
@@ -75,7 +76,8 @@ PORTED_MODULES = [
     "transformation", "transforms", "utils", "utils.misc", "utils.profiling", "vis_utils",
     "weights", "zarr_utils",
 ]
-PORT_ONLY = {"convert", "ops._build", "ops.pyramid", "ops.translation_fusion", "residency"}
+PORT_ONLY = {"convert", "ops._build", "ops.candidate_scoring", "ops.pyramid",
+             "ops.translation_fusion", "residency"}
 
 # public names of the JAX modules the port leaves out, with the item that
 # covers them
